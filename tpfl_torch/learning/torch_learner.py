@@ -1,0 +1,66 @@
+"""Loss and local optimizer of the port — counterparts of
+``cross_entropy_loss`` and ``default_optimizer`` in
+:mod:`tpfl.learning.jax_learner`.
+
+The optimizer is functional over node-stacked tensors (a nested dict of
+params, the same structure of momentum traces), so one step updates
+every node's model at once.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+Tree = dict[str, dict[str, torch.Tensor]]
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-sample softmax cross entropy on f32 logits ``[..., C]`` and
+    integer labels ``[...]`` -> losses ``[...]`` (training takes the
+    mean, evaluation weighs each sample)."""
+    flat = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]).to(torch.float32),
+        labels.reshape(-1).to(torch.long),
+        reduction="none",
+    )
+    return flat.reshape(labels.shape)
+
+
+class SGDMomentum:
+    """``optax.sgd(lr, momentum)`` on stacked tensors: per leaf
+    ``t = g + momentum·t`` and ``p = p + (-lr)·t``, with the trace
+    starting at zero."""
+
+    def __init__(self, lr: float, momentum: float = 0.9) -> None:
+        self.lr = float(lr)
+        self.momentum = float(momentum)
+
+    def init(self, params: Tree) -> Tree:
+        return {
+            layer: {k: torch.zeros_like(v) for k, v in leaves.items()}
+            for layer, leaves in params.items()
+        }
+
+    @torch.no_grad()
+    def step(self, params: Tree, grads: Tree, trace: Tree) -> tuple[Tree, Tree]:
+        """(new params, new trace); the inputs are left unchanged."""
+        new_p: Tree = {}
+        new_t: Tree = {}
+        for layer, leaves in params.items():
+            new_p[layer], new_t[layer] = {}, {}
+            for k, p in leaves.items():
+                t = grads[layer][k] + self.momentum * trace[layer][k]
+                new_t[layer][k] = t
+                new_p[layer][k] = p + t * (-self.lr)
+        return new_p, new_t
+
+
+def default_optimizer(lr: float) -> SGDMomentum:
+    """Canonical local optimizer: SGD + momentum 0.9."""
+    return SGDMomentum(lr, momentum=0.9)
+
+
+OptimizerFactory = Callable[[float], SGDMomentum]
