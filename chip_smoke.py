@@ -5,22 +5,42 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    port's CUDA kernels from ``tpfl_torch/parallel/csrc`` (one ``nvcc``
    per source, started together).
-2. Kernel phase: runs each kernel at the shapes of the 100-node CNN round
-   (N=100 nodes, B=128, bf16; the Conv_0 and Conv_1 layers), holds it
-   against its plain PyTorch version on the same inputs, and times the
-   kernel, the plain version and PyTorch's own conv backward
-   (``aten.convolution_backward``, a yardstick the port never calls).
-3. Reference phase: a small f32 federation round with the kernels
+2. Conv kernel phase: runs each conv kernel at the shapes of the
+   100-node CNN round (N=100 nodes, B=128, bf16; the Conv_0 and Conv_1
+   layers), holds it against its plain PyTorch version on the same
+   inputs, and times the kernel, the plain version and PyTorch's own
+   conv backward (``aten.convolution_backward``, a yardstick the port
+   never calls).
+3. CNN reference phase: a small f32 federation round with the kernels
    (``conv_impl="pallas"``) against plain autograd (``conv_impl="xla"``).
-4. Main path: ``VmapFederation(CNN(out_channels=10, conv_impl="pallas"),
-   n_nodes=100)`` runs FedAvg rounds on seeded synthetic CIFAR-shaped data
-   (4 batches of 128 per node, 1 epoch); every kernel must have launched
-   (8 conv_dw and 4 conv_dx launches per round), every loss must be
-   finite and every node must hold the same aggregate.
+4. CNN main path: ``VmapFederation(CNN(out_channels=10,
+   conv_impl="pallas"), n_nodes=100)`` runs FedAvg rounds on seeded
+   synthetic CIFAR-shaped data (4 batches of 128 per node, 1 epoch);
+   every kernel must have launched (8 conv_dw and 4 conv_dx launches per
+   round), every loss must be finite and every node must hold the same
+   aggregate.
+5. Flash kernel phase: ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at
+   the transformer main path's shape (B·H = 64·8, S = 2048, D = 64,
+   causal, bf16) and at the long-context one (B·H = 1·8, S = 32768), each
+   held against its plain version (bf16 outputs as the main path uses
+   them, and f32 outputs of the same kernels, which show that P and dS
+   are rounded as the reference rounds them), plus one f32 non-causal
+   case with an unaligned S (100) that exercises the key mask. Times the
+   kernels, their plain versions and PyTorch's flash-backend
+   ``scaled_dot_product_attention`` (a yardstick the port never calls).
+6. Transformer reference phase: a small f32 federated ``TransformerLM``
+   round with ``attention_fn=flash_attention`` against the same round
+   with ``blockwise_attention``.
+7. Transformer main path: ``VmapFederation(TransformerLM(vocab=256,
+   dim=512, heads=8, n_layers=4, max_len=4096,
+   attention_fn=flash_attention), n_nodes=8, learning_rate=0.05)`` runs
+   FedAvg rounds on seeded tokens (1 batch of 8 sequences of 2,048 per
+   node, 1 epoch); 4 launches of each flash kernel per round, finite
+   losses and one aggregate on every node.
 
-``--profile`` adds one round under ``torch.profiler``: device time by
-kernel, and the device's idle share of the round from the union of its
-kernel intervals.
+``--profile`` adds one round of each main path under
+``torch.profiler``: device time by kernel, and the device's idle share
+of the round from the union of its kernel intervals.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -39,9 +59,12 @@ import numpy as np
 import torch
 
 from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10
-from tpfl_torch.models import CNN
+from tpfl_torch.models import CNN, TransformerLM
 from tpfl_torch.parallel import VmapFederation, _build
 from tpfl_torch.parallel import conv_kernel as ck
+from tpfl_torch.parallel import flash_kernel as fk
+from tpfl_torch.parallel.ring_attention import blockwise_attention
+from tpfl_torch.utils.tree import tree_items
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core FLOP/s.
 PEAK_BYTES = 3.35e12
@@ -54,7 +77,20 @@ SOURCE = "tpfl_torch/parallel/csrc/conv_bwd.cu"
 REPLACES = {
     "conv_dw": "tpfl/parallel/conv_kernel.py:82",
     "conv_dx": "tpfl/parallel/conv_kernel.py:103",
+    "flash_fwd": "tpfl/parallel/flash_kernel.py:60",
+    "flash_dq": "tpfl/parallel/flash_kernel.py:112",
+    "flash_dkv": "tpfl/parallel/flash_kernel.py:149",
 }
+FLASH_SOURCE = "tpfl_torch/parallel/csrc/flash_attn.cu"
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+# The transformer main path: bench.py's transformer_fed tier shape.
+LM_KW = dict(vocab=256, dim=512, heads=8, n_layers=4, max_len=4096)
+T_NODES, T_BATCHES, T_BATCH, T_SEQ, T_LR = 8, 1, 8, 2048, 0.05
+# (label, B, S, H, D) of the flash kernel phase: the main path's
+# attention (nodes fold into the batch: 8 nodes x 8 sequences) and the
+# transformer tier's long context (bench.py:3651-3655).
+FLASH_SHAPES = [("main", T_NODES * T_BATCH, T_SEQ, 8, 64), ("long", 1, 32768, 8, 64)]
 
 
 def log(msg: str) -> None:
@@ -124,7 +160,8 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
 
 
 def kernel_phase() -> list[dict]:
-    """Both kernels at the main-path shapes against their plain versions."""
+    """Both conv kernels at the main-path shapes against their plain
+    versions."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -191,10 +228,40 @@ def reference_phase() -> None:
                                  conv_impl=impl), n_nodes=4, seed=0)
         out[impl] = fed.round(fed.init_params((32, 32, 3)), xs, ys,
                               weights=[1.0, 0.0, 2.0, 1.0])
-    for layer, leaves in out["pallas"][0].items():
-        for leaf, v in leaves.items():
-            torch.testing.assert_close(v, out["xla"][0][layer][leaf], rtol=1e-3, atol=1e-4)
-    torch.testing.assert_close(out["pallas"][1], out["xla"][1], rtol=1e-3, atol=1e-4)
+    assert_trees_close(out["pallas"], out["xla"])
+
+
+def assert_trees_close(got: tuple, want: tuple) -> None:
+    """(params, losses) of two rounds at rtol 1e-3, atol 1e-4."""
+    want_params = dict(tree_items(want[0]))
+    for path, v in tree_items(got[0]):
+        torch.testing.assert_close(v, want_params[path], rtol=1e-3, atol=1e-4, msg=path)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-3, atol=1e-4)
+
+
+def check_main_path(params: dict, losses: torch.Tensor, launches: dict, want: dict) -> None:
+    """Every kernel of the path launched as often as expected, finite
+    losses, and one finite aggregate on every node."""
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected {want}")
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite losses {losses}")
+    for path, v in tree_items(params):
+        if not torch.isfinite(v).all() or not torch.equal(v, v[:1].expand_as(v)):
+            raise AssertionError(f"{path}: aggregate not finite or not identical on every node")
+
+
+WRAPPERS = {"conv_dw": ck.conv_dw, "conv_dx": ck.conv_dx, "flash_fwd": fk.flash_fwd,
+            "flash_dq": fk.flash_dq, "flash_dkv": fk.flash_dkv}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
 def main_path(card: str) -> dict:
@@ -209,30 +276,240 @@ def main_path(card: str) -> dict:
     params, _ = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1)  # warm-up
     torch.cuda.synchronize()
 
-    ck.conv_dw.launches = ck.conv_dx.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"conv_dw": ck.conv_dw.launches, "conv_dx": ck.conv_dx.launches}
+    launches = read_launches()
 
     steps = N_BATCHES * EPOCHS * N_ROUNDS
-    want = {"conv_dw": 2 * steps, "conv_dx": steps}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
-    if not torch.isfinite(losses).all():
-        raise AssertionError(f"non-finite losses {losses}")
-    for layer, leaves in params.items():
-        for leaf, v in leaves.items():
-            if not torch.isfinite(v).all() or not torch.equal(v, v[:1].expand_as(v)):
-                raise AssertionError(f"{layer}/{leaf}: aggregate not finite or "
-                                     "not identical on every node")
+    check_main_path(params, losses, launches, {
+        **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
     rounds_s = N_ROUNDS / wall
     return ({
         "card": card, "n_nodes": N_NODES, "batches": N_BATCHES, "batch": BATCH,
         "rounds": N_ROUNDS, "wall_s": wall, "rounds_per_s": rounds_s,
         "samples_per_s": rounds_s * N_NODES * per_node, "launches": launches,
         "mean_loss": losses.mean().item(),
+    }, (fed, params, xs, ys))
+
+
+# ---- the transformer slice ---------------------------------------------------
+
+
+def check_rms(name: str, got: torch.Tensor, ref: torch.Tensor, rel: float) -> float:
+    """f32 outputs of a kernel against its plain version: the root mean
+    square of the difference within ``rel`` of the reference's, and no
+    element off by more than 2^-7 of the largest entry (one flipped bf16
+    rounding of a P or dS element)."""
+    got, ref = got.float(), ref.float()
+    err = got - ref
+    rms, ref_rms = err.pow(2).mean().sqrt().item(), ref.pow(2).mean().sqrt().item()
+    worst = err.abs().max().item()
+    if not torch.isfinite(got).all() or rms > rel * ref_rms or (
+            worst > 2.0 ** -7 * ref.abs().max().item()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (rms err "
+                             f"{rms:.3e} vs rms ref {ref_rms:.3e}, max err {worst:.3e})")
+    return rms / ref_rms
+
+
+def flash_work(bh: int, s: int, d: int, causal: bool) -> dict:
+    """FLOPs and bytes of each flash kernel at these shapes: 2·D FLOPs per
+    (query, key) pair and product; the pairs a causal mask leaves
+    (S(S+1)/2). flash_fwd: QKᵀ, PV; flash_dq: QKᵀ, dO·Vᵀ, dS·K; flash_dkv:
+    QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q. Bytes: bf16 operands read once, f32 lse and
+    delta rows, bf16 outputs written once."""
+    pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+    mat, rows = bh * s * d * 2, bh * s * 4
+    return {
+        "flash_fwd": (2 * d * pairs * 2, 3 * mat + mat + rows),
+        "flash_dq": (3 * d * pairs * 2, 4 * mat + 2 * rows + mat),
+        "flash_dkv": (4 * d * pairs * 2, 4 * mat + 2 * rows + 2 * mat),
+    }
+
+
+def library_flash(q, k, v, do, b: int, h: int) -> tuple:
+    """PyTorch's flash-backend SDPA on the same bf16 causal operands
+    ([B, H, S, D] views of the folded [B·H, S, D]): (forward, backward)
+    thunks. The port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    s, d = q.shape[1], q.shape[2]
+    q4, k4, v4 = (t.view(b, h, s, d).detach().requires_grad_(True) for t in (q, k, v))
+    do4 = do.view(b, h, s, d)
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True)
+
+    out = fwd()
+    return (lambda: fwd(),
+            lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True))
+
+
+def flash_shape_phase(label: str, b: int, s: int, h: int, d: int) -> dict:
+    """All three flash kernels at one bf16 causal shape against their plain
+    versions, with times. P and dS are rounded to bf16 at the same values
+    on both sides (the plain forward walks the kernel's 64-key tiles), so
+    the two differ by f32 summation order, which may flip the rounding of
+    an output (2^-7 of it) or of a few P / dS elements (each moves an
+    output by at most 2^-8 of the operand it weighs, within 2^-7 of the
+    output's largest entry). bf16 outputs (the main path's): rtol 2^-7
+    plus 2^-7 of the largest value. f32 outputs of the same kernels: an
+    rms difference within 2^-12 of the output's rms. Flipped P / dS
+    roundings add about sqrt(flip rate)·2^-8 ≈ 2^-14 of it (6.4e-5
+    measured for dK at S = 32768); a kernel that skipped the bf16
+    rounding of P or dS would sit 2^-9/√3 ≈ 1.1e-3 away, 4.6x over the
+    limit. A kernel that skipped the causal mask fails both by orders of
+    magnitude."""
+    bf16, bh = torch.bfloat16, b * h
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(bf16)
+                   for _ in range(4))
+    rows, errs, rms = {}, {}, {}
+    o, lse = fk.flash_fwd(q, k, v, True)
+    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, True)
+    errs["flash_fwd"] = check_close(f"flash_fwd[{label}] o", o, o_ref, 2.0 ** -7, 2.0 ** -7)
+    check_close(f"flash_fwd[{label}] lse", lse, lse_ref, 1e-5, 1e-6)
+    o32, _ = fk.flash_fwd(q, k, v, True, out_dtype=torch.float32)
+    o32_ref, _ = fk.flash_fwd_plain(q, k, v, True, out_dtype=torch.float32)
+    rms["flash_fwd"] = check_rms(f"flash_fwd[{label}] o (f32 out)", o32, o32_ref, 2.0 ** -12)
+    del o32, o32_ref
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, True)
+    dq, dq_ref = fk.flash_dq(*args), fk.flash_dq_plain(*args)
+    errs["flash_dq"] = check_close(f"flash_dq[{label}]", dq, dq_ref, 2.0 ** -7, 2.0 ** -7)
+    rms["flash_dq"] = check_rms(f"flash_dq[{label}] (f32 out)",
+                                fk.flash_dq(*args, out_dtype=torch.float32),
+                                fk.flash_dq_plain(*args, out_dtype=torch.float32), 2.0 ** -12)
+    (dk, dv), (dk_ref, dv_ref) = fk.flash_dkv(*args), fk.flash_dkv_plain(*args)
+    errs["flash_dkv"] = max(
+        check_close(f"flash_dkv[{label}] dk", dk, dk_ref, 2.0 ** -7, 2.0 ** -7),
+        check_close(f"flash_dkv[{label}] dv", dv, dv_ref, 2.0 ** -7, 2.0 ** -7))
+    (dk32, dv32) = fk.flash_dkv(*args, out_dtype=torch.float32)
+    (dk32_ref, dv32_ref) = fk.flash_dkv_plain(*args, out_dtype=torch.float32)
+    rms["flash_dkv"] = max(
+        check_rms(f"flash_dkv[{label}] dk (f32 out)", dk32, dk32_ref, 2.0 ** -12),
+        check_rms(f"flash_dkv[{label}] dv (f32 out)", dv32, dv32_ref, 2.0 ** -12))
+    del o_ref, dq_ref, dk_ref, dv_ref, dk32, dv32, dk32_ref, dv32_ref
+    torch.cuda.empty_cache()
+
+    lib_fwd, lib_bwd = library_flash(q, k, v, do, b, h)
+    library = {"flash_fwd": time_ms(lib_fwd), "flash_dq": time_ms(lib_bwd)}
+    library["flash_dkv"] = library["flash_dq"]  # one library call computes both
+    timed = {
+        "flash_fwd": (lambda: fk.flash_fwd(q, k, v, True),
+                      lambda: fk.flash_fwd_plain(q, k, v, True)),
+        "flash_dq": (lambda: fk.flash_dq(*args), lambda: fk.flash_dq_plain(*args)),
+        "flash_dkv": (lambda: fk.flash_dkv(*args), lambda: fk.flash_dkv_plain(*args)),
+    }
+    for name, (flops, nbytes) in flash_work(bh, s, d, True).items():
+        kernel, plain = timed[name]
+        rows[name] = {
+            **bound(nbytes, flops), "shape": label, "B": b, "S": s, "H": h, "D": d,
+            "max_abs_err": errs[name], "f32_out_rel_rms_err": rms[name],
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain, 3),
+            "library_ms": library[name],
+        }
+    rows["flash_dkv"]["library_covers"] = rows["flash_dq"]["library_covers"] = [
+        "flash_dq", "flash_dkv"]
+    return rows
+
+
+def flash_mask_case() -> float:
+    """f32, non-causal, S = 100 (keys past S in the last 64-key tile are
+    masked in the kernel): f32 sums in another order, 1e-5 relative."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(2, 100, 32, device="cuda", generator=gen) for _ in range(4))
+    o, lse = fk.flash_fwd(q, k, v, False)
+    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, False)
+    err = check_close("flash_fwd[S=100, f32]", o, o_ref, 1e-5, 1e-5)
+    check_close("flash_fwd[S=100, f32] lse", lse, lse_ref, 1e-5, 1e-6)
+    delta = (do * o_ref).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, False)
+    err = max(err, check_close("flash_dq[S=100, f32]", fk.flash_dq(*args),
+                               fk.flash_dq_plain(*args), 1e-5, 1e-5))
+    for name, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
+        err = max(err, check_close(f"flash_dkv[S=100, f32] {name}", got, ref, 1e-5, 1e-5))
+    return err
+
+
+def flash_kernel_phase() -> list[dict]:
+    per = {name: [] for name in FLASH_KERNELS}
+    for label, b, s, h, d in FLASH_SHAPES:
+        for name, row in flash_shape_phase(label, b, s, h, d).items():
+            per[name].append(row)
+        log(f"flash kernel phase [{label}]: ok")
+    mask_err = flash_mask_case()
+    out = []
+    for name, shapes in per.items():
+        main = shapes[0]
+        out.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": REPLACES[name], "launches": 0,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by", "bytes_ms", "ops_ms")},
+            "per_launch_at": "main", "f32_mask_case_max_abs_err": mask_err,
+            "shapes": shapes,
+        })
+    return out
+
+
+def lm_tokens(n: int, nb: int, b: int, s: int, vocab: int, seed: int) -> tuple:
+    """Seeded integer tokens and targets [n, nb, b, s], drawn one after the
+    other as bench.py's transformer_fed tier draws them."""
+    rng = np.random.default_rng(seed)
+    xs = rng.integers(0, vocab, (n, nb, b, s)).astype(np.int32)
+    ys = rng.integers(0, vocab, (n, nb, b, s)).astype(np.int32)
+    return xs, ys
+
+
+def transformer_reference_phase() -> None:
+    """A small f32 federated TransformerLM round on the card with the
+    flash kernels against the same round with blockwise attention.
+    Tolerance: f32 sums in other orders over one SGD step."""
+    kw = dict(vocab=64, dim=64, heads=4, n_layers=2, max_len=128,
+              compute_dtype=torch.float32)
+    xs, ys = lm_tokens(4, 1, 2, 128, 64, seed=3)
+    out = {}
+    for name, attention in (("flash", fk.flash_attention), ("blockwise", blockwise_attention)):
+        fed = VmapFederation(TransformerLM(**kw, attention_fn=attention), n_nodes=4,
+                             learning_rate=0.05, seed=0)
+        out[name] = fed.round(fed.init_params((128,)), xs, ys, weights=[1.0, 0.0, 2.0, 1.0])
+    assert_trees_close(out["flash"], out["blockwise"])
+
+
+def transformer_main_path(card: str) -> tuple[dict, tuple]:
+    fed = VmapFederation(TransformerLM(**LM_KW, attention_fn=fk.flash_attention),
+                         n_nodes=T_NODES, learning_rate=T_LR, seed=0)
+    xs, ys = lm_tokens(T_NODES, T_BATCHES, T_BATCH, T_SEQ, LM_KW["vocab"], seed=5)
+    xs, ys = fed.shard_data(xs, ys)
+    params = fed.init_params((T_SEQ,))
+    params, _ = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+
+    per_window = LM_KW["n_layers"] * T_BATCHES * EPOCHS * N_ROUNDS
+    check_main_path(params, losses, launches, {
+        **dict.fromkeys(WRAPPERS, 0), **dict.fromkeys(FLASH_KERNELS, per_window)})
+    tokens = T_NODES * T_BATCHES * T_BATCH * T_SEQ
+    rounds_s = N_ROUNDS / wall
+    return ({
+        "card": card, "model": {**LM_KW, "attention_fn": "flash_attention"},
+        "n_nodes": T_NODES, "batches": T_BATCHES, "batch": T_BATCH, "seq": T_SEQ,
+        "rounds": N_ROUNDS, "wall_s": wall, "rounds_per_s": rounds_s,
+        "tokens_per_round": tokens, "tokens_per_s": rounds_s * tokens,
+        "launches": launches, "mean_loss": losses.mean().item(),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }, (fed, params, xs, ys))
 
 
@@ -315,15 +592,23 @@ def main() -> int:
                 log(f"ptxas[{src}]: {line.strip()}")
 
     rows = kernel_phase()
-    log("kernel phase: ok")
+    log("conv kernel phase: ok")
     reference_phase()
-    log("reference phase (pallas vs xla, f32, small): ok")
-    main, fed_args = main_path(card)
-    log("main path: " + json.dumps(main))
+    log("CNN reference phase (pallas vs xla, f32, small): ok")
+    cnn, cnn_args = main_path(card)
+    log("CNN main path: " + json.dumps(cnn))
+    rows += flash_kernel_phase()
+    log("flash kernel phase: ok")
+    transformer_reference_phase()
+    log("transformer reference phase (flash vs blockwise, f32, small): ok")
+    lm, lm_args = transformer_main_path(card)
+    log("transformer main path: " + json.dumps(lm))
     if "--profile" in sys.argv[1:]:
-        log("profile (one round): " + json.dumps(profile_round(fed_args)))
+        log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
+        log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
     for row in rows:
-        row["launches"] = main["launches"][row["name"]]
+        path = cnn if row["name"] in ("conv_dw", "conv_dx") else lm
+        row["launches"] = path["launches"][row["name"]]
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""The port's CUDA conv kernels against their plain versions, on the card.
+"""The port's CUDA kernels (conv backward, flash attention) against their
+plain versions, on the card.
 
 Imports torch only, so it also runs on a machine without JAX:
 
@@ -67,3 +68,115 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
     y = torch.zeros(1, 1, 4, 4, 2, device=card)
     with pytest.raises(TypeError, match="dtypes differ"):
         ck.conv_dw(y, y.to(torch.bfloat16), 3)
+
+
+# ---- flash attention ---------------------------------------------------------
+
+FLASH_CASES = [  # (BH, S, D, causal)
+    (3, 64, 64, True), (2, 100, 32, False), (2, 100, 32, True), (2, 130, 8, True),
+    (2, 77, 8, False), (1, 192, 128, True), (2, 64, 128, False), (1, 250, 64, False),
+    (2, 16, 64, True), (1, 1, 16, False),
+]
+
+
+def _flash_inputs(card, bh, s, d, dtype, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    q, k, v, do = (torch.randn(bh, s, d, device=card, generator=gen).to(dtype) for _ in range(4))
+    return q, k, v, do
+
+
+def _close(got, ref, dtype, what):
+    """f32: sums in another order (1e-4 of the largest value). bf16: one
+    bf16 rounding of P / dS on another running max and of the output,
+    2^-7 relative plus 2^-8 of the largest value."""
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().max().item()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * scale, msg=what)
+    else:
+        torch.testing.assert_close(got, ref, rtol=2.0 ** -7, atol=2.0 ** -8 * scale, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernels_match_plain_on_card(card, case, dtype):
+    from tpfl_torch.parallel import flash_kernel as fk
+
+    bh, s, d, causal = case
+    q, k, v, do = _flash_inputs(card, bh, s, d, dtype)
+    launches = (fk.flash_fwd.launches, fk.flash_dq.launches, fk.flash_dkv.launches)
+    o, lse = fk.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, causal)
+    _close(o, o_ref, dtype, "o")
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    dq = fk.flash_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = fk.flash_dkv(q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    _close(dq, fk.flash_dq_plain(q, k, v, do, lse_ref, delta, causal), dtype, "dq")
+    dk_ref, dv_ref = fk.flash_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+    _close(dk, dk_ref, dtype, "dk")
+    _close(dv, dv_ref, dtype, "dv")
+    assert (fk.flash_fwd.launches, fk.flash_dq.launches, fk.flash_dkv.launches) == tuple(
+        n + 1 for n in launches)
+
+
+@pytest.mark.cuda
+def test_flash_f32_outputs_of_bf16_operands_on_card(card):
+    """The ring's per-step mode: bf16 operands, f32 outputs."""
+    from tpfl_torch.parallel import flash_kernel as fk
+
+    q, k, v, do = _flash_inputs(card, 2, 96, 64, torch.bfloat16, seed=3)
+    o, lse = fk.flash_fwd(q, k, v, True, out_dtype=torch.float32)
+    o_ref, _ = fk.flash_fwd_plain(q, k, v, True, out_dtype=torch.float32)
+    assert o.dtype == torch.float32
+    torch.testing.assert_close(o, o_ref, rtol=2.0 ** -8, atol=2.0 ** -9)
+    delta = (do.float() * o).sum(-1)
+    dk, dv = fk.flash_dkv(q, k, v, do, lse, delta, True, out_dtype=torch.float32)
+    dk_ref, dv_ref = fk.flash_dkv_plain(q, k, v, do, lse, delta, True, out_dtype=torch.float32)
+    assert dk.dtype == dv.dtype == torch.float32
+    _close(dk, dk_ref, torch.bfloat16, "dk")
+    _close(dv, dv_ref, torch.bfloat16, "dv")
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_card(card):
+    """flash_attention's autograd on the card (f32) against plain
+    autograd of the same attention."""
+    from tpfl_torch.parallel import flash_kernel as fk
+
+    gen = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn(2, 80, 3, 16, device=card, generator=gen, requires_grad=True)
+               for _ in range(3))
+    cot = torch.randn(2, 80, 3, 16, device=card, generator=gen)
+    (fk.flash_attention(q, k, v, causal=True) * cot).sum().backward()
+    q2, k2, v2 = (t.detach().requires_grad_(True) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q2, k2) / 4.0
+    s = s.masked_fill(torch.ones(80, 80, device=card, dtype=torch.bool).triu(1), float("-inf"))
+    ref = torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), v2)
+    (ref * cot).sum().backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(card):
+    from tpfl_torch.parallel import flash_kernel as fk
+
+    x = torch.zeros(1, 8, 16, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        fk.flash_fwd(x, x, x, True)
+    y = torch.zeros(1, 8, 160, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_fwd(y, y, y, True)
+    z = torch.zeros(1, 8, 16, device=card)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        fk.flash_fwd(z, z.to(torch.bfloat16), z, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_fwd(z.transpose(1, 2).contiguous().transpose(1, 2), z, z, True)
+    with pytest.raises(TypeError, match="output dtype"):
+        fk.flash_fwd(z, z, z, True, out_dtype=torch.bfloat16)
+    lse = torch.zeros(1, 8, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="lse / delta"):
+        fk.flash_dq(z, z, z, z, lse, lse, True)

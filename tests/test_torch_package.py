@@ -38,8 +38,9 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
         text=True, timeout=120, check=True,
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "tpfl_torch.parallel.conv_kernel" in report["modules"]
-    assert "tpfl_torch.parallel.engine" in report["modules"]
+    for mod in ("parallel.conv_kernel", "parallel.engine", "parallel.flash_kernel",
+                "parallel.ring_attention", "models.zoo", "utils.tree", "interop"):
+        assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
 
@@ -56,18 +57,22 @@ def test_sources_name_no_jax_package():
                 assert root not in banned, (str(f), line)
 
 
-@pytest.mark.parametrize("entry", ["engine", "federation", "create_model", "interop"])
+@pytest.mark.parametrize("entry", ["engine", "federation", "create_model", "interop",
+                                   "transformer_lm"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tpfl_torch.interop import params_from_flax
-    from tpfl_torch.models import CNN, create_model
+    from tpfl_torch.models import CNN, TransformerLM, create_model
     from tpfl_torch.parallel import FederationEngine, VmapFederation
+    from tpfl_torch.parallel.flash_kernel import flash_attention
 
     calls = {
         "engine": lambda: FederationEngine(CNN(), 2),
         "federation": lambda: VmapFederation(CNN(), 2),
         "create_model": lambda: create_model("cnn", (32, 32, 3)),
         "interop": lambda: params_from_flax({}),
+        "transformer_lm": lambda: VmapFederation(
+            TransformerLM(attention_fn=flash_attention), 2).init_params((16,)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

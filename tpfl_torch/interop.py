@@ -2,8 +2,8 @@
 
 Both packages keep the flax layout (HWIO conv kernels, ``[in, out]``
 dense kernels, NHWC flatten order), so no leaf is transposed: a flax
-param tree of numpy arrays becomes a nested dict of tensors with the
-same paths, and back.
+param tree of numpy arrays, of any depth, becomes a nested dict of
+tensors with the same paths, and back.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 
 from tpfl_torch import DeviceLike, resolve_device
 from tpfl_torch.models.zoo import Params, stack_params
+from tpfl_torch.utils.tree import tree_map
 
 
 def _tensor(a: Any, device: torch.device) -> torch.Tensor:
@@ -26,23 +27,19 @@ def _tensor(a: Any, device: torch.device) -> torch.Tensor:
 
 def params_from_flax(tree: Mapping[str, Any], device: DeviceLike = None,
                      n_nodes: Optional[int] = None) -> Params:
-    """``{"Conv_0": {"kernel": ..., "bias": ...}, ...}`` of numpy arrays
-    -> the same dict of tensors on ``device``. With ``n_nodes``, one
+    """``{"Conv_0": {"kernel": ..., "bias": ...}, ...}`` (nested to any
+    depth) of numpy arrays -> the same dict of tensors on ``device``. With ``n_nodes``, one
     model is broadcast onto a leading node axis; without it the leaves
     keep their shape (already node-stacked or a single model)."""
     dev = resolve_device(device)
-    out = {layer: {name: _tensor(a, dev) for name, a in leaves.items()}
-           for layer, leaves in tree.items()}
+    out = tree_map(lambda a: _tensor(a, dev), tree)
     return out if n_nodes is None else stack_params(out, int(n_nodes))
 
 
-def params_to_numpy(params: Params) -> dict[str, dict[str, np.ndarray]]:
+def params_to_numpy(params: Params) -> dict[str, Any]:
     """Nested dict of tensors -> nested dict of numpy arrays (bf16
     leaves widen to f32)."""
-    return {
-        layer: {
-            k: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy()
-            for k, v in leaves.items()
-        }
-        for layer, leaves in params.items()
-    }
+    return tree_map(
+        lambda v: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy(),
+        params,
+    )

@@ -14,7 +14,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-Tree = dict[str, dict[str, torch.Tensor]]
+from tpfl_torch.utils.tree import Tree, tree_map
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -39,22 +39,13 @@ class SGDMomentum:
         self.momentum = float(momentum)
 
     def init(self, params: Tree) -> Tree:
-        return {
-            layer: {k: torch.zeros_like(v) for k, v in leaves.items()}
-            for layer, leaves in params.items()
-        }
+        return tree_map(torch.zeros_like, params)
 
     @torch.no_grad()
     def step(self, params: Tree, grads: Tree, trace: Tree) -> tuple[Tree, Tree]:
         """(new params, new trace); the inputs are left unchanged."""
-        new_p: Tree = {}
-        new_t: Tree = {}
-        for layer, leaves in params.items():
-            new_p[layer], new_t[layer] = {}, {}
-            for k, p in leaves.items():
-                t = grads[layer][k] + self.momentum * trace[layer][k]
-                new_t[layer][k] = t
-                new_p[layer][k] = p + t * (-self.lr)
+        new_t = tree_map(lambda g, t: g + self.momentum * t, grads, trace)
+        new_p = tree_map(lambda p, t: p + t * (-self.lr), params, new_t)
         return new_p, new_t
 
 

@@ -39,14 +39,17 @@ from tpfl_torch.parallel.mesh import (
     padded_node_count,
     valid_node_mask,
 )
+from tpfl_torch.utils.tree import tree_leaves, tree_map
 
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"tpfl_torch FederationEngine: {what} is not ported yet")
 
 
-def _tree_map(fn: Callable, tree: Params) -> Params:
-    return {layer: {k: fn(v) for k, v in leaves.items()} for layer, leaves in tree.items()}
+def _per_node_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean over every axis but the leading node axis: [n, ...] -> [n]
+    (``loss_fn(logits, y).mean()`` per node, ``engine.py:1131,2415``)."""
+    return x.reshape(x.shape[0], -1).mean(dim=1)
 
 
 class FederationEngine:
@@ -86,7 +89,9 @@ class FederationEngine:
     # --- state / data placement ---
 
     def init_params(self, input_shape: tuple[int, ...]) -> Params:
-        """Stacked [padded_nodes, ...] params, identical across nodes."""
+        """Stacked [padded_nodes, ...] params, identical across nodes.
+        ``input_shape`` is one sample's: ``(H, W, C)`` for the CNN,
+        ``(S,)`` for a token model."""
         one = init_params(self.module, input_shape, self.seed, self.device)
         return self.broadcast_params(one)
 
@@ -107,7 +112,8 @@ class FederationEngine:
 
     def shard_data(self, xs: Any, ys: Any) -> tuple[torch.Tensor, torch.Tensor]:
         """Node-stacked data [N, n_batches, b, ...] on the device (the
-        dtype of ``xs`` is kept: feed bf16 to halve its reads)."""
+        dtype of ``xs`` is kept: feed bf16 to halve its reads; integer
+        tokens stay integer)."""
         xs = torch.as_tensor(xs).to(self.device)
         ys = torch.as_tensor(ys).to(self.device, torch.long)
         return self.pad_stacked(xs), self.pad_stacked(ys)
@@ -115,9 +121,10 @@ class FederationEngine:
     # --- the round ---
 
     def _node_losses(self, params: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        """Per-node mean batch loss [n] of x [n, b, ...], y [n, b]."""
+        """Per-node mean loss [n] of x [n, b, ...], y [n, b, ...]: the
+        mean over every sample (and token) of a node."""
         logits = self.module(params, x)
-        return self._loss_fn(logits, y).mean(dim=1)
+        return _per_node_mean(self._loss_fn(logits, y))
 
     def _local_train(self, params: Params, xs: torch.Tensor, ys: torch.Tensor,
                      epochs: int) -> tuple[Params, torch.Tensor]:
@@ -132,12 +139,11 @@ class FederationEngine:
         for _ in range(epochs):
             losses = []
             for bi in range(xs.shape[1]):
-                leaves = _tree_map(lambda v: v.detach().requires_grad_(True), params)
+                leaves = tree_map(lambda v: v.detach().requires_grad_(True), params)
                 per_node = self._node_losses(leaves, xs[:, bi], ys[:, bi])
-                flat = [v for lv in leaves.values() for v in lv.values()]
-                grads_flat = torch.autograd.grad(per_node.sum(), flat)
+                grads_flat = torch.autograd.grad(per_node.sum(), tree_leaves(leaves))
                 it = iter(grads_flat)
-                grads = _tree_map(lambda _v: next(it), leaves)
+                grads = tree_map(lambda _v: next(it), leaves)
                 params, trace = opt.step(params, grads, trace)
                 losses.append(per_node.detach())
             loss = torch.stack(losses).mean(dim=0)
@@ -164,7 +170,7 @@ class FederationEngine:
             return agg[None].expand(n_local, *agg.shape).clone()
 
         with torch.no_grad():
-            return _tree_map(leaf_mean, trained)
+            return tree_map(leaf_mean, trained)
 
     def _round(self, params: Params, xs: torch.Tensor, ys: torch.Tensor,
                w: torch.Tensor, epochs: int) -> tuple[Params, torch.Tensor]:
@@ -220,12 +226,14 @@ class FederationEngine:
     @torch.no_grad()
     def evaluate(self, params: Params, xs: Any, ys: Any) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-node (loss, accuracy) over node-stacked eval data
-        [n, n_batches, b, ...]: means over batches of the batch means."""
+        [n, n_batches, b, ...]: means over batches of each batch's mean
+        over samples (and tokens: a token model's accuracy is per
+        token)."""
         params = self.pad_stacked(params)
         xs, ys = self.shard_data(xs, ys)
         losses, accs = [], []
         for bi in range(xs.shape[1]):
             logits = self.module(params, xs[:, bi])
-            losses.append(self._loss_fn(logits, ys[:, bi]).mean(dim=1))
-            accs.append((logits.argmax(-1) == ys[:, bi]).to(torch.float32).mean(dim=1))
+            losses.append(_per_node_mean(self._loss_fn(logits, ys[:, bi])))
+            accs.append(_per_node_mean((logits.argmax(-1) == ys[:, bi]).to(torch.float32)))
         return torch.stack(losses).mean(0), torch.stack(accs).mean(0)

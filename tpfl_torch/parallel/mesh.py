@@ -16,6 +16,8 @@ from typing import Any
 
 import torch
 
+from tpfl_torch.utils.tree import tree_map
+
 
 def padded_node_count(n_nodes: int) -> int:
     """Stacked node-axis length for ``n_nodes`` on one device: no pad
@@ -26,13 +28,13 @@ def padded_node_count(n_nodes: int) -> int:
 def pad_node_axis(tree: Any, n_padded: int) -> Any:
     """Pad every tensor's leading (node) axis of a nested dict to
     ``n_padded`` by cloning row 0. No-op when already there."""
-    if isinstance(tree, dict):
-        return {k: pad_node_axis(v, n_padded) for k, v in tree.items()}
-    extra = n_padded - tree.shape[0]
-    if extra <= 0:
-        return tree
-    fill = tree[:1].expand(extra, *tree.shape[1:])
-    return torch.cat([tree, fill], dim=0)
+    def pad(t: torch.Tensor) -> torch.Tensor:
+        extra = n_padded - t.shape[0]
+        if extra <= 0:
+            return t
+        return torch.cat([t, t[:1].expand(extra, *t.shape[1:])], dim=0)
+
+    return tree_map(pad, tree)
 
 
 def pad_node_weights(weights: torch.Tensor, n_padded: int) -> torch.Tensor:
