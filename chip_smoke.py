@@ -24,10 +24,17 @@
    causal, bf16) and at the long-context one (B·H = 1·8, S = 32768), each
    held against its plain version (bf16 outputs as the main path uses
    them, and f32 outputs of the same kernels, which show that P and dS
-   are rounded as the reference rounds them), plus one f32 non-causal
-   case with an unaligned S (100) that exercises the key mask. Times the
-   kernels, their plain versions and PyTorch's flash-backend
+   are rounded as the reference rounds them), bf16 cases at the edges of
+   the wgmma kernels' tiles (S = 100 non-causal D = 32, S = 130 causal
+   D = 128, S = 127 and 129 causal D = 64, and D = 20, whose rows TMA
+   cannot address, on the WMMA kernels), and one f32 non-causal case with
+   an unaligned S (100) that exercises the key mask. Times the kernels,
+   their plain versions and PyTorch's flash-backend
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
+   The build step prints ptxas's registers and spills for every kernel
+   and, from ``cuobjdump -sass``, the count of ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA load) instructions in each flash kernel; the main
+   path's ``flash_fwd`` and ``flash_dkv`` must have both.
 6. Transformer reference phase: a small f32 federated ``TransformerLM``
    round with ``attention_fn=flash_attention`` against the same round
    with ``blockwise_attention``.
@@ -50,10 +57,13 @@ result line, when there is no card or any phase fails.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -95,6 +105,83 @@ FLASH_SHAPES = [("main", T_NODES * T_BATCH, T_SEQ, 8, 64), ("long", 1, 32768, 8,
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _cuda_tool(name: str) -> str:
+    return shutil.which(name) or str(Path(_build.nvcc_path()).parent / name)
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    """Mangled -> readable kernel names (``cu++filt``; as they are if the
+    tool is missing)."""
+    try:
+        out = subprocess.run([_cuda_tool("cu++filt")], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60, check=True)
+        readable = out.stdout.splitlines()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        readable = names
+    return {n: r.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+            for n, r in zip(names, readable)}
+
+
+def ptxas_report(src: str) -> dict[str, dict]:
+    """Registers and spill bytes of every kernel in ``csrc/<src>.cu`` from
+    the build's ``-Xptxas -v`` output, keyed by mangled name."""
+    per, cur = {}, None
+    for line in _build.build_log(src).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = per.setdefault(m.group(1), {"registers": None, "spill_bytes": 0})
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+        elif cur is not None and (m := re.search(r"(\d+) bytes spill stores", line)):
+            cur["spill_bytes"] = int(m.group(1))
+    return per
+
+
+def sass_counts(src: str) -> dict[str, dict]:
+    """Per kernel of ``csrc/<src>.cu``'s built library (mangled name): the
+    count of HGMMA (wgmma) and UTMALDG (TMA tile load) instructions in its
+    SASS."""
+    out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(_build._target(src))],
+                         capture_output=True, text=True, timeout=300, check=True).stdout
+    per = {}
+    for body in re.split(r"\n\s*Function : ", out)[1:]:
+        per[body.split("\n", 1)[0].strip()] = {
+            "HGMMA": len(re.findall(r"\bHGMMA\.", body)),
+            "UTMALDG": len(re.findall(r"\bUTMALDG\.", body))}
+    return per
+
+
+# The main path's instantiations of the redesigned kernels (bf16, D = 64),
+# as parts of their mangled names.
+WGMMA_KERNELS = {"flash_fwd": "flash_fwd_wgmmaILi64E13__nv_bfloat16",
+                 "flash_dkv": "flash_dkv_wgmmaILi64E13__nv_bfloat16"}
+
+
+def build_report() -> dict[str, dict]:
+    """Logs ptxas's registers / spills of every kernel and the SASS counts
+    of every flash kernel; returns {kernel: {...}} for the main path's
+    wgmma kernels and fails unless each has HGMMA and UTMALDG."""
+    reports = {src: ptxas_report(src) for src in _build.all_sources()}
+    for src, rep in reports.items():
+        names = _demangle(list(rep))
+        for name, r in rep.items():
+            log(f"ptxas[{src}] {names[name][:110]}: {r['registers']} registers, "
+                f"{r['spill_bytes']} bytes spill stores")
+    ptxas, sass = reports["flash_attn"], sass_counts("flash_attn")
+    names = _demangle(list(sass))
+    for name, counts in sass.items():
+        log(f"sass[flash_attn] {names[name][:110]}: HGMMA {counts['HGMMA']}, "
+            f"UTMALDG {counts['UTMALDG']}")
+    out = {}
+    for kernel, part in WGMMA_KERNELS.items():
+        key = next((n for n in sass if part in n), None)
+        if key is None or not (sass[key]["HGMMA"] and sass[key]["UTMALDG"]):
+            raise AssertionError(f"{kernel}: no {part} with HGMMA and UTMALDG in the build")
+        out[kernel] = {"kernel": names[key].split("(CUtensorMap")[0], **sass[key],
+                       **ptxas.get(key, {})}
+    return out
 
 
 def card_line() -> str:
@@ -349,14 +436,49 @@ def library_flash(q, k, v, do, b: int, h: int) -> tuple:
             lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True))
 
 
+def check_flash(label: str, q, k, v, do, causal: bool) -> tuple[dict, dict, tuple]:
+    """All three flash kernels on bf16 operands against their plain
+    versions, with bf16 outputs and with f32 outputs (tolerances as
+    ``flash_shape_phase`` states them): ({kernel: max |err|}, {kernel:
+    relative rms err of the f32 outputs}, the backward's arguments)."""
+    errs, rms = {}, {}
+    o, lse = fk.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, causal)
+    errs["flash_fwd"] = check_close(f"flash_fwd[{label}] o", o, o_ref, 2.0 ** -7, 2.0 ** -7)
+    check_close(f"flash_fwd[{label}] lse", lse, lse_ref, 1e-5, 1e-6)
+    o32, _ = fk.flash_fwd(q, k, v, causal, out_dtype=torch.float32)
+    o32_ref, _ = fk.flash_fwd_plain(q, k, v, causal, out_dtype=torch.float32)
+    rms["flash_fwd"] = check_rms(f"flash_fwd[{label}] o (f32 out)", o32, o32_ref, 2.0 ** -12)
+    del o, o32, o32_ref
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, causal)
+    dq, dq_ref = fk.flash_dq(*args), fk.flash_dq_plain(*args)
+    errs["flash_dq"] = check_close(f"flash_dq[{label}]", dq, dq_ref, 2.0 ** -7, 2.0 ** -7)
+    rms["flash_dq"] = check_rms(f"flash_dq[{label}] (f32 out)",
+                                fk.flash_dq(*args, out_dtype=torch.float32),
+                                fk.flash_dq_plain(*args, out_dtype=torch.float32), 2.0 ** -12)
+    del dq, dq_ref
+    (dk, dv), (dk_ref, dv_ref) = fk.flash_dkv(*args), fk.flash_dkv_plain(*args)
+    errs["flash_dkv"] = max(
+        check_close(f"flash_dkv[{label}] dk", dk, dk_ref, 2.0 ** -7, 2.0 ** -7),
+        check_close(f"flash_dkv[{label}] dv", dv, dv_ref, 2.0 ** -7, 2.0 ** -7))
+    del dk, dv, dk_ref, dv_ref
+    (dk32, dv32) = fk.flash_dkv(*args, out_dtype=torch.float32)
+    (dk32_ref, dv32_ref) = fk.flash_dkv_plain(*args, out_dtype=torch.float32)
+    rms["flash_dkv"] = max(
+        check_rms(f"flash_dkv[{label}] dk (f32 out)", dk32, dk32_ref, 2.0 ** -12),
+        check_rms(f"flash_dkv[{label}] dv (f32 out)", dv32, dv32_ref, 2.0 ** -12))
+    return errs, rms, args
+
+
 def flash_shape_phase(label: str, b: int, s: int, h: int, d: int) -> dict:
     """All three flash kernels at one bf16 causal shape against their plain
     versions, with times. P and dS are rounded to bf16 at the same values
-    on both sides (the plain forward walks the kernel's 64-key tiles), so
-    the two differ by f32 summation order, which may flip the rounding of
-    an output (2^-7 of it) or of a few P / dS elements (each moves an
-    output by at most 2^-8 of the operand it weighs, within 2^-7 of the
-    output's largest entry). bf16 outputs (the main path's): rtol 2^-7
+    on both sides (the plain forward walks the kernel's KEY_TILE-key
+    tiles), so the two differ by f32 summation order, which may flip the
+    rounding of an output (2^-7 of it) or of a few P / dS elements (each
+    moves an output by at most 2^-8 of the operand it weighs, within 2^-7
+    of the output's largest entry). bf16 outputs (the main path's): rtol 2^-7
     plus 2^-7 of the largest value. f32 outputs of the same kernels: an
     rms difference within 2^-12 of the output's rms. Flipped P / dS
     roundings add about sqrt(flip rate)·2^-8 ≈ 2^-14 of it (6.4e-5
@@ -368,34 +490,10 @@ def flash_shape_phase(label: str, b: int, s: int, h: int, d: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(bf16)
                    for _ in range(4))
-    rows, errs, rms = {}, {}, {}
-    o, lse = fk.flash_fwd(q, k, v, True)
-    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, True)
-    errs["flash_fwd"] = check_close(f"flash_fwd[{label}] o", o, o_ref, 2.0 ** -7, 2.0 ** -7)
-    check_close(f"flash_fwd[{label}] lse", lse, lse_ref, 1e-5, 1e-6)
-    o32, _ = fk.flash_fwd(q, k, v, True, out_dtype=torch.float32)
-    o32_ref, _ = fk.flash_fwd_plain(q, k, v, True, out_dtype=torch.float32)
-    rms["flash_fwd"] = check_rms(f"flash_fwd[{label}] o (f32 out)", o32, o32_ref, 2.0 ** -12)
-    del o32, o32_ref
-    delta = (do.float() * o_ref.float()).sum(-1)
-    args = (q, k, v, do, lse_ref, delta, True)
-    dq, dq_ref = fk.flash_dq(*args), fk.flash_dq_plain(*args)
-    errs["flash_dq"] = check_close(f"flash_dq[{label}]", dq, dq_ref, 2.0 ** -7, 2.0 ** -7)
-    rms["flash_dq"] = check_rms(f"flash_dq[{label}] (f32 out)",
-                                fk.flash_dq(*args, out_dtype=torch.float32),
-                                fk.flash_dq_plain(*args, out_dtype=torch.float32), 2.0 ** -12)
-    (dk, dv), (dk_ref, dv_ref) = fk.flash_dkv(*args), fk.flash_dkv_plain(*args)
-    errs["flash_dkv"] = max(
-        check_close(f"flash_dkv[{label}] dk", dk, dk_ref, 2.0 ** -7, 2.0 ** -7),
-        check_close(f"flash_dkv[{label}] dv", dv, dv_ref, 2.0 ** -7, 2.0 ** -7))
-    (dk32, dv32) = fk.flash_dkv(*args, out_dtype=torch.float32)
-    (dk32_ref, dv32_ref) = fk.flash_dkv_plain(*args, out_dtype=torch.float32)
-    rms["flash_dkv"] = max(
-        check_rms(f"flash_dkv[{label}] dk (f32 out)", dk32, dk32_ref, 2.0 ** -12),
-        check_rms(f"flash_dkv[{label}] dv (f32 out)", dv32, dv32_ref, 2.0 ** -12))
-    del o_ref, dq_ref, dk_ref, dv_ref, dk32, dv32, dk32_ref, dv32_ref
+    errs, rms, args = check_flash(label, q, k, v, do, True)
     torch.cuda.empty_cache()
 
+    rows = {}
     lib_fwd, lib_bwd = library_flash(q, k, v, do, b, h)
     library = {"flash_fwd": time_ms(lib_fwd), "flash_dq": time_ms(lib_bwd)}
     library["flash_dkv"] = library["flash_dq"]  # one library call computes both
@@ -416,6 +514,28 @@ def flash_shape_phase(label: str, b: int, s: int, h: int, d: int) -> dict:
     rows["flash_dkv"]["library_covers"] = rows["flash_dq"]["library_covers"] = [
         "flash_dq", "flash_dkv"]
     return rows
+
+
+# (label, BH, S, D, causal) of the bf16 edge cases: the wgmma kernels'
+# tiles (64-key ring stages, 128/192-row blocks, D padded to 64 or 128)
+# cut by S and D, and a D whose rows TMA cannot address (D * 2 bytes not a
+# multiple of 16), which dispatch gives to the WMMA kernels.
+FLASH_EDGES = [("S=100 D=32", 3, 100, 32, False), ("S=130 causal D=128", 3, 130, 128, True),
+               ("S=127 causal D=64", 3, 127, 64, True), ("S=129 causal D=64", 3, 129, 64, True),
+               ("S=129 causal D=20 (WMMA)", 3, 129, 20, True)]
+
+
+def flash_edge_cases() -> dict:
+    """The bf16 edge cases, each held to ``flash_shape_phase``'s
+    tolerances: {label: {kernel: max |err|}}."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for label, bh, s, d, causal in FLASH_EDGES:
+        q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+        errs, rms, _ = check_flash(label, q, k, v, do, causal)
+        out[label] = {"max_abs_err": errs, "f32_out_rel_rms_err": rms}
+    return out
 
 
 def flash_mask_case() -> float:
@@ -442,6 +562,8 @@ def flash_kernel_phase() -> list[dict]:
         for name, row in flash_shape_phase(label, b, s, h, d).items():
             per[name].append(row)
         log(f"flash kernel phase [{label}]: ok")
+    edges = flash_edge_cases()
+    log("flash kernel phase [bf16 edge cases]: ok " + json.dumps(edges))
     mask_err = flash_mask_case()
     out = []
     for name, shapes in per.items():
@@ -453,6 +575,7 @@ def flash_kernel_phase() -> list[dict]:
             **{key: main[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                                           "bound_by", "bytes_ms", "ops_ms")},
             "per_launch_at": "main", "f32_mask_case_max_abs_err": mask_err,
+            "bf16_edge_max_abs_err": max(e["max_abs_err"][name] for e in edges.values()),
             "shapes": shapes,
         })
     return out
@@ -570,7 +693,7 @@ def profile_round(fed_args: tuple) -> dict:
         "annotation_sum_ms": sum(b - a for a, b in annotations) / 1e3,
         "busy_over_wall": union_ms / wall_ms,
         "idle_share": 1.0 - union_ms / wall_ms,
-        "top": [{"ms": ms, "calls": n, "kernel": k[:90]} for ms, n, k in rows[:12]],
+        "top": [{"ms": ms, "calls": n, "kernel": k[:90]} for ms, n, k in rows[:16]],
     }
 
 
@@ -586,10 +709,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(_build.all_sources())
     log(f"build: {time.perf_counter() - t0:.1f} s")
-    for src in _build.all_sources():
-        for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas[{src}]: {line.strip()}")
+    built = build_report()
 
     rows = kernel_phase()
     log("conv kernel phase: ok")
@@ -609,6 +729,8 @@ def main() -> int:
     for row in rows:
         path = cnn if row["name"] in ("conv_dw", "conv_dx") else lm
         row["launches"] = path["launches"][row["name"]]
+        if row["name"] in built:
+            row["build"] = built[row["name"]]
     log(json.dumps({"kernels": rows}))
     log(card)
     log(json.dumps({"ok": True, "device": {

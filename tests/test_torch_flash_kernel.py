@@ -9,6 +9,8 @@ forward, 3e-5 on the gradients.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -160,3 +162,14 @@ def test_plain_versions_block_rows_like_one_block(monkeypatch):
     dk2, dv2 = fk.flash_dkv_plain(q, k, v, do, lse1, delta, True)
     torch.testing.assert_close(dk2, dk1)
     torch.testing.assert_close(dv2, dv1)
+
+
+def test_key_tile_is_the_forward_kernels_key_tile():
+    """The plain forward rounds P at the kernels' running max only if it
+    walks their key tiles: KEY_TILE equals the key tile of the wgmma
+    forward (kFwdKeys) and of the WMMA forward (kTile) in the source."""
+    src = (Path(fk.__file__).parent / "csrc" / "flash_attn.cu").read_text()
+    for name in ("kFwdKeys", "kTile"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m, f"{name} not found in flash_attn.cu"
+        assert int(m.group(1)) == fk.KEY_TILE, name

@@ -8,6 +8,8 @@ Imports torch only, so it also runs on a machine without JAX:
 Without a card every test skips.
 """
 
+import itertools
+
 import pytest
 import torch
 
@@ -75,7 +77,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
 FLASH_CASES = [  # (BH, S, D, causal)
     (3, 64, 64, True), (2, 100, 32, False), (2, 100, 32, True), (2, 130, 8, True),
     (2, 77, 8, False), (1, 192, 128, True), (2, 64, 128, False), (1, 250, 64, False),
-    (2, 16, 64, True), (1, 1, 16, False),
+    (2, 16, 64, True), (1, 1, 16, False), (2, 129, 20, True), (2, 100, 12, False),
+] + [  # the edges of the wgmma kernels' tiles: 64-key / 64-query ring stages,
+    # 128- and 192-row blocks, D padded to 64 or 128
+    (2, s, d, causal) for s, d, causal in itertools.product(
+        (127, 128, 129, 255, 256), (32, 64, 96, 128), (False, True))
 ]
 
 
@@ -123,11 +129,13 @@ def test_flash_kernels_match_plain_on_card(card, case, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_f32_outputs_of_bf16_operands_on_card(card):
-    """The ring's per-step mode: bf16 operands, f32 outputs."""
+@pytest.mark.parametrize("s,d", [(96, 64), (200, 64), (130, 128), (129, 20)])
+def test_flash_f32_outputs_of_bf16_operands_on_card(card, s, d):
+    """The ring's per-step mode: bf16 operands, f32 outputs, causal, S not
+    a multiple of the kernels' tiles (D = 20 takes the WMMA kernels)."""
     from tpfl_torch.parallel import flash_kernel as fk
 
-    q, k, v, do = _flash_inputs(card, 2, 96, 64, torch.bfloat16, seed=3)
+    q, k, v, do = _flash_inputs(card, 2, s, d, torch.bfloat16, seed=3)
     o, lse = fk.flash_fwd(q, k, v, True, out_dtype=torch.float32)
     o_ref, _ = fk.flash_fwd_plain(q, k, v, True, out_dtype=torch.float32)
     assert o.dtype == torch.float32

@@ -4,8 +4,9 @@ Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through :mod:`ctypes` — seconds per source,
 where an extension that includes PyTorch's headers takes minutes. The
 libraries go to ``build/kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is.
 
 Nothing here runs at import: the CPU tests import every module, and
 this machine class has no ``nvcc``. A failed build raises with the
@@ -49,9 +50,13 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of the source, every shared
+    header (``csrc/*.cuh``, which any source may include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:

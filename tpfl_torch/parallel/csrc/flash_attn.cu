@@ -8,12 +8,12 @@
 //   flash_dkv <- _dkv_kernel (flash_kernel.py:149): dV = P^T.dO,
 //                dK = scale . dS^T.Q
 // Operands are [BH, S, D] row-major (batch x heads folded), lse and delta
-// [BH, S] f32. The reference's grids become: one block per (64-row query
-// tile, bh) for flash_fwd and flash_dq, and one block per (64-row key tile,
-// bh) for flash_dkv, each with a loop over the other side's tiles in place
-// of the TPU's sequential last grid dimension. Each block owns its output
-// rows -- dQ rows in flash_dq, dK/dV rows in flash_dkv -- so there are no
-// float atomics and results are the same run to run.
+// [BH, S] f32. The reference's grids become one block per (query tile, bh)
+// for flash_fwd and flash_dq and one per (key tile, bh) for flash_dkv, each
+// with a loop over the other side's tiles in place of the TPU's sequential
+// last grid dimension. Each block owns its output rows -- O and lse rows in
+// flash_fwd, dQ rows in flash_dq, dK/dV rows in flash_dkv -- so there are
+// no float atomics and results are the same run to run.
 //
 // Semantics kept from the reference (flash_kernel.py:35-191):
 //   * operands stay in their dtype, products accumulate in f32; the scale
@@ -30,26 +30,31 @@
 // What bounds them on an H100: at the transformer main path (BH = 512,
 // S = 2048, D = 64, causal, bf16) each launch does 0.27-0.55 TFLOP against
 // 0.5-0.8 GB of operands, so the least time is set by the tensor cores
-// (0.28 / 0.42 / 0.56 ms at 989 TFLOP/s), not by the bytes.
+// (0.28 / 0.42 / 0.56 ms at 989 TFLOP/s), not by the bytes. At D = 64 the
+// forward also does one exponential per score, and the special-function
+// units (16 a clock per SM) need about as long for them as the tensor
+// cores need for the two products: the softmax has to run beside the
+// products, not between them.
 //
-// What the design does about it (first version: right and simple):
-//   * bf16 products run on the tensor cores as WMMA 16x16x16 fragments with
-//     f32 accumulators; score tiles never leave shared memory (the point of
-//     the TPU kernel, kept here). Every block has 4 warps and each warp owns
-//     16 rows of the block's 64 output rows, so the whole per-row pipeline
-//     (scores, softmax, P, the product into the row accumulator) is
-//     warp-local between the block-wide tile loads.
-//   * WMMA accumulators have no documented row layout, so the forward keeps
-//     its O accumulator, running max and denominator in shared memory for
-//     the per-row rescale; dQ, dK and dV need no rescale and stay in
-//     register fragments.
-//   * f32 operands (tests, the f32 reference) take the same structure on
-//     CUDA cores, each lane owning fixed columns.
-//   * Still far from the bound: tiles are loaded, waited for and multiplied
-//     in turn, WMMA round-trips the forward's accumulator through shared
-//     memory every key tile, and 4 warps per block leave the tensor cores
-//     idle between stages. mma.sync register-resident accumulators,
-//     cp.async/TMA rings and wgmma are the next steps.
+// What the design does about it:
+//   * bf16 flash_fwd and flash_dkv (the main path) run on wgmma fed by TMA
+//     (the section "bf16 on Hopper" below, helpers in hopper.cuh). A
+//     producer warp keeps K/V (forward) or Q/dO/lse/delta (dK/dV) tiles in
+//     flight through a 3-stage shared-memory ring with mbarriers; consumer
+//     warpgroups keep every accumulator in registers, run the softmax in
+//     the accumulator's own row layout (two rows a thread, quad shuffles),
+//     and feed P and dS to the next product from registers. The forward
+//     issues S_{j+1} = Q.K_{j+1}^T before O += P_j.V_j and runs the softmax
+//     of tile j + 1 while that product runs; it schedules the longest
+//     causal query tiles first. Masks are applied only on tiles that cross
+//     the diagonal or the end of S; tiles above the diagonal are skipped.
+//   * flash_dq, f32 operands, and bf16 operands whose rows TMA cannot
+//     address (D not a multiple of 8) run on WMMA 16x16x16 fragments
+//     (bf16) or CUDA cores (f32), 4 warps a block each owning 16 rows of
+//     the block's 64, the forward's O accumulator, running max and
+//     denominator in shared memory (WMMA has no documented row layout),
+//     tiles loaded and waited for in turn. dispatch() chooses by dtype and
+//     shape before launch.
 //
 // Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError() after its launch. Kernels run on the caller's stream
@@ -58,8 +63,11 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math_constants.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -521,6 +529,443 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   dv_acc.write(dv + base, k0 + wr, S, D, 1.f, st);
 }
 
+// ---- bf16 on Hopper: wgmma fed by a TMA ring ---------------------------------------
+// flash_fwd and flash_dkv for bf16 operands whose rows TMA can address (D a
+// multiple of 8, 16-byte aligned bases); D pads to DP = 64 or 128 (TMA
+// fills the columns past D with zeros). A block is consumer warpgroups of
+// 64 rows each plus a producer. The producer's lane 0 issues every TMA
+// load: the block's own tile once, and the other side's tiles through a
+// ring of kStages shared-memory stages, each with a "full" mbarrier (the
+// TMA bytes landed) and an "empty" one (every consumer warp is done with
+// it). Consumers run the products as wgmma with f32 accumulators in
+// registers and do the softmax arithmetic in the accumulator's row layout
+// (hopper.cuh): a thread holds two rows, so a row reduction is two shuffles
+// within a quad. Products whose A operand is P or dS take it from
+// registers, rounded to bf16 (_lowp); nothing f32 goes to shared memory.
+
+namespace hp = hopper;
+
+constexpr int kFwdKeys = 64;  // key rows per ring stage of the forward (flash_kernel.KEY_TILE)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Bytes of a bf16 tile of `rows` rows x DP columns: DP / 64 swizzled halves.
+template <int DP> __host__ __device__ constexpr uint32_t tile_bytes(int rows) {
+  return (uint32_t)(DP / 64) * rows * 128;
+}
+
+__device__ __forceinline__ char* align1024(char* p) {
+  const uint32_t a = hp::smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An m64n(16 KS) accumulator rounded to bf16 as the A operand of KS k-steps.
+template <int KS>
+__device__ __forceinline__ void to_a_operand(const float (&c)[8 * KS], uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(c[8 * kk + 2 * e], c[8 * kk + 2 * e + 1]);
+}
+
+// acc[64 x N] = A[64 x DP] . B[N x DP]^T, A and B K-major tiles whose
+// 64-column halves lie a_half / b_half bytes apart.
+template <int DP, int R>
+__device__ __forceinline__ void gemm_nt(float (&acc)[R], const char* a, uint32_t a_half,
+                                        const char* b, uint32_t b_half) {
+  const uint64_t da = hp::desc_sw128(a, 16, 1024), db = hp::desc_sw128(b, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    hp::wgmma_ss(acc, da + (((kk / 4) * a_half + (kk % 4) * 32) >> 4),
+                 db + (((kk / 4) * b_half + (kk % 4) * 32) >> 4), kk > 0);
+}
+
+// acc[64 x DP] += P[64 x 16 KS] . B[16 KS x DP], P in registers, B a
+// row-major (MN-major) tile whose halves lie b_half bytes apart.
+template <int KS, int R>
+__device__ __forceinline__ void gemm_pv(float (&acc)[R], const uint32_t (&p)[KS][4],
+                                        const char* b, uint32_t b_half) {
+  const uint64_t db = hp::desc_sw128(b, b_half, 1024);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) hp::wgmma_rs(acc, p[kk], db + ((kk * 16 * 128) >> 4), 1);
+}
+
+template <typename TO> __device__ __forceinline__ void store2(TO* p, float a, float b);
+template <> __device__ __forceinline__ void store2<bf16>(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Rows row and row + 8 of a [S, D] output from an m64nDP accumulator,
+// times scale0 and scale1.
+template <int DP, typename TO>
+__device__ __forceinline__ void store_rows(TO* dst, const float (&acc)[DP / 2], int row, int S,
+                                           int D, float scale0, float scale1) {
+  const int col = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    const float sc = h ? scale1 : scale0;
+    if (r >= S) continue;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + col;
+      if (c < D)
+        store2(dst + (size_t)r * D + c, acc[4 * j + 2 * h] * sc, acc[4 * j + 2 * h + 1] * sc);
+    }
+  }
+}
+
+// One online-softmax step on a score tile in registers (raw Q.K^T sums of
+// this thread's rows row, row + 8 against keys k0..k0 + kN): masks it where
+// it crosses the diagonal or the end of S, moves the running max m (raw
+// units) and the per-thread partial denominators l, and leaves
+// P = exp(scale (s - m)) in s. corr receives each row's rescale of the
+// earlier sums.
+template <int kN>
+__device__ __forceinline__ void softmax_tile(float (&s)[kN / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, int row, int r0, int S,
+                                             bool causal, float scale_log2) {
+  const int col = 2 * (threadIdx.x % 4);
+  if ((causal && k0 + kN - 1 > r0) || k0 + kN > S) {
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + col + (i % 2), r = row + 8 * ((i / 2) % 2);
+      if (key >= S || (causal && key > r)) s[i] = -CUDART_INF_F;
+    }
+  }
+  float mx[2] = {m[0], m[1]}, nb[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    corr[h] = hp::exp2_fast((m[h] - mx[h]) * scale_log2);
+    m[h] = mx[h];
+    nb[h] = -mx[h] * scale_log2;
+  }
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    s[i] = hp::exp2_fast(fmaf(s[i], scale_log2, nb[(i / 2) % 2]));
+    rs[(i / 2) % 2] += s[i];
+  }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+}
+
+template <int DP, int WG> struct FwdSmem {
+  static constexpr int kStages = 3;
+  static constexpr uint32_t q = tile_bytes<DP>(64 * WG), kv = tile_bytes<DP>(kFwdKeys);
+  static constexpr size_t bytes = 1024 + q + 2 * kStages * kv + (1 + 2 * kStages) * 8;
+};
+
+// Block: FwdWG<DP> consumer warpgroups (64 query rows each), then one
+// producer warp; one block per SM, no setmaxnreg. At D = 64 three
+// warpgroups fit the 416-thread block's registers without spilling (two
+// blocks of two warpgroups spill, and ran slower on the H100); at D = 128
+// three spill, so two.
+template <int DP> constexpr int FwdWG = DP == 64 ? 3 : 2;
+
+template <int DP, typename TO>
+__global__ void __launch_bounds__(FwdWG<DP> * 128 + 32, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, TO* __restrict__ o,
+                float* __restrict__ lse, int S, int D, int causal, float scale) {
+  constexpr int kWG = FwdWG<DP>, kRows = 64 * kWG;
+  using L = FwdSmem<DP, kWG>;
+  constexpr int kN = kFwdKeys, kStages = L::kStages;
+  extern __shared__ char smem_raw[];
+  char* Qs = align1024(smem_raw);
+  char* Ks = Qs + L::q;
+  char* Vs = Ks + kStages * L::kv;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * L::kv);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest causal rows first
+  const int n_kt = (S + kN - 1) / kN;
+  const int n_tiles = causal ? min(n_kt, (min(q0 + kRows, S) - 1) / kN + 1) : n_kt;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(full + s, 1);
+      hp::mbar_init(empty + s, kWG * 4);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // provably warp-uniform
+  const int lane = threadIdx.x % 32;
+  if (wg == kWG) {  // producer warp: lane 0 issues every load
+    if (lane == 0) {
+      hp::mbar_arrive_expect_tx(q_full, L::q);
+      for (int h = 0; h < DP / 64; ++h)
+        hp::tma_load_3d(Qs + h * kRows * 128, &map_q, q_full, 64 * h, q0, bh);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        hp::mbar_wait(empty + s, ((j / kStages) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(full + s, 2 * L::kv);
+        for (int h = 0; h < DP / 64; ++h) {
+          hp::tma_load_3d(Ks + s * L::kv + h * kN * 128, &map_k, full + s, 64 * h, j * kN, bh);
+          hp::tma_load_3d(Vs + s * L::kv + h * kN * 128, &map_v, full + s, 64 * h, j * kN, bh);
+        }
+      }
+    }
+  } else {
+    const int warp = (threadIdx.x % 128) / 32;
+    const int r0 = q0 + 64 * wg;                // the warpgroup's first query row
+    const int row = r0 + 16 * warp + lane / 4;  // this thread's rows: row, row + 8
+    // Key tiles 0..last have keys this warpgroup's rows see; the block's
+    // later tiles (causal) are only waited for and released.
+    const int last = r0 >= S ? -1 : causal ? min(n_kt - 1, min(r0 + 63, S - 1) / kN) : n_kt - 1;
+    const char* Qw = Qs + 64 * wg * 128;
+    const float scale_log2 = scale * kLog2e;
+
+    float acc[DP / 2], sc[kN / 2], m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, corr[2];
+    uint32_t pa[kN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    hp::mbar_wait(q_full, 0);
+
+    // Software pipeline within the warpgroup: while O += P_j.V_j runs on
+    // the tensor cores, the softmax of S_{j+1} = Q.K_{j+1}^T (issued
+    // before it) runs on the other units.
+    if (last >= 0) {
+      hp::mbar_wait(full, 0);
+      __syncwarp();  // wgmma is .aligned: the warp converged after the spin
+      hp::wgmma_fence();
+      gemm_nt<DP>(sc, Qw, kRows * 128, Ks, kN * 128);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(sc);
+      softmax_tile<kN>(sc, m, l, corr, 0, row, r0, S, causal, scale_log2);
+      to_a_operand(sc, pa);  // _lowp(v): P rounds to bf16 here
+    }
+    // Tiles 0..last-1: issue S_{j+1}, then O += P_j.V_j; softmax S_{j+1}
+    // once it has landed, while the second product runs.
+    for (int j = 0; j < last; ++j) {
+      const int s = j % kStages, sn = (j + 1) % kStages;
+      hp::mbar_wait(full + sn, ((j + 1) / kStages) & 1);
+      __syncwarp();
+      hp::fence_regs(acc);
+      hp::wgmma_fence();
+      gemm_nt<DP>(sc, Qw, kRows * 128, Ks + sn * L::kv, kN * 128);
+      hp::wgmma_commit();
+      gemm_pv(acc, pa, Vs + s * L::kv, kN * 128);
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();
+      hp::fence_regs(sc);
+      softmax_tile<kN>(sc, m, l, corr, (j + 1) * kN, row, r0, S, causal, scale_log2);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+      to_a_operand(sc, pa);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + s);
+    }
+    if (last >= 0) {  // the last tile: O += P.V alone
+      hp::fence_regs(acc);
+      hp::wgmma_fence();
+      gemm_pv(acc, pa, Vs + (last % kStages) * L::kv, kN * 128);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + last % kStages);
+    }
+    for (int j = last + 1; j < n_tiles; ++j) {  // tiles this warpgroup's rows do not see
+      hp::mbar_wait(full + j % kStages, (j / kStages) & 1);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + j % kStages);
+    }
+
+    if (last >= 0) {  // finalize (flash_kernel.py:100-109)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        l[h] = fmaxf(l[h], 1e-30f);
+      }
+      store_rows<DP>(o + (size_t)bh * S * D, acc, row, S, D, 1.f / l[0], 1.f / l[1]);
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (row + 8 * h < S) lse[(size_t)bh * S + row + 8 * h] = m[h] * scale + logf(l[h]);
+      }
+    }
+  }
+}
+
+// P^T and dS^T in place of a tile's S^T and dP^T (key rows row, row + 8
+// against queries q0..q0 + kN): P^T = exp(scale S^T - lse[q]) with lse in
+// log2 units, masked only where the tile crosses the diagonal or the end of
+// S; dS^T = P^T (dP^T - delta[q]).
+template <int kN>
+__device__ __forceinline__ void dkv_grads(float (&st)[kN / 2], float (&dpt)[kN / 2],
+                                          const float* ls, const float* dd, int q0, int row,
+                                          int kr0, int S, bool causal, float scale_log2) {
+  const int col = 2 * (threadIdx.x % 4);
+  const bool edge = (causal && q0 < kr0 + 63) || q0 + kN > S;
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int c = 8 * (i / 4) + col + (i % 2), q = q0 + c, r = row + 8 * ((i / 2) % 2);
+    float p = hp::exp2_fast(fmaf(st[i], scale_log2, -ls[c]));
+    if (edge && (q >= S || (causal && q < r))) p = 0.f;
+    st[i] = p;
+    dpt[i] = p * (dpt[i] - dd[c]);
+  }
+}
+
+constexpr int kDkvWG = 2;  // consumer warpgroups of flash_dkv: 128 key rows a block
+
+template <int DP> struct DkvSmem {
+  static constexpr int kStages = 3;
+  static constexpr int kN = DP == 128 ? 32 : 64;  // query rows per ring stage
+  static constexpr uint32_t kv = tile_bytes<DP>(64 * kDkvWG), q = tile_bytes<DP>(kN);
+  static constexpr size_t bytes =
+      1024 + 2 * kv + 2 * kStages * q + 2 * kStages * kN * sizeof(float) + (1 + 2 * kStages) * 8;
+};
+
+// Block: kDkvWG consumer warpgroups (64 key rows each), then a producer
+// warpgroup of which one warp works; one block per SM. A 384-thread block
+// gets 168 registers a thread at launch; four accumulators (dK, dV, S^T,
+// dP^T) press on that, so the producer gives its registers up
+// (setmaxnreg) and the consumers may take kConsumerRegs. At D = 64 nothing
+// spills (ptxas, as chip_smoke.py prints it).
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+template <int DP, typename TO>
+__global__ void __launch_bounds__((kDkvWG + 1) * 128, 1)
+flash_dkv_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                TO* __restrict__ dk, TO* __restrict__ dv, int S, int D, int causal, float scale) {
+  using L = DkvSmem<DP>;
+  constexpr int kWG = kDkvWG, kRows = 64 * kWG, kN = L::kN, kStages = L::kStages;
+  extern __shared__ char smem_raw[];
+  char* Ks = align1024(smem_raw);
+  char* Vs = Ks + L::kv;
+  char* Qs = Vs + L::kv;
+  char* dOs = Qs + kStages * L::q;
+  float* lse_s = reinterpret_cast<float*>(dOs + kStages * L::q);  // [kStages][kN]
+  float* dd_s = lse_s + kStages * kN;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dd_s + kStages * kN);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = blockIdx.y;
+  const int k0 = blockIdx.x * kRows;  // causal: the first key blocks see the most queries
+  const int first = causal ? k0 / kN : 0;
+  const int n_tiles = (S + kN - 1) / kN - first;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(full + s, 1);
+      hp::mbar_init(empty + s, kWG * 4);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // provably warp-uniform
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  if (wg == kWG) {  // producer: TMA from one lane, lse / delta rows from its warp
+    hp::regs_dec<kProducerRegs>();
+    if (warp == 0) {
+      if (lane == 0) {
+        hp::mbar_arrive_expect_tx(kv_full, 2 * L::kv);
+        for (int h = 0; h < DP / 64; ++h) {
+          hp::tma_load_3d(Ks + h * kRows * 128, &map_k, kv_full, 64 * h, k0, bh);
+          hp::tma_load_3d(Vs + h * kRows * 128, &map_v, kv_full, 64 * h, k0, bh);
+        }
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages, q0 = (first + t) * kN;
+        hp::mbar_wait(empty + s, ((t / kStages) & 1) ^ 1);
+        for (int i = lane; i < kN; i += 32) {
+          const int q = q0 + i;
+          lse_s[s * kN + i] = q < S ? lse[(size_t)bh * S + q] * kLog2e : 0.f;
+          dd_s[s * kN + i] = q < S ? delta[(size_t)bh * S + q] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) {
+          hp::mbar_arrive_expect_tx(full + s, 2 * L::q);
+          for (int h = 0; h < DP / 64; ++h) {
+            hp::tma_load_3d(Qs + s * L::q + h * kN * 128, &map_q, full + s, 64 * h, q0, bh);
+            hp::tma_load_3d(dOs + s * L::q + h * kN * 128, &map_do, full + s, 64 * h, q0, bh);
+          }
+        }
+      }
+    }
+  } else {
+    hp::regs_inc<kConsumerRegs>();
+    const int kr0 = k0 + 64 * wg;                // the warpgroup's first key row
+    const int row = kr0 + 16 * warp + lane / 4;  // this thread's key rows: row, row + 8
+    const bool active = kr0 < S;
+    const char* Kw = Ks + 64 * wg * 128;
+    const char* Vw = Vs + 64 * wg * 128;
+    const float scale_log2 = scale * kLog2e;
+
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    hp::mbar_wait(kv_full, 0);
+
+    // Causal: this warpgroup's keys see no query of the block's first tiles.
+    const int t0 = !active ? n_tiles : causal ? kr0 / kN - first : 0;
+    for (int t = 0; t < t0; ++t) {
+      hp::mbar_wait(full + t % kStages, (t / kStages) & 1);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + t % kStages);
+    }
+    for (int t = t0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      float st[kN / 2], dpt[kN / 2];  // S^T, dP^T: key rows x query columns
+      uint32_t pa[kN / 16][4], da[kN / 16][4];
+      hp::mbar_wait(full + s, (t / kStages) & 1);
+      __syncwarp();  // wgmma is .aligned: the warp converged after the spin
+      hp::wgmma_fence();
+      gemm_nt<DP>(st, Kw, kRows * 128, Qs + s * L::q, kN * 128);
+      gemm_nt<DP>(dpt, Vw, kRows * 128, dOs + s * L::q, kN * 128);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(st);
+      hp::fence_regs(dpt);
+      dkv_grads<kN>(st, dpt, lse_s + s * kN, dd_s + s * kN, (first + t) * kN, row, kr0, S,
+                    causal, scale_log2);
+      to_a_operand(st, pa);   // _lowp(do): P^T rounds to bf16 here
+      to_a_operand(dpt, da);  // _lowp(q)
+      hp::fence_regs(dv_acc);
+      hp::fence_regs(dk_acc);
+      hp::wgmma_fence();
+      gemm_pv(dv_acc, pa, dOs + s * L::q, kN * 128);
+      gemm_pv(dk_acc, da, Qs + s * L::q, kN * 128);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dv_acc);
+      hp::fence_regs(dk_acc);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + s);
+    }
+    if (active) {
+      const size_t base = (size_t)bh * S * D;
+      store_rows<DP>(dk + base, dk_acc, row, S, D, scale, scale);
+      store_rows<DP>(dv + base, dv_acc, row, S, D, 1.f, 1.f);
+    }
+  }
+}
+
 // ---- launchers ------------------------------------------------------------------
 inline unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
 
@@ -583,12 +1028,66 @@ cudaError_t by_width(Which which, const Args& a) {
 
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
 
+template <int DP, typename TO>
+cudaError_t launch_wgmma(Which which, const Args& a) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if (which == kFwd) {
+    constexpr int kWG = FwdWG<DP>;
+    if (!hp::make_bf16_map(&mq, a.q, a.BH, a.S, a.D, 64 * kWG) ||
+        !hp::make_bf16_map(&mk, a.k, a.BH, a.S, a.D, kFwdKeys) ||
+        !hp::make_bf16_map(&mv, a.v, a.BH, a.S, a.D, kFwdKeys))
+      return cudaErrorInvalidValue;
+    auto kern = flash_fwd_wgmma<DP, TO>;
+    const size_t bytes = FwdSmem<DP, kWG>::bytes;
+    if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
+    kern<<<dim3(cdiv(a.S, 64 * kWG), (unsigned)a.BH), kWG * 128 + 32, bytes, a.st>>>(
+        mq, mk, mv, static_cast<TO*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.D, a.causal,
+        a.scale);
+  } else {
+    constexpr int kN = DkvSmem<DP>::kN, kWG = kDkvWG, kRows = 64 * kWG;
+    if (!hp::make_bf16_map(&mq, a.q, a.BH, a.S, a.D, kN) ||
+        !hp::make_bf16_map(&mdo, a.dout, a.BH, a.S, a.D, kN) ||
+        !hp::make_bf16_map(&mk, a.k, a.BH, a.S, a.D, kRows) ||
+        !hp::make_bf16_map(&mv, a.v, a.BH, a.S, a.D, kRows))
+      return cudaErrorInvalidValue;
+    auto kern = flash_dkv_wgmma<DP, TO>;
+    const size_t bytes = DkvSmem<DP>::bytes;
+    if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
+    // setmaxnreg.inc waits until the block's pool holds the registers it
+    // asks for: refuse a build whose launch budget could not cover them.
+    cudaFuncAttributes attr;
+    if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return err;
+    if (attr.numRegs * (kWG + 1) * 128 < kProducerRegs * 128 + kConsumerRegs * kWG * 128)
+      return cudaErrorInvalidConfiguration;
+    kern<<<dim3(cdiv(a.S, kRows), (unsigned)a.BH), (kWG + 1) * 128, bytes, a.st>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
+        static_cast<TO*>(a.o0), static_cast<TO*>(a.o1), a.S, a.D, a.causal, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename TO>
+cudaError_t wgmma_by_width(Which which, const Args& a) {
+  return a.D <= 64 ? launch_wgmma<64, TO>(which, a) : launch_wgmma<128, TO>(which, a);
+}
+
+// The kernel is chosen by dtype and shape before launch, never as a
+// fallback on failure: bf16 flash_fwd / flash_dkv whose rows TMA can
+// address (D a multiple of 8, so rows are 16-byte strided, and 16-byte
+// aligned bases) take the wgmma kernels; other bf16 shapes, flash_dq and
+// f32 operands take the WMMA / CUDA-core kernels.
 int dispatch(Which which, Args a, int dtype, int out_dtype) {
   if (a.D < 1 || a.D > 128 || a.S < 1 || a.BH < 1 || a.BH > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool operands16 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
+  if (dtype == 1 && which != kDq && a.D % 8 == 0 && operands16) {
+    if (out_dtype == 1) return (int)wgmma_by_width<bf16>(which, a);
+    if (out_dtype == 0) return (int)wgmma_by_width<float>(which, a);
+    return (int)cudaErrorInvalidValue;
+  }
   const int V = dtype == 1 ? 8 : 4;  // elements per 16-byte load
-  a.vec = (a.D % V == 0) && aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-          aligned16(a.dout);
+  a.vec = (a.D % V == 0) && operands16;
   if (dtype == 0 && out_dtype == 0) return (int)by_width<float, float>(which, a);
   if (dtype == 1 && out_dtype == 1) return (int)by_width<bf16, bf16>(which, a);
   if (dtype == 1 && out_dtype == 0) return (int)by_width<bf16, float>(which, a);

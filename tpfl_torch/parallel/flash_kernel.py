@@ -40,8 +40,10 @@ import torch
 
 NEG_INF = -1e30  # flash_kernel.py:35
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: Key rows per tile of the forward kernel (``kTile`` of flash_attn.cu);
-#: the plain forward rounds P at the same running max.
+#: Key rows per tile of the forward kernels (``kFwdKeys`` of the wgmma
+#: kernel and ``kTile`` of the WMMA one in ``csrc/flash_attn.cu``): the
+#: plain forward walks the same tiles, so it rounds P at the same running
+#: max.
 KEY_TILE = 64
 #: Elements of a plain version's score block (f32 temporaries of this
 #: size, a few at once): bounds its memory at long sequences.
@@ -85,9 +87,9 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`flash_fwd`: q/k/v ``[BH, S, D]`` ->
     ``(o [BH, S, D] in out_dtype, lse [BH, S] f32)`` (f64 for f64
-    inputs). The kernel's online softmax over the same 64-key tiles, for
-    all query rows at once: P is rounded at the same running max, so
-    the two differ by f32 summation order only."""
+    inputs). The kernel's online softmax over the same KEY_TILE-key
+    tiles, for all query rows at once: P is rounded at the same running
+    max, so the two differ by f32 summation order only."""
     bh, s, d = q.shape
     acc = _acc_dtype(q.dtype)
     qf, kf, vf = q.to(acc), k.to(acc), v.to(acc)
@@ -321,8 +323,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, S, H, D]`` in q's dtype.
 
     ``block`` is kept for parity with the reference's signature; the
-    CUDA kernels tile by 64 rows whatever it is, and no S (aligned or
-    not, causal or not) needs a fallback."""
+    CUDA kernels choose their own tiles whatever it is, and no S
+    (aligned or not, causal or not) needs a fallback."""
     del block
     return FlashAttention.apply(q, k, v, causal)
 
