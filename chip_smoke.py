@@ -10,15 +10,19 @@
    layers), holds it against its plain PyTorch version on the same
    inputs, and times the kernel, the plain version and PyTorch's own
    conv backward (``aten.convolution_backward``, a yardstick the port
-   never calls).
+   never calls). The bf16 ``conv_dx`` must take the Hopper (wgmma + TMA)
+   kernel there and at 64 edge cases (Cin 8 / 32 / 40 / 64, Cout 64 /
+   128, images from 1×1 to the largest the kernel's ring holds, B 1 / 3,
+   ~200 images so the persistent blocks' ranges cross nodes), each held
+   against the plain version at the main shape's tolerance.
 3. CNN reference phase: a small f32 federation round with the kernels
    (``conv_impl="pallas"``) against plain autograd (``conv_impl="xla"``).
 4. CNN main path: ``VmapFederation(CNN(out_channels=10,
    conv_impl="pallas"), n_nodes=100)`` runs FedAvg rounds on seeded
    synthetic CIFAR-shaped data (4 batches of 128 per node, 1 epoch);
    every kernel must have launched (8 conv_dw and 4 conv_dx launches per
-   round), every loss must be finite and every node must hold the same
-   aggregate.
+   round, every conv_dx on the wgmma kernel), every loss must be finite
+   and every node must hold the same aggregate.
 5. Flash kernel phase: ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at
    the transformer main path's shape (B·H = 64·8, S = 2048, D = 64,
    causal, bf16) and at the long-context one (B·H = 1·8, S = 32768), each
@@ -32,9 +36,11 @@
    their plain versions and PyTorch's flash-backend
    ``scaled_dot_product_attention`` (a yardstick the port never calls).
    The build step prints ptxas's registers and spills for every kernel
-   and, from ``cuobjdump -sass``, the count of ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA load) instructions in each flash kernel; the main
-   path's ``flash_fwd`` and ``flash_dkv`` must have both.
+   (and any ptxas warning about wgmma) and, from ``cuobjdump -sass``, the
+   count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA load) and ``LDGSTS``
+   (``cp.async``) instructions in each kernel; the main path's
+   ``flash_fwd`` and ``flash_dkv`` must have HGMMA and UTMALDG, its
+   ``conv_dx`` HGMMA and UTMALDG or LDGSTS.
 6. Transformer reference phase: a small f32 federated ``TransformerLM``
    round with ``attention_fn=flash_attention`` against the same round
    with ``blockwise_attention``.
@@ -139,48 +145,60 @@ def ptxas_report(src: str) -> dict[str, dict]:
     return per
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS")
+
+
 def sass_counts(src: str) -> dict[str, dict]:
     """Per kernel of ``csrc/<src>.cu``'s built library (mangled name): the
-    count of HGMMA (wgmma) and UTMALDG (TMA tile load) instructions in its
-    SASS."""
+    count of HGMMA (wgmma), UTMALDG (TMA tile load) and LDGSTS
+    (``cp.async``) instructions in its SASS."""
     out = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(_build._target(src))],
                          capture_output=True, text=True, timeout=300, check=True).stdout
     per = {}
     for body in re.split(r"\n\s*Function : ", out)[1:]:
         per[body.split("\n", 1)[0].strip()] = {
-            "HGMMA": len(re.findall(r"\bHGMMA\.", body)),
-            "UTMALDG": len(re.findall(r"\bUTMALDG\.", body))}
+            op: len(re.findall(rf"\b{op}\b", body)) for op in SASS_OPS}
     return per
 
 
-# The main path's instantiations of the redesigned kernels (bf16, D = 64),
-# as parts of their mangled names.
-WGMMA_KERNELS = {"flash_fwd": "flash_fwd_wgmmaILi64E13__nv_bfloat16",
-                 "flash_dkv": "flash_dkv_wgmmaILi64E13__nv_bfloat16"}
+# The main path's instantiations of the redesigned kernels (bf16; D = 64
+# for flash), as parts of their mangled names: (source, name part, the
+# SASS instructions of which each needs at least one of every group).
+WGMMA_KERNELS = {
+    "flash_fwd": ("flash_attn", "flash_fwd_wgmmaILi64E13__nv_bfloat16", (("HGMMA",), ("UTMALDG",))),
+    "flash_dkv": ("flash_attn", "flash_dkv_wgmmaILi64E13__nv_bfloat16", (("HGMMA",), ("UTMALDG",))),
+    "conv_dx": ("conv_bwd", "conv_dx_wgmma", (("HGMMA",), ("UTMALDG", "LDGSTS"))),
+}
 
 
 def build_report() -> dict[str, dict]:
-    """Logs ptxas's registers / spills of every kernel and the SASS counts
-    of every flash kernel; returns {kernel: {...}} for the main path's
-    wgmma kernels and fails unless each has HGMMA and UTMALDG."""
+    """Logs ptxas's registers / spills of every kernel, any ptxas note that
+    it serialised wgmma, and the SASS counts of every kernel of a source
+    with a wgmma kernel; returns {kernel: {...}} for the main path's wgmma
+    kernels and fails unless each has HGMMA and a TMA (or cp.async) load."""
     reports = {src: ptxas_report(src) for src in _build.all_sources()}
     for src, rep in reports.items():
         names = _demangle(list(rep))
         for name, r in rep.items():
             log(f"ptxas[{src}] {names[name][:110]}: {r['registers']} registers, "
                 f"{r['spill_bytes']} bytes spill stores")
-    ptxas, sass = reports["flash_attn"], sass_counts("flash_attn")
-    names = _demangle(list(sass))
-    for name, counts in sass.items():
-        log(f"sass[flash_attn] {names[name][:110]}: HGMMA {counts['HGMMA']}, "
-            f"UTMALDG {counts['UTMALDG']}")
+        for line in _build.build_log(src).splitlines():
+            if "wgmma" in line.lower() and "warning" in line.lower():
+                log(f"ptxas[{src}] {line.strip()[:300]}")
+    sources = sorted({src for src, _, _ in WGMMA_KERNELS.values()})
+    sass = {src: sass_counts(src) for src in sources}
+    for src in sources:
+        names = _demangle(list(sass[src]))
+        for name, counts in sass[src].items():
+            log(f"sass[{src}] {names[name][:110]}: "
+                + ", ".join(f"{op} {n}" for op, n in counts.items()))
     out = {}
-    for kernel, part in WGMMA_KERNELS.items():
-        key = next((n for n in sass if part in n), None)
-        if key is None or not (sass[key]["HGMMA"] and sass[key]["UTMALDG"]):
-            raise AssertionError(f"{kernel}: no {part} with HGMMA and UTMALDG in the build")
-        out[kernel] = {"kernel": names[key].split("(CUtensorMap")[0], **sass[key],
-                       **ptxas.get(key, {})}
+    for kernel, (src, part, needs) in WGMMA_KERNELS.items():
+        key = next((n for n in sass[src] if part in n), None)
+        if key is None or not all(any(sass[src][key][op] for op in group) for group in needs):
+            raise AssertionError(f"{kernel}: no {part} with {needs} in the build's SASS")
+        out[kernel] = {"kernel": _demangle([key])[key].split("(CUtensorMap")[0],
+                       **sass[src][key], **reports[src].get(key, {})}
     return out
 
 
@@ -275,7 +293,10 @@ def kernel_phase() -> list[dict]:
             continue
         # conv_dx: bf16 outputs of f32 sums; one bf16 rounding (2^-8
         # relative) apart at most, plus the f32 order near zero.
+        wgmma = ck.conv_dx.wgmma_launches
         dx = ck.conv_dx(g, wk)
+        if ck.conv_dx.wgmma_launches != wgmma + 1:
+            raise AssertionError(f"conv_dx[{name}]: the main shape did not take the wgmma kernel")
         err = check_close(f"conv_dx[{name}]", dx, ck.conv_dx_plain(g, wk), 2.0 ** -7, 1e-3)
         nbytes = (g.numel() + wk.numel() + dx.numel()) * 2
         per["conv_dx"].append({
@@ -301,6 +322,27 @@ def kernel_phase() -> list[dict]:
             "layers": layers,
         })
     return rows
+
+
+def conv_edge_cases() -> float:
+    """Each bf16 edge case of the wgmma conv_dx (``ck.WGMMA_DX_EDGES``, the
+    card tests' shapes) against the plain version at the main shape's
+    tolerance; fails unless each took the wgmma kernel. Returns the worst
+    max |err| relative to the case's largest value."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    worst = 0.0
+    for cin, cout, (h, w), b, n in ck.WGMMA_DX_EDGES:
+        g = torch.randn(n, b, h, w, cout, device="cuda", generator=gen).to(torch.bfloat16)
+        wk = torch.randn(n, 3, 3, cin, cout, device="cuda", generator=gen).to(torch.bfloat16)
+        wgmma = ck.conv_dx.wgmma_launches
+        dx = ck.conv_dx(g, wk)
+        label = f"conv_dx[Cin={cin} Cout={cout} {h}x{w} B={b} N={n}]"
+        if ck.conv_dx.wgmma_launches != wgmma + 1:
+            raise AssertionError(f"{label}: did not take the wgmma kernel")
+        ref = ck.conv_dx_plain(g, wk)
+        err = check_close(label, dx, ref, 2.0 ** -7, 1e-3)
+        worst = max(worst, err / ref.float().abs().max().item())
+    return worst
 
 
 def reference_phase() -> None:
@@ -345,6 +387,7 @@ WRAPPERS = {"conv_dw": ck.conv_dw, "conv_dx": ck.conv_dx, "flash_fwd": fk.flash_
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    ck.conv_dx.wgmma_launches = 0
 
 
 def read_launches() -> dict:
@@ -369,16 +412,20 @@ def main_path(card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    wgmma_dx = ck.conv_dx.wgmma_launches
 
     steps = N_BATCHES * EPOCHS * N_ROUNDS
     check_main_path(params, losses, launches, {
         **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
+    if wgmma_dx != launches["conv_dx"]:
+        raise AssertionError(f"{wgmma_dx} of {launches['conv_dx']} conv_dx launches of the "
+                             "CNN round took the wgmma kernel; expected all")
     rounds_s = N_ROUNDS / wall
     return ({
         "card": card, "n_nodes": N_NODES, "batches": N_BATCHES, "batch": BATCH,
         "rounds": N_ROUNDS, "wall_s": wall, "rounds_per_s": rounds_s,
         "samples_per_s": rounds_s * N_NODES * per_node, "launches": launches,
-        "mean_loss": losses.mean().item(),
+        "conv_dx_wgmma_launches": wgmma_dx, "mean_loss": losses.mean().item(),
     }, (fed, params, xs, ys))
 
 
@@ -713,6 +760,10 @@ def main() -> int:
 
     rows = kernel_phase()
     log("conv kernel phase: ok")
+    edge_err = conv_edge_cases()
+    next(r for r in rows if r["name"] == "conv_dx")["bf16_edge_max_rel_err"] = edge_err
+    log(f"conv kernel phase [{len(ck.WGMMA_DX_EDGES)} bf16 conv_dx edge cases, wgmma]: ok, "
+        f"worst max |err| / max |ref| {edge_err:.3e}")
     reference_phase()
     log("CNN reference phase (pallas vs xla, f32, small): ok")
     cnn, cnn_args = main_path(card)

@@ -8,6 +8,8 @@ same products in different orders.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -85,6 +87,57 @@ def test_node_stacked_matches_jax_vmap():
     wt = torch.from_numpy(ws).requires_grad_(True)
     (ck.node_conv(torch.from_numpy(xs), wt) ** 2).sum().backward()
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gj), rtol=RTOL, atol=ATOL)
+
+
+def test_bf16_dx_at_main_path_widths_matches_jax_pallas():
+    """The main path's Conv_1 widths in its working type (Cin 32, Cout 64,
+    16×16, batch 2, 2 nodes; bf16 operands): the JAX Pallas backward's dx
+    against ``conv_dx_plain``, the version the card's kernel is held to.
+    Both sum in f32 and round to bf16 once, so they agree within one bf16
+    rounding (2⁻⁷ relative) plus the f32 order near zero (1e-3 of the
+    largest value)."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(2, 2, 16, 16, 32)).astype(np.float32)
+    w = (0.1 * rng.normal(size=(2, 3, 3, 32, 64))).astype(np.float32)
+    g = rng.normal(size=(2, 2, 16, 16, 64)).astype(np.float32)
+    bf = jnp.bfloat16
+    _, vjp = jax.vjp(
+        jax.vmap(lambda a, b: jax_node_conv(a, b, True)),
+        jnp.asarray(x, bf), jnp.asarray(w, bf),
+    )
+    dx_jax, _ = vjp(jnp.asarray(g, bf))
+    assert dx_jax.dtype == bf
+    to_t = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    dx = ck.conv_dx_plain(to_t(g), to_t(w))
+    assert dx.dtype == torch.bfloat16
+    ref = np.asarray(dx_jax.astype(jnp.float32))
+    np.testing.assert_allclose(dx.float().numpy(), ref, rtol=2.0 ** -7,
+                               atol=1e-3 * np.abs(ref).max())
+
+
+def test_wgmma_dx_edges_sit_on_the_kernels_rule():
+    """The card's edge cases of the wgmma conv_dx (``ck.WGMMA_DX_EDGES``)
+    each pass the static part of its shape rule in the source and together
+    reach its edges: one pixel and the pixel cap (kDxWG · kDxTilesPerWG
+    64-pixel tiles), Cin 8, a Cin that cuts a 32-channel tile, and
+    kDxMaxCin; more images than the H100's 132 SMs, so a block walks
+    several."""
+    src = (Path(ck.__file__).parent / "csrc" / "conv_bwd.cu").read_text()
+    const = {}
+    for name in ("kDxWG", "kDxTilesPerWG", "kDxMaxCin"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m, f"{name} not found in conv_bwd.cu"
+        const[name] = int(m.group(1))
+    max_pixels = 64 * const["kDxWG"] * const["kDxTilesPerWG"]
+    for cin, cout, (h, w), b, n in ck.WGMMA_DX_EDGES:
+        assert cout % 64 == 0 and cin % 8 == 0 and 8 <= cin <= const["kDxMaxCin"]
+        assert 1 <= h * w <= max_pixels and h + 2 <= 256 and w + 2 <= 256
+        assert n * b > 132
+    pixels = {h * w for _, _, (h, w), _, _ in ck.WGMMA_DX_EDGES}
+    cins = {cin for cin, *_ in ck.WGMMA_DX_EDGES}
+    assert min(pixels) == 1 and max(pixels) == max_pixels
+    assert min(cins) == 8 and max(cins) == const["kDxMaxCin"]
+    assert any(cin % 32 for cin in cins)
 
 
 def test_input_grad_skipped_when_not_needed():

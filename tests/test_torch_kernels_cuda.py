@@ -41,10 +41,50 @@ def test_kernels_match_plain_on_card(card, shape, dtype):
     launches = (ck.conv_dw.launches, ck.conv_dx.launches)
     dw, dw_ref = ck.conv_dw(x, g, 3), ck.conv_dw_plain(x, g, 3)
     torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-4 * dw_ref.abs().max().item())
+    wgmma = ck.conv_dx.wgmma_launches
     dx, dx_ref = ck.conv_dx(g, k).float(), ck.conv_dx_plain(g, k).float()
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     torch.testing.assert_close(dx, dx_ref, rtol=tol, atol=1e-3 * dx_ref.abs().max().item())
     assert (ck.conv_dw.launches, ck.conv_dx.launches) == (launches[0] + 1, launches[1] + 1)
+    # Only bf16 with Cout a multiple of 64 (here Cin 32 -> Cout 64) takes wgmma.
+    takes_wgmma = dtype == torch.bfloat16 and cout % 64 == 0 and cin % 8 == 0
+    assert ck.conv_dx.wgmma_launches == wgmma + takes_wgmma
+
+
+# Shapes the wgmma conv_dx refuses, which stay on the WMMA kernel: a ring
+# that does not fit, too many pixels, Cin not a multiple of 8 or above 64,
+# Cout not a multiple of 64. (Cin, Cout, (H, W), B, N) as ck.WGMMA_DX_EDGES.
+DX_WMMA_CASES = [(32, 128, (16, 32), 3, 67), (32, 64, (17, 32), 3, 67),
+                 (12, 64, (16, 16), 3, 67), (72, 64, (16, 16), 3, 67),
+                 (32, 96, (16, 16), 3, 67)]
+
+
+def _dx_case(card, cin, cout, hw, b, n, seed):
+    h, w = hw
+    gen = torch.Generator(device=card).manual_seed(seed)
+    g = torch.randn(n, b, h, w, cout, device=card, generator=gen).to(torch.bfloat16)
+    k = torch.randn(n, 3, 3, cin, cout, device=card, generator=gen).to(torch.bfloat16)
+    before = (ck.conv_dx.launches, ck.conv_dx.wgmma_launches)
+    dx = ck.conv_dx(g, k)
+    torch.cuda.synchronize()
+    ref = ck.conv_dx_plain(g, k).float()
+    torch.testing.assert_close(dx.float(), ref, rtol=2.0 ** -7,
+                               atol=1e-3 * ref.abs().max().item())
+    return ck.conv_dx.launches - before[0], ck.conv_dx.wgmma_launches - before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ck.WGMMA_DX_EDGES)
+def test_conv_dx_wgmma_matches_plain_on_card(card, case):
+    """bf16 dx against the plain version: one bf16 rounding apart (2^-7),
+    plus the f32 order near zero (1e-3 of the largest value)."""
+    assert _dx_case(card, *case, seed=5) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DX_WMMA_CASES)
+def test_conv_dx_other_bf16_shapes_take_wmma_on_card(card, case):
+    assert _dx_case(card, *case, seed=6) == (1, 0)
 
 
 @pytest.mark.cuda

@@ -18,7 +18,9 @@ The backward is two kernels from ``csrc/conv_bwd.cu``:
 Each wrapper runs its kernel's plain im2col version (:func:`conv_dw_plain`,
 :func:`conv_dx_plain`) when the tensors lie on the CPU, and only then: on
 a CUDA tensor it launches the kernel or raises. ``conv_dw.launches`` /
-``conv_dx.launches`` count kernel launches.
+``conv_dx.launches`` count kernel launches; ``conv_dx.wgmma_launches``
+counts those of them that took the Hopper (wgmma + TMA) ``conv_dx``,
+which the launcher picks by shape and reports after the launch.
 
 Restrictions (asserted, as in the reference): odd square kernels,
 stride 1, SAME padding.
@@ -96,7 +98,7 @@ def _lib() -> ctypes.CDLL:
         lib.tpfl_conv_dw_splits.restype = i
         lib.tpfl_conv_dw.argtypes = [vp, vp, vp, vp] + [i] * 9 + [vp]
         lib.tpfl_conv_dw.restype = i
-        lib.tpfl_conv_dx.argtypes = [vp, vp, vp] + [i] * 8 + [vp]
+        lib.tpfl_conv_dx.argtypes = [vp, vp, vp] + [i] * 8 + [vp, ctypes.POINTER(i)]
         lib.tpfl_conv_dx.restype = i
         lib._tpfl_typed = True
     return lib
@@ -171,17 +173,32 @@ def conv_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"conv_dx: g {tuple(g.shape)} vs w {tuple(w.shape)}")
     dx = torch.empty((n, b, h, wd, cin), device=g.device, dtype=g.dtype)
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = _lib().tpfl_conv_dx(
-        g.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        n, b, h, wd, cin, cout, k, code, stream,
-    )
-    _raise_on(err, "conv_dx")
+    # The launcher picks the kernel by shape and says whether it took wgmma.
+    took_wgmma = ctypes.c_int(0)
+    _raise_on(_lib().tpfl_conv_dx(g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, b, h, wd,
+                                  cin, cout, k, code, stream, ctypes.byref(took_wgmma)),
+              "conv_dx")
     conv_dx.launches += 1
+    conv_dx.wgmma_launches += took_wgmma.value
     return dx
 
 
+# bf16 conv_dx shapes at the edges of the wgmma kernel's rule, each of which
+# must take it: (Cin, Cout, (H, W), B, N). 32-channel input tiles cut by Cin,
+# one or two 64-channel chunks of Cout, images from one pixel to the largest
+# whose halo'd chunks fit a 2-stage ring beside the weights on an H100 (512
+# pixels at Cout = 64; at Cout = 128 the weights take twice the room). About
+# 200 images, so the persistent blocks' image ranges cross node boundaries
+# (B = 1: every image is a node of its own).
+_DX_EDGE_HW = {64: [(16, 16), (5, 7), (1, 1), (16, 32)],
+               128: [(16, 16), (5, 7), (1, 1), (20, 22)]}
+WGMMA_DX_EDGES = [(cin, cout, hw, b, 203 if b == 1 else 67)
+                  for cin in (8, 32, 40, 64) for cout in (64, 128)
+                  for hw in _DX_EDGE_HW[cout] for b in (1, 3)]
+
 conv_dw.launches = 0
 conv_dx.launches = 0
+conv_dx.wgmma_launches = 0
 
 
 def conv_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,48 @@
 // What bounds them on an H100: at the federation's shapes (N=100, B=128,
 // 32x32x3->32 and 16x16x32->64, bf16) each launch moves 0.6-0.9 GB and does
 // 23-121 GFLOP, so the least time is set by the bytes (0.19-0.27 ms at
-// 3.35 TB/s), not by the tensor cores.
+// 3.35 TB/s), not by the tensor cores. conv_dx at Conv_1 (dout
+// [100,128,16,16,64] -> dx [...,32]) reads 419 MB and writes 210 MB:
+// 0.189 ms of bytes against 0.122 ms of products at 989 TFLOP/s, so the
+// tensor cores are not far behind.
 //
-// What the design does about it:
+// conv_dx on Hopper (bf16, the main path; section "conv_dx on Hopper"):
+//   * One read of dout, the halo for free. The work unit is one image of
+//     one node: a 4-D TMA map views dout as [N*B, H, W, Cout] and one box
+//     of [64 channels, W+2, H+2, 1] starting at (c0, -1, -1, image) lands
+//     the zero-haloed image in shared memory -- TMA fills coordinates
+//     outside the tensor with zeros, which is exactly the SAME halo. Each
+//     dout element leaves device memory once (per 32 input channels).
+//     Boxes use the 128-byte swizzle: a pixel's 64 channels are one row.
+//   * Weights are the B operand, resident for a node. w [k,k,Cin,Cout] has
+//     Cout innermost, so tap (di,dj) of rot180(w)^T is the slice
+//     w[2-di, 2-dj] as it stands: Cin rows of 64 contiguous Cout values, a
+//     K-major B tile. All 9 taps (of the block's 32 input channels) load
+//     with one box when a block starts a node.
+//   * Nine shifted-tap products on wgmma. For a 64-pixel M-tile and tap
+//     (di,dj) the A rows are the halo tile's rows (i+di)(W+2) + (j+dj).
+//     They do not start on swizzle atoms, so they cannot be a descriptor:
+//     ldmatrix.x4 loads them, with per-lane row addresses and the swizzle
+//     XOR applied, as the register A fragment of m64k16; wgmma.m64n32k16
+//     multiplies it with the tap's weight tile. A tap's fragments load
+//     while the previous tap's products run. 9 taps x Cout/16 k-steps sum
+//     in one f32 accumulator; dx is rounded to bf16 once.
+//   * A producer warp keeps TMA loads of the next images in a ring of 2-4
+//     stages (mbarriers, each wait traps after ~10 s) while four consumer
+//     warpgroups multiply; one persistent block per SM walks a contiguous
+//     range of images, so it loads its weights once per node it touches.
+//   * Output: accumulator -> bf16 -> a per-warp shared tile -> 16-byte
+//     stores of dx rows; pixels past H*W in the last M-tile are masked.
+//   * Chosen by shape before launch, never on failure (dx_variant;
+//     tpfl_conv_dx reports whether it took this kernel): bf16, k = 3, Cout a multiple of 64, Cin a
+//     multiple of 8 up to 64 (one or two 32-channel tiles), H*W <= 512
+//     (two 64-pixel accumulators per warpgroup), W+2 and H+2 <= 256 (a TMA
+//     box), 16-byte-aligned g, w and dx, and the weights plus a ring of
+//     at least two halo'd images in the card's shared memory. Other bf16
+//     shapes take the WMMA kernel below, f32 the CUDA-core kernel. A
+//     refused tensor map or launch returns an error.
+//
+// The other kernels:
 //   * Implicit im2col: patch entries are computed on the fly from the NHWC
 //     input with bounds checks that produce the zero SAME halo, in the
 //     channel order (di*k + dj)*C + ci of conv_kernel.py:68-79. No patch
@@ -38,9 +77,8 @@
 //     SM, which hide each stage's load latency. f32 operands (tests, f32
 //     models) take CUDA-core kernels with 8 f32 accumulators per thread.
 //   * Still far above the memory bound: each stage loads, waits and
-//     multiplies in turn, with scalar 2-byte loads. Overlapping the next
-//     stage's loads with this stage's products (cp.async or TMA into a ring
-//     of tiles) and wgmma are the next steps.
+//     multiplies in turn, with scalar 2-byte loads; the WMMA conv_dx also
+//     fetches each dout element once per tap (nine times). conv_dw is next.
 //
 // Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError() after its launches. Kernels run on the caller's stream
@@ -50,9 +88,14 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+#include <algorithm>
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
+
+namespace hp = hopper;
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -522,6 +565,198 @@ conv_dx_wmma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
   }
 }
 
+// ---- conv_dx on Hopper (bf16): halo'd TMA images, shifted taps on wgmma ------
+// Block: kDxWG consumer warpgroups, then one producer warp; one block per
+// SM. Warpgroup wg owns the image's 64-pixel M-tiles wg, wg + kDxWG, ...
+// (at most kDxTilesPerWG of them, each with its own accumulator, since an
+// image arrives as Cout/64 ring stages that all add into them) and the
+// block's 32 input channels (blockIdx.y). Shared memory, 1024-aligned:
+// the weights [Cout/64][9 taps][32 rows][128 B], the ring of halo'd image
+// chunks [H+2][W+2][128 B] (one TMA box each), the per-warp output tiles,
+// the mbarriers. Four warpgroups of one M-tile each (at 16x16) hide each
+// tap's ldmatrix and wgmma latency better than two of two tiles, or two
+// issuing a pair of tiles per tap, although ptxas then budgets 96
+// registers a thread (a block's registers are counted in whole warpgroups)
+// and spills a few bytes.
+constexpr int kDxWG = 4;
+constexpr int kDxTilesPerWG = 2;
+constexpr int kDxMaxPixels = 64 * kDxWG * kDxTilesPerWG;
+constexpr int kDxN = 32;      // input channels a block computes (wgmma N)
+constexpr int kDxMaxCin = 64;
+constexpr int kDxMaxStages = 4;
+constexpr int kDxTapBytes = kDxN * 128;           // one tap's weight tile
+constexpr int kDxChunkWBytes = 9 * kDxTapBytes;   // 9 taps of 64 Cout channels
+constexpr int kDxOutPitch = 80;                   // bytes a row of a warp's output tile
+constexpr int kDxOutBytes = kDxWG * 4 * 16 * kDxOutPitch;
+constexpr int kDxThreads = kDxWG * 128 + 32;
+
+__device__ __forceinline__ char* align1024(char* p) {
+  const uint32_t a = hp::smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// This thread's share of the A fragments of one tap, k-steps 0..3 (64
+// channels): row r of the halo tile (its 8 rows for this lane's matrix),
+// 16-byte chunk 2 kk + hi stored at chunk (2 kk + hi) ^ (r % 8).
+__device__ __forceinline__ void load_tap(uint32_t (&a)[4][4], uint32_t tile, int r, uint32_t hi) {
+  const uint32_t row = tile + (uint32_t)r * 128, x = (uint32_t)r & 7;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) hp::ldmatrix_x4(a[kk], row + (((2 * kk + hi) ^ x) << 4));
+}
+
+// acc[64 x 32] += the nine shifted-tap products of one M-tile against one
+// 64-channel chunk of Cout. r0: this lane's halo row at tap (0, 0). Tap t
+// (di, dj) = (t / 3, t % 3) multiplies weight tile 8 - t, i.e.
+// w[2 - di, 2 - dj]. The next tap's fragments load while this tap's
+// products run.
+__device__ __forceinline__ void mtile_products(float (&acc)[16], uint32_t tile, const char* wt,
+                                               int r0, int W2, uint32_t hi) {
+  uint32_t a[2][4][4];
+  load_tap(a[0], tile, r0, hi);
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    hp::wgmma_fence();
+    const uint64_t db = hp::desc_sw128(wt + (8 - t) * kDxTapBytes, 16, 1024);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hp::wgmma_rs_kmajor(acc, a[t & 1][kk], db + 2 * kk, 1);
+    hp::wgmma_commit();
+    if (t < 8) {
+      hp::wgmma_wait<1>();  // tap t - 1 is done with the buffer tap t + 1 fills
+      load_tap(a[(t + 1) & 1], tile, r0 + ((t + 1) / 3) * W2 + (t + 1) % 3, hi);
+    }
+  }
+  hp::wgmma_wait<0>();
+  hp::fence_regs(acc);
+}
+
+// An M-tile's accumulator rounded to bf16, through this warp's output tile
+// (16 rows x 80 bytes) into dx rows m0 .. m0 + 15 of one image,
+// columns ci0 .. ci0 + cw: 16-byte stores, pixels past HW masked.
+__device__ __forceinline__ void store_mtile(const float (&acc)[16], char* out, bf16* dst, int m0,
+                                            int HW, int Cin, int ci0, int cw) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(out + (lane / 4 + 8 * h) * kDxOutPitch +
+                                         (8 * j + 2 * (lane % 4)) * 2) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  __syncwarp();
+  const int per_row = cw / 8;
+  for (int e = lane; e < 16 * per_row; e += 32) {
+    const int row = e / per_row, c = e % per_row, m = m0 + row;
+    if (m < HW)
+      *reinterpret_cast<uint4*>(dst + (size_t)m * Cin + ci0 + 8 * c) =
+          *reinterpret_cast<const uint4*>(out + row * kDxOutPitch + 16 * c);
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kDxThreads, 1)
+conv_dx_wgmma(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CUtensorMap map_w,
+              bf16* __restrict__ dx, int NB, int B, int H, int W, int Cin, int chunks, int stages,
+              int stage_bytes) {
+  extern __shared__ char smem_raw[];
+  char* Ws = align1024(smem_raw);
+  char* ring = Ws + chunks * kDxChunkWBytes;
+  char* outs = ring + stages * stage_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + kDxOutBytes);
+  uint64_t* empty = full + stages;
+  uint64_t* w_full = empty + stages;
+  uint64_t* w_empty = w_full + 1;
+
+  const int HW = H * W, W2 = W + 2;
+  const int ci0 = blockIdx.y * kDxN;
+  const int img0 = (int)((long)blockIdx.x * NB / gridDim.x);
+  const int img1 = (int)((long)(blockIdx.x + 1) * NB / gridDim.x);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hp::mbar_init(full + s, 1);
+      hp::mbar_init(empty + s, kDxWG * 4);
+    }
+    hp::mbar_init(w_full, 1);
+    hp::mbar_init(w_empty, kDxWG * 4);
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // provably warp-uniform
+  const int lane = threadIdx.x % 32;
+  if (wg == kDxWG) {  // producer warp: lane 0 issues every load
+    if (lane == 0) {
+      const uint32_t box_bytes = (uint32_t)(H + 2) * W2 * 128;
+      int node = -1, loads = 0, u = 0;
+      for (int img = img0; img < img1; ++img) {
+        if (img / B != node) {  // a new node: its weights, once the last node's are done
+          node = img / B;
+          if (loads > 0) hp::mbar_wait(w_empty, (loads - 1) & 1);
+          hp::mbar_arrive_expect_tx(w_full, chunks * kDxChunkWBytes);
+          for (int h = 0; h < chunks; ++h)
+            hp::tma_load_4d(Ws + h * kDxChunkWBytes, &map_w, w_full, 64 * h, ci0, 0, node);
+          ++loads;
+        }
+        for (int h = 0; h < chunks; ++h, ++u) {
+          const int s = u % stages;
+          hp::mbar_wait(empty + s, ((u / stages) & 1) ^ 1);
+          hp::mbar_arrive_expect_tx(full + s, box_bytes);
+          hp::tma_load_4d(ring + s * stage_bytes, &map_g, full + s, 64 * h, -1, -1, img);
+        }
+      }
+    }
+  } else {
+    const int warp = (threadIdx.x % 128) / 32;
+    const int n_mt = (HW + 63) / 64;
+    const uint32_t hi = lane >> 4;  // ldmatrix matrices 2, 3: k-columns 8..15
+    const int cw = min(kDxN, Cin - ci0);
+    char* out = outs + (wg * 4 + warp) * 16 * kDxOutPitch;
+    // This lane's ldmatrix row of each M-tile as a halo-tile row at tap
+    // (0, 0); masked pixels read pixel 0 and are never stored.
+    int r0[kDxTilesPerWG];
+#pragma unroll
+    for (int q = 0; q < kDxTilesPerWG; ++q) {
+      int m = (wg + kDxWG * q) * 64 + 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+      if (m >= HW) m = 0;
+      r0[q] = (m / W) * W2 + m % W;
+    }
+    float acc[kDxTilesPerWG][16];
+    int node = -1, loads = 0, u = 0;
+    for (int img = img0; img < img1; ++img) {
+      if (img / B != node) {
+        node = img / B;
+        hp::mbar_wait(w_full, loads & 1);
+        ++loads;
+      }
+#pragma unroll
+      for (int q = 0; q < kDxTilesPerWG; ++q)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[q][i] = 0.f;
+      for (int h = 0; h < chunks; ++h, ++u) {
+        const int s = u % stages;
+        hp::mbar_wait(full + s, (u / stages) & 1);
+        __syncwarp();  // wgmma is .aligned: the warp converged after the spin
+        const uint32_t tile = hp::smem_u32(ring + s * stage_bytes);
+        const char* wt = Ws + h * kDxChunkWBytes;
+#pragma unroll
+        for (int q = 0; q < kDxTilesPerWG; ++q)
+          if (wg + kDxWG * q < n_mt) mtile_products(acc[q], tile, wt, r0[q], W2, hi);
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(empty + s);
+      }
+      if (img + 1 == img1 || (img + 1) / B != node) {  // the node's weights are free
+        __syncwarp();
+        if (lane == 0) hp::mbar_arrive(w_empty);
+      }
+      bf16* dst = dx + (size_t)img * HW * Cin;
+#pragma unroll
+      for (int q = 0; q < kDxTilesPerWG; ++q)
+        if (wg + kDxWG * q < n_mt)
+          store_mtile(acc[q], out, dst, (wg + kDxWG * q) * 64 + 16 * warp, HW, Cin, ci0, cw);
+    }
+  }
+}
+
 inline unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
 
 // conv_dw's block tile for a dtype: {rows of k*k*Cin, columns of Cout,
@@ -573,6 +808,68 @@ void launch_dw(const void* x, const void* g, void* partial, void* out, int N,
   }
 }
 
+// The kernel tpfl_conv_dx launches for a shape.
+enum DxVariant { kDxCudaCores = 0, kDxWmma = 1, kDxWgmma = 2 };
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
+
+// Ring depth, stage size and dynamic shared memory of a wgmma conv_dx launch.
+struct DxPlan { int stages, stage_bytes; size_t smem; };
+
+// The shape rule of the wgmma conv_dx (the note at the top of this file):
+// kDxWgmma with *plan filled, or the kernel the shape takes instead, or
+// -(CUDA error) if the card cannot be queried.
+int dx_variant(const void* g, const void* w, const void* dx, int H, int W, int Cin, int Cout,
+               int k, int dtype, DxPlan* plan) {
+  if (dtype == 0) return kDxCudaCores;
+  if (k != 3 || Cout % 64 != 0 || Cin % 8 != 0 || Cin < 8 || Cin > kDxMaxCin || H < 1 ||
+      W < 1 || H * W > kDxMaxPixels || H + 2 > 256 || W + 2 > 256 || !aligned16(g) ||
+      !aligned16(w) || !aligned16(dx))
+    return kDxWmma;
+  int dev, optin;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const int stage_bytes = ((H + 2) * (W + 2) * 128 + 1023) / 1024 * 1024;
+  for (int stages = kDxMaxStages; stages >= 2; --stages) {
+    const size_t smem = 1024 + (size_t)(Cout / 64) * kDxChunkWBytes +
+                        (size_t)stages * stage_bytes + kDxOutBytes + (2 * stages + 2) * 8;
+    if (smem <= (size_t)optin) {
+      *plan = DxPlan{stages, stage_bytes, smem};
+      return kDxWgmma;
+    }
+  }
+  return kDxWmma;
+}
+
+cudaError_t launch_dx_wgmma(const void* g, const void* w, void* dx, int N, int B, int H, int W,
+                            int Cin, int Cout, const DxPlan& plan, cudaStream_t st) {
+  // dout as [N*B, H, W, Cout] and w as [N, 9, Cin, Cout], innermost first.
+  CUtensorMap map_g, map_w;
+  const cuuint64_t g_dims[4] = {(cuuint64_t)Cout, (cuuint64_t)W, (cuuint64_t)H,
+                                (cuuint64_t)N * B};
+  const cuuint32_t g_box[4] = {64, (cuuint32_t)(W + 2), (cuuint32_t)(H + 2), 1};
+  const cuuint64_t w_dims[4] = {(cuuint64_t)Cout, (cuuint64_t)Cin, 9, (cuuint64_t)N};
+  const cuuint32_t w_box[4] = {64, (cuuint32_t)kDxN, 9, 1};
+  if (!hp::make_bf16_map_nd(&map_g, g, 4, g_dims, g_box) ||
+      !hp::make_bf16_map_nd(&map_w, w, 4, w_dims, w_box))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_dx_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+  int dev, sms;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // Persistent: one block per SM, each a contiguous range of images.
+  const int tiles = (Cin + kDxN - 1) / kDxN;
+  const int blocks = std::max(1, std::min(N * B, sms / tiles));
+  conv_dx_wgmma<<<dim3(blocks, tiles), kDxThreads, plan.smem, st>>>(
+      map_g, map_w, static_cast<bf16*>(dx), N * B, B, H, W, Cin, Cout / 64, plan.stages,
+      plan.stage_bytes);
+  return cudaGetLastError();
+}
+
 template <typename T>
 void launch_dx(const void* g, const void* w, void* dx, int N, int B, int H,
                int W, int Cin, int Cout, int k, cudaStream_t st) {
@@ -620,15 +917,26 @@ int tpfl_conv_dw(const void* x, const void* g, void* partial, void* out, int N,
 }
 
 // g [N,B,H,W,Cout], w [N,k,k,Cin,Cout] (same dtype) -> dx [N,B,H,W,Cin].
+// *took_wgmma: 1 if the launch took the wgmma kernel (the shape rule at the
+// top of this file), else 0.
 int tpfl_conv_dx(const void* g, const void* w, void* dx, int N, int B, int H,
-                 int W, int Cin, int Cout, int k, int dtype, void* stream) {
+                 int W, int Cin, int Cout, int k, int dtype, void* stream,
+                 int* took_wgmma) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  *took_wgmma = 0;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  DxPlan plan;
+  const int variant = dx_variant(g, w, dx, H, W, Cin, Cout, k, dtype, &plan);
+  if (variant < 0) return -variant;
+  if (variant == kDxWgmma) {
+    const cudaError_t err = launch_dx_wgmma(g, w, dx, N, B, H, W, Cin, Cout, plan, st);
+    *took_wgmma = err == cudaSuccess;
+    return (int)err;
+  }
   if (dtype == 0)
     launch_dx<float>(g, w, dx, N, B, H, W, Cin, Cout, k, st);
-  else if (dtype == 1)
-    launch_dx<bf16>(g, w, dx, N, B, H, W, Cin, Cout, k, st);
   else
-    return (int)cudaErrorInvalidValue;
+    launch_dx<bf16>(g, w, dx, N, B, H, W, Cin, Cout, k, st);
   return (int)cudaGetLastError();
 }
 

@@ -103,6 +103,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The same for a 4-D tensor map. Coordinates may be negative or run past
+// the tensor: those elements load as zeros (and still count as bytes).
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory into registers: lanes 8i..8i+7
+// give the row addresses (16 bytes each) of matrix i, and r[i] receives
+// this thread's pair of it (row lane / 4, columns 2 (lane % 4) + {0, 1}).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
 // ---- wgmma ----------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
@@ -185,6 +205,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B K-major in shared
+// memory (32 rows of N, K contiguous): the transpose immediate is 0.
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A in registers, B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
@@ -209,14 +243,14 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 
 // ---- host: tensor maps ------------------------------------------------------
 
-// [n2, n1, n0] bf16 row-major (n0 innermost, a multiple of 8) as a 3-D
-// tensor map with boxes of 64 x box_rows x 1 and the 128-byte swizzle.
-// Elements outside the tensor (columns >= n0, rows >= n1) load as zeros,
-// so a box never reaches into the next head. cuTensorMapEncodeTiled is
-// looked up through the runtime, so nothing links against libcuda.
-// Returns false if the encoder is missing or refuses the map.
-inline bool make_bf16_map(CUtensorMap* map, const void* base, int n2, int n1, int n0,
-                          int box_rows) {
+// A row-major bf16 tensor of `rank` dimensions (dims innermost first, the
+// innermost a multiple of 8) as a tensor map with the 128-byte swizzle
+// and boxes of box[] elements (box[0] = 64: one 128-byte row). Elements
+// outside the tensor load as zeros. cuTensorMapEncodeTiled is looked up
+// through the runtime, so nothing links against libcuda. Returns false
+// if the encoder is missing or refuses the map.
+inline bool make_bf16_map_nd(CUtensorMap* map, const void* base, int rank,
+                             const cuuint64_t* dims, const cuuint32_t* box) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -230,15 +264,26 @@ inline bool make_bf16_map(CUtensorMap* map, const void* base, int n2, int n1, in
       fn = nullptr;
     return reinterpret_cast<Encode>(fn);
   }();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
-  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2, (cuuint64_t)n1 * n0 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  if (encode == nullptr || rank < 1 || rank > 5) return false;
+  cuuint64_t strides[4];
+  cuuint64_t stride = 2;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [n2, n1, n0] bf16 row-major (n0 innermost, a multiple of 8) as a 3-D
+// tensor map with boxes of 64 x box_rows x 1 and the 128-byte swizzle.
+// Elements outside the tensor (columns >= n0, rows >= n1) load as zeros,
+// so a box never reaches into the next head.
+inline bool make_bf16_map(CUtensorMap* map, const void* base, int n2, int n1, int n0,
+                          int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  return make_bf16_map_nd(map, base, 3, dims, box);
 }
 
 }  // namespace hopper
