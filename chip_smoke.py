@@ -10,19 +10,26 @@
    layers), holds it against its plain PyTorch version on the same
    inputs, and times the kernel, the plain version and PyTorch's own
    conv backward (``aten.convolution_backward``, a yardstick the port
-   never calls). The bf16 ``conv_dx`` must take the Hopper (wgmma + TMA)
-   kernel there and at 64 edge cases (Cin 8 / 32 / 40 / 64, Cout 64 /
-   128, images from 1×1 to the largest the kernel's ring holds, B 1 / 3,
-   ~200 images so the persistent blocks' ranges cross nodes), each held
-   against the plain version at the main shape's tolerance.
-3. CNN reference phase: a small f32 federation round with the kernels
-   (``conv_impl="pallas"``) against plain autograd (``conv_impl="xla"``).
+   never calls). The bf16 ``conv_dw`` and ``conv_dx`` must take their
+   Hopper (wgmma + TMA) kernels there, ``conv_dw`` with the same bits on
+   a second run; so must 64 ``conv_dx`` edge cases (Cin 8 / 32 / 40 / 64,
+   Cout 64 / 128, images from 1×1 to the largest the kernel's ring holds,
+   B 1 / 3, ~200 images so the persistent blocks' ranges cross nodes) and
+   72 ``conv_dw`` ones (Cin 3 / 8 / 32, Cout 32 / 64 / 128, odd images, B
+   1 / 3), each held against the plain version at the main shapes'
+   tolerance. Both kernels also run at 65,537 nodes (bf16 and f32).
+3. CNN reference phase: small f32 federation rounds with the kernels
+   (``conv_impl="pallas"``) and with the forward-style backward
+   (``"fwd_bwd"``) against plain autograd (``conv_impl="xla"``), cuDNN's
+   TF32 off.
 4. CNN main path: ``VmapFederation(CNN(out_channels=10,
    conv_impl="pallas"), n_nodes=100)`` runs FedAvg rounds on seeded
    synthetic CIFAR-shaped data (4 batches of 128 per node, 1 epoch);
    every kernel must have launched (8 conv_dw and 4 conv_dx launches per
-   round, every conv_dx on the wgmma kernel), every loss must be finite
-   and every node must hold the same aggregate.
+   round, every one on its wgmma kernel), every loss must be finite
+   and every node must hold the same aggregate. Then the same round with
+   the reference's default ``conv_impl="fwd_bwd"`` (library
+   convolutions, no kernel of the port) gives the round's yardstick.
 5. Flash kernel phase: ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at
    the transformer main path's shape (B·H = 64·8, S = 2048, D = 64,
    causal, bf16) and at the long-context one (B·H = 1·8, S = 32768), each
@@ -39,8 +46,10 @@
    (and any ptxas warning about wgmma) and, from ``cuobjdump -sass``, the
    count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA load) and ``LDGSTS``
    (``cp.async``) instructions in each kernel; the main path's
-   ``flash_fwd`` and ``flash_dkv`` must have HGMMA and UTMALDG, its
-   ``conv_dx`` HGMMA and UTMALDG or LDGSTS.
+   ``flash_fwd``, ``flash_dkv`` and both ``conv_dw`` instantiations must
+   have HGMMA and UTMALDG, its ``conv_dx`` HGMMA and UTMALDG or LDGSTS.
+   Limit cases, bf16 and f32, forward and both gradients: B·H = 65,537
+   and head dims 136, 200, 256 and 320.
 6. Transformer reference phase: a small f32 federated ``TransformerLM``
    round with ``attention_fn=flash_attention`` against the same round
    with ``blockwise_attention``.
@@ -162,12 +171,17 @@ def sass_counts(src: str) -> dict[str, dict]:
 
 
 # The main path's instantiations of the redesigned kernels (bf16; D = 64
-# for flash), as parts of their mangled names: (source, name part, the
-# SASS instructions of which each needs at least one of every group).
+# for flash; conv_dw's 3-D view with 32-channel chunks at Conv_0 and 4-D
+# view with 64-channel chunks at Conv_1), as parts of their mangled names:
+# (source, name part, the SASS instructions of which each needs at least
+# one of every group).
+_TMA_WGMMA = (("HGMMA",), ("UTMALDG",))
 WGMMA_KERNELS = {
-    "flash_fwd": ("flash_attn", "flash_fwd_wgmmaILi64E13__nv_bfloat16", (("HGMMA",), ("UTMALDG",))),
-    "flash_dkv": ("flash_attn", "flash_dkv_wgmmaILi64E13__nv_bfloat16", (("HGMMA",), ("UTMALDG",))),
-    "conv_dx": ("conv_bwd", "conv_dx_wgmma", (("HGMMA",), ("UTMALDG", "LDGSTS"))),
+    "flash_fwd": [("flash_attn", "flash_fwd_wgmmaILi64E13__nv_bfloat16", _TMA_WGMMA)],
+    "flash_dkv": [("flash_attn", "flash_dkv_wgmmaILi64E13__nv_bfloat16", _TMA_WGMMA)],
+    "conv_dx": [("conv_bwd", "conv_dx_wgmma", (("HGMMA",), ("UTMALDG", "LDGSTS")))],
+    "conv_dw": [("conv_bwd", "conv_dw_wgmmaILb1ELi32E", _TMA_WGMMA),
+                ("conv_bwd", "conv_dw_wgmmaILb0ELi64E", _TMA_WGMMA)],
 }
 
 
@@ -185,7 +199,7 @@ def build_report() -> dict[str, dict]:
         for line in _build.build_log(src).splitlines():
             if "wgmma" in line.lower() and "warning" in line.lower():
                 log(f"ptxas[{src}] {line.strip()[:300]}")
-    sources = sorted({src for src, _, _ in WGMMA_KERNELS.values()})
+    sources = sorted({src for parts in WGMMA_KERNELS.values() for src, _, _ in parts})
     sass = {src: sass_counts(src) for src in sources}
     for src in sources:
         names = _demangle(list(sass[src]))
@@ -193,12 +207,15 @@ def build_report() -> dict[str, dict]:
             log(f"sass[{src}] {names[name][:110]}: "
                 + ", ".join(f"{op} {n}" for op, n in counts.items()))
     out = {}
-    for kernel, (src, part, needs) in WGMMA_KERNELS.items():
-        key = next((n for n in sass[src] if part in n), None)
-        if key is None or not all(any(sass[src][key][op] for op in group) for group in needs):
-            raise AssertionError(f"{kernel}: no {part} with {needs} in the build's SASS")
-        out[kernel] = {"kernel": _demangle([key])[key].split("(CUtensorMap")[0],
-                       **sass[src][key], **reports[src].get(key, {})}
+    for kernel, parts in WGMMA_KERNELS.items():
+        found = []
+        for src, part, needs in parts:
+            key = next((n for n in sass[src] if part in n), None)
+            if key is None or not all(any(sass[src][key][op] for op in group) for group in needs):
+                raise AssertionError(f"{kernel}: no {part} with {needs} in the build's SASS")
+            found.append({"kernel": _demangle([key])[key].split("(CUtensorMap")[0],
+                          **sass[src][key], **reports[src].get(key, {})})
+        out[kernel] = found[0] if len(found) == 1 else found
     return out
 
 
@@ -278,8 +295,14 @@ def kernel_phase() -> list[dict]:
         wk = (0.1 * torch.randn(N_NODES, 3, 3, cin, cout, device="cuda",
                                 generator=gen)).to(bf16)
         m = N_NODES * BATCH * h * w
-        # conv_dw: f32 sums of the same bf16 products in another order.
+        # conv_dw: f32 sums of the same bf16 products in another order;
+        # the same bits run to run (no float atomics).
+        wgmma = ck.conv_dw.wgmma_launches
         dw = ck.conv_dw(x, g, 3)
+        if ck.conv_dw.wgmma_launches != wgmma + 1:
+            raise AssertionError(f"conv_dw[{name}]: the main shape did not take the wgmma kernel")
+        if not torch.equal(ck.conv_dw(x, g, 3), dw):
+            raise AssertionError(f"conv_dw[{name}]: two runs differ")
         err = check_close(f"conv_dw[{name}]", dw, ck.conv_dw_plain(x, g, 3), 1e-4, 1e-4)
         nbytes = (x.numel() + g.numel()) * 2 + dw.numel() * 4
         per["conv_dw"].append({
@@ -324,6 +347,63 @@ def kernel_phase() -> list[dict]:
     return rows
 
 
+def conv_dw_edge_cases() -> float:
+    """Each bf16 edge case of the wgmma conv_dw (``ck.WGMMA_DW_EDGES``, the
+    card tests' shapes) against the plain version at the main shapes'
+    tolerance, and against itself run again (the same bits); fails unless
+    each took the wgmma kernel. Returns the worst max |err| relative to the
+    case's largest value."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = 0.0
+    for cin, cout, (h, w), b, n in ck.WGMMA_DW_EDGES:
+        x = torch.randn(n, b, h, w, cin, device="cuda", generator=gen).to(torch.bfloat16)
+        g = torch.randn(n, b, h, w, cout, device="cuda", generator=gen).to(torch.bfloat16)
+        wgmma = ck.conv_dw.wgmma_launches
+        dw = ck.conv_dw(x, g, 3)
+        label = f"conv_dw[Cin={cin} Cout={cout} {h}x{w} B={b} N={n}]"
+        if ck.conv_dw.wgmma_launches != wgmma + 1:
+            raise AssertionError(f"{label}: did not take the wgmma kernel")
+        if not torch.equal(ck.conv_dw(x, g, 3), dw):
+            raise AssertionError(f"{label}: two runs differ")
+        ref = ck.conv_dw_plain(x, g, 3)
+        err = check_close(label, dw, ref, 1e-4, 1e-4)
+        worst = max(worst, err / ref.abs().max().item())
+    return worst
+
+
+def conv_node_limit_cases() -> dict:
+    """conv_dw and conv_dx at 65,537 nodes (more than a grid's y or z axis
+    holds), B = 1, 4×8 images: bf16 conv_dw on the wgmma kernel (the 4-D
+    view at Cin 8 -> Cout 64, the 3-D view at Cin 3 -> Cout 32, W·Cin a
+    multiple of 8), bf16 conv_dx on it at Cin 8 -> Cout 64 (WMMA at
+    Cout 32), and f32 on the CUDA-core kernels, each against its plain
+    version at the main shapes' tolerances; fails if a launch took another
+    kernel than its rule says. Returns {case: max |err|}."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+    for dtype, cin, cout in ((torch.bfloat16, 8, 64), (torch.bfloat16, 3, 32),
+                             (torch.float32, 3, 5)):
+        n = 65537
+        x = torch.randn(n, 1, 4, 8, cin, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(n, 1, 4, 8, cout, device="cuda", generator=gen).to(dtype)
+        wk = torch.randn(n, 3, 3, cin, cout, device="cuda", generator=gen).to(dtype)
+        label = f"N={n} {str(dtype)[6:]} {cin}->{cout}"
+        wgmma = (ck.conv_dw.wgmma_launches, ck.conv_dx.wgmma_launches)
+        err = check_close(f"conv_dw[{label}]", ck.conv_dw(x, g, 3), ck.conv_dw_plain(x, g, 3),
+                          1e-4, 1e-4)
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+        err = max(err, check_close(f"conv_dx[{label}]", ck.conv_dx(g, wk),
+                                   ck.conv_dx_plain(g, wk), rtol, 1e-3))
+        bf16 = dtype == torch.bfloat16
+        took = (ck.conv_dw.wgmma_launches - wgmma[0], ck.conv_dx.wgmma_launches - wgmma[1])
+        if took != (bf16, bf16 and cout % 64 == 0):
+            raise AssertionError(f"conv[{label}]: wgmma launches (conv_dw, conv_dx) {took}")
+        out[label] = err
+        del x, g, wk
+    torch.cuda.empty_cache()
+    return out
+
+
 def conv_edge_cases() -> float:
     """Each bf16 edge case of the wgmma conv_dx (``ck.WGMMA_DX_EDGES``, the
     card tests' shapes) against the plain version at the main shape's
@@ -346,18 +426,25 @@ def conv_edge_cases() -> float:
 
 
 def reference_phase() -> None:
-    """A small f32 round with the kernels against plain autograd, on
-    the card. Tolerance: f32 sums in other orders over 2 SGD steps."""
+    """Small f32 rounds on the card: the kernels (``conv_impl="pallas"``)
+    and the forward-style backward (``"fwd_bwd"``, the default) each
+    against plain autograd (``"xla"``). cuDNN's TF32 is off
+    (``torch.backends.cudnn.allow_tf32 = False``, as ``kernel_phase`` set
+    it), so every convolution sums in f32. Tolerance: f32 sums in other
+    orders over 2 SGD steps."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(1)
     xs = rng.uniform(size=(4, 2, 16, 32, 32, 3)).astype(np.float32)
     ys = rng.integers(0, 10, size=(4, 2, 16)).astype(np.int32)
     out = {}
-    for impl in ("pallas", "xla"):
+    for impl in ("pallas", "fwd_bwd", "xla"):
         fed = VmapFederation(CNN(out_channels=10, compute_dtype=torch.float32,
                                  conv_impl=impl), n_nodes=4, seed=0)
         out[impl] = fed.round(fed.init_params((32, 32, 3)), xs, ys,
                               weights=[1.0, 0.0, 2.0, 1.0])
     assert_trees_close(out["pallas"], out["xla"])
+    assert_trees_close(out["fwd_bwd"], out["xla"])
 
 
 def assert_trees_close(got: tuple, want: tuple) -> None:
@@ -387,15 +474,19 @@ WRAPPERS = {"conv_dw": ck.conv_dw, "conv_dx": ck.conv_dx, "flash_fwd": fk.flash_
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-    ck.conv_dx.wgmma_launches = 0
+    ck.conv_dw.wgmma_launches = ck.conv_dx.wgmma_launches = 0
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def main_path(card: str) -> dict:
-    fed = VmapFederation(CNN(out_channels=10, conv_impl="pallas"),
+def cnn_rounds(conv_impl: str) -> tuple:
+    """The 100-node CNN FedAvg round with ``conv_impl``: one warm-up round,
+    then a timed 3-round window with every launch count set to 0 just
+    before it. Returns (window wall seconds, params, losses, launches,
+    wgmma launches, (fed, params, xs, ys) for a profiled round)."""
+    fed = VmapFederation(CNN(out_channels=10, conv_impl=conv_impl),
                          n_nodes=N_NODES, learning_rate=0.1, seed=0)
     per_node = N_BATCHES * BATCH
     x, y, _, _ = synthetic_cifar10(n_train=N_NODES * per_node, n_test=10, seed=0)
@@ -411,22 +502,42 @@ def main_path(card: str) -> dict:
     params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_launches()
-    wgmma_dx = ck.conv_dx.wgmma_launches
+    wgmma = {"conv_dw": ck.conv_dw.wgmma_launches, "conv_dx": ck.conv_dx.wgmma_launches}
+    return wall, params, losses, read_launches(), wgmma, (fed, params, xs, ys)
 
+
+def cnn_result(card: str, conv_impl: str, wall: float, losses: torch.Tensor) -> dict:
+    rounds_s = N_ROUNDS / wall
+    return {"card": card, "conv_impl": conv_impl, "n_nodes": N_NODES, "batches": N_BATCHES,
+            "batch": BATCH, "rounds": N_ROUNDS, "wall_s": wall, "rounds_per_s": rounds_s,
+            "samples_per_s": rounds_s * N_NODES * N_BATCHES * BATCH,
+            "mean_loss": losses.mean().item()}
+
+
+def main_path(card: str) -> tuple[dict, tuple]:
+    """The round through the kernels (``conv_impl="pallas"``): 8 conv_dw
+    and 4 conv_dx launches a round, every one on its wgmma kernel."""
+    wall, params, losses, launches, wgmma, fed_args = cnn_rounds("pallas")
     steps = N_BATCHES * EPOCHS * N_ROUNDS
     check_main_path(params, losses, launches, {
         **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
-    if wgmma_dx != launches["conv_dx"]:
-        raise AssertionError(f"{wgmma_dx} of {launches['conv_dx']} conv_dx launches of the "
-                             "CNN round took the wgmma kernel; expected all")
-    rounds_s = N_ROUNDS / wall
-    return ({
-        "card": card, "n_nodes": N_NODES, "batches": N_BATCHES, "batch": BATCH,
-        "rounds": N_ROUNDS, "wall_s": wall, "rounds_per_s": rounds_s,
-        "samples_per_s": rounds_s * N_NODES * per_node, "launches": launches,
-        "conv_dx_wgmma_launches": wgmma_dx, "mean_loss": losses.mean().item(),
-    }, (fed, params, xs, ys))
+    for name, took in wgmma.items():
+        if took != launches[name]:
+            raise AssertionError(f"{took} of {launches[name]} {name} launches of the CNN round "
+                                 "took the wgmma kernel; expected all")
+    return ({**cnn_result(card, "pallas", wall, losses), "launches": launches,
+             "wgmma_launches": wgmma}, fed_args)
+
+
+def fwd_bwd_round(card: str) -> dict:
+    """The same round with the reference's default ``conv_impl="fwd_bwd"``:
+    both conv gradients as forward-style grouped cuDNN convolutions, no
+    kernel of the port. The round's own yardstick beside the kernels'
+    round: finite losses, one aggregate on every node, no conv kernel
+    launched."""
+    wall, params, losses, launches, _, _ = cnn_rounds("fwd_bwd")
+    check_main_path(params, losses, launches, dict.fromkeys(WRAPPERS, 0))
+    return cnn_result(card, "fwd_bwd", wall, losses)
 
 
 # ---- the transformer slice ---------------------------------------------------
@@ -603,6 +714,42 @@ def flash_mask_case() -> float:
     return err
 
 
+# (label, BH, S, D) of the limit cases: B·H past the 65535 of a grid's y
+# axis (wgmma and generic kernels), and head dims past 128, which the
+# generic kernels walk in 128-column chunks. Each in bf16 and f32, causal.
+FLASH_LIMITS = [("BH=65537 D=16", 65537, 16, 16), ("BH=65537 D=64", 65537, 16, 64)] + [
+    (f"D={d}", 3, 130, d) for d in (136, 200, 256, 320)]
+
+
+def flash_limit_cases() -> dict:
+    """The limit cases, forward and both gradients, against the plain
+    versions: bf16 outputs at rtol 2^-7 plus 2^-7 of the largest value (as
+    ``flash_shape_phase``), f32 at 1e-4 (sums in another order), lse at
+    1e-5 relative. Returns {label: max |err|}."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for label, bh, s, d in FLASH_LIMITS:
+        for dtype in (torch.bfloat16, torch.float32):
+            tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+            name = f"{label} {str(dtype)[6:]}"
+            q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype)
+                           for _ in range(4))
+            o, lse = fk.flash_fwd(q, k, v, True)
+            o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, True)
+            err = check_close(f"flash_fwd[{name}] o", o, o_ref, tol, tol)
+            check_close(f"flash_fwd[{name}] lse", lse, lse_ref, 1e-5, 1e-6)
+            delta = (do.float() * o_ref.float()).sum(-1)
+            args = (q, k, v, do, lse_ref, delta, True)
+            err = max(err, check_close(f"flash_dq[{name}]", fk.flash_dq(*args),
+                                       fk.flash_dq_plain(*args), tol, tol))
+            for g, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
+                err = max(err, check_close(f"flash_dkv[{name}] {g}", got, ref, tol, tol))
+            out[name] = err
+            del q, k, v, do, o, o_ref
+    torch.cuda.empty_cache()
+    return out
+
+
 def flash_kernel_phase() -> list[dict]:
     per = {name: [] for name in FLASH_KERNELS}
     for label, b, s, h, d in FLASH_SHAPES:
@@ -611,6 +758,8 @@ def flash_kernel_phase() -> list[dict]:
         log(f"flash kernel phase [{label}]: ok")
     edges = flash_edge_cases()
     log("flash kernel phase [bf16 edge cases]: ok " + json.dumps(edges))
+    limits = flash_limit_cases()
+    log("flash kernel phase [limit cases: B·H 65537, D past 128]: ok " + json.dumps(limits))
     mask_err = flash_mask_case()
     out = []
     for name, shapes in per.items():
@@ -623,6 +772,7 @@ def flash_kernel_phase() -> list[dict]:
                                           "bound_by", "bytes_ms", "ops_ms")},
             "per_launch_at": "main", "f32_mask_case_max_abs_err": mask_err,
             "bf16_edge_max_abs_err": max(e["max_abs_err"][name] for e in edges.values()),
+            "limit_max_abs_err": max(limits.values()),
             "shapes": shapes,
         })
     return out
@@ -760,14 +910,23 @@ def main() -> int:
 
     rows = kernel_phase()
     log("conv kernel phase: ok")
+    by_name = {r["name"]: r for r in rows}
     edge_err = conv_edge_cases()
-    next(r for r in rows if r["name"] == "conv_dx")["bf16_edge_max_rel_err"] = edge_err
+    by_name["conv_dx"]["bf16_edge_max_rel_err"] = edge_err
     log(f"conv kernel phase [{len(ck.WGMMA_DX_EDGES)} bf16 conv_dx edge cases, wgmma]: ok, "
         f"worst max |err| / max |ref| {edge_err:.3e}")
+    edge_err = conv_dw_edge_cases()
+    by_name["conv_dw"]["bf16_edge_max_rel_err"] = edge_err
+    log(f"conv kernel phase [{len(ck.WGMMA_DW_EDGES)} bf16 conv_dw edge cases, wgmma]: ok, "
+        f"worst max |err| / max |ref| {edge_err:.3e}")
+    limits = conv_node_limit_cases()
+    log("conv kernel phase [65537 nodes]: ok " + json.dumps(limits))
     reference_phase()
-    log("CNN reference phase (pallas vs xla, f32, small): ok")
+    log("CNN reference phase (pallas and fwd_bwd vs xla, f32, small, TF32 off): ok")
     cnn, cnn_args = main_path(card)
     log("CNN main path: " + json.dumps(cnn))
+    log("CNN round with conv_impl='fwd_bwd' (library convolutions, no port kernel): "
+        + json.dumps(fwd_bwd_round(card)))
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()

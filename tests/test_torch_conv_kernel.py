@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpfl.parallel.conv_kernel import conv_fwd_style as jax_conv_fwd_style
 from tpfl.parallel.conv_kernel import node_conv as jax_node_conv
 from tpfl_torch.parallel import conv_kernel as ck
 
@@ -138,6 +139,102 @@ def test_wgmma_dx_edges_sit_on_the_kernels_rule():
     assert min(pixels) == 1 and max(pixels) == max_pixels
     assert min(cins) == 8 and max(cins) == const["kDxMaxCin"]
     assert any(cin % 32 for cin in cins)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_conv_fwd_style_matches_jax_conv_fwd_style(shape, dtype):
+    """The port's ``conv_fwd_style`` (grouped ``F.conv2d`` forward, both
+    gradients forward-style grouped convolutions) against the JAX one
+    under ``jax.vmap`` over 2 nodes, on one cotangent. f32: rtol 1e-5 and
+    1e-5 of the largest value (the two sum up to 512 products per entry
+    in different orders). bf16, against eager JAX: one bf16 rounding of
+    each output, rtol 2⁻⁷ plus 2⁻⁹ of the largest value."""
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(4)
+    xs = rng.normal(size=(2, b, h, w, cin)).astype(np.float32)
+    ws = rng.normal(size=(2, 3, 3, cin, cout)).astype(np.float32)
+    cot = rng.normal(size=(2, b, h, w, cout)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    with jax.disable_jit():
+        y, vjp = jax.vjp(jax.vmap(jax_conv_fwd_style), jnp.asarray(xs, jdt), jnp.asarray(ws, jdt))
+        want = [y, *vjp(jnp.asarray(cot, jdt))]
+    xt = torch.from_numpy(xs).to(tdt).requires_grad_(True)
+    wt = torch.from_numpy(ws).to(tdt).requires_grad_(True)
+    before = (ck.conv_dw.launches, ck.conv_dx.launches)
+    yt = ck.conv_fwd_style(xt, wt)
+    yt.backward(torch.from_numpy(cot).to(tdt))
+    assert (ck.conv_dw.launches, ck.conv_dx.launches) == before
+    rtol, atol_rel = (1e-5, 1e-5) if dtype == "float32" else (2.0 ** -7, 2.0 ** -9)
+    for got, ref, name in zip((yt.detach(), xt.grad, wt.grad), want, ("y", "dx", "dw")):
+        assert got.dtype == tdt, name
+        ref = np.asarray(ref.astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
+                                   atol=atol_rel * np.abs(ref).max(), err_msg=name)
+
+
+def test_conv_fwd_style_gradcheck_float64():
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 2, 4, 5, 2, dtype=torch.float64, generator=g, requires_grad=True)
+    w = torch.randn(2, 3, 3, 2, 3, dtype=torch.float64, generator=g, requires_grad=True)
+    assert torch.autograd.gradcheck(ck.conv_fwd_style, (x, w))
+
+
+def _dw_wgmma_stages(cin, cout, h, w, smem_limit=232448, max_stages=4):
+    """The ring depth ``dw_variant`` in csrc/conv_bwd.cu picks for a bf16
+    shape on a card with ``smem_limit`` bytes of shared memory a block
+    (the H100's 227 KB), or 0 where the shape stays off the wgmma kernel.
+    The 3-D view (Cin < 8) takes exactly three stages, one per consumer
+    warpgroup, or none."""
+    up = lambda v, m: (v + m - 1) // m * m  # noqa: E731
+    flat = cin < 8
+    if cout % 32 or h + 3 > 256 or w + 2 > 256:
+        return 0
+    if flat and ((w * cin) % 8 or up((w + 1) * cin, 8) > 256):
+        return 0
+    if not flat and cin not in (8, 16, 32):
+        return 0
+    nc = 64 if not flat and cout % 64 == 0 else 32
+    hwpad = up(h * w, 128 if flat else 64)  # dw_pixel_pad
+    hb = -(-hwpad // w)
+    if hb > 256:
+        return 0
+    x_bytes = up((h + 3) * up((w + 1) * cin, 8) * 2 if flat else (h + 2) * (w + 2) * cin * 2, 1024)
+    stage = x_bytes + up(nc * 2 * w * hb, 1024)
+    for stages in (3,) if flat else range(max_stages, 1, -1):
+        if 1024 + stages * stage + hwpad * 4 + 16 * stages <= smem_limit:
+            return stages
+    return 0
+
+
+def test_wgmma_dw_edges_sit_on_the_kernels_rule():
+    """The card's edge cases of the wgmma conv_dw (``ck.WGMMA_DW_EDGES``)
+    each pass its shape rule (mirrored from ``dw_variant``) and together
+    reach its edges: both views of x (Cin 3; Cin 8 and 32), Cout 32, 64
+    and 128, one pixel, odd sizes whose pixels pad to a k-step of 16, the
+    largest images whose ring fits (two stages in the 4-D view, three in
+    the 3-D one), and more images than the H100's 132 SMs, so blocks cross
+    nodes. The main-path shapes take it too, and larger images do not: at
+    Cin 3, 32×40 would fit two stages but not the three its warpgroups
+    own."""
+    src = (Path(ck.__file__).parent / "csrc" / "conv_bwd.cu").read_text()
+    m = re.search(r"constexpr int kDwMaxStages = (\d+);", src)
+    assert m, "kDwMaxStages not found in conv_bwd.cu"
+    max_stages = int(m.group(1))
+    assert re.search(r"constexpr int kDwWG3 = 3;", src), "the 3-D view's warpgroups changed"
+    for cin, cout, (h, w), b, n in ck.WGMMA_DW_EDGES:
+        assert _dw_wgmma_stages(cin, cout, h, w, max_stages=max_stages) >= 2, (cin, cout, h, w)
+        assert n * b > 132
+    assert _dw_wgmma_stages(3, 32, 32, 32) >= 2 and _dw_wgmma_stages(32, 64, 16, 16) >= 2
+    assert not _dw_wgmma_stages(32, 64, 32, 32) and not _dw_wgmma_stages(3, 32, 64, 32)
+    assert _dw_wgmma_stages(3, 32, 32, 32) == 3 and not _dw_wgmma_stages(3, 32, 32, 40)
+    assert all(_dw_wgmma_stages(c, o, h, w) == 3 for c, o, (h, w), *_ in ck.WGMMA_DW_EDGES
+               if c < 8)
+    assert {c for c, *_ in ck.WGMMA_DW_EDGES} == {3, 8, 32}
+    assert {c for _, c, *_ in ck.WGMMA_DW_EDGES} == {32, 64, 128}
+    pixels = {h * w for _, _, (h, w), _, _ in ck.WGMMA_DW_EDGES}
+    assert min(pixels) == 1 and any(p % 16 for p in pixels)
+    assert {b for *_, b, _ in ck.WGMMA_DW_EDGES} == {1, 3}
 
 
 def test_input_grad_skipped_when_not_needed():

@@ -156,6 +156,38 @@ def test_bf16_cnn_logits_and_node_grads_match_jax_bf16():
         assert not _bf16_close(got, grads_j[layer]["kernel"], BF16_ATOL_REL), layer
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_default_cnn_matches_jax_default_cnn(compute):
+    """``CNN()`` against the JAX ``CNN()``, each with its default
+    ``conv_impl="fwd_bwd"`` (both gradients forward-style convolutions)
+    and default widths (channels 32 / 64, dense 128): logits and per-node
+    grads through ``params_from_flax``. f32 compute at RTOL / ATOL; bf16
+    compute (the default) at the bf16 tolerances above."""
+    jax_kw, torch_kw = {}, {}
+    if compute == "float32":
+        jax_kw, torch_kw = {"compute_dtype": jnp.float32}, {"compute_dtype": torch.float32}
+    module = JaxCNN(**jax_kw)
+    model = CNN(**torch_kw)
+    assert module.conv_impl == model.conv_impl == "fwd_bwd"
+    xs, ys, stacked = _node_data_and_params(module)
+    logits_j, grads_j = _jax_logits_and_grads(module, stacked, xs, ys)
+    logits_t, grads_t = _torch_logits_and_grads(model, stacked, xs, ys)
+    if compute == "float32":
+        np.testing.assert_allclose(logits_t, logits_j, rtol=RTOL, atol=ATOL)
+        _assert_tree_close(grads_t, grads_j)
+        return
+    assert _bf16_close(logits_t, logits_j, BF16_ATOL_REL)
+    for layer, leaves in grads_j.items():
+        for leaf, want in leaves.items():
+            atol_rel = BF16_BIAS_ATOL_REL if leaf == "bias" else BF16_ATOL_REL
+            assert _bf16_close(grads_t[layer][leaf].numpy(), want, atol_rel), f"{layer}/{leaf}"
+
+
+def test_cnn_rejects_unknown_conv_impl():
+    with pytest.raises(ValueError, match="fwd_bwd"):
+        CNN(conv_impl="cudnn")
+
+
 @pytest.mark.parametrize(
     "weights,n_rounds,epochs",
     [

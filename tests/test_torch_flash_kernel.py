@@ -70,6 +70,21 @@ def test_flash_attention_matches_jax(shape, block, causal):
     assert (fk.flash_fwd.launches, fk.flash_dq.launches, fk.flash_dkv.launches) == before
 
 
+@pytest.mark.parametrize("d", [136, 200])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_wide_heads_match_jax(d, causal):
+    """Head dims past 128, which the reference pads to a multiple of 128
+    and the port's kernels walk in 128-column chunks: forward and
+    gradients against the JAX flash (interpret mode) at the f32
+    tolerances above."""
+    shape, block = (1, 64, 2, d), 32
+    out_j, grads_j = _jax_out_and_grads(shape, causal, block, seed=19)
+    out_t, grads_t = _torch_out_and_grads(shape, causal, block, seed=19)
+    np.testing.assert_allclose(out_t, out_j, atol=FWD_ATOL)
+    for got, want, name in zip(grads_t, grads_j, "qkv"):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL, err_msg=f"d{name}")
+
+
 # bf16: both sides round P and dS to bf16 before their products (at the
 # same running max: the port's plain forward walks the kernel's 64-key
 # tiles, the JAX kernel runs with block=64) and the outputs to bf16, in

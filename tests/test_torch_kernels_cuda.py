@@ -39,6 +39,7 @@ def test_kernels_match_plain_on_card(card, shape, dtype):
     g = torch.randn(3, b, h, w, cout, device=card, generator=gen).to(dtype)
     k = torch.randn(3, 3, 3, cin, cout, device=card, generator=gen).to(dtype)
     launches = (ck.conv_dw.launches, ck.conv_dx.launches)
+    dw_wgmma = ck.conv_dw.wgmma_launches
     dw, dw_ref = ck.conv_dw(x, g, 3), ck.conv_dw_plain(x, g, 3)
     torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-4 * dw_ref.abs().max().item())
     wgmma = ck.conv_dx.wgmma_launches
@@ -49,6 +50,10 @@ def test_kernels_match_plain_on_card(card, shape, dtype):
     # Only bf16 with Cout a multiple of 64 (here Cin 32 -> Cout 64) takes wgmma.
     takes_wgmma = dtype == torch.bfloat16 and cout % 64 == 0 and cin % 8 == 0
     assert ck.conv_dx.wgmma_launches == wgmma + takes_wgmma
+    # conv_dw: bf16, Cout a multiple of 32, Cin 8 / 16 / 32 or W·Cin a multiple of 8.
+    dw_takes = dtype == torch.bfloat16 and cout % 32 == 0 and (
+        cin in (8, 16, 32) or (cin < 8 and (w * cin) % 8 == 0))
+    assert ck.conv_dw.wgmma_launches == dw_wgmma + dw_takes
 
 
 # Shapes the wgmma conv_dx refuses, which stay on the WMMA kernel: a ring
@@ -85,6 +90,81 @@ def test_conv_dx_wgmma_matches_plain_on_card(card, case):
 @pytest.mark.parametrize("case", DX_WMMA_CASES)
 def test_conv_dx_other_bf16_shapes_take_wmma_on_card(card, case):
     assert _dx_case(card, *case, seed=6) == (1, 0)
+
+
+def _dw_case(card, cin, cout, hw, b, n, seed):
+    h, w = hw
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn(n, b, h, w, cin, device=card, generator=gen).to(torch.bfloat16)
+    g = torch.randn(n, b, h, w, cout, device=card, generator=gen).to(torch.bfloat16)
+    before = (ck.conv_dw.launches, ck.conv_dw.wgmma_launches)
+    dw = ck.conv_dw(x, g, 3)
+    counts = (ck.conv_dw.launches - before[0], ck.conv_dw.wgmma_launches - before[1])
+    torch.cuda.synchronize()
+    ref = ck.conv_dw_plain(x, g, 3)
+    torch.testing.assert_close(dw, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    assert torch.equal(ck.conv_dw(x, g, 3), dw)  # no float atomics: the same bits again
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ck.WGMMA_DW_EDGES)
+def test_conv_dw_wgmma_matches_plain_on_card(card, case):
+    """bf16 dW (f32 sums of the same products in another order) against
+    the plain version: 1e-4 relative plus 1e-4 of the largest value;
+    the shape takes the wgmma kernel."""
+    assert _dw_case(card, *case, seed=8) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(3, 32, (8, 5), 3, 67), (24, 64, (8, 8), 3, 67),
+                                  (32, 48, (8, 8), 3, 67), (32, 64, (32, 32), 1, 3),
+                                  (3, 32, (32, 40), 3, 67)])
+def test_conv_dw_other_bf16_shapes_take_wmma_on_card(card, case):
+    """W·Cin not a multiple of 8, Cin 24, Cout not a multiple of 32, an
+    image whose two ring stages do not fit, and a Cin-3 image whose ring
+    fits two stages but not the three the 3-D view needs: the WMMA
+    kernel."""
+    assert _dw_case(card, *case, seed=9) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cin,cout", [(torch.bfloat16, 8, 64), (torch.bfloat16, 3, 32),
+                                            (torch.float32, 3, 5)])
+def test_conv_kernels_take_65537_nodes_on_card(card, dtype, cin, cout):
+    """More nodes than a grid's y or z axis holds (65535): B = 1, 4×8
+    images (W·Cin a multiple of 8, so Cin 3 takes conv_dw's 3-D view). bf16
+    conv_dw takes the wgmma kernel; conv_dx does at Cin 8 -> Cout 64."""
+    n = 65537
+    gen = torch.Generator(device=card).manual_seed(10)
+    x = torch.randn(n, 1, 4, 8, cin, device=card, generator=gen).to(dtype)
+    g = torch.randn(n, 1, 4, 8, cout, device=card, generator=gen).to(dtype)
+    k = torch.randn(n, 3, 3, cin, cout, device=card, generator=gen).to(dtype)
+    wgmma = (ck.conv_dw.wgmma_launches, ck.conv_dx.wgmma_launches)
+    dw, dw_ref = ck.conv_dw(x, g, 3), ck.conv_dw_plain(x, g, 3)
+    torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-4 * dw_ref.abs().max().item())
+    dx, dx_ref = ck.conv_dx(g, k).float(), ck.conv_dx_plain(g, k).float()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(dx, dx_ref, rtol=tol, atol=1e-3 * dx_ref.abs().max().item())
+    bf16 = dtype == torch.bfloat16
+    assert (ck.conv_dw.wgmma_launches - wgmma[0], ck.conv_dx.wgmma_launches - wgmma[1]) == (
+        bf16, bf16 and cout % 64 == 0)
+
+
+@pytest.mark.cuda
+def test_conv_fwd_style_backward_on_card(card):
+    """conv_fwd_style's autograd (forward-style grouped convolutions) on
+    the card against plain autograd of the same grouped conv (f32, TF32
+    off in both)."""
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=card).manual_seed(11)
+    x = torch.randn(3, 4, 8, 8, 5, device=card, generator=gen, requires_grad=True)
+    w = torch.randn(3, 3, 3, 5, 7, device=card, generator=gen, requires_grad=True)
+    (ck.conv_fwd_style(x, w) ** 2).sum().backward()
+    x2, w2 = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+    (ck.conv_forward(x2, w2) ** 2).sum().backward()
+    torch.testing.assert_close(x.grad, x2.grad, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(w.grad, w2.grad, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.cuda
@@ -189,6 +269,46 @@ def test_flash_f32_outputs_of_bf16_operands_on_card(card, s, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [136, 160, 200, 256, 320])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_wide_heads_match_plain_on_card(card, d, causal, dtype):
+    """Head dims past 128 (the generic kernels, in 128-column chunks of
+    the output) against the plain versions."""
+    from tpfl_torch.parallel import flash_kernel as fk
+
+    q, k, v, do = _flash_inputs(card, 2, 130, d, dtype, seed=12)
+    o, lse = fk.flash_fwd(q, k, v, causal)
+    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, causal)
+    _close(o, o_ref, dtype, "o")
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, causal)
+    _close(fk.flash_dq(*args), fk.flash_dq_plain(*args), dtype, "dq")
+    for name, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
+        _close(got, ref, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 64)])
+def test_flash_takes_65537_heads_on_card(card, dtype, d):
+    """B·H past 65535 (the grid's y limit): S = 16, causal."""
+    from tpfl_torch.parallel import flash_kernel as fk
+
+    q, k, v, do = _flash_inputs(card, 65537, 16, d, dtype, seed=13)
+    o, lse = fk.flash_fwd(q, k, v, True)
+    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, True)
+    _close(o, o_ref, dtype, "o")
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-4)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    args = (q, k, v, do, lse_ref, delta, True)
+    _close(fk.flash_dq(*args), fk.flash_dq_plain(*args), dtype, "dq")
+    for name, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
+        _close(got, ref, dtype, name)
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_on_card(card):
     """flash_attention's autograd on the card (f32) against plain
     autograd of the same attention."""
@@ -215,9 +335,6 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(card):
     x = torch.zeros(1, 8, 16, device=card, dtype=torch.float16)
     with pytest.raises(TypeError, match="unsupported dtype"):
         fk.flash_fwd(x, x, x, True)
-    y = torch.zeros(1, 8, 160, device=card)
-    with pytest.raises(ValueError, match="head dim"):
-        fk.flash_fwd(y, y, y, True)
     z = torch.zeros(1, 8, 16, device=card)
     with pytest.raises(TypeError, match="dtypes differ"):
         fk.flash_fwd(z, z.to(torch.bfloat16), z, True)

@@ -25,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpfl_torch import DeviceLike, resolve_device
-from tpfl_torch.parallel.conv_kernel import conv_forward, node_conv
+from tpfl_torch.parallel.conv_kernel import conv_forward, conv_fwd_style, node_conv
 from tpfl_torch.parallel.ring_attention import blockwise_attention
 from tpfl_torch.utils.tree import Tree, tree_map
 
@@ -36,14 +36,21 @@ Params = Tree
 _TRUNC_STD = 0.87962566103423978
 
 
+#: ``CNN.conv_impl`` -> the per-node conv it runs.
+_CONVS = {"fwd_bwd": conv_fwd_style, "pallas": node_conv, "xla": conv_forward}
+
+
 class CNN(nn.Module):
     """Small conv net for 32×32×3 inputs (the CIFAR-10 tier).
 
-    ``conv_impl``: ``"pallas"`` runs the conv backward through the CUDA
-    kernels of :mod:`tpfl_torch.parallel.conv_kernel` (the name of the
-    reference option whose Pallas kernels they replace); ``"xla"`` is
-    plain autograd through the grouped ``F.conv2d`` — a yardstick and a
-    test oracle. Compute is ``compute_dtype`` (bf16 by default) with f32
+    ``conv_impl`` picks the conv backward, with the reference's names
+    and default: ``"fwd_bwd"`` (default) runs both gradients as
+    forward-style grouped ``F.conv2d`` calls (:func:`conv_fwd_style`);
+    ``"pallas"`` runs them through the CUDA kernels ``conv_dw`` /
+    ``conv_dx`` of :mod:`tpfl_torch.parallel.conv_kernel` (which replace
+    the reference's Pallas kernels); ``"xla"`` is plain autograd through
+    the grouped ``F.conv2d``. The forward is the same grouped ``F.conv2d``
+    in all three, and so are the params. Compute is ``compute_dtype`` (bf16 by default) with f32
     params and f32 logits, with the casts of ``zoo.py:91-101,134-144``.
     """
 
@@ -53,12 +60,12 @@ class CNN(nn.Module):
         dense: int = 128,
         out_channels: int = 10,
         compute_dtype: torch.dtype = torch.bfloat16,
-        conv_impl: str = "pallas",
+        conv_impl: str = "fwd_bwd",
     ) -> None:
         super().__init__()
-        if conv_impl not in ("pallas", "xla"):
+        if conv_impl not in _CONVS:
             raise ValueError(
-                f"conv_impl must be 'pallas' or 'xla', got {conv_impl!r}"
+                f"conv_impl must be one of {sorted(_CONVS)}, got {conv_impl!r}"
             )
         self.channels = tuple(int(c) for c in channels)
         self.dense = int(dense)
@@ -94,10 +101,7 @@ class CNN(nn.Module):
 
     def _conv(self, x: torch.Tensor, p: dict[str, torch.Tensor]) -> torch.Tensor:
         kernel = p["kernel"].to(self.compute_dtype)  # promote_dtype
-        if self.conv_impl == "pallas":
-            y = node_conv(x, kernel)
-        else:
-            y = conv_forward(x, kernel)
+        y = _CONVS[self.conv_impl](x, kernel)
         return y + p["bias"].to(self.compute_dtype)[:, None, None, None, :]
 
     @staticmethod

@@ -15,12 +15,16 @@ The backward is two kernels from ``csrc/conv_bwd.cu``:
   (replaces ``_dx_kernel``), skipped when the input needs no gradient
   (the first conv, whose input is data).
 
+``conv_fwd_style`` is the reference's other backward: both gradients as
+forward-style grouped convolutions (``F.conv2d``), no kernel of its own.
+
 Each wrapper runs its kernel's plain im2col version (:func:`conv_dw_plain`,
 :func:`conv_dx_plain`) when the tensors lie on the CPU, and only then: on
 a CUDA tensor it launches the kernel or raises. ``conv_dw.launches`` /
-``conv_dx.launches`` count kernel launches; ``conv_dx.wgmma_launches``
-counts those of them that took the Hopper (wgmma + TMA) ``conv_dx``,
-which the launcher picks by shape and reports after the launch.
+``conv_dx.launches`` count kernel launches; ``conv_dw.wgmma_launches``
+and ``conv_dx.wgmma_launches`` count those of them that took the Hopper
+(wgmma + TMA) kernel, which the launcher picks by shape and reports
+after the launch.
 
 Restrictions (asserted, as in the reference): odd square kernels,
 stride 1, SAME padding.
@@ -94,9 +98,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("conv_bwd")
     if not getattr(lib, "_tpfl_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.tpfl_conv_dw_splits.argtypes = [i] * 8
-        lib.tpfl_conv_dw_splits.restype = i
-        lib.tpfl_conv_dw.argtypes = [vp, vp, vp, vp] + [i] * 9 + [vp]
+        lib.tpfl_conv_dw_partials.argtypes = [vp, vp] + [i] * 8
+        lib.tpfl_conv_dw_partials.restype = ctypes.c_long
+        lib.tpfl_conv_dw.argtypes = ([vp, vp, vp, vp] + [i] * 7
+                                     + [ctypes.c_long, i, vp, ctypes.POINTER(i)])
         lib.tpfl_conv_dw.restype = i
         lib.tpfl_conv_dx.argtypes = [vp, vp, vp] + [i] * 8 + [vp, ctypes.POINTER(i)]
         lib.tpfl_conv_dx.restype = i
@@ -118,8 +123,6 @@ def _check_cuda(*tensors: torch.Tensor) -> int:
             raise ValueError("conv kernels: operands must be contiguous")
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"conv kernels: unsupported dtype {dtype}")
-    if tensors[0].shape[0] > 65535:
-        raise ValueError("conv kernels: at most 65535 nodes per launch")
     return _DTYPE_CODES[dtype]
 
 
@@ -140,22 +143,25 @@ def conv_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     if g.shape[:4] != x.shape[:4]:
         raise ValueError(f"conv_dw: x {tuple(x.shape)} vs g {tuple(g.shape)}")
     lib = _lib()
-    # The launcher owns both tiles, so it picks the position split.
-    splits = lib.tpfl_conv_dw_splits(n, b, h, w, cin, cout, k, code)
+    # The launcher picks the kernel and its split, so it sizes the f32
+    # scratch of partial sums: a count of [k²·Cin, Cout] slices.
+    partials = lib.tpfl_conv_dw_partials(x.data_ptr(), g.data_ptr(), n, b, h, w, cin, cout,
+                                         k, code)
+    if partials < 0:
+        _raise_on(-partials, "conv_dw")
     out = torch.empty((n, k, k, cin, cout), device=x.device, dtype=torch.float32)
-    partial = (
-        torch.empty((n, splits, k * k * cin, cout), device=x.device,
-                    dtype=torch.float32)
-        if splits > 1 else None
-    )
+    partial = (torch.empty((partials, k * k * cin, cout), device=x.device, dtype=torch.float32)
+               if partials else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    took_wgmma = ctypes.c_int(0)
     err = lib.tpfl_conv_dw(
         x.data_ptr(), g.data_ptr(),
         None if partial is None else partial.data_ptr(), out.data_ptr(),
-        n, b, h, w, cin, cout, k, splits, code, stream,
+        n, b, h, w, cin, cout, k, partials, code, stream, ctypes.byref(took_wgmma),
     )
     _raise_on(err, "conv_dw")
     conv_dw.launches += 1
+    conv_dw.wgmma_launches += took_wgmma.value
     return out
 
 
@@ -196,7 +202,23 @@ WGMMA_DX_EDGES = [(cin, cout, hw, b, 203 if b == 1 else 67)
                   for cin in (8, 32, 40, 64) for cout in (64, 128)
                   for hw in _DX_EDGE_HW[cout] for b in (1, 3)]
 
+# bf16 conv_dw shapes at the edges of the wgmma kernel's rule, each of which
+# must take it: (Cin, Cout, (H, W), B, N) as WGMMA_DX_EDGES. Cin 3 takes the
+# 3-D view of x (W·Cin a multiple of 8: W a multiple of 8), Cin 8 and 32 the
+# 4-D one; Cout 32 (32-channel chunks), 64 (one 64-channel chunk) and 128
+# (two on the grid); images from one pixel to the largest whose ring fits
+# on an H100 (two stages in the 4-D view, the 3-D view's three: one per
+# consumer warpgroup), odd sizes whose pixels pad to a k-step of 16,
+# and ~200 images so the persistent blocks' ranges cross nodes.
+_DW_EDGE_HW = {3: [(32, 32), (7, 8), (1, 8), (9, 16)],
+               8: [(16, 16), (5, 7), (1, 1), (16, 32)],
+               32: [(16, 16), (5, 7), (1, 1), (16, 32)]}
+WGMMA_DW_EDGES = [(cin, cout, hw, b, 203 if b == 1 else 67)
+                  for cin in (3, 8, 32) for cout in (32, 64, 128)
+                  for hw in _DW_EDGE_HW[cin] for b in (1, 3)]
+
 conv_dw.launches = 0
+conv_dw.wgmma_launches = 0
 conv_dx.launches = 0
 conv_dx.wgmma_launches = 0
 
@@ -239,3 +261,47 @@ class NodeConv(torch.autograd.Function):
 def node_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3×3 / SAME / stride-1 per-node conv with the CUDA backward."""
     return NodeConv.apply(x, w)
+
+
+def conv_dw_fwd_style(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """The weight gradient as one forward-style grouped convolution
+    (``conv_kernel.py:234-237``): per node, Cin is the convolution's batch,
+    B its contraction channel and dout its H×W window, ``[Cin, B, H, W] ⋆
+    [Cout, B, H, W] -> [Cin, Cout, k, k]`` with padding k//2; returned as
+    HWIO ``[N, k, k, Cin, Cout]`` in x's dtype."""
+    n, b, h, wd, cin = x.shape
+    cout = g.shape[-1]
+    xg = x.permute(4, 0, 1, 2, 3).reshape(cin, n * b, h, wd)
+    gg = g.permute(0, 4, 1, 2, 3).reshape(n * cout, b, h, wd)
+    dw = F.conv2d(xg, gg, padding=k // 2, groups=n)  # [Cin, N·Cout, k, k]
+    return dw.reshape(cin, n, cout, k, k).permute(1, 3, 4, 0, 2).contiguous()
+
+
+class ConvFwdStyle(torch.autograd.Function):
+    """Grouped ``F.conv2d`` forward; the reference's ``conv_fwd_style``
+    backward (``conv_kernel.py:224-240``), both gradients forward-style
+    grouped convolutions: ``dx = conv_SAME(dout, rot180(w) in/out
+    swapped)``, ``dW`` by :func:`conv_dw_fwd_style`. XLA-level code in the
+    reference, not a Pallas kernel, so it runs through ``F.conv2d``."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        _check_kernel(w)
+        ctx.save_for_backward(x, w)
+        return conv_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, gy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        g = gy.to(x.dtype).contiguous()
+        dx = conv_forward(g, w.flip(1, 2).transpose(3, 4)) if ctx.needs_input_grad[0] else None
+        dw = None
+        if ctx.needs_input_grad[1]:
+            dw = conv_dw_fwd_style(x, g, w.shape[1]).to(w.dtype)
+        return dx, dw
+
+
+def conv_fwd_style(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3×3 / SAME / stride-1 per-node conv whose backward is two
+    forward-style convolutions (the reference's ``conv_fwd_style``)."""
+    return ConvFwdStyle.apply(x, w)

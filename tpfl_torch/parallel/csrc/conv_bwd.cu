@@ -6,8 +6,9 @@
 //   conv_dx  <- _dx_kernel (conv_kernel.py:103):
 //               dx[B*H*W, Cin] = im2col(dout) . rot180(w)^T
 // Both operate on node-stacked operands [N, B, H, W, C] (NHWC per node) and
-// one launch covers all N nodes: the node index is a grid dimension, the
-// counterpart of jax.vmap over the Pallas grid.
+// one launch covers all N nodes: the node index is folded into the grid's x
+// (no 65535 limit on N), or persistent blocks walk ranges of images across
+// nodes -- the counterpart of jax.vmap over the Pallas grid.
 //
 // What bounds them on an H100: at the federation's shapes (N=100, B=128,
 // 32x32x3->32 and 16x16x32->64, bf16) each launch moves 0.6-0.9 GB and does
@@ -15,7 +16,18 @@
 // 3.35 TB/s), not by the tensor cores. conv_dx at Conv_1 (dout
 // [100,128,16,16,64] -> dx [...,32]) reads 419 MB and writes 210 MB:
 // 0.189 ms of bytes against 0.122 ms of products at 989 TFLOP/s, so the
-// tensor cores are not far behind.
+// tensor cores are not far behind. conv_dw reads x (79 / 210 MB) and dout
+// (839 / 419 MB) at Conv_0 / Conv_1: 0.274 / 0.190 ms of bytes against
+// 54 / 121 GFLOP (0.05 / 0.12 ms).
+//
+// conv_dw on Hopper (bf16, the main path; section "conv_dw on Hopper"):
+// per image one TMA box of x is the zero-haloed image and one box of dout
+// is the B operand as it lands (pixel rows of 32 or 64 channels, MN-major),
+// so each element of both leaves device memory once; the shifted im2col^T
+// rows are the register A fragment (ldmatrix.trans from the halo rows, or
+// element loads from Conv_0's 3-channel rows through a 3-D view of x);
+// wgmma accumulates a node's images in registers, a block writes one f32
+// partial per node it touches and a fixed-order pass sums them.
 //
 // conv_dx on Hopper (bf16, the main path; section "conv_dx on Hopper"):
 //   * One read of dout, the halo for free. The work unit is one image of
@@ -78,7 +90,8 @@
 //     models) take CUDA-core kernels with 8 f32 accumulators per thread.
 //   * Still far above the memory bound: each stage loads, waits and
 //     multiplies in turn, with scalar 2-byte loads; the WMMA conv_dx also
-//     fetches each dout element once per tap (nine times). conv_dw is next.
+//     fetches each dout element once per tap (nine times). They serve the
+//     shapes the Hopper kernels' rules leave out.
 //
 // Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError() after its launches. Kernels run on the caller's stream
@@ -131,10 +144,10 @@ conv_dw_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int HW = H * W;
   const int M = B * HW;
   const int R = k / 2;
-  const int r0 = blockIdx.x * DW_TK;
-  const int c0 = blockIdx.y * DW_TC;
-  const int n = blockIdx.z / splits;
-  const int s = blockIdx.z % splits;
+  const int n = blockIdx.x / splits;
+  const int s = blockIdx.x % splits;
+  const int r0 = blockIdx.y * DW_TK;
+  const int c0 = blockIdx.z * DW_TC;
   const int m_begin = s * chunk;
   const int m_end = min(M, m_begin + chunk);
   const T* xn = x + (size_t)n * M * Cin;
@@ -241,9 +254,10 @@ conv_dx_kernel(const T* __restrict__ g, const T* __restrict__ w,
   const int HW = H * W;
   const int M = B * HW;
   const int R = k / 2;
-  const int m0 = blockIdx.x * DX_TM;
+  const int m_tiles = (M + DX_TM - 1) / DX_TM;
+  const int n = blockIdx.x / m_tiles;
+  const int m0 = (blockIdx.x % m_tiles) * DX_TM;
   const int n0 = blockIdx.y * DX_TN;
-  const int n = blockIdx.z;
   const T* gn = g + (size_t)n * M * Cout;
   const T* wn = w + (size_t)n * k * k * Cin * Cout;
 
@@ -359,10 +373,10 @@ conv_dw_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   const int HW = H * W;
   const int M = B * HW;
   const int R = k / 2;
-  const int r0 = blockIdx.x * WDW_BK;
-  const int c0 = blockIdx.y * WDW_BC;
-  const int n = blockIdx.z / splits;
-  const int s = blockIdx.z % splits;
+  const int n = blockIdx.x / splits;
+  const int s = blockIdx.x % splits;
+  const int r0 = blockIdx.y * WDW_BK;
+  const int c0 = blockIdx.z * WDW_BC;
   const int m_begin = s * chunk;
   const int m_end = min(M, m_begin + chunk);
   const bf16* xn = x + (size_t)n * M * Cin;
@@ -474,9 +488,10 @@ conv_dx_wmma_kernel(const bf16* __restrict__ g, const bf16* __restrict__ w,
   const int HW = H * W;
   const int M = B * HW;
   const int R = k / 2;
-  const int m0 = blockIdx.x * WDX_BM;
+  const int m_tiles = (M + WDX_BM - 1) / WDX_BM;
+  const int n = blockIdx.x / m_tiles;
+  const int m0 = (blockIdx.x % m_tiles) * WDX_BM;
   const int n0 = blockIdx.y * WDX_BN;
-  const int n = blockIdx.z;
   const bf16* gn = g + (size_t)n * M * Cout;
   const bf16* wn = w + (size_t)n * k * k * Cin * Cout;
   const int t = threadIdx.x;
@@ -757,6 +772,248 @@ conv_dx_wgmma(const __grid_constant__ CUtensorMap map_g, const __grid_constant__
   }
 }
 
+// ---- conv_dw on Hopper (bf16): halo'd TMA images, im2col^T fragments on wgmma ----
+// dW[k*k*Cin, Cout] of a node = sum over its images of im2col(x)^T . dout:
+// M = the (tap, ci) rows, N = a chunk of NC output channels (blockIdx.y),
+// K = the image's pixels. Per image one TMA box of x is the zero-haloed
+// image (the SAME halo from TMA's zero fill) and one box of dout is the
+// image's NC channels, each element read from device memory once (x once
+// per Cout chunk). B = the dout box as it lands: pixel rows of NC channels,
+// MN-major, swizzled by the row's width (64 or 128 bytes). A = im2col^T: row
+// (tap, ci), column pixel p = x_halo[p + tap offset][ci]. Shifted per tap it
+// cannot be a descriptor, so it is the register A fragment of m64k16:
+//   * 4-D view (Cin 8, 16 or 32): x as [N*B, H, W, Cin], box [Cin, W+2, H+2, 1]
+//     at (0, -1, -1, image), rows of Cin*2 bytes swizzled by their width.
+//     ldmatrix.x4.trans reads the halo rows of 16 pixels (8-row groups of M
+//     are (tap, 8 channels); each of the four matrices has its own tap) with
+//     the swizzle XOR. Consumer warpgroup wg owns M-tile wg (288 rows at
+//     Cin 32: 5 tiles, 5 warpgroups) and every image.
+//   * 3-D view (Cin < 8: Conv_0's 3 channels are 6-byte pixels TMA cannot
+//     step over): x as [N*B, H, W*Cin], box [XB, H+3, 1] at (0, -2, image)
+//     with XB = (W+1)*Cin rounded up to 8. A box row holds image row r - 2
+//     and then at least Cin zeros past the tensor's edge: those zeros are
+//     the right halo of the row and the left halo of the next one (pixel
+//     column -1 of row r is element -Cin of box row r, the tail of box row
+//     r - 1), and rows 0 and 1 are zero. (A negative innermost coordinate,
+//     not a multiple of 16 bytes, faults on the H100.) The 9*Cin rows are
+//     one M-tile (rows past them are zero), loaded element by element into
+//     the fragment layout. Three warpgroups
+//     take the images in turn, each with its own accumulator (its own slot
+//     of partials), so the ring keeps three images in flight. The ring has
+//     exactly three stages, so stage s belongs to warpgroup s: a parity wait
+//     only tells a barrier's next phase from its current one, and a ring
+//     shared by warpgroups that run apart would let one read another's
+//     later phase as its own.
+// Pixels are padded to two commit groups of k-steps (dw_pixel_pad): the
+// dout box runs a few rows past H, where TMA fills zeros, and the A columns
+// of those pixels read pixel 0.
+// A producer warp feeds a ring of (x box, dout box) stages (mbarriers whose
+// waits trap); one block per SM walks a contiguous range of images that may
+// cross nodes. Accumulators stay in registers across a node's images; at
+// the end of each node the block writes its f32 partial once, into slot
+// (block + node) * R + replica of `partial` (unique: a later block never
+// starts at an earlier node), and dw_reduce_ranges sums each node's slots
+// in a fixed order. No float atomics: results are identical run to run.
+constexpr int kDwWG4 = 5;  // consumer warpgroups, 4-D view: one M-tile each
+constexpr int kDwWG3 = 3;  // consumer warpgroups, 3-D view: images in turn
+constexpr int kDwMaxStages = 4;
+// k-steps (16 pixels each) per wgmma commit group: the register budget of
+// the 4-D view's 672-thread block holds two groups of 2 fragments beside a
+// 64-column accumulator, the 3-D view's two groups of 4. Pixels are padded
+// to two groups, so the loop over groups unrolls by two with both fragment
+// buffers in named registers (an index computed at run time would put them
+// in local memory).
+__host__ __device__ constexpr int dw_kgroup(bool flat) { return flat ? 4 : 2; }
+__host__ __device__ constexpr int dw_pixel_pad(bool flat) { return 32 * dw_kgroup(flat); }
+
+__device__ __forceinline__ uint32_t pack2(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+template <bool kFlat, int NC>
+__global__ void __launch_bounds__((kFlat ? kDwWG3 : kDwWG4) * 128 + 32, 1)
+conv_dw_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_g,
+              float* __restrict__ partial, int NB, int B, int H, int W, int Cin, int Cout,
+              int HWpad, int XB, int stages, int x_bytes, int stage_bytes) {
+  constexpr int kWG = kFlat ? kDwWG3 : kDwWG4;
+  constexpr int R = kFlat ? kDwWG3 : 1;  // accumulator replicas (partial slots) per node
+  constexpr int kGRow = NC * 2;          // bytes of a dout pixel row
+  extern __shared__ char smem_raw[];
+  char* ring = align1024(smem_raw);
+  int* tab = reinterpret_cast<int*>(ring + stages * stage_bytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tab + HWpad);
+  uint64_t* empty = full + stages;
+
+  const int HW = H * W, K2C = 9 * Cin;
+  const int c0 = blockIdx.y * NC;
+  const int img0 = (int)((long)blockIdx.x * NB / gridDim.x);
+  const int img1 = (int)((long)(blockIdx.x + 1) * NB / gridDim.x);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hp::mbar_init(full + s, 1);
+      hp::mbar_init(empty + s, kFlat ? 4 : kWG * 4);
+    }
+    hp::mbar_fence_init();
+  }
+  // Pixel -> its halo row (4-D) or halo element (3-D) at tap (0, 0);
+  // padding pixels read pixel 0 (their dout rows are zeros).
+  for (int p = threadIdx.x; p < HWpad; p += blockDim.x) {
+    const int i = p / W, j = p % W;
+    tab[p] = p >= HW ? 0 : kFlat ? (i + 1) * XB + (j - 1) * Cin : i * (W + 2) + j;
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // provably warp-uniform
+  const int lane = threadIdx.x % 32;
+  if (wg == kWG) {  // producer warp: lane 0 issues every load
+    if (lane == 0) {
+      const uint32_t g_box = (uint32_t)kGRow * W * ((HWpad + W - 1) / W);
+      const uint32_t x_box = kFlat ? (uint32_t)(H + 3) * XB * 2 : (uint32_t)(H + 2) * (W + 2) * Cin * 2;
+      for (int img = img0, u = 0; img < img1; ++img, ++u) {
+        const int s = u % stages;
+        char* st = ring + s * stage_bytes;
+        hp::mbar_wait(empty + s, ((u / stages) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(full + s, x_box + g_box);
+        if constexpr (kFlat)
+          hp::tma_load_3d(st, &map_x, full + s, 0, -2, img);
+        else
+          hp::tma_load_4d(st, &map_x, full + s, 0, -1, -1, img);
+        hp::tma_load_4d(st + x_bytes, &map_g, full + s, c0, 0, 0, img);
+      }
+    }
+    return;
+  }
+
+  constexpr int KG = dw_kgroup(kFlat);
+  const int warp = (threadIdx.x % 128) / 32;
+  const int n_groups = HWpad / (16 * KG);  // even (dw_pixel_pad)
+  // 4-D: this lane's ldmatrix matrix i = lane / 8 holds M rows 8 (i % 2) ..
+  // of the warp's 16 and pixels 8 (i / 2) + lane % 8 of the k-step; its
+  // 8-row group of M is (tap, 8-channel chunk).
+  const int mt = kFlat ? 0 : wg;
+  const bool active = mt * 64 < K2C;  // warpgroup-uniform
+  const int grp = mt * 8 + 2 * warp + ((lane >> 3) & 1);
+  const int chunks = kFlat ? 1 : Cin / 8;  // 8-channel chunks of a pixel
+  const int tap = grp / chunks;
+  const int xrow = Cin * 2;  // bytes of a halo row (4-D view)
+  const int tap_off = tap < 9 ? (tap / 3) * (W + 2) + tap % 3 : 0;
+  const uint32_t chunk = (uint32_t)(grp % chunks);
+  const uint32_t swz_mask = (uint32_t)(xrow / 16 - 1);
+  const int kpix = 8 * ((lane >> 4) & 1) + (lane & 7);
+  // 3-D: this thread's fragment rows m0 = 16 warp + lane / 4 and m0 + 8, as
+  // halo element offsets at pixel 0, masked to zero past 9 Cin.
+  int off[2];
+  uint16_t keep[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = 16 * warp + lane / 4 + 8 * h, t = m / Cin, ci = m % Cin;
+    const bool ok = kFlat && m < K2C;
+    off[h] = ok ? (t / 3) * XB + (t % 3) * Cin + ci : 0;
+    keep[h] = ok ? 0xFFFF : 0;
+  }
+  const bool warp_rows = kFlat ? 16 * warp < K2C : active;  // warp-uniform
+  const int q2 = 2 * (lane % 4);
+
+  const int n_lo = img0 / B, n_hi = img1 > img0 ? (img1 - 1) / B : n_lo - 1;
+  for (int n = n_lo; n <= n_hi; ++n) {
+    float acc[NC / 2];
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+    const int a = max(img0, n * B), b = min(img1, (n + 1) * B);
+    for (int img = a; img < b; ++img) {
+      const int u = img - img0, s = u % stages;
+      if (kFlat && u % R != wg) continue;
+      hp::mbar_wait(full + s, (u / stages) & 1);
+      __syncwarp();  // wgmma is .aligned: the warp converged after the spin
+      const char* st = ring + s * stage_bytes;
+      const uint32_t xt = hp::smem_u32(st);
+      const char* gt = st + x_bytes;
+      if (kFlat || active) {
+        // The A fragment of k-step ks into f[].
+        auto load_a = [&](uint32_t (&f)[4], int ks) {
+          if constexpr (kFlat) {
+            if (!warp_rows) {
+              f[0] = f[1] = f[2] = f[3] = 0u;
+              return;
+            }
+            const uint16_t* xs = reinterpret_cast<const uint16_t*>(st);
+            const int p = 16 * ks + q2;
+            const int e0 = tab[p], e1 = tab[p + 1], e2 = tab[p + 8], e3 = tab[p + 9];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              f[h] = pack2(xs[e0 + off[h]] & keep[h], xs[e1 + off[h]] & keep[h]);
+              f[2 + h] = pack2(xs[e2 + off[h]] & keep[h], xs[e3 + off[h]] & keep[h]);
+            }
+          } else {
+            const uint32_t r = (uint32_t)(tab[16 * ks + kpix] + tap_off);
+            const uint32_t swz = ((r * xrow) >> 7) & swz_mask;
+            hp::ldmatrix_x4_trans(f, xt + r * xrow + ((chunk ^ swz) << 4));
+          }
+        };
+        // Commit group gi: KG products from `cur`; once group gi - 1 is
+        // done, the fragments of group gi + 1 load into `nxt` while gi runs.
+        auto group = [&](uint32_t (&cur)[KG][4], uint32_t (&nxt)[KG][4], int gi) {
+          hp::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KG; ++kk)
+            hp::wgmma_rs(acc, cur[kk],
+                         hp::desc_swizzled(gt + (gi * KG + kk) * 16 * kGRow, 16, 8 * kGRow, kGRow),
+                         1);
+          hp::wgmma_commit();
+          hp::wgmma_wait<1>();
+          if (gi + 1 < n_groups) {
+#pragma unroll
+            for (int kk = 0; kk < KG; ++kk) load_a(nxt[kk], (gi + 1) * KG + kk);
+          }
+        };
+        uint32_t f0[KG][4], f1[KG][4];
+#pragma unroll
+        for (int kk = 0; kk < KG; ++kk) load_a(f0[kk], kk);
+        for (int gi = 0; gi < n_groups; gi += 2) {
+          group(f0, f1, gi);
+          group(f1, f0, gi + 1);
+        }
+        hp::wgmma_wait<0>();
+        hp::fence_regs(acc);
+      }
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + s);
+    }
+    if (kFlat || active) {  // this node's partial: rows mt*64 + ..., columns c0 + ...
+      const int slot = (blockIdx.x + n) * R + (kFlat ? wg : 0);
+      float* dst = partial + (size_t)slot * K2C * Cout;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mt * 64 + 16 * warp + lane / 4 + 8 * h;
+        if (row >= K2C) continue;
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j)
+          *reinterpret_cast<float2*>(dst + (size_t)row * Cout + c0 + 8 * j + q2) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// out[n, e] = the sum, in block order and then replica order, of the
+// partial slots (b + n) * R + r of every block b whose image range meets
+// node n (conv_dw_wgmma's layout). Deterministic by construction.
+__global__ void __launch_bounds__(kThreads)
+dw_reduce_ranges(const float* __restrict__ partial, float* __restrict__ out, int N, int per_node,
+                 int B, int NB, int G, int R) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)N * per_node) return;
+  const long n = (long)(idx / per_node);
+  const size_t e = idx - (size_t)n * per_node;
+  // The last block whose range starts at or before the node's first image.
+  long b = (((long)n * B + 1) * G - 1) / NB;
+  float acc = 0.f;
+  for (; b < G && b * NB / G < (n + 1) * B; ++b)
+    for (int r = 0; r < R; ++r) acc += partial[(size_t)((b + n) * R + r) * per_node + e];
+  out[idx] = acc;
+}
+
 inline unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
 
 // conv_dw's block tile for a dtype: {rows of k*k*Cin, columns of Cout,
@@ -768,15 +1025,14 @@ inline DwTile dw_tile(int dtype) {
 }
 
 // Position splits of conv_dw: enough blocks (~kTargetBlocks) to fill the
-// card, never more than one stage of positions per split, and a grid z
-// (N * splits) within 65535.
+// card, never more than one stage of positions per split. N * splits is
+// the grid's x, which has no 65535 limit.
 constexpr long kTargetBlocks = 1024;
 inline int dw_splits(int N, int K2C, int Cout, int M, int dtype) {
   const DwTile tile = dw_tile(dtype);
   const long blocks = (long)N * cdiv(K2C, tile.rows) * cdiv(Cout, tile.cols);
   long s = (kTargetBlocks + blocks - 1) / blocks;
   s = s < (long)cdiv(M, tile.stage) ? s : (long)cdiv(M, tile.stage);
-  s = s < 65535L / N ? s : 65535L / N;
   return s > 1 ? (int)s : 1;
 }
 
@@ -789,7 +1045,7 @@ void launch_dw(const void* x, const void* g, void* partial, void* out, int N,
   const DwTile tile = dw_tile(std::is_same<T, bf16>::value ? 1 : 0);
   int chunk = (M + splits - 1) / splits;
   chunk = ((chunk + tile.stage - 1) / tile.stage) * tile.stage;
-  dim3 grid(cdiv(K2C, tile.rows), cdiv(Cout, tile.cols), (unsigned)(N * splits));
+  dim3 grid((unsigned)(N * splits), cdiv(K2C, tile.rows), cdiv(Cout, tile.cols));
   float* dst = splits > 1 ? static_cast<float*>(partial) : static_cast<float*>(out);
   if constexpr (std::is_same<T, bf16>::value) {
     conv_dw_wmma_kernel<<<grid, kThreads, 0, st>>>(
@@ -870,49 +1126,173 @@ cudaError_t launch_dx_wgmma(const void* g, const void* w, void* dx, int N, int B
   return cudaGetLastError();
 }
 
+// The kernel tpfl_conv_dw launches for a shape.
+enum DwVariant { kDwOther = 0, kDwWgmma = 1 };
+
+// Everything a wgmma conv_dw launch needs: the view of x, the Cout chunk,
+// the ring, the padded pixel count, the grid and the partial slots.
+struct DwPlan {
+  bool flat;
+  int nc, stages, x_bytes, stage_bytes, hwpad, hb, xb, blocks, chunks;
+  size_t smem;
+  long partials;
+};
+
+inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// The shape rule of the wgmma conv_dw (the note above conv_dw_wgmma): bf16,
+// k = 3, Cout a multiple of 32, 16-byte-aligned x and g; Cin 8, 16 or 32
+// (4-D view) or Cin < 8 with W*Cin a multiple of 8 and (W+1)*Cin <= 256
+// (3-D view); every box dimension within TMA's 256 and the ring within the
+// card's shared memory: at least two stages (4-D view), exactly kDwWG3 (3-D
+// view, one per warpgroup). kDwWgmma with *plan filled, or kDwOther, or
+// -(CUDA error) if the card cannot be queried.
+int dw_variant(const void* x, const void* g, int N, int B, int H, int W, int Cin, int Cout, int k,
+               int dtype, DwPlan* plan) {
+  if (dtype != 1 || k != 3 || Cout % 32 != 0 || H < 1 || W < 1 || H + 3 > 256 || W + 2 > 256 ||
+      !aligned16(x) || !aligned16(g))
+    return kDwOther;
+  DwPlan p{};
+  p.flat = Cin < 8;
+  if (p.flat) {
+    p.xb = round_up((W + 1) * Cin, 8);
+    if ((W * Cin) % 8 != 0 || p.xb > 256) return kDwOther;
+  } else if (Cin != 8 && Cin != 16 && Cin != 32) {
+    return kDwOther;
+  }
+  p.nc = !p.flat && Cout % 64 == 0 ? 64 : 32;
+  p.hwpad = round_up(H * W, dw_pixel_pad(p.flat));
+  p.hb = (p.hwpad + W - 1) / W;
+  if (p.hb > 256) return kDwOther;
+  p.x_bytes = round_up(p.flat ? (H + 3) * p.xb * 2 : (H + 2) * (W + 2) * Cin * 2, 1024);
+  p.stage_bytes = p.x_bytes + round_up(p.nc * 2 * W * p.hb, 1024);
+  int dev, optin, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  const int min_stages = p.flat ? kDwWG3 : 2;
+  for (p.stages = p.flat ? kDwWG3 : kDwMaxStages; p.stages >= min_stages; --p.stages) {
+    p.smem = 1024 + (size_t)p.stages * p.stage_bytes + (size_t)p.hwpad * 4 + 2 * p.stages * 8;
+    if (p.smem <= (size_t)optin) break;
+  }
+  if (p.stages < min_stages) return kDwOther;
+  // Persistent: one block per SM and Cout chunk, each a contiguous,
+  // non-empty range of images.
+  p.chunks = Cout / p.nc;
+  p.blocks = std::max(1, std::min(N * B, sms / p.chunks));
+  p.partials = (long)(p.blocks + N - 1) * (p.flat ? kDwWG3 : 1);
+  *plan = p;
+  return kDwWgmma;
+}
+
+cudaError_t launch_dw_wgmma(const void* x, const void* g, void* partial, void* out, int N, int B,
+                            int H, int W, int Cin, int Cout, const DwPlan& p, cudaStream_t st) {
+  CUtensorMap map_x, map_g;
+  const cuuint64_t NB = (cuuint64_t)N * B;
+  bool ok;
+  if (p.flat) {  // x as [N*B, H, W*Cin]
+    const cuuint64_t dims[3] = {(cuuint64_t)W * Cin, (cuuint64_t)H, NB};
+    const cuuint32_t box[3] = {(cuuint32_t)p.xb, (cuuint32_t)(H + 3), 1};
+    ok = hp::make_bf16_map_nd(&map_x, x, 3, dims, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  } else {  // x as [N*B, H, W, Cin], rows swizzled by their width
+    const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, NB};
+    const cuuint32_t box[4] = {(cuuint32_t)Cin, (cuuint32_t)(W + 2), (cuuint32_t)(H + 2), 1};
+    const CUtensorMapSwizzle swz = Cin == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                   : Cin == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                               : CU_TENSOR_MAP_SWIZZLE_NONE;
+    ok = hp::make_bf16_map_nd(&map_x, x, 4, dims, box, swz);
+  }
+  const cuuint64_t g_dims[4] = {(cuuint64_t)Cout, (cuuint64_t)W, (cuuint64_t)H, NB};
+  const cuuint32_t g_box[4] = {(cuuint32_t)p.nc, (cuuint32_t)W, (cuuint32_t)p.hb, 1};
+  ok = ok && hp::make_bf16_map_nd(&map_g, g, 4, g_dims, g_box,
+                                  p.nc == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  if (!ok) return cudaErrorInvalidValue;
+  auto kern = p.flat ? conv_dw_wgmma<true, 32>
+              : p.nc == 64 ? conv_dw_wgmma<false, 64> : conv_dw_wgmma<false, 32>;
+  const int threads = (p.flat ? kDwWG3 : kDwWG4) * 128 + 32;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)p.smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(p.blocks, p.chunks), threads, p.smem, st>>>(
+      map_x, map_g, static_cast<float*>(partial), N * B, B, H, W, Cin, Cout, p.hwpad, p.xb,
+      p.stages, p.x_bytes, p.stage_bytes);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int per_node = 9 * Cin * Cout;
+  dw_reduce_ranges<<<cdiv((long)N * per_node, kThreads), kThreads, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), N, per_node, B, N * B,
+      p.blocks, p.flat ? kDwWG3 : 1);
+  return cudaGetLastError();
+}
+
 template <typename T>
 void launch_dx(const void* g, const void* w, void* dx, int N, int B, int H,
                int W, int Cin, int Cout, int k, cudaStream_t st) {
   const int M = B * H * W;
   if constexpr (std::is_same<T, bf16>::value) {
-    dim3 grid(cdiv(M, WDX_BM), cdiv(Cin, WDX_BN), (unsigned)N);
+    dim3 grid(cdiv(M, WDX_BM) * (unsigned)N, cdiv(Cin, WDX_BN));
     conv_dx_wmma_kernel<<<grid, kThreads, 0, st>>>(
         static_cast<const bf16*>(g), static_cast<const bf16*>(w),
         static_cast<bf16*>(dx), B, H, W, Cin, Cout, k);
   } else {
-    dim3 grid(cdiv(M, DX_TM), cdiv(Cin, DX_TN), (unsigned)N);
+    dim3 grid(cdiv(M, DX_TM) * (unsigned)N, cdiv(Cin, DX_TN));
     conv_dx_kernel<T><<<grid, kThreads, 0, st>>>(
         static_cast<const T*>(g), static_cast<const T*>(w), static_cast<T*>(dx),
         B, H, W, Cin, Cout, k);
   }
 }
 
+// The partial slots a conv_dw launch of this variant and plan writes: the
+// wgmma kernel's (blocks + N - 1) * replicas, or the WMMA / CUDA-core
+// kernels' N * splits position splits (0: none).
+long dw_partials(int variant, const DwPlan& plan, int N, int B, int H, int W, int Cin, int Cout,
+                 int k, int dtype) {
+  if (variant == kDwWgmma) return plan.partials;
+  const int splits = dw_splits(N, k * k * Cin, Cout, B * H * W, dtype);
+  return splits > 1 ? (long)N * splits : 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The position split count conv_dw takes for these shapes and dtype; the
-// caller sizes the partial scratch of tpfl_conv_dw with it.
-int tpfl_conv_dw_splits(int N, int B, int H, int W, int Cin, int Cout, int k,
-                        int dtype) {
-  return dw_splits(N, k * k * Cin, Cout, B * H * W, dtype);
+// The f32 partial slices [k*k*Cin, Cout] that tpfl_conv_dw needs as
+// scratch for these operands (0: none), or -(CUDA error). The launcher
+// picks the kernel and its split, so it sizes the scratch.
+long tpfl_conv_dw_partials(const void* x, const void* g, int N, int B, int H, int W, int Cin,
+                           int Cout, int k, int dtype) {
+  DwPlan plan;
+  const int variant = dw_variant(x, g, N, B, H, W, Cin, Cout, k, dtype, &plan);
+  if (variant < 0) return variant;
+  return dw_partials(variant, plan, N, B, H, W, Cin, Cout, k, dtype);
 }
 
 // x [N,B,H,W,Cin], g [N,B,H,W,Cout] (same dtype) -> out f32 [N,k*k*Cin,Cout].
-// splits: tpfl_conv_dw_splits of the same arguments. partial: f32 scratch
-// [N,splits,k*k*Cin,Cout], unused when splits == 1.
-int tpfl_conv_dw(const void* x, const void* g, void* partial, void* out, int N,
-                 int B, int H, int W, int Cin, int Cout, int k, int splits,
-                 int dtype, void* stream) {
-  if (splits != tpfl_conv_dw_splits(N, B, H, W, Cin, Cout, k, dtype))
+// partial: f32 scratch of `partials` slices (tpfl_conv_dw_partials of the
+// same arguments; any other count is refused). *took_wgmma: 1 if the launch
+// took the wgmma kernel (the rule of dw_variant), else 0.
+int tpfl_conv_dw(const void* x, const void* g, void* partial, void* out, int N, int B, int H,
+                 int W, int Cin, int Cout, int k, long partials, int dtype, void* stream,
+                 int* took_wgmma) {
+  *took_wgmma = 0;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  DwPlan plan;
+  const int variant = dw_variant(x, g, N, B, H, W, Cin, Cout, k, dtype, &plan);
+  if (variant < 0) return -variant;
+  if (partials != dw_partials(variant, plan, N, B, H, W, Cin, Cout, k, dtype))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == kDwWgmma) {
+    const cudaError_t err = launch_dw_wgmma(x, g, partial, out, N, B, H, W, Cin, Cout, plan, st);
+    *took_wgmma = err == cudaSuccess;
+    return (int)err;
+  }
+  const int splits = dw_splits(N, k * k * Cin, Cout, B * H * W, dtype);
   if (dtype == 0)
     launch_dw<float>(x, g, partial, out, N, B, H, W, Cin, Cout, k, splits, st);
-  else if (dtype == 1)
-    launch_dw<bf16>(x, g, partial, out, N, B, H, W, Cin, Cout, k, splits, st);
   else
-    return (int)cudaErrorInvalidValue;
+    launch_dw<bf16>(x, g, partial, out, N, B, H, W, Cin, Cout, k, splits, st);
   return (int)cudaGetLastError();
 }
 

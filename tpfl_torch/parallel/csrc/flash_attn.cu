@@ -53,8 +53,11 @@
 //     (bf16) or CUDA cores (f32), 4 warps a block each owning 16 rows of
 //     the block's 64, the forward's O accumulator, running max and
 //     denominator in shared memory (WMMA has no documented row layout),
-//     tiles loaded and waited for in turn. dispatch() chooses by dtype and
-//     shape before launch.
+//     tiles loaded and waited for in turn. They take any D: past 128, a
+//     grid axis over 128-column chunks of D (the note above flash_fwd_kernel).
+//     dispatch() chooses by dtype and shape before launch.
+//   * BH is folded into gridDim.x with the row tiles, so it has no 65535
+//     limit (the reference's grid puts B*H on its first axis).
 //
 // Plain C interface, loaded with ctypes; each entry returns
 // cudaGetLastError() after its launch. Kernels run on the caller's stream
@@ -101,11 +104,12 @@ template <typename T, int DP> struct Ld { static constexpr int v = DP + (sizeof(
 constexpr int kLdS = kTile + 4;  // f32 score tiles (WMMA stores: multiple of 4)
 constexpr int kLdStage = 20;     // per-warp 16x16 f32 staging tile
 
-// Rows row0.. row0+63 of a [S, D] matrix into dst[64][ld] (zeros outside
-// the matrix and in columns D..DP).
+// Rows row0.. row0+63, columns 0..ncols-1 of a matrix of S rows `stride`
+// elements apart into dst[64][ld] (zeros past row S and in columns
+// ncols..DP).
 template <typename T, int DP>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0,
-                                          int S, int D, bool vec) {
+                                          int S, int stride, int ncols, bool vec) {
   constexpr int ld = Ld<T, DP>::v;
   constexpr int V = 16 / sizeof(T);
   if (vec) {
@@ -113,8 +117,8 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
       const int r = e / (DP / V);
       const int c = (e % (DP / V)) * V;
       const int row = row0 + r;
-      if (row < S && c < D) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * D + c);
+      if (row < S && c < ncols) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)row * stride + c);
         const T* vals = reinterpret_cast<const T*>(&raw);
 #pragma unroll
         for (int i = 0; i < V; ++i) dst[r * ld + c + i] = vals[i];
@@ -128,24 +132,28 @@ __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int
       const int r = e / DP;
       const int c = e % DP;
       const int row = row0 + r;
-      dst[r * ld + c] = (row < S && c < D) ? src[(size_t)row * D + c] : from_f<T>(0.f);
+      dst[r * ld + c] = (row < S && c < ncols) ? src[(size_t)row * stride + c] : from_f<T>(0.f);
     }
   }
 }
 
 // ---- a warp's products ------------------------------------------------------
-// nt: C[16][64] (f32, ldc) = A[16][DP] . B[64][DP]^T, A and B in shared memory.
+// nt: C[16][64] (f32, ldc) = A[16][DP] . B[64][DP]^T (+ C if accumulate), A and
+// B in shared memory.
 // RowAcc: a warp's 16 x DP f32 accumulator with acc += A[16][K] . B[K][DP].
 
 template <typename T, int DP> struct Warp;
 
 template <int DP> struct Warp<bf16, DP> {
   static __device__ __forceinline__ void nt(const bf16* A, int lda, const bf16* B, int ldb,
-                                            float* C, int ldc) {
+                                            float* C, int ldc, bool accumulate) {
 #pragma unroll
     for (int n = 0; n < kTile; n += 16) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.f);
+      if (accumulate)
+        wmma::load_matrix_sync(c, C + n, ldc, wmma::mem_row_major);
+      else
+        wmma::fill_fragment(c, 0.f);
 #pragma unroll
       for (int k = 0; k < DP; k += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
@@ -187,11 +195,11 @@ template <int DP> struct Warp<bf16, DP> {
         }
       }
     }
-    // dst rows row0..row0+15 of a [S, D] output, times scale, through a
-    // per-warp 16x16 staging tile.
+    // dst rows row0..row0+15, columns 0..ncols-1 of an output whose rows
+    // are `stride` apart, times scale, through a per-warp 16x16 staging tile.
     template <typename TO>
-    __device__ __forceinline__ void write(TO* dst, int row0, int S, int D, float scale,
-                                          float* stage) const {
+    __device__ __forceinline__ void write(TO* dst, int row0, int S, int stride, int ncols,
+                                          float scale, float* stage) const {
       const int lane = threadIdx.x % 32;
 #pragma unroll
       for (int j = 0; j < DP / 16; ++j) {
@@ -199,8 +207,8 @@ template <int DP> struct Warp<bf16, DP> {
         __syncwarp();
         for (int e = lane; e < 256; e += 32) {
           const int r = e / 16, c = j * 16 + e % 16;
-          if (row0 + r < S && c < D)
-            dst[(size_t)(row0 + r) * D + c] = from_f<TO>(stage[(e / 16) * kLdStage + e % 16] * scale);
+          if (row0 + r < S && c < ncols)
+            dst[(size_t)(row0 + r) * stride + c] = from_f<TO>(stage[(e / 16) * kLdStage + e % 16] * scale);
         }
         __syncwarp();
       }
@@ -210,11 +218,12 @@ template <int DP> struct Warp<bf16, DP> {
 
 template <int DP> struct Warp<float, DP> {
   static __device__ __forceinline__ void nt(const float* A, int lda, const float* B, int ldb,
-                                            float* C, int ldc) {
+                                            float* C, int ldc, bool accumulate) {
     const int lane = threadIdx.x % 32;
 #pragma unroll 1
     for (int r = 0; r < kWarpRows; ++r) {
-      float s0 = 0.f, s1 = 0.f;
+      float s0 = accumulate ? C[r * ldc + lane] : 0.f;
+      float s1 = accumulate ? C[r * ldc + lane + 32] : 0.f;
 #pragma unroll 8
       for (int k = 0; k < DP; ++k) {
         const float a = A[r * lda + k];
@@ -264,15 +273,16 @@ template <int DP> struct Warp<float, DP> {
       }
     }
     template <typename TO>
-    __device__ __forceinline__ void write(TO* dst, int row0, int S, int D, float scale,
-                                          float*) const {
+    __device__ __forceinline__ void write(TO* dst, int row0, int S, int stride, int ncols,
+                                          float scale, float*) const {
       const int lane = threadIdx.x % 32;
 #pragma unroll
       for (int r = 0; r < kWarpRows; ++r)
 #pragma unroll
         for (int j = 0; j < DP / 32; ++j) {
           const int c = lane + 32 * j;
-          if (row0 + r < S && c < D) dst[(size_t)(row0 + r) * D + c] = from_f<TO>(a[r][j] * scale);
+          if (row0 + r < S && c < ncols)
+            dst[(size_t)(row0 + r) * stride + c] = from_f<TO>(a[r][j] * scale);
         }
     }
   };
@@ -306,8 +316,26 @@ __device__ __forceinline__ bool masked(int qpos, int kpos, int S, bool causal) {
   return kpos >= S || qpos >= S || (causal && qpos < kpos);
 }
 
+// Grid of the kernels below: x = bh * tiles + tile (no 65535 limit on
+// BH), y = the block's 128-column chunk of D when D > 128 (kChunked).
+// A chunked block forms S = Q.K^T (and dP = dO.V^T) over the whole of D,
+// walking the chunks through its shared tiles, and writes only its own
+// columns of O, dQ, dK, dV. S, and so the softmax's max, sum and lse, come
+// out identical in every chunk's block (the same products in the same
+// order); lse is written by chunk 0. The score products repeat once per
+// chunk: exact, and meant for shapes no main path runs.
+struct Chunk {
+  int c0, ncols, n;  // first column, columns of this block's chunk, chunks of D
+};
+template <int DP, bool kChunked>
+__device__ __forceinline__ Chunk chunk_of(int D) {
+  if constexpr (!kChunked) return Chunk{0, D, 1};
+  const int c0 = blockIdx.y * DP;
+  return Chunk{c0, min(DP, D - c0), (D + DP - 1) / DP};
+}
+
 // ---- flash_fwd ----------------------------------------------------------------
-template <typename T, int DP, typename TO>
+template <typename T, int DP, typename TO, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  TO* __restrict__ o, float* __restrict__ lse, int S, int D, int causal,
@@ -325,27 +353,39 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* m_s = cv.take<float>(kTile);
   float* l_s = cv.take<float>(kTile);
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int n_kt = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_kt;
+  const int q0 = (blockIdx.x % n_kt) * kTile;
+  const Chunk ch = chunk_of<DP, kChunked>(D);
   const size_t base = (size_t)bh * S * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp * kWarpRows;
 
-  load_tile<T, DP>(Qs, q + base, q0, S, D, vec);
+  if (!kChunked) load_tile<T, DP>(Qs, q + base, q0, S, D, D, vec);
   for (int e = threadIdx.x; e < kTile * ldo; e += kThreads) Os[e] = 0.f;
   if (threadIdx.x < kTile) { m_s[threadIdx.x] = kNegInf; l_s[threadIdx.x] = 0.f; }
 
-  const int n_kt = (S + kTile - 1) / kTile;
   const int last_kt = causal ? min(n_kt - 1, min(q0 + kTile - 1, S - 1) / kTile) : n_kt - 1;
   typename W::RowAcc acc;
   for (int kt = 0; kt <= last_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, DP>(Ks, k + base, k0, S, D, vec);
-    load_tile<T, DP>(Vs, v + base, k0, S, D, vec);
-    __syncthreads();
-
-    W::nt(Qs + wr * ld, ld, Ks, ld, Ss + wr * kLdS, kLdS);
+    if constexpr (!kChunked) {
+      load_tile<T, DP>(Ks, k + base, k0, S, D, D, vec);
+      load_tile<T, DP>(Vs, v + base, k0, S, D, D, vec);
+      __syncthreads();
+      W::nt(Qs + wr * ld, ld, Ks, ld, Ss + wr * kLdS, kLdS, false);
+    } else {
+      for (int j = 0; j < ch.n; ++j) {
+        if (j) __syncthreads();
+        load_tile<T, DP>(Qs, q + base + j * DP, q0, S, D, D - j * DP, vec);
+        load_tile<T, DP>(Ks, k + base + j * DP, k0, S, D, D - j * DP, vec);
+        __syncthreads();
+        W::nt(Qs + wr * ld, ld, Ks, ld, Ss + wr * kLdS, kLdS, j > 0);
+      }
+      load_tile<T, DP>(Vs, v + base + ch.c0, k0, S, D, ch.ncols, vec);
+      __syncthreads();
+    }
     __syncwarp();
     for (int r = 0; r < kWarpRows; ++r) {
       const int row = wr + r, qpos = q0 + row;
@@ -385,14 +425,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int row = wr + r, qpos = q0 + row;
     if (qpos >= S) break;
     const float l = fmaxf(l_s[row], 1e-30f);
-    for (int c = lane; c < D; c += 32)
-      o[base + (size_t)qpos * D + c] = from_f<TO>(Os[row * ldo + c] / l);
-    if (lane == 0) lse[(size_t)bh * S + qpos] = m_s[row] + logf(l);
+    for (int c = lane; c < ch.ncols; c += 32)
+      o[base + (size_t)qpos * D + ch.c0 + c] = from_f<TO>(Os[row * ldo + c] / l);
+    if (lane == 0 && ch.c0 == 0) lse[(size_t)bh * S + qpos] = m_s[row] + logf(l);
   }
 }
 
 // ---- flash_dq -----------------------------------------------------------------
-template <typename T, int DP, typename TO>
+template <typename T, int DP, typename TO, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
@@ -413,33 +453,52 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float* dd_s = cv.take<float>(kTile);
   float* stage = cv.take<float>((kThreads / 32) * 16 * kLdStage);
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int n_kt = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_kt;
+  const int q0 = (blockIdx.x % n_kt) * kTile;
+  const Chunk ch = chunk_of<DP, kChunked>(D);
   const size_t base = (size_t)bh * S * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp * kWarpRows;
 
-  load_tile<T, DP>(Qs, q + base, q0, S, D, vec);
-  load_tile<T, DP>(dOs, dout + base, q0, S, D, vec);
+  if (!kChunked) {
+    load_tile<T, DP>(Qs, q + base, q0, S, D, D, vec);
+    load_tile<T, DP>(dOs, dout + base, q0, S, D, D, vec);
+  }
   if (threadIdx.x < kTile) {
     const int qpos = q0 + threadIdx.x;
     lse_s[threadIdx.x] = qpos < S ? lse[(size_t)bh * S + qpos] : 0.f;
     dd_s[threadIdx.x] = qpos < S ? delta[(size_t)bh * S + qpos] : 0.f;
   }
 
-  const int n_kt = (S + kTile - 1) / kTile;
   const int last_kt = causal ? min(n_kt - 1, min(q0 + kTile - 1, S - 1) / kTile) : n_kt - 1;
   typename W::RowAcc acc;
   acc.zero();
   for (int kt = 0; kt <= last_kt; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, DP>(Ks, k + base, k0, S, D, vec);
-    load_tile<T, DP>(Vs, v + base, k0, S, D, vec);
-    __syncthreads();
-
-    W::nt(Qs + wr * ld, ld, Ks, ld, Ss + wr * kLdS, kLdS);
-    W::nt(dOs + wr * ld, ld, Vs, ld, dPs + wr * kLdS, kLdS);
+    if constexpr (!kChunked) {
+      load_tile<T, DP>(Ks, k + base, k0, S, D, D, vec);
+      load_tile<T, DP>(Vs, v + base, k0, S, D, D, vec);
+      __syncthreads();
+      W::nt(Qs + wr * ld, ld, Ks, ld, Ss + wr * kLdS, kLdS, false);
+      W::nt(dOs + wr * ld, ld, Vs, ld, dPs + wr * kLdS, kLdS, false);
+    } else {
+      for (int j = 0; j < ch.n; ++j) {
+        if (j) __syncthreads();
+        const int off = j * DP, cols = D - j * DP;
+        load_tile<T, DP>(Qs, q + base + off, q0, S, D, cols, vec);
+        load_tile<T, DP>(dOs, dout + base + off, q0, S, D, cols, vec);
+        load_tile<T, DP>(Ks, k + base + off, k0, S, D, cols, vec);
+        load_tile<T, DP>(Vs, v + base + off, k0, S, D, cols, vec);
+        __syncthreads();
+        W::nt(Qs + wr * ld, ld, Ks, ld, Ss + wr * kLdS, kLdS, j > 0);
+        W::nt(dOs + wr * ld, ld, Vs, ld, dPs + wr * kLdS, kLdS, j > 0);
+      }
+      __syncthreads();
+      load_tile<T, DP>(Ks, k + base + ch.c0, k0, S, D, ch.ncols, vec);
+      __syncthreads();
+    }
     __syncwarp();
     for (int e = lane; e < kWarpRows * kTile; e += 32) {
       const int row = wr + e / kTile, c = e % kTile;
@@ -452,11 +511,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     __syncwarp();
     acc.mma(dSs + wr * ldp, ldp, Ks, ld);
   }
-  acc.write(dq + base, q0 + wr, S, D, scale, stage + warp * 16 * kLdStage);
+  acc.write(dq + base + ch.c0, q0 + wr, S, D, ch.ncols, scale, stage + warp * 16 * kLdStage);
 }
 
 // ---- flash_dkv ----------------------------------------------------------------
-template <typename T, int DP, typename TO>
+template <typename T, int DP, typename TO, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
@@ -477,16 +536,19 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* dd_s = cv.take<float>(kTile);
   float* stage = cv.take<float>((kThreads / 32) * 16 * kLdStage);
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
+  const int n_qt = (S + kTile - 1) / kTile;
+  const int bh = blockIdx.x / n_qt;
+  const int k0 = (blockIdx.x % n_qt) * kTile;
+  const Chunk ch = chunk_of<DP, kChunked>(D);
   const size_t base = (size_t)bh * S * D;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = warp * kWarpRows;
 
-  load_tile<T, DP>(Ks, k + base, k0, S, D, vec);
-  load_tile<T, DP>(Vs, v + base, k0, S, D, vec);
+  if (!kChunked) {
+    load_tile<T, DP>(Ks, k + base, k0, S, D, D, vec);
+    load_tile<T, DP>(Vs, v + base, k0, S, D, D, vec);
+  }
 
-  const int n_qt = (S + kTile - 1) / kTile;
   const int first_qt = causal ? k0 / kTile : 0;
   typename W::RowAcc dk_acc, dv_acc;
   dk_acc.zero();
@@ -494,17 +556,34 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int qt = first_qt; qt < n_qt; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<T, DP>(Qs, q + base, q0, S, D, vec);
-    load_tile<T, DP>(dOs, dout + base, q0, S, D, vec);
     if (threadIdx.x < kTile) {
       const int qpos = q0 + threadIdx.x;
       lse_s[threadIdx.x] = qpos < S ? lse[(size_t)bh * S + qpos] : 0.f;
       dd_s[threadIdx.x] = qpos < S ? delta[(size_t)bh * S + qpos] : 0.f;
     }
-    __syncthreads();
-
-    W::nt(Ks + wr * ld, ld, Qs, ld, St + wr * kLdS, kLdS);
-    W::nt(Vs + wr * ld, ld, dOs, ld, dPt + wr * kLdS, kLdS);
+    if constexpr (!kChunked) {
+      load_tile<T, DP>(Qs, q + base, q0, S, D, D, vec);
+      load_tile<T, DP>(dOs, dout + base, q0, S, D, D, vec);
+      __syncthreads();
+      W::nt(Ks + wr * ld, ld, Qs, ld, St + wr * kLdS, kLdS, false);
+      W::nt(Vs + wr * ld, ld, dOs, ld, dPt + wr * kLdS, kLdS, false);
+    } else {
+      for (int j = 0; j < ch.n; ++j) {
+        if (j) __syncthreads();
+        const int off = j * DP, cols = D - j * DP;
+        load_tile<T, DP>(Ks, k + base + off, k0, S, D, cols, vec);
+        load_tile<T, DP>(Vs, v + base + off, k0, S, D, cols, vec);
+        load_tile<T, DP>(Qs, q + base + off, q0, S, D, cols, vec);
+        load_tile<T, DP>(dOs, dout + base + off, q0, S, D, cols, vec);
+        __syncthreads();
+        W::nt(Ks + wr * ld, ld, Qs, ld, St + wr * kLdS, kLdS, j > 0);
+        W::nt(Vs + wr * ld, ld, dOs, ld, dPt + wr * kLdS, kLdS, j > 0);
+      }
+      __syncthreads();
+      load_tile<T, DP>(Qs, q + base + ch.c0, q0, S, D, ch.ncols, vec);
+      load_tile<T, DP>(dOs, dout + base + ch.c0, q0, S, D, ch.ncols, vec);
+      __syncthreads();
+    }
     __syncwarp();
     for (int e = lane; e < kWarpRows * kTile; e += 32) {
       const int row = wr + e / kTile, c = e % kTile;
@@ -525,8 +604,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     dk_acc.mma(Pt + wr * ldp, ldp, Qs, ld);
   }
   float* st = stage + warp * 16 * kLdStage;
-  dk_acc.write(dk + base, k0 + wr, S, D, scale, st);
-  dv_acc.write(dv + base, k0 + wr, S, D, 1.f, st);
+  dk_acc.write(dk + base + ch.c0, k0 + wr, S, D, ch.ncols, scale, st);
+  dv_acc.write(dv + base + ch.c0, k0 + wr, S, D, ch.ncols, 1.f, st);
 }
 
 // ---- bf16 on Hopper: wgmma fed by a TMA ring ---------------------------------------
@@ -689,8 +768,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest causal rows first
+  const int n_qt = (S + kRows - 1) / kRows;  // grid x: bh * n_qt + query tile
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * kRows;  // longest causal rows first
   const int n_kt = (S + kN - 1) / kN;
   const int n_tiles = causal ? min(n_kt, (min(q0 + kRows, S) - 1) / kN + 1) : n_kt;
 
@@ -863,8 +943,9 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kRows;  // causal: the first key blocks see the most queries
+  const int n_kt = (S + kRows - 1) / kRows;  // grid x: bh * n_kt + key block
+  const int bh = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x % n_kt) * kRows;  // causal: the first key blocks see the most queries
   const int first = causal ? k0 / kN : 0;
   const int n_tiles = (S + kN - 1) / kN - first;
 
@@ -984,23 +1065,23 @@ struct Args {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
-template <typename T, int DP, typename TO>
+template <typename T, int DP, typename TO, bool kChunked>
 cudaError_t launch(Which which, const Args& a) {
-  const dim3 grid(cdiv(a.S, kTile), (unsigned)a.BH);
+  const dim3 grid(cdiv(a.S, kTile) * (unsigned)a.BH, kChunked ? cdiv(a.D, DP) : 1);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   cudaError_t err;
   if (which == kFwd) {
-    auto kern = flash_fwd_kernel<T, DP, TO>;
+    auto kern = flash_fwd_kernel<T, DP, TO, kChunked>;
     const size_t bytes = Smem<T, DP>::fwd;
     if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
     kern<<<grid, kThreads, bytes, a.st>>>(q, k, v, static_cast<TO*>(a.o0),
                                           static_cast<float*>(a.lse_out), a.S, a.D,
                                           a.causal, a.scale, a.vec);
   } else if (which == kDq) {
-    auto kern = flash_dq_kernel<T, DP, TO>;
+    auto kern = flash_dq_kernel<T, DP, TO, kChunked>;
     const size_t bytes = Smem<T, DP>::bwd;
     if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
     kern<<<grid, kThreads, bytes, a.st>>>(q, k, v, dout, static_cast<const float*>(a.lse_in),
@@ -1008,7 +1089,7 @@ cudaError_t launch(Which which, const Args& a) {
                                           static_cast<TO*>(a.o0), a.S, a.D, a.causal,
                                           a.scale, a.vec);
   } else {
-    auto kern = flash_dkv_kernel<T, DP, TO>;
+    auto kern = flash_dkv_kernel<T, DP, TO, kChunked>;
     const size_t bytes = Smem<T, DP>::bwd;
     if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
     kern<<<grid, kThreads, bytes, a.st>>>(q, k, v, dout, static_cast<const float*>(a.lse_in),
@@ -1021,9 +1102,10 @@ cudaError_t launch(Which which, const Args& a) {
 
 template <typename T, typename TO>
 cudaError_t by_width(Which which, const Args& a) {
-  if (a.D <= 32) return launch<T, 32, TO>(which, a);
-  if (a.D <= 64) return launch<T, 64, TO>(which, a);
-  return launch<T, 128, TO>(which, a);
+  if (a.D <= 32) return launch<T, 32, TO, false>(which, a);
+  if (a.D <= 64) return launch<T, 64, TO, false>(which, a);
+  if (a.D <= 128) return launch<T, 128, TO, false>(which, a);
+  return launch<T, 128, TO, true>(which, a);
 }
 
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
@@ -1041,7 +1123,7 @@ cudaError_t launch_wgmma(Which which, const Args& a) {
     auto kern = flash_fwd_wgmma<DP, TO>;
     const size_t bytes = FwdSmem<DP, kWG>::bytes;
     if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
-    kern<<<dim3(cdiv(a.S, 64 * kWG), (unsigned)a.BH), kWG * 128 + 32, bytes, a.st>>>(
+    kern<<<cdiv(a.S, 64 * kWG) * (unsigned)a.BH, kWG * 128 + 32, bytes, a.st>>>(
         mq, mk, mv, static_cast<TO*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.D, a.causal,
         a.scale);
   } else {
@@ -1060,7 +1142,7 @@ cudaError_t launch_wgmma(Which which, const Args& a) {
     if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return err;
     if (attr.numRegs * (kWG + 1) * 128 < kProducerRegs * 128 + kConsumerRegs * kWG * 128)
       return cudaErrorInvalidConfiguration;
-    kern<<<dim3(cdiv(a.S, kRows), (unsigned)a.BH), (kWG + 1) * 128, bytes, a.st>>>(
+    kern<<<cdiv(a.S, kRows) * (unsigned)a.BH, (kWG + 1) * 128, bytes, a.st>>>(
         mq, mk, mv, mdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
         static_cast<TO*>(a.o0), static_cast<TO*>(a.o1), a.S, a.D, a.causal, a.scale);
   }
@@ -1074,14 +1156,14 @@ cudaError_t wgmma_by_width(Which which, const Args& a) {
 
 // The kernel is chosen by dtype and shape before launch, never as a
 // fallback on failure: bf16 flash_fwd / flash_dkv whose rows TMA can
-// address (D a multiple of 8, so rows are 16-byte strided, and 16-byte
-// aligned bases) take the wgmma kernels; other bf16 shapes, flash_dq and
-// f32 operands take the WMMA / CUDA-core kernels.
+// address (D a multiple of 8 up to 128, so rows are 16-byte strided, and
+// 16-byte aligned bases) take the wgmma kernels; other bf16 shapes,
+// flash_dq and f32 operands take the WMMA / CUDA-core kernels, which take
+// any D (past 128 in 128-column chunks) and any BH.
 int dispatch(Which which, Args a, int dtype, int out_dtype) {
-  if (a.D < 1 || a.D > 128 || a.S < 1 || a.BH < 1 || a.BH > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (a.D < 1 || a.S < 1 || a.BH < 1) return (int)cudaErrorInvalidValue;
   const bool operands16 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
-  if (dtype == 1 && which != kDq && a.D % 8 == 0 && operands16) {
+  if (dtype == 1 && which != kDq && a.D % 8 == 0 && a.D <= 128 && operands16) {
     if (out_dtype == 1) return (int)wgmma_by_width<bf16>(which, a);
     if (out_dtype == 0) return (int)wgmma_by_width<float>(which, a);
     return (int)cudaErrorInvalidValue;

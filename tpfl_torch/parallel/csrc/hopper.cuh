@@ -123,6 +123,14 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
+// The same with .trans: lanes give rows of four stored 8 x 8 matrices, and
+// r[i] receives column lane / 4 of matrix i at rows 2 (lane % 4) + {0, 1}
+// -- the A fragment of a matrix stored K-row by K-row (M contiguous).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
 // ---- wgmma ----------------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a 128-byte-swizzled tile: start
@@ -130,9 +138,16 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 // 16-byte units. K-major operands: SBO = 1024 (8 rows of 128 bytes), LBO
 // unused (1). MN-major operands: SBO = 1024 (8 rows along K), LBO = the
 // distance between 64-column halves.
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo, uint32_t sbo) {
+// desc_swizzled takes the swizzle's width: 128, or 64 for a tile of
+// 64-byte rows (8-row atoms of 512 bytes: SBO = 512).
+__device__ __forceinline__ uint64_t desc_swizzled(const void* tile, uint32_t lbo, uint32_t sbo,
+                                                  int swizzle_bytes) {
+  const uint64_t layout = swizzle_bytes == 128 ? 1 : swizzle_bytes == 64 ? 2 : 3;
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+         ((uint64_t)(sbo >> 4) << 32) | (layout << 62);
+}
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile, uint32_t lbo, uint32_t sbo) {
+  return desc_swizzled(tile, lbo, sbo, 128);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -219,6 +234,19 @@ __device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[16], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32], A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A in registers, B MN-major in shared memory.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
                                          int accumulate) {
@@ -243,14 +271,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
 
 // ---- host: tensor maps ------------------------------------------------------
 
-// A row-major bf16 tensor of `rank` dimensions (dims innermost first, the
-// innermost a multiple of 8) as a tensor map with the 128-byte swizzle
-// and boxes of box[] elements (box[0] = 64: one 128-byte row). Elements
+// A row-major bf16 tensor of `rank` dimensions (dims innermost first, rows
+// a multiple of 16 bytes) as a tensor map with the given swizzle (the
+// 128-byte one by default) and boxes of box[] elements (box[0] = 64: one
+// 128-byte row; with a swizzle, box[0] spans at most its width). Elements
 // outside the tensor load as zeros. cuTensorMapEncodeTiled is looked up
 // through the runtime, so nothing links against libcuda. Returns false
 // if the encoder is missing or refuses the map.
 inline bool make_bf16_map_nd(CUtensorMap* map, const void* base, int rank,
-                             const cuuint64_t* dims, const cuuint32_t* box) {
+                             const cuuint64_t* dims, const cuuint32_t* box,
+                             CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -271,7 +301,7 @@ inline bool make_bf16_map_nd(CUtensorMap* map, const void* base, int rank,
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank, const_cast<void*>(base),
                 dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
