@@ -37,17 +37,21 @@
    them, and f32 outputs of the same kernels, which show that P and dS
    are rounded as the reference rounds them), bf16 cases at the edges of
    the wgmma kernels' tiles (S = 100 non-causal D = 32, S = 130 causal
-   D = 128, S = 127 and 129 causal D = 64, and D = 20, whose rows TMA
+   D = 128, S = 127 and 129 causal D = 64, S = 191 / 192 / 193 with
+   D = 8 / 24 / 64 / 128 causal and not, and D = 20, whose rows TMA
    cannot address, on the WMMA kernels), and one f32 non-causal case with
-   an unaligned S (100) that exercises the key mask. Times the kernels,
-   their plain versions and PyTorch's flash-backend
-   ``scaled_dot_product_attention`` (a yardstick the port never calls).
-   The build step prints ptxas's registers and spills for every kernel
-   (and any ptxas warning about wgmma) and, from ``cuobjdump -sass``, the
-   count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA load) and ``LDGSTS``
-   (``cp.async``) instructions in each kernel; the main path's
-   ``flash_fwd``, ``flash_dkv`` and both ``conv_dw`` instantiations must
-   have HGMMA and UTMALDG, its ``conv_dx`` HGMMA and UTMALDG or LDGSTS.
+   an unaligned S (100) that exercises the key mask. Every launch must
+   take the kernel the dispatch rule names (wgmma for bf16 with D a
+   multiple of 8 up to 128), and ``flash_dq`` must give the same bits
+   twice. Times the kernels, their plain versions and PyTorch's
+   flash-backend ``scaled_dot_product_attention`` (a yardstick the port
+   never calls). The build step prints ptxas's registers and spills for
+   every kernel (and any ptxas warning about wgmma) and, from
+   ``cuobjdump -sass``, the count of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA
+   load) and ``LDGSTS`` (``cp.async``) instructions in each kernel; the
+   main path's ``flash_fwd``, ``flash_dq``, ``flash_dkv`` and both
+   ``conv_dw`` instantiations must have HGMMA and UTMALDG, its
+   ``conv_dx`` HGMMA and UTMALDG or LDGSTS.
    Limit cases, bf16 and f32, forward and both gradients: B·H = 65,537
    and head dims 136, 200, 256 and 320.
 6. Transformer reference phase: a small f32 federated ``TransformerLM``
@@ -57,8 +61,8 @@
    dim=512, heads=8, n_layers=4, max_len=4096,
    attention_fn=flash_attention), n_nodes=8, learning_rate=0.05)`` runs
    FedAvg rounds on seeded tokens (1 batch of 8 sequences of 2,048 per
-   node, 1 epoch); 4 launches of each flash kernel per round, finite
-   losses and one aggregate on every node.
+   node, 1 epoch); 4 launches of each flash kernel per round, every one
+   on its wgmma kernel, finite losses and one aggregate on every node.
 
 ``--profile`` adds one round of each main path under
 ``torch.profiler``: device time by kernel, and the device's idle share
@@ -71,6 +75,7 @@ result line, when there is no card or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
@@ -178,6 +183,7 @@ def sass_counts(src: str) -> dict[str, dict]:
 _TMA_WGMMA = (("HGMMA",), ("UTMALDG",))
 WGMMA_KERNELS = {
     "flash_fwd": [("flash_attn", "flash_fwd_wgmmaILi64E13__nv_bfloat16", _TMA_WGMMA)],
+    "flash_dq": [("flash_attn", "flash_dq_wgmmaILi64E13__nv_bfloat16", _TMA_WGMMA)],
     "flash_dkv": [("flash_attn", "flash_dkv_wgmmaILi64E13__nv_bfloat16", _TMA_WGMMA)],
     "conv_dx": [("conv_bwd", "conv_dx_wgmma", (("HGMMA",), ("UTMALDG", "LDGSTS")))],
     "conv_dw": [("conv_bwd", "conv_dw_wgmmaILb1ELi32E", _TMA_WGMMA),
@@ -473,12 +479,23 @@ WRAPPERS = {"conv_dw": ck.conv_dw, "conv_dx": ck.conv_dx, "flash_fwd": fk.flash_
 
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
-        fn.launches = 0
-    ck.conv_dw.wgmma_launches = ck.conv_dx.wgmma_launches = 0
+        fn.launches = fn.wgmma_launches = 0
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def read_wgmma_launches(names) -> dict:
+    return {name: WRAPPERS[name].wgmma_launches for name in names}
+
+
+def check_all_wgmma(path: str, launches: dict, wgmma: dict) -> None:
+    """Every launch of each kernel in ``wgmma`` took its wgmma kernel."""
+    for name, took in wgmma.items():
+        if took != launches[name]:
+            raise AssertionError(f"{took} of {launches[name]} {name} launches of the {path} "
+                                 "took the wgmma kernel; expected all")
 
 
 def cnn_rounds(conv_impl: str) -> tuple:
@@ -502,7 +519,7 @@ def cnn_rounds(conv_impl: str) -> tuple:
     params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    wgmma = {"conv_dw": ck.conv_dw.wgmma_launches, "conv_dx": ck.conv_dx.wgmma_launches}
+    wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
     return wall, params, losses, read_launches(), wgmma, (fed, params, xs, ys)
 
 
@@ -521,10 +538,7 @@ def main_path(card: str) -> tuple[dict, tuple]:
     steps = N_BATCHES * EPOCHS * N_ROUNDS
     check_main_path(params, losses, launches, {
         **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
-    for name, took in wgmma.items():
-        if took != launches[name]:
-            raise AssertionError(f"{took} of {launches[name]} {name} launches of the CNN round "
-                                 "took the wgmma kernel; expected all")
+    check_all_wgmma("CNN round", launches, wgmma)
     return ({**cnn_result(card, "pallas", wall, losses), "launches": launches,
              "wgmma_launches": wgmma}, fed_args)
 
@@ -594,38 +608,63 @@ def library_flash(q, k, v, do, b: int, h: int) -> tuple:
             lambda: torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True))
 
 
+def flash_takes_wgmma(dtype: torch.dtype, d: int) -> bool:
+    """The dispatch rule of ``csrc/flash_attn.cu``: bf16 operands whose rows
+    TMA can address (D a multiple of 8 up to 128) take the wgmma kernels."""
+    return dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+
+
+@contextlib.contextmanager
+def taking_wgmma(label: str, wgmma: bool):
+    """Every flash launch inside the block took its wgmma kernel (with
+    ``wgmma`` False: none did), as each launch reported it."""
+    before = {n: (WRAPPERS[n].launches, WRAPPERS[n].wgmma_launches) for n in FLASH_KERNELS}
+    yield
+    for name in FLASH_KERNELS:
+        launched = WRAPPERS[name].launches - before[name][0]
+        took = WRAPPERS[name].wgmma_launches - before[name][1]
+        if took != (launched if wgmma else 0):
+            raise AssertionError(f"{name}[{label}]: {took} of {launched} launches took the "
+                                 f"wgmma kernel; expected {'all' if wgmma else 'none'}")
+
+
 def check_flash(label: str, q, k, v, do, causal: bool) -> tuple[dict, dict, tuple]:
     """All three flash kernels on bf16 operands against their plain
     versions, with bf16 outputs and with f32 outputs (tolerances as
-    ``flash_shape_phase`` states them): ({kernel: max |err|}, {kernel:
-    relative rms err of the f32 outputs}, the backward's arguments)."""
-    errs, rms = {}, {}
-    o, lse = fk.flash_fwd(q, k, v, causal)
-    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, causal)
-    errs["flash_fwd"] = check_close(f"flash_fwd[{label}] o", o, o_ref, 2.0 ** -7, 2.0 ** -7)
-    check_close(f"flash_fwd[{label}] lse", lse, lse_ref, 1e-5, 1e-6)
-    o32, _ = fk.flash_fwd(q, k, v, causal, out_dtype=torch.float32)
-    o32_ref, _ = fk.flash_fwd_plain(q, k, v, causal, out_dtype=torch.float32)
-    rms["flash_fwd"] = check_rms(f"flash_fwd[{label}] o (f32 out)", o32, o32_ref, 2.0 ** -12)
-    del o, o32, o32_ref
-    delta = (do.float() * o_ref.float()).sum(-1)
-    args = (q, k, v, do, lse_ref, delta, causal)
-    dq, dq_ref = fk.flash_dq(*args), fk.flash_dq_plain(*args)
-    errs["flash_dq"] = check_close(f"flash_dq[{label}]", dq, dq_ref, 2.0 ** -7, 2.0 ** -7)
-    rms["flash_dq"] = check_rms(f"flash_dq[{label}] (f32 out)",
-                                fk.flash_dq(*args, out_dtype=torch.float32),
-                                fk.flash_dq_plain(*args, out_dtype=torch.float32), 2.0 ** -12)
-    del dq, dq_ref
-    (dk, dv), (dk_ref, dv_ref) = fk.flash_dkv(*args), fk.flash_dkv_plain(*args)
-    errs["flash_dkv"] = max(
-        check_close(f"flash_dkv[{label}] dk", dk, dk_ref, 2.0 ** -7, 2.0 ** -7),
-        check_close(f"flash_dkv[{label}] dv", dv, dv_ref, 2.0 ** -7, 2.0 ** -7))
-    del dk, dv, dk_ref, dv_ref
-    (dk32, dv32) = fk.flash_dkv(*args, out_dtype=torch.float32)
-    (dk32_ref, dv32_ref) = fk.flash_dkv_plain(*args, out_dtype=torch.float32)
-    rms["flash_dkv"] = max(
-        check_rms(f"flash_dkv[{label}] dk (f32 out)", dk32, dk32_ref, 2.0 ** -12),
-        check_rms(f"flash_dkv[{label}] dv (f32 out)", dv32, dv32_ref, 2.0 ** -12))
+    ``flash_shape_phase`` states them), each launch on the kernel the
+    dispatch rule names and ``flash_dq`` the same bits twice: ({kernel: max
+    |err|}, {kernel: relative rms err of the f32 outputs}, the backward's
+    arguments)."""
+    with taking_wgmma(label, flash_takes_wgmma(q.dtype, q.shape[-1])):
+        errs, rms = {}, {}
+        o, lse = fk.flash_fwd(q, k, v, causal)
+        o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, causal)
+        errs["flash_fwd"] = check_close(f"flash_fwd[{label}] o", o, o_ref, 2.0 ** -7, 2.0 ** -7)
+        check_close(f"flash_fwd[{label}] lse", lse, lse_ref, 1e-5, 1e-6)
+        o32, _ = fk.flash_fwd(q, k, v, causal, out_dtype=torch.float32)
+        o32_ref, _ = fk.flash_fwd_plain(q, k, v, causal, out_dtype=torch.float32)
+        rms["flash_fwd"] = check_rms(f"flash_fwd[{label}] o (f32 out)", o32, o32_ref, 2.0 ** -12)
+        del o, o32, o32_ref
+        delta = (do.float() * o_ref.float()).sum(-1)
+        args = (q, k, v, do, lse_ref, delta, causal)
+        dq, dq_ref = fk.flash_dq(*args), fk.flash_dq_plain(*args)
+        errs["flash_dq"] = check_close(f"flash_dq[{label}]", dq, dq_ref, 2.0 ** -7, 2.0 ** -7)
+        if not torch.equal(fk.flash_dq(*args), dq):  # each block owns its dQ rows: no atomics
+            raise AssertionError(f"flash_dq[{label}]: two runs differ")
+        rms["flash_dq"] = check_rms(f"flash_dq[{label}] (f32 out)",
+                                    fk.flash_dq(*args, out_dtype=torch.float32),
+                                    fk.flash_dq_plain(*args, out_dtype=torch.float32), 2.0 ** -12)
+        del dq, dq_ref
+        (dk, dv), (dk_ref, dv_ref) = fk.flash_dkv(*args), fk.flash_dkv_plain(*args)
+        errs["flash_dkv"] = max(
+            check_close(f"flash_dkv[{label}] dk", dk, dk_ref, 2.0 ** -7, 2.0 ** -7),
+            check_close(f"flash_dkv[{label}] dv", dv, dv_ref, 2.0 ** -7, 2.0 ** -7))
+        del dk, dv, dk_ref, dv_ref
+        (dk32, dv32) = fk.flash_dkv(*args, out_dtype=torch.float32)
+        (dk32_ref, dv32_ref) = fk.flash_dkv_plain(*args, out_dtype=torch.float32)
+        rms["flash_dkv"] = max(
+            check_rms(f"flash_dkv[{label}] dk (f32 out)", dk32, dk32_ref, 2.0 ** -12),
+            check_rms(f"flash_dkv[{label}] dv (f32 out)", dv32, dv32_ref, 2.0 ** -12))
     return errs, rms, args
 
 
@@ -680,7 +719,10 @@ def flash_shape_phase(label: str, b: int, s: int, h: int, d: int) -> dict:
 # multiple of 16), which dispatch gives to the WMMA kernels.
 FLASH_EDGES = [("S=100 D=32", 3, 100, 32, False), ("S=130 causal D=128", 3, 130, 128, True),
                ("S=127 causal D=64", 3, 127, 64, True), ("S=129 causal D=64", 3, 129, 64, True),
-               ("S=129 causal D=20 (WMMA)", 3, 129, 20, True)]
+               ("S=129 causal D=20 (WMMA)", 3, 129, 20, True)] + [
+    # flash_dq's 128-row blocks and the forward's 192-row ones, cut by S
+    (f"S={s} {'causal ' if causal else ''}D={d}", 3, s, d, causal)
+    for s in (191, 192, 193) for d in (8, 24, 64, 128) for causal in (False, True)]
 
 
 def flash_edge_cases() -> dict:
@@ -698,19 +740,21 @@ def flash_edge_cases() -> dict:
 
 def flash_mask_case() -> float:
     """f32, non-causal, S = 100 (keys past S in the last 64-key tile are
-    masked in the kernel): f32 sums in another order, 1e-5 relative."""
+    masked in the kernel): f32 sums in another order, 1e-5 relative; no
+    launch on a wgmma kernel."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     q, k, v, do = (torch.randn(2, 100, 32, device="cuda", generator=gen) for _ in range(4))
-    o, lse = fk.flash_fwd(q, k, v, False)
-    o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, False)
-    err = check_close("flash_fwd[S=100, f32]", o, o_ref, 1e-5, 1e-5)
-    check_close("flash_fwd[S=100, f32] lse", lse, lse_ref, 1e-5, 1e-6)
-    delta = (do * o_ref).sum(-1)
-    args = (q, k, v, do, lse_ref, delta, False)
-    err = max(err, check_close("flash_dq[S=100, f32]", fk.flash_dq(*args),
-                               fk.flash_dq_plain(*args), 1e-5, 1e-5))
-    for name, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
-        err = max(err, check_close(f"flash_dkv[S=100, f32] {name}", got, ref, 1e-5, 1e-5))
+    with taking_wgmma("S=100, f32", False):
+        o, lse = fk.flash_fwd(q, k, v, False)
+        o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, False)
+        err = check_close("flash_fwd[S=100, f32]", o, o_ref, 1e-5, 1e-5)
+        check_close("flash_fwd[S=100, f32] lse", lse, lse_ref, 1e-5, 1e-6)
+        delta = (do * o_ref).sum(-1)
+        args = (q, k, v, do, lse_ref, delta, False)
+        err = max(err, check_close("flash_dq[S=100, f32]", fk.flash_dq(*args),
+                                   fk.flash_dq_plain(*args), 1e-5, 1e-5))
+        for name, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
+            err = max(err, check_close(f"flash_dkv[S=100, f32] {name}", got, ref, 1e-5, 1e-5))
     return err
 
 
@@ -725,7 +769,8 @@ def flash_limit_cases() -> dict:
     """The limit cases, forward and both gradients, against the plain
     versions: bf16 outputs at rtol 2^-7 plus 2^-7 of the largest value (as
     ``flash_shape_phase``), f32 at 1e-4 (sums in another order), lse at
-    1e-5 relative. Returns {label: max |err|}."""
+    1e-5 relative; each launch on the kernel the dispatch rule names.
+    Returns {label: max |err|}."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     out = {}
     for label, bh, s, d in FLASH_LIMITS:
@@ -734,16 +779,18 @@ def flash_limit_cases() -> dict:
             name = f"{label} {str(dtype)[6:]}"
             q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=gen).to(dtype)
                            for _ in range(4))
-            o, lse = fk.flash_fwd(q, k, v, True)
-            o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, True)
-            err = check_close(f"flash_fwd[{name}] o", o, o_ref, tol, tol)
-            check_close(f"flash_fwd[{name}] lse", lse, lse_ref, 1e-5, 1e-6)
-            delta = (do.float() * o_ref.float()).sum(-1)
-            args = (q, k, v, do, lse_ref, delta, True)
-            err = max(err, check_close(f"flash_dq[{name}]", fk.flash_dq(*args),
-                                       fk.flash_dq_plain(*args), tol, tol))
-            for g, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
-                err = max(err, check_close(f"flash_dkv[{name}] {g}", got, ref, tol, tol))
+            with taking_wgmma(name, flash_takes_wgmma(dtype, d)):
+                o, lse = fk.flash_fwd(q, k, v, True)
+                o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, True)
+                err = check_close(f"flash_fwd[{name}] o", o, o_ref, tol, tol)
+                check_close(f"flash_fwd[{name}] lse", lse, lse_ref, 1e-5, 1e-6)
+                delta = (do.float() * o_ref.float()).sum(-1)
+                args = (q, k, v, do, lse_ref, delta, True)
+                err = max(err, check_close(f"flash_dq[{name}]", fk.flash_dq(*args),
+                                           fk.flash_dq_plain(*args), tol, tol))
+                for g, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args),
+                                       fk.flash_dkv_plain(*args)):
+                    err = max(err, check_close(f"flash_dkv[{name}] {g}", got, ref, tol, tol))
             out[name] = err
             del q, k, v, do, o, o_ref
     torch.cuda.empty_cache()
@@ -817,10 +864,12 @@ def transformer_main_path(card: str) -> tuple[dict, tuple]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    wgmma = read_wgmma_launches(FLASH_KERNELS)
 
     per_window = LM_KW["n_layers"] * T_BATCHES * EPOCHS * N_ROUNDS
     check_main_path(params, losses, launches, {
         **dict.fromkeys(WRAPPERS, 0), **dict.fromkeys(FLASH_KERNELS, per_window)})
+    check_all_wgmma("transformer round", launches, wgmma)
     tokens = T_NODES * T_BATCHES * T_BATCH * T_SEQ
     rounds_s = N_ROUNDS / wall
     return ({
@@ -828,7 +877,7 @@ def transformer_main_path(card: str) -> tuple[dict, tuple]:
         "n_nodes": T_NODES, "batches": T_BATCHES, "batch": T_BATCH, "seq": T_SEQ,
         "rounds": N_ROUNDS, "wall_s": wall, "rounds_per_s": rounds_s,
         "tokens_per_round": tokens, "tokens_per_s": rounds_s * tokens,
-        "launches": launches, "mean_loss": losses.mean().item(),
+        "launches": launches, "wgmma_launches": wgmma, "mean_loss": losses.mean().item(),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }, (fed, params, xs, ys))
 
@@ -939,6 +988,7 @@ def main() -> int:
     for row in rows:
         path = cnn if row["name"] in ("conv_dw", "conv_dx") else lm
         row["launches"] = path["launches"][row["name"]]
+        row["wgmma_launches"] = path["wgmma_launches"][row["name"]]
         if row["name"] in built:
             row["build"] = built[row["name"]]
     log(json.dumps({"kernels": rows}))

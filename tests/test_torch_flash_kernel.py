@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from tpfl.parallel.flash_kernel import flash_attention as jax_flash
+from tpfl.parallel.flash_kernel import flash_block_bwd as jax_flash_block_bwd
 from tpfl.parallel.flash_kernel import flash_block_fwd as jax_flash_block_fwd
 from tpfl.parallel.ring_attention import blockwise_attention as jax_blockwise
 from tpfl_torch.parallel import flash_kernel as fk
@@ -127,6 +128,64 @@ def test_lse_matches_jax_flash_block_fwd(causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j).reshape(b * h, s), atol=FWD_ATOL)
     np.testing.assert_allclose(fk._unfold_heads(o, b, h).numpy(), np.asarray(out_j),
                                atol=FWD_ATOL)
+
+
+def _external_residuals(q, k, causal, seed):
+    """lse / delta [B, H, S] f32 as a ring step receives them: the
+    logsumexp of the whole attention row (this step's keys, plus a
+    per-row offset >= 0 for the other steps' keys) and a delta of the
+    row."""
+    b, s, h, d = q.shape
+    sc = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), k.astype(np.float64)) / np.sqrt(d)
+    if causal:
+        sc = np.where(np.tril(np.ones((s, s), dtype=bool)), sc, -np.inf)
+    m = sc.max(-1, keepdims=True)
+    lse = (m + np.log(np.exp(sc - m).sum(-1, keepdims=True)))[..., 0]
+    rng = np.random.default_rng(seed)
+    lse = lse + rng.uniform(0.0, 1.0, lse.shape)
+    return lse.astype(np.float32), rng.normal(size=lse.shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("operands", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape,block", [((1, 64, 2, 16), 1024), ((2, 96, 1, 32), 32),
+                                         ((1, 50, 2, 8), 16)],
+                         ids=["one_block", "three_blocks", "unaligned"])
+def test_backward_kernels_match_jax_flash_block_bwd(shape, block, causal, operands):
+    """flash_dq and flash_dkv on CPU tensors (their plain versions, which
+    define what the kernels compute) against the JAX package's
+    ``flash_block_bwd`` (interpret mode) with the same EXTERNAL lse /
+    delta, f32 outputs: a ring step's contribution. f32 operands: f32 sums
+    in another order, rtol 1e-5 plus 1e-5 of the largest value. bf16
+    operands: both round dS (dq, dk) and P (dv) to bf16 before their
+    products, so an f32 order that flips one rounding moves an output by
+    2^-8 of one operand; the rms of the difference stays within 2^-12 of
+    the output's."""
+    q, k, v, do = _qkv(shape, 23)
+    if operands == "bfloat16":  # the values both sides see
+        q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+                       for a in (q, k, v, do))
+    lse, delta = _external_residuals(q, k, causal, seed=29)
+    want = jax_flash_block_bwd(*(jnp.asarray(a, operands) for a in (q, k, v, do)),
+                               jnp.asarray(lse), jnp.asarray(delta), causal, block=block)
+    b, s, h, d = shape
+    tq, tk, tv, tdo = (fk._fold_heads(torch.from_numpy(a).to(getattr(torch, operands)))
+                       for a in (q, k, v, do))
+    rows = [torch.from_numpy(a).reshape(b * h, s) for a in (lse, delta)]
+    before = (fk.flash_dq.launches, fk.flash_dkv.launches)
+    args = (tq, tk, tv, tdo, *rows, causal)
+    got = [fk.flash_dq(*args, out_dtype=torch.float32),
+           *fk.flash_dkv(*args, out_dtype=torch.float32)]
+    assert (fk.flash_dq.launches, fk.flash_dkv.launches) == before  # plain versions
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32
+        g, w = fk._unfold_heads(g, b, h).numpy(), np.asarray(w)
+        if operands == "float32":
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * np.abs(w).max(),
+                                       err_msg=name)
+        else:
+            rms_err = np.sqrt(np.mean((g - w) ** 2))
+            assert rms_err <= 2.0 ** -12 * np.sqrt(np.mean(w ** 2)), (name, rms_err)
 
 
 @pytest.mark.parametrize(

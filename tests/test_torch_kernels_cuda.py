@@ -202,7 +202,27 @@ FLASH_CASES = [  # (BH, S, D, causal)
     # 128- and 192-row blocks, D padded to 64 or 128
     (2, s, d, causal) for s, d, causal in itertools.product(
         (127, 128, 129, 255, 256), (32, 64, 96, 128), (False, True))
+] + [  # flash_dq's 128-row blocks and the forward's 192-row ones, cut by S
+    (2, s, d, causal) for s, d, causal in itertools.product(
+        (191, 192, 193), (8, 24, 64, 128), (False, True))
 ]
+
+
+def _takes_wgmma(dtype, d):
+    """The dispatch rule of csrc/flash_attn.cu: bf16 operands whose rows TMA
+    can address (D a multiple of 8 up to 128) take the wgmma kernels."""
+    return dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+
+
+def _flash_counts(fk):
+    return [(fn.launches, fn.wgmma_launches) for fn in (fk.flash_fwd, fk.flash_dq, fk.flash_dkv)]
+
+
+def _assert_took(fk, before, launches, wgmma):
+    """Each flash kernel launched ``launches`` times since ``before``, on
+    its wgmma kernel every time (``wgmma``) or never."""
+    for (n0, w0), (n1, w1) in zip(before, _flash_counts(fk)):
+        assert (n1 - n0, w1 - w0) == (launches, launches if wgmma else 0)
 
 
 def _flash_inputs(card, bh, s, d, dtype, seed=0):
@@ -231,7 +251,7 @@ def test_flash_kernels_match_plain_on_card(card, case, dtype):
 
     bh, s, d, causal = case
     q, k, v, do = _flash_inputs(card, bh, s, d, dtype)
-    launches = (fk.flash_fwd.launches, fk.flash_dq.launches, fk.flash_dkv.launches)
+    before = _flash_counts(fk)
     o, lse = fk.flash_fwd(q, k, v, causal)
     o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, causal)
     _close(o, o_ref, dtype, "o")
@@ -244,28 +264,54 @@ def test_flash_kernels_match_plain_on_card(card, case, dtype):
     dk_ref, dv_ref = fk.flash_dkv_plain(q, k, v, do, lse_ref, delta, causal)
     _close(dk, dk_ref, dtype, "dk")
     _close(dv, dv_ref, dtype, "dv")
-    assert (fk.flash_fwd.launches, fk.flash_dq.launches, fk.flash_dkv.launches) == tuple(
-        n + 1 for n in launches)
+    _assert_took(fk, before, 1, _takes_wgmma(dtype, d))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d", [(96, 64), (200, 64), (130, 128), (129, 20)])
+@pytest.mark.parametrize("s,d", [(96, 64), (200, 64), (130, 128), (129, 20), (191, 64),
+                                 (193, 128), (192, 24), (193, 8)])
 def test_flash_f32_outputs_of_bf16_operands_on_card(card, s, d):
     """The ring's per-step mode: bf16 operands, f32 outputs, causal, S not
     a multiple of the kernels' tiles (D = 20 takes the WMMA kernels)."""
     from tpfl_torch.parallel import flash_kernel as fk
 
     q, k, v, do = _flash_inputs(card, 2, s, d, torch.bfloat16, seed=3)
+    before = _flash_counts(fk)
     o, lse = fk.flash_fwd(q, k, v, True, out_dtype=torch.float32)
     o_ref, _ = fk.flash_fwd_plain(q, k, v, True, out_dtype=torch.float32)
     assert o.dtype == torch.float32
     torch.testing.assert_close(o, o_ref, rtol=2.0 ** -8, atol=2.0 ** -9)
     delta = (do.float() * o).sum(-1)
+    dq = fk.flash_dq(q, k, v, do, lse, delta, True, out_dtype=torch.float32)
+    dq_ref = fk.flash_dq_plain(q, k, v, do, lse, delta, True, out_dtype=torch.float32)
+    assert dq.dtype == torch.float32
+    _close(dq, dq_ref, torch.bfloat16, "dq")
     dk, dv = fk.flash_dkv(q, k, v, do, lse, delta, True, out_dtype=torch.float32)
     dk_ref, dv_ref = fk.flash_dkv_plain(q, k, v, do, lse, delta, True, out_dtype=torch.float32)
     assert dk.dtype == dv.dtype == torch.float32
     _close(dk, dk_ref, torch.bfloat16, "dk")
     _close(dv, dv_ref, torch.bfloat16, "dv")
+    _assert_took(fk, before, 1, _takes_wgmma(torch.bfloat16, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bh,s,d,causal", [(4, 1024, 64, True), (3, 193, 128, False),
+                                           (2, 129, 20, True)])
+def test_flash_dq_repeats_bit_for_bit_on_card(card, bh, s, d, causal, out_dtype):
+    """Each block owns its dQ rows (no float atomics): two launches on the
+    same inputs give the same bits, on the wgmma kernel and on the WMMA one
+    (D = 20)."""
+    from tpfl_torch.parallel import flash_kernel as fk
+
+    q, k, v, do = _flash_inputs(card, bh, s, d, torch.bfloat16, seed=14)
+    o, lse = fk.flash_fwd(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, causal)
+    before = fk.flash_dq.wgmma_launches
+    first = fk.flash_dq(*args, out_dtype=out_dtype)
+    assert torch.equal(fk.flash_dq(*args, out_dtype=out_dtype), first)
+    assert fk.flash_dq.wgmma_launches - before == (2 if _takes_wgmma(torch.bfloat16, d) else 0)
 
 
 @pytest.mark.cuda
@@ -278,6 +324,7 @@ def test_flash_wide_heads_match_plain_on_card(card, d, causal, dtype):
     from tpfl_torch.parallel import flash_kernel as fk
 
     q, k, v, do = _flash_inputs(card, 2, 130, d, dtype, seed=12)
+    before = _flash_counts(fk)
     o, lse = fk.flash_fwd(q, k, v, causal)
     o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, causal)
     _close(o, o_ref, dtype, "o")
@@ -287,16 +334,19 @@ def test_flash_wide_heads_match_plain_on_card(card, d, causal, dtype):
     _close(fk.flash_dq(*args), fk.flash_dq_plain(*args), dtype, "dq")
     for name, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
         _close(got, ref, dtype, name)
+    _assert_took(fk, before, 1, False)  # past 128: the generic kernels
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 16), (torch.bfloat16, 16),
                                      (torch.bfloat16, 64)])
 def test_flash_takes_65537_heads_on_card(card, dtype, d):
-    """B·H past 65535 (the grid's y limit): S = 16, causal."""
+    """B·H past 65535 (the grid's y limit): S = 16, causal. bf16 takes the
+    wgmma kernels, f32 the CUDA-core ones."""
     from tpfl_torch.parallel import flash_kernel as fk
 
     q, k, v, do = _flash_inputs(card, 65537, 16, d, dtype, seed=13)
+    before = _flash_counts(fk)
     o, lse = fk.flash_fwd(q, k, v, True)
     o_ref, lse_ref = fk.flash_fwd_plain(q, k, v, True)
     _close(o, o_ref, dtype, "o")
@@ -306,6 +356,7 @@ def test_flash_takes_65537_heads_on_card(card, dtype, d):
     _close(fk.flash_dq(*args), fk.flash_dq_plain(*args), dtype, "dq")
     for name, got, ref in zip(("dk", "dv"), fk.flash_dkv(*args), fk.flash_dkv_plain(*args)):
         _close(got, ref, dtype, name)
+    _assert_took(fk, before, 1, _takes_wgmma(dtype, d))
 
 
 @pytest.mark.cuda

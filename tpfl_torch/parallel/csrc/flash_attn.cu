@@ -37,25 +37,30 @@
 // products, not between them.
 //
 // What the design does about it:
-//   * bf16 flash_fwd and flash_dkv (the main path) run on wgmma fed by TMA
+//   * bf16 operands whose rows TMA can address (D a multiple of 8 up to
+//     128) -- the main path -- run all three kernels on wgmma fed by TMA
 //     (the section "bf16 on Hopper" below, helpers in hopper.cuh). A
-//     producer warp keeps K/V (forward) or Q/dO/lse/delta (dK/dV) tiles in
-//     flight through a 3-stage shared-memory ring with mbarriers; consumer
-//     warpgroups keep every accumulator in registers, run the softmax in
-//     the accumulator's own row layout (two rows a thread, quad shuffles),
-//     and feed P and dS to the next product from registers. The forward
-//     issues S_{j+1} = Q.K_{j+1}^T before O += P_j.V_j and runs the softmax
-//     of tile j + 1 while that product runs; it schedules the longest
-//     causal query tiles first. Masks are applied only on tiles that cross
-//     the diagonal or the end of S; tiles above the diagonal are skipped.
-//   * flash_dq, f32 operands, and bf16 operands whose rows TMA cannot
-//     address (D not a multiple of 8) run on WMMA 16x16x16 fragments
-//     (bf16) or CUDA cores (f32), 4 warps a block each owning 16 rows of
-//     the block's 64, the forward's O accumulator, running max and
-//     denominator in shared memory (WMMA has no documented row layout),
-//     tiles loaded and waited for in turn. They take any D: past 128, a
-//     grid axis over 128-column chunks of D (the note above flash_fwd_kernel).
-//     dispatch() chooses by dtype and shape before launch.
+//     producer keeps the other side's tiles in flight through a 3-stage
+//     shared-memory ring with mbarriers: K/V for flash_fwd and flash_dq,
+//     whose blocks own query rows; Q/dO/lse/delta for flash_dkv, whose
+//     blocks own key rows. Consumer warpgroups keep every accumulator in
+//     registers, run the softmax (P, dS) in the accumulator's own row
+//     layout (two rows a thread, quad shuffles), and feed P and dS to the
+//     next product from registers. flash_fwd issues S_{j+1} = Q.K_{j+1}^T
+//     before O += P_j.V_j, and flash_dq issues S_{j+1} and dP_{j+1} before
+//     dQ += dS_j.K_j, so the exponentials of one tile run beside the
+//     products of the next; both schedule the longest causal query tiles
+//     first. Masks are applied only on tiles that cross the diagonal or the
+//     end of S; tiles above the diagonal are skipped.
+//   * f32 operands, and bf16 operands whose rows TMA cannot address (D not
+//     a multiple of 8, or past 128), run on WMMA 16x16x16 fragments (bf16)
+//     or CUDA cores (f32), 4 warps a block each owning 16 rows of the
+//     block's 64, the forward's O accumulator, running max and denominator
+//     in shared memory (WMMA has no documented row layout), tiles loaded
+//     and waited for in turn. They take any D: past 128, a grid axis over
+//     128-column chunks of D (the note above flash_fwd_kernel).
+//     dispatch() chooses by dtype and shape before launch, and each entry
+//     reports which kernel it took.
 //   * BH is folded into gridDim.x with the row tiles, so it has no 65535
 //     limit (the reference's grid puts B*H on its first axis).
 //
@@ -609,11 +614,11 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---- bf16 on Hopper: wgmma fed by a TMA ring ---------------------------------------
-// flash_fwd and flash_dkv for bf16 operands whose rows TMA can address (D a
-// multiple of 8, 16-byte aligned bases); D pads to DP = 64 or 128 (TMA
-// fills the columns past D with zeros). A block is consumer warpgroups of
-// 64 rows each plus a producer. The producer's lane 0 issues every TMA
-// load: the block's own tile once, and the other side's tiles through a
+// flash_fwd, flash_dq and flash_dkv for bf16 operands whose rows TMA can
+// address (D a multiple of 8, 16-byte aligned bases); D pads to DP = 64 or
+// 128 (TMA fills the columns past D with zeros). A block is consumer
+// warpgroups of 64 rows each plus a producer. The producer's lane 0 issues
+// every TMA load: the block's own tiles once, and the other side's tiles through a
 // ring of kStages shared-memory stages, each with a "full" mbarrier (the
 // TMA bytes landed) and an "empty" one (every consumer warp is done with
 // it). Consumers run the products as wgmma with f32 accumulators in
@@ -1047,6 +1052,176 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant
   }
 }
 
+// dS in place of a tile's S (query rows row, row + 8 against keys
+// k0..k0 + kN): P = exp(scale S - lse) with lse in log2 units, masked only
+// where the tile crosses the diagonal or the end of S; dS = P (dP - delta).
+// dkv_grads with rows and columns swapped: lse and delta are this thread's
+// two rows', in registers.
+template <int kN>
+__device__ __forceinline__ void dq_grads(float (&s)[kN / 2], const float (&dp)[kN / 2],
+                                         const float (&ls)[2], const float (&dd)[2], int k0,
+                                         int row, int r0, int S, bool causal, float scale_log2) {
+  const int col = 2 * (threadIdx.x % 4);
+  const bool edge = (causal && k0 + kN - 1 > r0) || k0 + kN > S;
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int h = (i / 2) % 2, key = k0 + 8 * (i / 4) + col + (i % 2);
+    float p = hp::exp2_fast(fmaf(s[i], scale_log2, -ls[h]));
+    if (edge && (key >= S || (causal && key > row + 8 * h))) p = 0.f;
+    s[i] = p * (dp[i] - dd[h]);
+  }
+}
+
+// flash_dq's block: kDqWG consumer warpgroups of 64 query rows, then a
+// producer warpgroup of which one lane issues every TMA load (the forward's
+// 64-key ring stages; the block's own tiles are Q and dO). Per key tile a
+// consumer thread keeps four things in registers: the dQ accumulator
+// (DP / 2 floats), S and dP (32 each) and dS as the next A operand (16
+// words). Three warpgroups (a 512-thread block, 128 registers a thread)
+// spilled at D = 64 and ran slower on the H100 than two (384 threads, 168
+// registers, no spills; chip_smoke.py prints them). As in flash_dkv, the
+// producer gives its registers up (setmaxnreg); ptxas still holds the
+// consumers' code to the launch budget of 168, so at D = 128 (a dQ
+// accumulator of 64 floats) it spills 40 bytes there.
+constexpr int kDqWG = 2;
+
+template <int DP, int WG> struct DqSmem : FwdSmem<DP, WG> {
+  static constexpr size_t bytes = FwdSmem<DP, WG>::bytes + FwdSmem<DP, WG>::q;  // + dO
+};
+
+template <int DP, typename TO>
+__global__ void __launch_bounds__((kDqWG + 1) * 128, 1)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               TO* __restrict__ dq, int S, int D, int causal, float scale) {
+  constexpr int kWG = kDqWG, kRows = 64 * kWG;
+  using L = DqSmem<DP, kWG>;
+  constexpr int kN = kFwdKeys, kStages = L::kStages;
+  extern __shared__ char smem_raw[];
+  char* Qs = align1024(smem_raw);
+  char* dOs = Qs + L::q;
+  char* Ks = dOs + L::q;
+  char* Vs = Ks + kStages * L::kv;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * L::kv);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int n_qt = (S + kRows - 1) / kRows;  // grid x: bh * n_qt + query tile
+  const int bh = blockIdx.x / n_qt;
+  const int q0 = (n_qt - 1 - blockIdx.x % n_qt) * kRows;  // longest causal rows first
+  const int n_kt = (S + kN - 1) / kN;
+  const int n_tiles = causal ? min(n_kt, (min(q0 + kRows, S) - 1) / kN + 1) : n_kt;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(full + s, 1);
+      hp::mbar_init(empty + s, kWG * 4);
+    }
+    hp::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // provably warp-uniform
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  if (wg == kWG) {  // producer: one lane issues every load
+    hp::regs_dec<kProducerRegs>();
+    if (warp == 0 && lane == 0) {
+      hp::mbar_arrive_expect_tx(q_full, 2 * L::q);
+      for (int h = 0; h < DP / 64; ++h) {
+        hp::tma_load_3d(Qs + h * kRows * 128, &map_q, q_full, 64 * h, q0, bh);
+        hp::tma_load_3d(dOs + h * kRows * 128, &map_do, q_full, 64 * h, q0, bh);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        hp::mbar_wait(empty + s, ((j / kStages) & 1) ^ 1);
+        hp::mbar_arrive_expect_tx(full + s, 2 * L::kv);
+        for (int h = 0; h < DP / 64; ++h) {
+          hp::tma_load_3d(Ks + s * L::kv + h * kN * 128, &map_k, full + s, 64 * h, j * kN, bh);
+          hp::tma_load_3d(Vs + s * L::kv + h * kN * 128, &map_v, full + s, 64 * h, j * kN, bh);
+        }
+      }
+    }
+  } else {
+    hp::regs_inc<kConsumerRegs>();
+    const int r0 = q0 + 64 * wg;                // the warpgroup's first query row
+    const int row = r0 + 16 * warp + lane / 4;  // this thread's rows: row, row + 8
+    // Key tiles 0..last have keys this warpgroup's rows see; the block's
+    // later tiles (causal) are only waited for and released.
+    const int last = r0 >= S ? -1 : causal ? min(n_kt - 1, min(r0 + 63, S - 1) / kN) : n_kt - 1;
+    const char* Qw = Qs + 64 * wg * 128;
+    const char* dOw = dOs + 64 * wg * 128;
+    const float scale_log2 = scale * kLog2e;
+    float ls[2], dd[2];  // lse (log2 units) and delta of rows row, row + 8
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      ls[h] = r < S ? lse[(size_t)bh * S + r] * kLog2e : 0.f;
+      dd[h] = r < S ? delta[(size_t)bh * S + r] : 0.f;
+    }
+
+    float acc[DP / 2], sc[kN / 2], dp[kN / 2];
+    uint32_t da[kN / 16][4];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    hp::mbar_wait(q_full, 0);
+    // Software pipeline within the warpgroup: while dQ += dS_j.K_j runs on
+    // the tensor cores, dS of S_{j+1} = Q.K_{j+1}^T and dP_{j+1} =
+    // dO.V_{j+1}^T (issued before it) is formed on the other units.
+    if (last >= 0) {
+      hp::mbar_wait(full, 0);
+      __syncwarp();  // wgmma is .aligned: the warp converged after the spin
+      hp::wgmma_fence();
+      gemm_nt<DP>(sc, Qw, kRows * 128, Ks, kN * 128);
+      gemm_nt<DP>(dp, dOw, kRows * 128, Vs, kN * 128);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(sc);
+      hp::fence_regs(dp);
+      dq_grads<kN>(sc, dp, ls, dd, 0, row, r0, S, causal, scale_log2);
+      to_a_operand(sc, da);  // _lowp(k): dS rounds to bf16 here
+    }
+    for (int j = 0; j < last; ++j) {
+      const int s = j % kStages, sn = (j + 1) % kStages;
+      hp::mbar_wait(full + sn, ((j + 1) / kStages) & 1);
+      __syncwarp();
+      hp::fence_regs(acc);
+      hp::wgmma_fence();
+      gemm_nt<DP>(sc, Qw, kRows * 128, Ks + sn * L::kv, kN * 128);
+      gemm_nt<DP>(dp, dOw, kRows * 128, Vs + sn * L::kv, kN * 128);
+      hp::wgmma_commit();
+      gemm_pv(acc, da, Ks + s * L::kv, kN * 128);  // K_j read MN-major
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();
+      hp::fence_regs(sc);
+      hp::fence_regs(dp);
+      dq_grads<kN>(sc, dp, ls, dd, (j + 1) * kN, row, r0, S, causal, scale_log2);
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      to_a_operand(sc, da);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + s);
+    }
+    if (last >= 0) {  // the last tile: dQ += dS.K alone
+      hp::fence_regs(acc);
+      hp::wgmma_fence();
+      gemm_pv(acc, da, Ks + (last % kStages) * L::kv, kN * 128);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + last % kStages);
+    }
+    for (int j = last + 1; j < n_tiles; ++j) {  // tiles this warpgroup's rows do not see
+      hp::mbar_wait(full + j % kStages, (j / kStages) & 1);
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(empty + j % kStages);
+    }
+    if (last >= 0) store_rows<DP>(dq + (size_t)bh * S * D, acc, row, S, D, scale, scale);
+  }
+}
+
 // ---- launchers ------------------------------------------------------------------
 inline unsigned cdiv(long a, long b) { return (unsigned)((a + b - 1) / b); }
 
@@ -1108,6 +1283,19 @@ cudaError_t by_width(Which which, const Args& a) {
   return launch<T, 128, TO, true>(which, a);
 }
 
+// setmaxnreg.inc waits until the block's pool holds the registers it asks
+// for: refuse a build whose launch budget (kWG consumer warpgroups and one
+// producer warpgroup) could not cover them.
+template <typename K>
+cudaError_t check_reg_budget(K kernel, int kWG, int producer_regs, int consumer_regs) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs * (kWG + 1) < producer_regs + consumer_regs * kWG)
+    return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
 bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) % 16) == 0; }
 
 template <int DP, typename TO>
@@ -1126,6 +1314,21 @@ cudaError_t launch_wgmma(Which which, const Args& a) {
     kern<<<cdiv(a.S, 64 * kWG) * (unsigned)a.BH, kWG * 128 + 32, bytes, a.st>>>(
         mq, mk, mv, static_cast<TO*>(a.o0), static_cast<float*>(a.lse_out), a.S, a.D, a.causal,
         a.scale);
+  } else if (which == kDq) {
+    constexpr int kWG = kDqWG;
+    if (!hp::make_bf16_map(&mq, a.q, a.BH, a.S, a.D, 64 * kWG) ||
+        !hp::make_bf16_map(&mdo, a.dout, a.BH, a.S, a.D, 64 * kWG) ||
+        !hp::make_bf16_map(&mk, a.k, a.BH, a.S, a.D, kFwdKeys) ||
+        !hp::make_bf16_map(&mv, a.v, a.BH, a.S, a.D, kFwdKeys))
+      return cudaErrorInvalidValue;
+    auto kern = flash_dq_wgmma<DP, TO>;
+    const size_t bytes = DqSmem<DP, kWG>::bytes;
+    if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
+    if ((err = check_reg_budget(kern, kWG, kProducerRegs, kConsumerRegs)) != cudaSuccess)
+      return err;
+    kern<<<cdiv(a.S, 64 * kWG) * (unsigned)a.BH, (kWG + 1) * 128, bytes, a.st>>>(
+        mq, mk, mv, mdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
+        static_cast<TO*>(a.o0), a.S, a.D, a.causal, a.scale);
   } else {
     constexpr int kN = DkvSmem<DP>::kN, kWG = kDkvWG, kRows = 64 * kWG;
     if (!hp::make_bf16_map(&mq, a.q, a.BH, a.S, a.D, kN) ||
@@ -1136,12 +1339,8 @@ cudaError_t launch_wgmma(Which which, const Args& a) {
     auto kern = flash_dkv_wgmma<DP, TO>;
     const size_t bytes = DkvSmem<DP>::bytes;
     if ((err = set_smem(kern, bytes)) != cudaSuccess) return err;
-    // setmaxnreg.inc waits until the block's pool holds the registers it
-    // asks for: refuse a build whose launch budget could not cover them.
-    cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, kern)) != cudaSuccess) return err;
-    if (attr.numRegs * (kWG + 1) * 128 < kProducerRegs * 128 + kConsumerRegs * kWG * 128)
-      return cudaErrorInvalidConfiguration;
+    if ((err = check_reg_budget(kern, kWG, kProducerRegs, kConsumerRegs)) != cudaSuccess)
+      return err;
     kern<<<cdiv(a.S, kRows) * (unsigned)a.BH, (kWG + 1) * 128, bytes, a.st>>>(
         mq, mk, mv, mdo, static_cast<const float*>(a.lse_in), static_cast<const float*>(a.delta),
         static_cast<TO*>(a.o0), static_cast<TO*>(a.o1), a.S, a.D, a.causal, a.scale);
@@ -1155,18 +1354,26 @@ cudaError_t wgmma_by_width(Which which, const Args& a) {
 }
 
 // The kernel is chosen by dtype and shape before launch, never as a
-// fallback on failure: bf16 flash_fwd / flash_dkv whose rows TMA can
-// address (D a multiple of 8 up to 128, so rows are 16-byte strided, and
-// 16-byte aligned bases) take the wgmma kernels; other bf16 shapes,
-// flash_dq and f32 operands take the WMMA / CUDA-core kernels, which take
-// any D (past 128 in 128-column chunks) and any BH.
-int dispatch(Which which, Args a, int dtype, int out_dtype) {
+// fallback on failure: bf16 operands whose rows TMA can address (D a
+// multiple of 8 up to 128, so rows are 16-byte strided, and 16-byte
+// aligned bases) take the wgmma kernels, and *took_wgmma says so once the
+// launch is accepted; other bf16 shapes and f32 operands take the WMMA /
+// CUDA-core kernels, which take any D (past 128 in 128-column chunks) and
+// any BH.
+int dispatch(Which which, Args a, int dtype, int out_dtype, int* took_wgmma) {
+  *took_wgmma = 0;
   if (a.D < 1 || a.S < 1 || a.BH < 1) return (int)cudaErrorInvalidValue;
   const bool operands16 = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) && aligned16(a.dout);
-  if (dtype == 1 && which != kDq && a.D % 8 == 0 && a.D <= 128 && operands16) {
-    if (out_dtype == 1) return (int)wgmma_by_width<bf16>(which, a);
-    if (out_dtype == 0) return (int)wgmma_by_width<float>(which, a);
-    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && a.D % 8 == 0 && a.D <= 128 && operands16) {
+    cudaError_t err;
+    if (out_dtype == 1)
+      err = wgmma_by_width<bf16>(which, a);
+    else if (out_dtype == 0)
+      err = wgmma_by_width<float>(which, a);
+    else
+      return (int)cudaErrorInvalidValue;
+    *took_wgmma = err == cudaSuccess;
+    return (int)err;
   }
   const int V = dtype == 1 ? 8 : 4;  // elements per 16-byte load
   a.vec = (a.D % V == 0) && operands16;
@@ -1181,30 +1388,34 @@ int dispatch(Which which, Args a, int dtype, int out_dtype) {
 extern "C" {
 
 // q, k, v [BH, S, D] (dtype) -> o [BH, S, D] (out_dtype), lse [BH, S] f32.
+// *took_wgmma: 1 if the launch took the wgmma kernel (the rule of
+// dispatch), else 0; the same for the two entries below.
 int tpfl_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int BH,
                    int S, int D, int causal, float scale, int dtype, int out_dtype,
-                   void* stream) {
+                   void* stream, int* took_wgmma) {
   Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, lse, BH, S, D, causal, 0, scale,
          static_cast<cudaStream_t>(stream)};
-  return dispatch(kFwd, a, dtype, out_dtype);
+  return dispatch(kFwd, a, dtype, out_dtype, took_wgmma);
 }
 
 // q, k, v, dout [BH, S, D] (dtype), lse, delta [BH, S] f32 -> dq (out_dtype).
 int tpfl_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, int BH, int S, int D,
-                  int causal, float scale, int dtype, int out_dtype, void* stream) {
+                  int causal, float scale, int dtype, int out_dtype, void* stream,
+                  int* took_wgmma) {
   Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, BH, S, D, causal, 0, scale,
          static_cast<cudaStream_t>(stream)};
-  return dispatch(kDq, a, dtype, out_dtype);
+  return dispatch(kDq, a, dtype, out_dtype, took_wgmma);
 }
 
 // As tpfl_flash_dq -> dk, dv (out_dtype).
 int tpfl_flash_dkv(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dk, void* dv, int BH, int S,
-                   int D, int causal, float scale, int dtype, int out_dtype, void* stream) {
+                   int D, int causal, float scale, int dtype, int out_dtype, void* stream,
+                   int* took_wgmma) {
   Args a{q, k, v, dout, lse, delta, dk, dv, nullptr, BH, S, D, causal, 0, scale,
          static_cast<cudaStream_t>(stream)};
-  return dispatch(kDkv, a, dtype, out_dtype);
+  return dispatch(kDkv, a, dtype, out_dtype, took_wgmma);
 }
 
 }  // extern "C"

@@ -16,9 +16,12 @@ to ``[B·H, S, D]``:
 Each wrapper runs its kernel's plain version (:func:`flash_fwd_plain`,
 :func:`flash_dq_plain`, :func:`flash_dkv_plain`) when the tensors lie on
 the CPU, and only then: on a CUDA tensor it launches the kernel or
-raises. ``flash_fwd.launches`` etc. count kernel launches. The plain
-versions loop over tiles of keys (forward) or blocks of rows
-(backward), so no ``S × S`` tensor is formed.
+raises. ``flash_fwd.launches`` etc. count kernel launches;
+``flash_fwd.wgmma_launches`` etc. count those of them that took the
+Hopper (wgmma + TMA) kernel, which the launcher picks by dtype and shape
+and reports after the launch. The plain versions loop over tiles of
+keys (forward) or blocks of rows (backward), so no ``S × S`` tensor is
+formed.
 
 The numbers follow the reference (``flash_kernel.py:38-191``): operands
 in their dtype with f32 accumulation, the scale ``1/sqrt(D)`` on the f32
@@ -160,11 +163,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attn")
     if not getattr(lib, "_tpfl_typed", False):
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.tpfl_flash_fwd.argtypes = [vp] * 5 + [i] * 4 + [f, i, i, vp]
+        tail = [f, i, i, vp, ctypes.POINTER(i)]
+        lib.tpfl_flash_fwd.argtypes = [vp] * 5 + [i] * 4 + tail
         lib.tpfl_flash_fwd.restype = i
-        lib.tpfl_flash_dq.argtypes = [vp] * 7 + [i] * 4 + [f, i, i, vp]
+        lib.tpfl_flash_dq.argtypes = [vp] * 7 + [i] * 4 + tail
         lib.tpfl_flash_dq.restype = i
-        lib.tpfl_flash_dkv.argtypes = [vp] * 8 + [i] * 4 + [f, i, i, vp]
+        lib.tpfl_flash_dkv.argtypes = [vp] * 8 + [i] * 4 + tail
         lib.tpfl_flash_dkv.restype = i
         lib._tpfl_typed = True
     return lib
@@ -222,11 +226,13 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     bh, s, d = q.shape
     o = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
     lse = torch.empty((bh, s), device=q.device, dtype=torch.float32)
+    took_wgmma = ctypes.c_int(0)
     err = _lib().tpfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                                 lse.data_ptr(), bh, s, d, int(causal), _scale(d), code,
-                                out_code, _stream(q))
+                                out_code, _stream(q), ctypes.byref(took_wgmma))
     _raise_on(err, "flash_fwd")
     flash_fwd.launches += 1
+    flash_fwd.wgmma_launches += took_wgmma.value
     return o, lse
 
 
@@ -240,11 +246,14 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool,
     code, out_code, out_dtype = _check_cuda(out_dtype, q, k, v, do, rows=(lse, delta))
     bh, s, d = q.shape
     dq = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
+    took_wgmma = ctypes.c_int(0)
     err = _lib().tpfl_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
-                               int(causal), _scale(d), code, out_code, _stream(q))
+                               int(causal), _scale(d), code, out_code, _stream(q),
+                               ctypes.byref(took_wgmma))
     _raise_on(err, "flash_dq")
     flash_dq.launches += 1
+    flash_dq.wgmma_launches += took_wgmma.value
     return dq
 
 
@@ -258,18 +267,23 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool,
     bh, s, d = q.shape
     dk = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
     dv = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
+    took_wgmma = ctypes.c_int(0)
     err = _lib().tpfl_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                                 dv.data_ptr(), bh, s, d, int(causal), _scale(d), code,
-                                out_code, _stream(q))
+                                out_code, _stream(q), ctypes.byref(took_wgmma))
     _raise_on(err, "flash_dkv")
     flash_dkv.launches += 1
+    flash_dkv.wgmma_launches += took_wgmma.value
     return dk, dv
 
 
 flash_fwd.launches = 0
+flash_fwd.wgmma_launches = 0
 flash_dq.launches = 0
+flash_dq.wgmma_launches = 0
 flash_dkv.launches = 0
+flash_dkv.wgmma_launches = 0
 
 
 # ---- differentiable attention ------------------------------------------------------
