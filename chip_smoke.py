@@ -64,9 +64,33 @@
    node, 1 epoch); 4 launches of each flash kernel per round, every one
    on its wgmma kernel, finite losses and one aggregate on every node.
 
-``--profile`` adds one round of each main path under
-``torch.profiler``: device time by kernel, and the device's idle share
-of the round from the union of its kernel intervals.
+8. Kinds reference phase: small f32 windows of the engine's other kinds
+   on the card against the same windows on the CPU — ResNet-18
+   (stage sizes (1, 1), 8×8 inputs) under SCAFFOLD with FedBN
+   ``aux_mode="local"`` and under FedProx, the CNN through the kernels
+   under SCAFFOLD — and the CNN's wire-codec fold on an aggregation round
+   (one node elected), bit for bit. The codec itself at the CNN round's
+   leaf shapes (100 nodes): every node's ``quant8`` / ``topk+quant8``
+   round trip on the card against the numpy oracles, timed.
+9. ResNet-18, config 3 (``bench.py:3480-3507``):
+   ``VmapFederation(ResNet18(out_channels=100), n_nodes=16,
+   learning_rate=0.1)`` with BatchNorm state, 2 batches of 128 seeded
+   synthetic CIFAR-shaped samples per node (100 classes), bf16 compute, a
+   warm-up round and a 3-round window each under FedAvg, SCAFFOLD and
+   FedProx (mu 0.01): finite losses, one aggregate (params and batch
+   stats) on every node, no kernel of the port launched (the reference's
+   ResNet runs plain convolutions).
+10. CNN main path under the new variants: the 100-node round through the
+   kernels with ``ENGINE_WIRE_CODEC="quant8"``, with ``"topk+quant8"``
+   and with ``algorithm="scaffold"`` (at lr 0.02, where the reference's
+   SCAFFOLD stays finite on this CNN), each a 3-round window asserting
+   every ``conv_dw`` / ``conv_dx`` launch on its wgmma kernel, finite
+   losses and one aggregate on every node.
+
+``--profile`` adds one round of each main path (the CNN, the
+transformer, ResNet-18 under FedAvg) under ``torch.profiler``: device
+time by kernel, and the device's idle share of the round from the union
+of its kernel intervals.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -88,13 +112,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10
-from tpfl_torch.models import CNN, TransformerLM
-from tpfl_torch.parallel import VmapFederation, _build
+from tpfl_torch.learning import compression
+from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10, synthetic_classification
+from tpfl_torch.models import CNN, ResNet18, TransformerLM
+from tpfl_torch.parallel import FederationEngine, VmapFederation, _build
 from tpfl_torch.parallel import conv_kernel as ck
 from tpfl_torch.parallel import flash_kernel as fk
 from tpfl_torch.parallel.ring_attention import blockwise_attention
-from tpfl_torch.utils.tree import tree_items
+from tpfl_torch.settings import Settings
+from tpfl_torch.utils.tree import tree_items, tree_map
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core FLOP/s.
 PEAK_BYTES = 3.35e12
@@ -498,29 +524,60 @@ def check_all_wgmma(path: str, launches: dict, wgmma: dict) -> None:
                                  "took the wgmma kernel; expected all")
 
 
-def cnn_rounds(conv_impl: str) -> tuple:
-    """The 100-node CNN FedAvg round with ``conv_impl``: one warm-up round,
-    then a timed 3-round window with every launch count set to 0 just
-    before it. Returns (window wall seconds, params, losses, launches,
-    wgmma launches, (fed, params, xs, ys) for a profiled round)."""
-    fed = VmapFederation(CNN(out_channels=10, conv_impl=conv_impl),
-                         n_nodes=N_NODES, learning_rate=0.1, seed=0)
+def carry(out: tuple) -> tuple[dict, dict, torch.Tensor]:
+    """(params, the state to pass to the next window, losses) of a
+    ``run_rounds`` result: ``(params, losses)``, ``(params, aux, losses)``
+    or ``(params, aux, (c_locals, c_global), losses)``."""
+    if len(out) == 2:
+        return out[0], {}, out[1]
+    if len(out) == 3:
+        return out[0], {"aux": out[1]}, out[2]
+    return out[0], {"aux": out[1], "scaffold_state": out[2]}, out[3]
+
+
+def timed_window(fed, params: dict, state: dict, xs, ys) -> tuple:
+    """One warm-up round, then a timed N_ROUNDS window with every launch
+    count set to 0 just before it. Returns (window wall seconds, params,
+    state, losses, launches, wgmma launches, (fed, params, xs, ys, state)
+    for a profiled round)."""
+    params, state, _ = carry(fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1,
+                                            **state))  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, **state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, wgmma = read_launches(), read_wgmma_launches(WRAPPERS)
+    params, state, losses = carry(out)
+    return wall, params, state, losses, launches, wgmma, (fed, params, xs, ys, state)
+
+
+def cnn_rounds(conv_impl: str, algorithm: str = "fedavg", lr: float = 0.1) -> tuple:
+    """The 100-node CNN round with ``conv_impl``, ``algorithm`` and
+    learning rate ``lr`` (the wire codec as ``Settings.ENGINE_WIRE_CODEC``
+    says): a
+    :func:`timed_window`. Returns (window wall seconds, params, losses,
+    launches, wgmma launches of the conv kernels, profile arguments)."""
+    fed = VmapFederation(CNN(out_channels=10, conv_impl=conv_impl), n_nodes=N_NODES,
+                         learning_rate=lr, seed=0, algorithm=algorithm)
     per_node = N_BATCHES * BATCH
     x, y, _, _ = synthetic_cifar10(n_train=N_NODES * per_node, n_test=10, seed=0)
     xs = torch.from_numpy(x.reshape(N_NODES, N_BATCHES, BATCH, 32, 32, 3)).to(
         "cuda", torch.bfloat16)
     xs, ys = fed.shard_data(xs, y.reshape(N_NODES, N_BATCHES, BATCH))
     params = fed.init_params((32, 32, 3))
-    params, _ = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1)  # warm-up
-    torch.cuda.synchronize()
-
-    reset_launches()
-    t0 = time.perf_counter()
-    params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
-    return wall, params, losses, read_launches(), wgmma, (fed, params, xs, ys)
+    state = ({"scaffold_state": fed.init_scaffold_state(params)}
+             if algorithm == "scaffold" else {})
+    wall, params, state, losses, launches, wgmma, fed_args = timed_window(
+        fed, params, state, xs, ys)
+    for tree in state.get("scaffold_state", ()):
+        for path, v in tree_items(tree):
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{path}: control variate not finite")
+    return (wall, params, losses, launches,
+            {k: wgmma[k] for k in ("conv_dw", "conv_dx")}, fed_args)
 
 
 def cnn_result(card: str, conv_impl: str, wall: float, losses: torch.Tensor) -> dict:
@@ -879,7 +936,207 @@ def transformer_main_path(card: str) -> tuple[dict, tuple]:
         "tokens_per_round": tokens, "tokens_per_s": rounds_s * tokens,
         "launches": launches, "wgmma_launches": wgmma, "mean_loss": losses.mean().item(),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-    }, (fed, params, xs, ys))
+    }, (fed, params, xs, ys, {}))
+
+
+# ---- the engine's other kinds and the wire codec -----------------------------
+
+# ResNet-18, config 3 (bench.py:3480-3507): 16 nodes, 2 batches of 128,
+# 100 classes, lr 0.1; FedProx at the reference's default mu.
+RN_NODES, RN_BATCHES, RN_BATCH, RN_CLASSES, RN_LR = 16, 2, 128, 100, 0.1
+RN_ALGORITHMS = {"fedavg": {}, "scaffold": {}, "fedprox": {"prox_mu": 0.01}}
+# The CNN main path's other variants: (label, ENGINE_WIRE_CODEC, algorithm,
+# learning rate). SCAFFOLD runs at lr 0.02: its option-II variate divides
+# by K·lr as for plain SGD, and with momentum 0.9 each node's deviation
+# from c_global grows each round; at lr 0.1 and 0.05 the reference's
+# engine diverges on this CNN (non-finite by the third or fourth round,
+# as the port does), at 0.02 both stay finite.
+CNN_VARIANTS = [("quant8", "quant8", "fedavg", 0.1),
+                ("topk+quant8", "topk+quant8", "fedavg", 0.1),
+                ("scaffold", "dense", "scaffold", 0.02)]
+
+
+@contextlib.contextmanager
+def wire_codec(codec: str):
+    """``Settings.ENGINE_WIRE_CODEC`` set to ``codec`` inside the block."""
+    saved = Settings.ENGINE_WIRE_CODEC
+    Settings.ENGINE_WIRE_CODEC = codec
+    try:
+        yield
+    finally:
+        Settings.ENGINE_WIRE_CODEC = saved
+
+
+def flat_result(out: tuple) -> dict:
+    """Every tensor of a ``run_rounds`` result, by path, on the CPU."""
+    params, state, losses = carry(out)
+    trees = {"params": params, "aux": state.get("aux", {})}
+    if "scaffold_state" in state:
+        trees["c_locals"], trees["c_global"] = state["scaffold_state"]
+    flat = {path: v.cpu() for path, v in tree_items(trees)}
+    flat["losses"] = losses.cpu()
+    return flat
+
+
+def small_window(device: str, model: str, algorithm: str = "fedavg", aux_mode: str = "mean",
+                 epochs: int = 1, weights: tuple = (1.0, 0.0, 2.0), n_rounds: int = 2) -> dict:
+    """A small f32 window on ``device`` (3 nodes, 2 batches of 4 per node,
+    8×8×3 inputs, node i's initial params scaled by 1 + i/4 so that the
+    nodes differ): ResNet-18 with stage sizes (1, 1), or the CNN through
+    the kernels. Returns :func:`flat_result`."""
+    rng = np.random.default_rng(0)
+    xs = rng.uniform(size=(3, 2, 4, 8, 8, 3)).astype(np.float32)
+    ys = rng.integers(0, 10, size=(3, 2, 4)).astype(np.int32)
+    module = (ResNet18(stage_sizes=(1, 1), out_channels=10, compute_dtype=torch.float32)
+              if model == "resnet" else
+              CNN(channels=(4, 8), dense=16, compute_dtype=torch.float32, conv_impl="pallas"))
+    eng = FederationEngine(module, 3, algorithm=algorithm, aux_mode=aux_mode, prox_mu=0.1,
+                           seed=0, device=device)
+    params, aux = eng.init_state((8, 8, 3))
+    scale = 1.0 + torch.arange(3, device=eng.device, dtype=torch.float32) / 4
+    params = tree_map(lambda v: v * scale.reshape((-1,) + (1,) * (v.dim() - 1)), params)
+    kw = {"aux": aux} if aux else {}
+    if algorithm == "scaffold":
+        kw["scaffold_state"] = eng.init_scaffold_state(params)
+    return flat_result(eng.run_rounds(params, xs, ys, weights=list(weights), epochs=epochs,
+                                      n_rounds=n_rounds, **kw))
+
+
+def kinds_reference_phase() -> dict:
+    """Small f32 windows of the engine's other kinds on the card against
+    the same windows on the CPU (f32 sums in other orders over 2 rounds:
+    rtol 1e-3, atol 1e-4; TF32 off), then the CNN's wire-codec fold on an
+    aggregation round with one node elected, which is that node's decoded
+    params: the same bits on the card as on the CPU. Returns {case: max
+    |err|}."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for case in (dict(model="resnet", algorithm="scaffold", aux_mode="local"),
+                 dict(model="resnet", algorithm="fedprox"),
+                 dict(model="cnn", algorithm="scaffold")):
+        label = "/".join(case.values())
+        card, cpu = small_window("cuda", **case), small_window("cpu", **case)
+        if sorted(card) != sorted(cpu):
+            raise AssertionError(f"{label}: results differ in structure")
+        for path in cpu:
+            torch.testing.assert_close(card[path], cpu[path], rtol=1e-3, atol=1e-4,
+                                       msg=lambda m, p=path: f"{label}: {p}: {m}")
+        out[label] = max((card[p] - cpu[p]).abs().max().item() for p in cpu)
+    for codec in ("quant8", "topk+quant8"):
+        with wire_codec(codec):
+            card, cpu = (small_window(dev, "cnn", epochs=0, weights=(0.0, 1.0, 0.0), n_rounds=1)
+                         for dev in ("cuda", "cpu"))
+        for path in cpu:
+            if path != "losses" and not torch.equal(card[path], cpu[path]):
+                raise AssertionError(f"codec {codec}: {path} differs between the card and the CPU")
+        out[f"{codec} fold"] = 0.0
+    return out
+
+
+def codec_oracle(row: np.ndarray, bits: int, frac: float) -> np.ndarray:
+    """One node's leaf round trip composed from the numpy oracles (f32)."""
+    if bits & compression.TOPK and row.size > 1:
+        k = max(1, int(np.ceil(row.size * frac)))
+        idx, vals = compression.topk_encode_np(row, k)
+        if bits & compression.QUANT8:
+            vals = compression.q8_decode_np(*compression.q8_encode_np(vals))
+        out = np.zeros(row.size, np.float32)
+        out[idx.astype(np.int64)] = vals
+        return out.reshape(row.shape)
+    return np.asarray(compression.q8_decode_np(*compression.q8_encode_np(row)))
+
+
+def codec_phase() -> dict:
+    """Every node's wire round trip at the CNN round's leaf shapes (100
+    nodes, f32, seeded normal values) under quant8 and topk+quant8: rows
+    0, 50 and 99 of every leaf bit-equal to the numpy oracles; the time
+    of the whole tree's round trip (what the round adds), and the bytes
+    one node's model ships."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shapes = CNN(out_channels=10).param_shapes((32, 32, 3))
+    tree = {name: {leaf: torch.randn(N_NODES, *shape, device="cuda", generator=gen)
+                   for leaf, shape in layer.items()} for name, layer in shapes.items()}
+    frac = float(Settings.WIRE_TOPK_FRAC)
+    out = {}
+    for codec in ("quant8", "topk+quant8"):
+        bits = compression.resolve_engine_codec(codec)
+        roundtrip = compression.engine_codec_roundtrip_nodes(bits, frac)
+        got = dict(tree_items({name: {leaf: roundtrip(v) for leaf, v in layer.items()}
+                               for name, layer in tree.items()}))
+        for path, x in tree_items(tree):
+            for r in (0, N_NODES // 2, N_NODES - 1):
+                want = codec_oracle(x[r].cpu().numpy(), bits, frac)
+                if got[path][r].cpu().numpy().tobytes() != want.tobytes():
+                    raise AssertionError(f"codec {codec}: {path} row {r} differs from the oracle")
+        one_node = {name: {leaf: v[0] for leaf, v in layer.items()} for name, layer in tree.items()}
+        out[codec] = {
+            "ms": time_ms(lambda: [roundtrip(v) for _, v in tree_items(tree)]),
+            "wire_bytes_per_model": compression.wire_bytes_per_model(one_node, bits, frac),
+            "dense_bytes_per_model": compression.wire_bytes_per_model(one_node, 0),
+        }
+    return out
+
+
+def cnn_variant_paths(card: str) -> dict:
+    """The 100-node CNN round through the kernels under each of
+    ``CNN_VARIANTS``: a 3-round window each, 8 conv_dw and 4 conv_dx
+    launches a round, every one on its wgmma kernel."""
+    steps = N_BATCHES * EPOCHS * N_ROUNDS
+    out = {}
+    for label, codec, algorithm, lr in CNN_VARIANTS:
+        with wire_codec(codec):
+            wall, params, losses, launches, wgmma, _ = cnn_rounds("pallas", algorithm, lr)
+        check_main_path(params, losses, launches, {
+            **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
+        check_all_wgmma(f"CNN round ({label})", launches, wgmma)
+        out[label] = {**cnn_result(card, "pallas", wall, losses), "wire_codec": codec,
+                      "algorithm": algorithm, "learning_rate": lr, "launches": launches,
+                      "wgmma_launches": wgmma}
+    return out
+
+
+def resnet_path(card: str) -> tuple[dict, tuple]:
+    """ResNet-18 at config 3 under FedAvg (aux kind, aux_mode "mean"),
+    SCAFFOLD and FedProx: a :func:`timed_window` each; finite losses, the
+    same params and batch stats on every node, finite control variates,
+    no kernel of the port launched."""
+    per_node = RN_BATCHES * RN_BATCH
+    x, y, _, _ = synthetic_classification((32, 32, 3), n_classes=RN_CLASSES,
+                                          n_train=RN_NODES * per_node, n_test=10, seed=0)
+    x = torch.from_numpy(x.reshape(RN_NODES, RN_BATCHES, RN_BATCH, 32, 32, 3))
+    y = y.reshape(RN_NODES, RN_BATCHES, RN_BATCH)
+    out, profile_args = {}, None
+    for algorithm, kw in RN_ALGORITHMS.items():
+        fed = VmapFederation(ResNet18(out_channels=RN_CLASSES), n_nodes=RN_NODES,
+                             learning_rate=RN_LR, seed=0, algorithm=algorithm, **kw)
+        xs, ys = fed.shard_data(x.to("cuda", torch.bfloat16), y)
+        params, aux = fed.init_state((32, 32, 3))
+        state = {"aux": aux}
+        if algorithm == "scaffold":
+            state["scaffold_state"] = fed.init_scaffold_state(params)
+        torch.cuda.reset_peak_memory_stats()
+        wall, params, state, losses, launches, _, fed_args = timed_window(
+            fed, params, state, xs, ys)
+        check_main_path({"params": params, "aux": state["aux"]}, losses, launches,
+                        dict.fromkeys(WRAPPERS, 0))
+        for tree in state.get("scaffold_state", ()):
+            for path, v in tree_items(tree):
+                if not torch.isfinite(v).all():
+                    raise AssertionError(f"{path}: control variate not finite")
+        rounds_s = N_ROUNDS / wall
+        out[algorithm] = {
+            "card": card, "model": "ResNet18(out_channels=100)", "algorithm": algorithm, **kw,
+            "n_nodes": RN_NODES, "batches": RN_BATCHES, "batch": RN_BATCH, "rounds": N_ROUNDS,
+            "wall_s": wall, "rounds_per_s": rounds_s,
+            "samples_per_s": rounds_s * RN_NODES * per_node,
+            "mean_loss": losses.mean().item(),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        }
+        profile_args = profile_args or fed_args
+        del fed, params, state, xs, ys, fed_args
+        torch.cuda.empty_cache()
+    return out, profile_args
 
 
 def _union_ms(spans: list[tuple[float, float]]) -> float:
@@ -904,11 +1161,11 @@ def profile_round(fed_args: tuple) -> dict:
     ``busy_over_wall`` is reported as measured, not clamped."""
     from torch.profiler import ProfilerActivity, profile
 
-    fed, params, xs, ys = fed_args
+    fed, params, xs, ys, state = fed_args
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1)
+        fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1, **state)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
@@ -976,15 +1233,25 @@ def main() -> int:
     log("CNN main path: " + json.dumps(cnn))
     log("CNN round with conv_impl='fwd_bwd' (library convolutions, no port kernel): "
         + json.dumps(fwd_bwd_round(card)))
+    log("kinds reference phase (ResNet-18 scaffold/local and fedprox, CNN scaffold, f32, "
+        "small, card vs CPU; codec fold bit-equal): ok " + json.dumps(kinds_reference_phase()))
+    log("codec phase (CNN leaf shapes, 100 nodes, bit-equal to the numpy oracles): ok "
+        + json.dumps(codec_phase()))
+    for label, result in cnn_variant_paths(card).items():
+        log(f"CNN main path ({label}): " + json.dumps(result))
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()
     log("transformer reference phase (flash vs blockwise, f32, small): ok")
     lm, lm_args = transformer_main_path(card)
     log("transformer main path: " + json.dumps(lm))
+    resnet, rn_args = resnet_path(card)
+    for algorithm, result in resnet.items():
+        log(f"ResNet-18 config 3 ({algorithm}): " + json.dumps(result))
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
+        log("profile (one ResNet-18 round, fedavg): " + json.dumps(profile_round(rn_args)))
     for row in rows:
         path = cnn if row["name"] in ("conv_dw", "conv_dx") else lm
         row["launches"] = path["launches"][row["name"]]

@@ -260,11 +260,13 @@ def test_init_params_flax_initialisers():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="fedprox"):
-        FederationEngine(_torch_cnn(), 2, algorithm="fedprox", device="cpu")
+    """Meshes, FedBuff schedules and attack scales are not ported yet
+    (FedProx, SCAFFOLD and aux state are: tests/test_torch_engine_kinds.py)."""
     with pytest.raises(NotImplementedError, match="mesh"):
         FederationEngine(_torch_cnn(), 2, mesh="auto", device="cpu")
     eng = FederationEngine(_torch_cnn(), 2, device="cpu")
     xs, ys = np.zeros((2, 1, 1, 8, 8, 3), np.float32), np.zeros((2, 1, 1), np.int32)
-    with pytest.raises(NotImplementedError, match="aux"):
-        eng.run_rounds(eng.init_params((8, 8, 3)), xs, ys, aux={})
+    for kw, what in (({"attack_scales": [1.0, -1.0]}, "attack_scales"),
+                     ({"schedule": object()}, "FedBuff")):
+        with pytest.raises(NotImplementedError, match=what):
+            eng.run_rounds(eng.init_params((8, 8, 3)), xs, ys, **kw)

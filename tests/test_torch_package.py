@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("parallel.conv_kernel", "parallel.engine", "parallel.flash_kernel",
-                "parallel.ring_attention", "models.zoo", "utils.tree", "interop"):
+                "parallel.ring_attention", "models.zoo", "utils.tree", "interop",
+                "learning.compression", "settings"):
         assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -58,11 +59,11 @@ def test_sources_name_no_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["engine", "federation", "create_model", "interop",
-                                   "transformer_lm"])
+                                   "transformer_lm", "resnet18_state", "scaffold"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tpfl_torch.interop import params_from_flax
-    from tpfl_torch.models import CNN, TransformerLM, create_model
+    from tpfl_torch.models import CNN, ResNet18, TransformerLM, create_model, init_state
     from tpfl_torch.parallel import FederationEngine, VmapFederation
     from tpfl_torch.parallel.flash_kernel import flash_attention
 
@@ -73,6 +74,8 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
         "interop": lambda: params_from_flax({}),
         "transformer_lm": lambda: VmapFederation(
             TransformerLM(attention_fn=flash_attention), 2).init_params((16,)),
+        "resnet18_state": lambda: init_state(ResNet18(), (32, 32, 3)),
+        "scaffold": lambda: VmapFederation(CNN(), 2, algorithm="scaffold"),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

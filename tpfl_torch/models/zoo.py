@@ -1,5 +1,6 @@
-"""The model zoo, node-batched — counterparts of :class:`tpfl.models.zoo.CNN`
-and :class:`tpfl.models.zoo.TransformerLM`.
+"""The model zoo, node-batched — counterparts of :class:`tpfl.models.zoo.MLP`,
+:class:`~tpfl.models.zoo.CNN`, :class:`~tpfl.models.zoo.ResNet18` and
+:class:`~tpfl.models.zoo.TransformerLM`.
 
 Parameters are nested dicts in the flax layout with a leading node
 axis: ``Conv_i/kernel [N, 3, 3, Cin, Cout]`` (HWIO), ``Conv_i/bias
@@ -8,6 +9,10 @@ the transformer's ``TransformerBlock_i/LayerNorm_0/scale [N, dim]`` and
 ``Embed_0/embedding [N, vocab, dim]`` sit one level deeper or beside
 them. Activations are NHWC and the flatten before ``Dense_0`` is NHWC
 order, so params move between the two packages with no transpose.
+ResNet-18's BatchNorm state is a second tree of the same kind,
+``{"batch_stats": {"BatchNorm_0": {"mean", "var"}, "ResidualBlock_0":
+{...}, ...}}`` (flax's mutable collection), threaded through training
+by :func:`apply`; :func:`init_state` draws both.
 
 A module holds no parameters itself (like a flax module): ``forward``
 takes them, so N nodes' distinct models run in one call. Each module
@@ -122,6 +127,37 @@ class CNN(nn.Module):
         x = x.reshape(x.shape[0], x.shape[1], -1)
         x = F.relu(_dense(x, params["Dense_0"], self.compute_dtype))
         return _dense(x, params["Dense_1"], self.compute_dtype).to(torch.float32)
+
+
+class MLP(nn.Module):
+    """MLP (``zoo.py:21-36``), node-batched: flattens each sample, then
+    Dense → relu per hidden size and a final Dense, in
+    ``compute_dtype``; f32 logits ``[N, B, out_channels]``."""
+
+    def __init__(self, hidden_sizes: Sequence[int] = (256, 128), out_channels: int = 10,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.hidden_sizes = tuple(int(h) for h in hidden_sizes)
+        self.out_channels = int(out_channels)
+        self.compute_dtype = compute_dtype
+
+    def init_params(self, gen: torch.Generator, input_shape: Sequence[int],
+                    device: torch.device) -> Params:
+        """lecun-normal kernels, zero biases."""
+        params: Params = {}
+        fan_in = math.prod(int(d) for d in input_shape)
+        for i, out in enumerate(self.hidden_sizes + (self.out_channels,)):
+            params[f"Dense_{i}"] = _dense_params(fan_in, out, gen, device)
+            fan_in = out
+        return params
+
+    def forward(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``x [N, B, ...]`` -> f32 logits ``[N, B, out_channels]``."""
+        cd = self.compute_dtype
+        x = x.reshape(x.shape[0], x.shape[1], -1).to(cd)
+        for i in range(len(self.hidden_sizes)):
+            x = F.relu(_dense(x, params[f"Dense_{i}"], cd))
+        return _dense(x, params[f"Dense_{len(self.hidden_sizes)}"], cd).to(torch.float32)
 
 
 def _lecun_normal(shape: Sequence[int], gen: torch.Generator,
@@ -289,7 +325,236 @@ class TransformerLM(nn.Module):
         return _dense(x, params["Dense_0"], cd).to(torch.float32)
 
 
-Module = Union[CNN, TransformerLM]
+# --- ResNet-18 ----------------------------------------------------------------
+#
+# Inside the network N nodes' activations are one grouped image batch
+# ``[B, N·C, H, W]`` (channels-last in memory, i.e. each node's NHWC):
+# every conv is one grouped ``F.conv2d`` (groups = N) and a BatchNorm's
+# per-channel statistics over (B, H, W) are exactly each node's own.
+
+
+def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """flax / XLA ``SAME`` padding of one spatial axis: the total
+    ``(ceil(size/stride) − 1)·stride + k − size`` split low = total // 2,
+    high = the rest. A 3×3 stride-2 conv on an even size pads (0, 1),
+    not PyTorch's (1, 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _group_conv(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+                cd: torch.dtype) -> torch.Tensor:
+    """``nn.Conv(use_bias=False, padding="SAME", dtype=cd)`` per node:
+    ``x [B, N·Cin, H, W]`` · HWIO ``kernel [N, k, k, Cin, Cout]`` ->
+    ``[B, N·Cout, H', W']``."""
+    n, k, _, cin, cout = kernel.shape
+    wg = kernel.to(cd).permute(0, 4, 3, 1, 2).reshape(n * cout, cin, k, k)
+    (h_lo, h_hi), (w_lo, w_hi) = (_same_pads(s, k, stride) for s in x.shape[2:])
+    if (h_lo, w_lo) == (h_hi, w_hi):
+        return F.conv2d(x.to(cd), wg, stride=stride, padding=(h_lo, w_lo), groups=n)
+    return F.conv2d(F.pad(x.to(cd), (w_lo, w_hi, h_lo, h_hi)), wg, stride=stride, groups=n)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=cd)``
+    (flax 0.12.3, ``_compute_stats`` / ``_normalize``), per node, on the
+    grouped layout ``[B, N·C, H, W]``:
+
+    - training: the batch statistics in f32 over each node's (B, H, W),
+      never across nodes, with the fast variance ``E[x²] − E[x]²``
+      clipped at 0; the running stats become ``0.9·ra + 0.1·batch``
+      (biased variance);
+    - evaluation: the running stats;
+    - ``y = (x − mean) · (rsqrt(var + 1e-5) · scale) + bias`` in f32,
+      then cast to ``cd``.
+
+    Not ``F.batch_norm``, whose running variance is unbiased and whose
+    momentum weighs the batch."""
+
+    momentum, epsilon = 0.9, 1e-5
+
+    def __init__(self, compute_dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.compute_dtype = compute_dtype
+
+    @staticmethod
+    def init_params(features: int, device: torch.device) -> Params:
+        return {"scale": torch.ones((features,), dtype=torch.float32, device=device),
+                "bias": torch.zeros((features,), dtype=torch.float32, device=device)}
+
+    @staticmethod
+    def init_stats(features: int, device: torch.device) -> Params:
+        return {"mean": torch.zeros((features,), dtype=torch.float32, device=device),
+                "var": torch.ones((features,), dtype=torch.float32, device=device)}
+
+    def forward(self, params: Params, stats: Params, x: torch.Tensor,
+                train: bool) -> tuple[torch.Tensor, Params]:
+        """(normalised x in ``compute_dtype``, new stats [N, C])."""
+        n = params["scale"].shape[0]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # f64 stays f64
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            m = self.momentum
+            stats = {"mean": m * stats["mean"] + (1 - m) * mean.detach().reshape(n, -1),
+                     "var": m * stats["var"] + (1 - m) * var.detach().reshape(n, -1)}
+        else:
+            mean, var = stats["mean"].reshape(-1), stats["var"].reshape(-1)
+        mul = torch.rsqrt(var + self.epsilon) * params["scale"].reshape(-1)
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + params["bias"].reshape(-1)[
+            :, None, None]
+        return y.to(self.compute_dtype), stats
+
+
+class ResidualBlock(nn.Module):
+    """Two 3×3 convs with BatchNorm (``zoo.py:147-173``); a 1×1 conv +
+    BatchNorm shortcut (``Conv_2`` / ``BatchNorm_2``) when the shape
+    changes. Grouped layout ``[B, N·C, H, W]`` in and out."""
+
+    def __init__(self, channels: int, stride: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.channels, self.stride = int(channels), int(stride)
+        self.compute_dtype = compute_dtype
+        self.norm = BatchNorm(compute_dtype)
+
+    def has_shortcut(self, cin: int) -> bool:
+        return cin != self.channels or self.stride != 1
+
+    def _norms(self, cin: int) -> int:
+        return 3 if self.has_shortcut(cin) else 2
+
+    def init_params(self, gen: torch.Generator, cin: int, device: torch.device) -> Params:
+        """lecun-normal kernels, BatchNorm scale one / bias zero."""
+        ch = self.channels
+        convs = [(3, cin), (3, ch), (1, cin)][:self._norms(cin)]
+        params: Params = {}
+        for i, (k, c) in enumerate(convs):
+            params[f"Conv_{i}"] = {"kernel": _lecun_normal((k, k, c, ch), gen, device)}
+            params[f"BatchNorm_{i}"] = BatchNorm.init_params(ch, device)
+        return params
+
+    def init_stats(self, cin: int, device: torch.device) -> Params:
+        return {f"BatchNorm_{i}": BatchNorm.init_stats(self.channels, device)
+                for i in range(self._norms(cin))}
+
+    def forward(self, params: Params, stats: Params, x: torch.Tensor,
+                train: bool) -> tuple[torch.Tensor, Params]:
+        cd, new = self.compute_dtype, {}
+        y = _group_conv(x, params["Conv_0"]["kernel"], self.stride, cd)
+        y, new["BatchNorm_0"] = self.norm(params["BatchNorm_0"], stats["BatchNorm_0"], y, train)
+        y = _group_conv(F.relu(y), params["Conv_1"]["kernel"], 1, cd)
+        y, new["BatchNorm_1"] = self.norm(params["BatchNorm_1"], stats["BatchNorm_1"], y, train)
+        residual = x
+        if "Conv_2" in params:
+            residual = _group_conv(x, params["Conv_2"]["kernel"], self.stride, cd)
+            residual, new["BatchNorm_2"] = self.norm(params["BatchNorm_2"],
+                                                     stats["BatchNorm_2"], residual, train)
+        return F.relu(residual + y), new
+
+
+class ResNet18(nn.Module):
+    """ResNet-18, CIFAR variant (``zoo.py:176-208``): a 3×3 stem (64
+    channels) with BatchNorm, no max-pool, ``stage_sizes`` residual
+    blocks per stage at 64·2^i channels (the first block of each later
+    stage strides 2), a global mean pool and a Dense head.
+
+    ``forward(params, x [N, B, H, W, C], aux, train=False) -> (f32
+    logits [N, B, out_channels], new aux)``: ``aux`` is
+    ``{"batch_stats": ...}`` from :func:`init_state`; with
+    ``train=True`` the BatchNorms use the batch's statistics and the new
+    running stats come back, else the running stats are used and ``aux``
+    comes back as it was."""
+
+    def __init__(self, out_channels: int = 100, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                 compute_dtype: torch.dtype = torch.bfloat16) -> None:
+        super().__init__()
+        self.out_channels = int(out_channels)
+        self.stage_sizes = tuple(int(s) for s in stage_sizes)
+        self.compute_dtype = compute_dtype
+        self.norm = BatchNorm(compute_dtype)
+        self.blocks = [
+            ResidualBlock(64 * 2 ** i, 2 if i > 0 and b == 0 else 1, compute_dtype)
+            for i, n_blocks in enumerate(self.stage_sizes) for b in range(n_blocks)]
+
+    def _block_inputs(self) -> list[int]:
+        """Each block's input channels."""
+        return [64] + [block.channels for block in self.blocks[:-1]]
+
+    def init_params(self, gen: torch.Generator, input_shape: Sequence[int],
+                    device: torch.device) -> Params:
+        """lecun-normal kernels, BatchNorm scale one / bias zero, zero
+        Dense bias."""
+        cin = int(input_shape[2]) if len(input_shape) == 3 else 1
+        params: Params = {"Conv_0": {"kernel": _lecun_normal((3, 3, cin, 64), gen, device)},
+                          "BatchNorm_0": BatchNorm.init_params(64, device)}
+        for i, (block, c) in enumerate(zip(self.blocks, self._block_inputs())):
+            params[f"ResidualBlock_{i}"] = block.init_params(gen, c, device)
+        params["Dense_0"] = _dense_params(self.blocks[-1].channels, self.out_channels, gen,
+                                          device)
+        return params
+
+    def init_aux(self, input_shape: Sequence[int], device: torch.device) -> Params:
+        """``{"batch_stats": ...}``: means zero, variances one."""
+        stats: Params = {"BatchNorm_0": BatchNorm.init_stats(64, device)}
+        for i, (block, c) in enumerate(zip(self.blocks, self._block_inputs())):
+            stats[f"ResidualBlock_{i}"] = block.init_stats(c, device)
+        return {"batch_stats": stats}
+
+    def forward(self, params: Params, x: torch.Tensor, aux: Params,
+                train: bool = False) -> tuple[torch.Tensor, Params]:
+        cd = self.compute_dtype
+        if x.dim() == 4:
+            x = x[..., None]
+        n, b, h, w, c = x.shape
+        stats = aux["batch_stats"]
+        new: Params = {}
+        # [N, B, H, W, C] -> the grouped [B, N·C, H, W], channels-last.
+        x = x.to(cd).permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
+        x = _group_conv(x, params["Conv_0"]["kernel"], 1, cd)
+        x, new["BatchNorm_0"] = self.norm(params["BatchNorm_0"], stats["BatchNorm_0"], x, train)
+        x = F.relu(x)
+        for i, block in enumerate(self.blocks):
+            name = f"ResidualBlock_{i}"
+            x, new[name] = block(params[name], stats[name], x, train)
+        x = x.to(torch.promote_types(cd, torch.float32)).mean(dim=(2, 3)).to(cd)  # [B, N·C]
+        x = x.reshape(b, n, -1).transpose(0, 1)
+        logits = _dense(x, params["Dense_0"], cd).to(torch.float32)
+        return logits, ({"batch_stats": new} if train else aux)
+
+
+Module = Union[MLP, CNN, ResNet18, TransformerLM]
+
+
+def apply(module: Module, params: Params, aux: Params, x: torch.Tensor,
+          train: bool = False) -> tuple[torch.Tensor, Params]:
+    """``module.apply({"params": params, **aux}, x, train=train,
+    mutable=list(aux))`` of flax: (logits, new aux). A module without
+    mutable collections takes ``aux == {}`` and gives it back."""
+    if aux:
+        return module(params, x, aux, train=train)
+    return module(params, x), aux
+
+
+def init_state(
+    module: Module,
+    input_shape: Sequence[int],
+    seed: int = 0,
+    device: DeviceLike = None,
+) -> tuple[Params, Params]:
+    """One model's ``(params, aux)`` (unstacked; reference
+    ``engine.py:780-805``): ``aux`` is ``{}`` for MLP, CNN and
+    TransformerLM, and ``{"batch_stats": {...}}`` for ResNet-18. Params
+    are drawn by the module's own ``init_params`` from a
+    ``torch.Generator`` seeded with ``seed``; the numbers differ from
+    flax's for the same seed, so tests hand both packages the same
+    params through :mod:`tpfl_torch.interop`."""
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(int(seed))
+    params = module.init_params(gen, input_shape, dev)
+    init_aux = getattr(module, "init_aux", None)
+    return params, ({} if init_aux is None else init_aux(input_shape, dev))
 
 
 def init_params(
@@ -298,13 +563,15 @@ def init_params(
     seed: int = 0,
     device: DeviceLike = None,
 ) -> Params:
-    """One model's f32 params (unstacked), drawn by the module's own
-    ``init_params`` from a ``torch.Generator`` seeded with ``seed``. The
-    numbers differ from flax's for the same seed; tests hand both
-    packages the same params through :mod:`tpfl_torch.interop`."""
-    dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(int(seed))
-    return module.init_params(gen, input_shape, dev)
+    """One model's f32 params (unstacked) for a module without mutable
+    collections; ResNet-18 raises (use :func:`init_state`)."""
+    params, aux = init_state(module, input_shape, seed, device)
+    if aux:
+        raise ValueError(
+            f"Module has mutable collections {sorted(aux)} — use "
+            f"init_state() and pass aux to round()/evaluate()."
+        )
+    return params
 
 
 def create_model(
@@ -313,15 +580,18 @@ def create_model(
     seed: int = 0,
     device: DeviceLike = None,
     **module_kwargs: Any,
-) -> tuple[Module, Params]:
-    """``(module, params)`` — ``module`` may be a module or a zoo name
-    (``"cnn"``, ``"transformer_lm"``), built from ``module_kwargs``."""
+) -> tuple:
+    """``(module, params)``, or ``(module, params, aux)`` for a module
+    with mutable collections (ResNet-18's ``batch_stats``) — ``module``
+    may be a module or a zoo name (``"mlp"``, ``"cnn"``, ``"resnet18"``,
+    ``"transformer_lm"``), built from ``module_kwargs``."""
     if isinstance(module, str):
-        zoo = {"cnn": CNN, "transformer_lm": TransformerLM}
+        zoo = {"mlp": MLP, "cnn": CNN, "resnet18": ResNet18, "transformer_lm": TransformerLM}
         if module not in zoo:
             raise KeyError(f"Unknown model {module!r}; have {sorted(zoo)}")
         module = zoo[module](**module_kwargs)
-    return module, init_params(module, input_shape, seed, device)
+    params, aux = init_state(module, input_shape, seed, device)
+    return (module, params, aux) if aux else (module, params)
 
 
 def stack_params(params: Params, n_nodes: int,

@@ -2,8 +2,8 @@
 counterpart of :class:`tpfl.parallel.federation.VmapFederation`.
 
 All N homogeneous nodes' parameters are stacked on a leading node axis;
-one round trains every node and folds them with FedAvg in one pass over
-the stacked tensors — no Python loop over nodes.
+one round trains every node and folds them in one pass over the stacked
+tensors — no Python loop over nodes.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch
 from tpfl_torch import DeviceLike
 from tpfl_torch.learning.torch_learner import OptimizerFactory, cross_entropy_loss
 from tpfl_torch.models.zoo import Params
-from tpfl_torch.parallel.engine import FederationEngine
+from tpfl_torch.parallel.engine import DENSE, FederationEngine
 
 
 class VmapFederation:
@@ -28,6 +28,15 @@ class VmapFederation:
             SGD + momentum 0.9).
         loss_fn: (logits, labels) -> per-sample losses.
         seed: init seed (all nodes share the initial model).
+        aux_mode: how BatchNorm stats fold — "mean" (with the params'
+            weights) or "local" (FedBN: each node that took part keeps
+            its own).
+        algorithm: "fedavg", "fedprox" (a proximal pull
+            ``mu/2·||w − w_round_start||²`` on every local loss) or
+            "scaffold" (control-variate-corrected local steps; carry
+            the state from :meth:`init_scaffold_state` through
+            ``round(..., scaffold_state=...)``, option II).
+        prox_mu: FedProx's proximal coefficient.
         device: ``None`` = the card; ``"cpu"`` for the plain path.
     """
 
@@ -40,39 +49,69 @@ class VmapFederation:
         optimizer_factory: Optional[OptimizerFactory] = None,
         loss_fn: Callable = cross_entropy_loss,
         seed: int = 0,
+        aux_mode: str = "mean",
         algorithm: str = "fedavg",
+        prox_mu: float = 0.01,
         device: DeviceLike = None,
     ) -> None:
         self.engine = FederationEngine(
             module, n_nodes, mesh=mesh, learning_rate=learning_rate,
             optimizer_factory=optimizer_factory, loss_fn=loss_fn, seed=seed,
-            algorithm=algorithm, device=device,
+            aux_mode=aux_mode, algorithm=algorithm, prox_mu=prox_mu, device=device,
         )
         self.module = module
         self.n_nodes = int(n_nodes)
         self.device = self.engine.device
+        self.learning_rate = float(learning_rate)
+        self.seed = seed
+        self.aux_mode = aux_mode
+        self.algorithm = algorithm
+        self.prox_mu = float(prox_mu)
+
+    def init_state(self, input_shape: tuple[int, ...]) -> tuple[Params, Params]:
+        """(stacked params, stacked aux) — aux is ``{}`` for modules
+        without mutable collections, else ``{"batch_stats": ...}``
+        (ResNet-18)."""
+        return self.engine.init_state(input_shape)
 
     def init_params(self, input_shape: tuple[int, ...]) -> Params:
-        """Stacked [N, ...] params, identical across nodes."""
+        """Stacked [N, ...] params, identical across nodes (aux-free
+        modules)."""
         return self.engine.init_params(input_shape)
+
+    def init_scaffold_state(self, params: Params) -> tuple[Params, Params]:
+        """(c_locals [N, ...], c_global [...]) — zero control variates."""
+        return self.engine.init_scaffold_state(params)
 
     def shard_data(self, xs: Any, ys: Any) -> tuple[torch.Tensor, torch.Tensor]:
         """Node-stacked batches [N, n_batches, b, ...] on the device."""
         return self.engine.shard_data(xs, ys)
 
-    def round(self, params: Params, xs: Any, ys: Any,
-              weights: Optional[Any] = None, epochs: int = 1) -> tuple[Params, torch.Tensor]:
-        """One federated round -> (new stacked params, per-node losses)."""
-        return self.engine.round(params, xs, ys, weights=weights, epochs=epochs)
+    def round(self, params: Params, xs: Any, ys: Any, weights: Optional[Any] = None,
+              epochs: int = 1, aux: Optional[Any] = None,
+              scaffold_state: Optional[tuple[Any, Any]] = None) -> tuple:
+        """One federated round, with no wire codec (the reference's
+        round program, whatever ``ENGINE_WIRE_CODEC`` says). Returns
+        ``(params, losses)``; with ``aux`` (possibly ``{}``) ``(params,
+        aux, losses)``; with algorithm="scaffold" ``(params, aux,
+        (c_locals, c_global), losses)`` (``aux`` is ``{}`` for aux-free
+        modules)."""
+        return self.engine._window(params, xs, ys, weights, epochs, 1, aux, scaffold_state,
+                                   DENSE)
 
-    def run_rounds(self, params: Params, xs: Any, ys: Any,
-                   weights: Optional[Any] = None, epochs: int = 1,
-                   n_rounds: int = 1) -> tuple[Params, torch.Tensor]:
-        """``n_rounds`` federated rounds; returns like :meth:`round`."""
+    def run_rounds(self, params: Params, xs: Any, ys: Any, weights: Optional[Any] = None,
+                   epochs: int = 1, n_rounds: int = 1, aux: Optional[Any] = None,
+                   scaffold_state: Optional[tuple[Any, Any]] = None,
+                   schedule: Optional[Any] = None) -> tuple:
+        """``n_rounds`` federated rounds through the engine (the wire codec
+        as ``Settings.ENGINE_WIRE_CODEC`` says); returns like
+        :meth:`round`."""
         return self.engine.run_rounds(
-            params, xs, ys, weights=weights, epochs=epochs, n_rounds=n_rounds
+            params, xs, ys, weights=weights, epochs=epochs, n_rounds=n_rounds, aux=aux,
+            scaffold_state=scaffold_state, schedule=schedule,
         )
 
-    def evaluate(self, params: Params, xs: Any, ys: Any) -> tuple[torch.Tensor, torch.Tensor]:
+    def evaluate(self, params: Params, xs: Any, ys: Any,
+                 aux: Optional[Any] = None) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-node (loss, accuracy) over node-stacked eval data."""
-        return self.engine.evaluate(params, xs, ys)
+        return self.engine.evaluate(params, xs, ys, aux=aux)
