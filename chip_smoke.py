@@ -86,11 +86,28 @@
    SCAFFOLD stays finite on this CNN), each a 3-round window asserting
    every ``conv_dw`` / ``conv_dx`` launch on its wgmma kernel, finite
    losses and one aggregate on every node.
+11. Protocol phase (the learning layer of ``tpfl_torch.learning``): a
+   narrow f32 ``TorchLearner`` fit through the conv kernels on the card
+   against the same fit on the CPU; then four ``TorchLearner`` objects of the
+   full-width CNN (``conv_impl="pallas"``, bf16 compute, one model each:
+   the kernels at N = 1), 512 seeded synthetic CIFAR-shaped samples (4
+   batches of 128) and 256 test samples each, 1 epoch. A round: every
+   learner fits (32 ``conv_dw`` + 16 ``conv_dx`` launches, every one on
+   its wgmma kernel), its model is wire-encoded (v3 dense, 2,180,392
+   bytes of params), node 0 rebuilds each model from the bytes and folds
+   them (``set_nodes_to_aggregate`` → ``add_model`` ×4 →
+   ``wait_and_get_aggregation``), the aggregate, held to a plain f64
+   mean of the decoded params (rtol 1e-6), goes back to every learner
+   as bytes and each evaluates it. A warm-up round and a timed one
+   under FedAvg, ``WIRE_CODEC="quant8"`` (every leaf bit-equal to the q8
+   oracle), SCAFFOLD (lr 0.02) and FedProx; fit, encode, decode, fold
+   and round times, and encode / decode of one payload as v1, v3 and
+   v2 ``quant8``.
 
 ``--profile`` adds one round of each main path (the CNN, the
-transformer, ResNet-18 under FedAvg) under ``torch.profiler``: device
-time by kernel, and the device's idle share of the round from the union
-of its kernel intervals.
+transformer, ResNet-18 under FedAvg) and one protocol-phase learner fit
+under ``torch.profiler``: device time by kernel, and the device's idle
+share from the union of its kernel intervals.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -113,8 +130,12 @@ import numpy as np
 import torch
 
 from tpfl_torch.learning import compression
+from tpfl_torch.learning.aggregators import FedAvg, FedProx, Scaffold
+from tpfl_torch.learning.dataset import TpflDataset
 from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10, synthetic_classification
-from tpfl_torch.models import CNN, ResNet18, TransformerLM
+from tpfl_torch.learning.model import TpflModel
+from tpfl_torch.learning.torch_learner import TorchLearner
+from tpfl_torch.models import CNN, ResNet18, TransformerLM, init_params
 from tpfl_torch.parallel import FederationEngine, VmapFederation, _build
 from tpfl_torch.parallel import conv_kernel as ck
 from tpfl_torch.parallel import flash_kernel as fk
@@ -379,28 +400,46 @@ def kernel_phase() -> list[dict]:
     return rows
 
 
+def check_dw_case(cin: int, cout: int, hw: tuple, b: int, n: int, gen) -> float:
+    """One bf16 conv_dw shape against the plain version at the main
+    shapes' tolerance and against itself run again (the same bits); fails
+    unless it took the wgmma kernel. Returns max |err| / max |ref|."""
+    h, w = hw
+    x = torch.randn(n, b, h, w, cin, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn(n, b, h, w, cout, device="cuda", generator=gen).to(torch.bfloat16)
+    wgmma = ck.conv_dw.wgmma_launches
+    dw = ck.conv_dw(x, g, 3)
+    label = f"conv_dw[Cin={cin} Cout={cout} {h}x{w} B={b} N={n}]"
+    if ck.conv_dw.wgmma_launches != wgmma + 1:
+        raise AssertionError(f"{label}: did not take the wgmma kernel")
+    if not torch.equal(ck.conv_dw(x, g, 3), dw):
+        raise AssertionError(f"{label}: two runs differ")
+    ref = ck.conv_dw_plain(x, g, 3)
+    return check_close(label, dw, ref, 1e-4, 1e-4) / ref.abs().max().item()
+
+
+def check_dx_case(cin: int, cout: int, hw: tuple, b: int, n: int, gen) -> float:
+    """One bf16 conv_dx shape against the plain version at the main
+    shape's tolerance; fails unless it took the wgmma kernel. Returns
+    max |err| / max |ref|."""
+    h, w = hw
+    g = torch.randn(n, b, h, w, cout, device="cuda", generator=gen).to(torch.bfloat16)
+    wk = torch.randn(n, 3, 3, cin, cout, device="cuda", generator=gen).to(torch.bfloat16)
+    wgmma = ck.conv_dx.wgmma_launches
+    dx = ck.conv_dx(g, wk)
+    label = f"conv_dx[Cin={cin} Cout={cout} {h}x{w} B={b} N={n}]"
+    if ck.conv_dx.wgmma_launches != wgmma + 1:
+        raise AssertionError(f"{label}: did not take the wgmma kernel")
+    ref = ck.conv_dx_plain(g, wk)
+    return check_close(label, dx, ref, 2.0 ** -7, 1e-3) / ref.float().abs().max().item()
+
+
 def conv_dw_edge_cases() -> float:
     """Each bf16 edge case of the wgmma conv_dw (``ck.WGMMA_DW_EDGES``, the
-    card tests' shapes) against the plain version at the main shapes'
-    tolerance, and against itself run again (the same bits); fails unless
-    each took the wgmma kernel. Returns the worst max |err| relative to the
-    case's largest value."""
+    card tests' shapes) through :func:`check_dw_case`. Returns the worst
+    max |err| relative to the case's largest value."""
     gen = torch.Generator(device="cuda").manual_seed(8)
-    worst = 0.0
-    for cin, cout, (h, w), b, n in ck.WGMMA_DW_EDGES:
-        x = torch.randn(n, b, h, w, cin, device="cuda", generator=gen).to(torch.bfloat16)
-        g = torch.randn(n, b, h, w, cout, device="cuda", generator=gen).to(torch.bfloat16)
-        wgmma = ck.conv_dw.wgmma_launches
-        dw = ck.conv_dw(x, g, 3)
-        label = f"conv_dw[Cin={cin} Cout={cout} {h}x{w} B={b} N={n}]"
-        if ck.conv_dw.wgmma_launches != wgmma + 1:
-            raise AssertionError(f"{label}: did not take the wgmma kernel")
-        if not torch.equal(ck.conv_dw(x, g, 3), dw):
-            raise AssertionError(f"{label}: two runs differ")
-        ref = ck.conv_dw_plain(x, g, 3)
-        err = check_close(label, dw, ref, 1e-4, 1e-4)
-        worst = max(worst, err / ref.abs().max().item())
-    return worst
+    return max(check_dw_case(*case, gen) for case in ck.WGMMA_DW_EDGES)
 
 
 def conv_node_limit_cases() -> dict:
@@ -438,23 +477,10 @@ def conv_node_limit_cases() -> dict:
 
 def conv_edge_cases() -> float:
     """Each bf16 edge case of the wgmma conv_dx (``ck.WGMMA_DX_EDGES``, the
-    card tests' shapes) against the plain version at the main shape's
-    tolerance; fails unless each took the wgmma kernel. Returns the worst
+    card tests' shapes) through :func:`check_dx_case`. Returns the worst
     max |err| relative to the case's largest value."""
     gen = torch.Generator(device="cuda").manual_seed(7)
-    worst = 0.0
-    for cin, cout, (h, w), b, n in ck.WGMMA_DX_EDGES:
-        g = torch.randn(n, b, h, w, cout, device="cuda", generator=gen).to(torch.bfloat16)
-        wk = torch.randn(n, 3, 3, cin, cout, device="cuda", generator=gen).to(torch.bfloat16)
-        wgmma = ck.conv_dx.wgmma_launches
-        dx = ck.conv_dx(g, wk)
-        label = f"conv_dx[Cin={cin} Cout={cout} {h}x{w} B={b} N={n}]"
-        if ck.conv_dx.wgmma_launches != wgmma + 1:
-            raise AssertionError(f"{label}: did not take the wgmma kernel")
-        ref = ck.conv_dx_plain(g, wk)
-        err = check_close(label, dx, ref, 2.0 ** -7, 1e-3)
-        worst = max(worst, err / ref.float().abs().max().item())
-    return worst
+    return max(check_dx_case(*case, gen) for case in ck.WGMMA_DX_EDGES)
 
 
 def reference_phase() -> None:
@@ -957,14 +983,14 @@ CNN_VARIANTS = [("quant8", "quant8", "fedavg", 0.1),
 
 
 @contextlib.contextmanager
-def wire_codec(codec: str):
-    """``Settings.ENGINE_WIRE_CODEC`` set to ``codec`` inside the block."""
-    saved = Settings.ENGINE_WIRE_CODEC
-    Settings.ENGINE_WIRE_CODEC = codec
+def setting(name: str, value):
+    """``Settings.<name>`` set to ``value`` inside the block."""
+    saved = getattr(Settings, name)
+    setattr(Settings, name, value)
     try:
         yield
     finally:
-        Settings.ENGINE_WIRE_CODEC = saved
+        setattr(Settings, name, saved)
 
 
 def flat_result(out: tuple) -> dict:
@@ -1024,7 +1050,7 @@ def kinds_reference_phase() -> dict:
                                        msg=lambda m, p=path: f"{label}: {p}: {m}")
         out[label] = max((card[p] - cpu[p]).abs().max().item() for p in cpu)
     for codec in ("quant8", "topk+quant8"):
-        with wire_codec(codec):
+        with setting("ENGINE_WIRE_CODEC", codec):
             card, cpu = (small_window(dev, "cnn", epochs=0, weights=(0.0, 1.0, 0.0), n_rounds=1)
                          for dev in ("cuda", "cpu"))
         for path in cpu:
@@ -1085,7 +1111,7 @@ def cnn_variant_paths(card: str) -> dict:
     steps = N_BATCHES * EPOCHS * N_ROUNDS
     out = {}
     for label, codec, algorithm, lr in CNN_VARIANTS:
-        with wire_codec(codec):
+        with setting("ENGINE_WIRE_CODEC", codec):
             wall, params, losses, launches, wgmma, _ = cnn_rounds("pallas", algorithm, lr)
         check_main_path(params, losses, launches, {
             **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
@@ -1139,6 +1165,249 @@ def resnet_path(card: str) -> tuple[dict, tuple]:
     return out, profile_args
 
 
+# ---- the protocol learning layer ---------------------------------------------
+
+# Four TorchLearners of the full-width zoo CNN (through the conv kernels,
+# at one node each), 512 seeded synthetic CIFAR-shaped training samples
+# (4 batches of 128) and 256 test samples each, 1 epoch; node 0 folds the
+# four wire-decoded models. (label, WIRE_CODEC, aggregator, learning rate):
+# SCAFFOLD at lr 0.02, as the engine's SCAFFOLD window (§6 of PERF.md).
+P_NODES, P_TRAIN, P_TEST, P_BATCH = 4, 512, 256, 128
+P_ROUNDS = [("fedavg", "dense", "fedavg", 0.1), ("quant8", "quant8", "fedavg", 0.1),
+            ("scaffold", "dense", "scaffold", 0.02), ("fedprox", "dense", "fedprox", 0.1)]
+P_AGGREGATORS = {"fedavg": FedAvg, "scaffold": Scaffold, "fedprox": FedProx}
+CNN_PARAM_BYTES = 2_180_392  # 545,098 f32 params
+
+
+def protocol_learners(aggregator: str, lr: float) -> tuple[list, object, dict]:
+    """``P_NODES`` learners on the card from the same seed-0 params, each
+    with its own data and the callbacks the aggregator kind names, node
+    0's aggregator, and the seed-0 params by path in f64."""
+    module = CNN(out_channels=10, conv_impl="pallas")
+    params = init_params(module, (32, 32, 3), seed=0, device="cuda")
+    aggs = [P_AGGREGATORS[aggregator](f"node-{i}", device="cuda") for i in range(P_NODES)]
+    learners = []
+    for i, agg in enumerate(aggs):
+        x, y, xt, yt = synthetic_cifar10(n_train=P_TRAIN, n_test=P_TEST, seed=100 + i)
+        learners.append(TorchLearner(TpflModel(module, params, device="cuda"),
+                                     TpflDataset.from_arrays(x, y, xt, yt), addr=f"node-{i}",
+                                     aggregator=agg, learning_rate=lr, batch_size=P_BATCH,
+                                     device="cuda"))
+    return learners, aggs[0], {p: v.double() for p, v in tree_items(params)}
+
+
+def check_q8_leaves(payload: bytes, model) -> None:
+    """Each leaf of a quant8 payload decodes bit-equal to the q8 oracle
+    of the model's own leaf."""
+    decoded, _, _, _ = compression.decode_model_payload(payload)
+    want = dict(tree_items(tree_map(lambda v: v.float().cpu().numpy(), model.get_parameters())))
+    for path, leaf in tree_items(decoded):
+        oracle = compression.q8_decode_np(*compression.q8_encode_np(want[path]))
+        if np.asarray(leaf).tobytes() != oracle.astype(np.float32).tobytes():
+            raise AssertionError(f"quant8 payload: {path} differs from the q8 oracle")
+
+
+def plain_aggregate(label: str, decoded: list, prev: tuple) -> tuple[dict, dict | None]:
+    """The aggregate from the decoded models by plain torch in f64, as
+    (params by path, SCAFFOLD's global variate by path or None): the
+    sample-weighted mean; or SCAFFOLD's x + mean(delta_y_i) and
+    c + mean(delta_c_i), with (x, c) = ``prev``: the seed-0 params every
+    learner starts from and no variate (zeros) in the first round, this
+    function's own result after."""
+    trees = [dict(tree_items(m.get_parameters())) for m in decoded]
+    dev = next(iter(trees[0].values())).device
+    if label != "scaffold":
+        w = torch.tensor([float(m.get_num_samples()) for m in decoded], dtype=torch.float64,
+                         device=dev)
+        return {p: torch.tensordot(w, torch.stack([t[p].double() for t in trees]), dims=1)
+                / w.sum() for p in trees[0]}, None
+
+    def mean_of(key: str) -> dict:
+        # The deltas ride in the wire info: numpy leaves after a decode.
+        per = [dict(tree_items(m.get_info("scaffold")[key])) for m in decoded]
+        return {p: torch.stack([torch.as_tensor(np.array(d[p]), dtype=torch.float64,
+                                                device=dev) for d in per]).mean(0)
+                for p in per[0]}
+
+    x, c = prev
+    dy, dc = mean_of("delta_y_i"), mean_of("delta_c_i")
+    return ({p: x[p] + dy[p] for p in trees[0]},
+            {p: (c[p] if c else 0.0) + dc[p] for p in dc})
+
+
+def protocol_round(label: str, learners: list, agg, prev: tuple) -> tuple[dict, tuple]:
+    """One round: every learner fits, its model is wire-encoded (the
+    codec of ``Settings.WIRE_CODEC``), node 0 rebuilds each model from
+    the bytes (``build_copy(params=bytes)``) and folds them
+    (``set_nodes_to_aggregate`` -> ``add_model`` ×4 ->
+    ``wait_and_get_aggregation``), and every learner ``set_model``s the
+    aggregate's wire bytes and evaluates it. The conv launch counts are
+    set to 0 just before the fits and read after them. ``prev``: the
+    plain reference's state at the round's start (:func:`plain_aggregate`).
+    Returns (timings and checks, the plain reference's state after it)."""
+    addrs = [ln.get_addr() for ln in learners]
+    torch.cuda.synchronize()
+    reset_launches()
+    t_round = time.perf_counter()
+    fit_ms, models = [], []
+    for ln in learners:
+        t0 = time.perf_counter()
+        models.append(ln.fit())
+        torch.cuda.synchronize()
+        fit_ms.append((time.perf_counter() - t0) * 1e3)
+    launches, wgmma = read_launches(), read_wgmma_launches(("conv_dw", "conv_dx"))
+    t0 = time.perf_counter()
+    payloads = [m.encode_parameters() for m in models]
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    decoded = [learners[0].get_model().build_copy(params=p) for p in payloads]
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    agg.set_nodes_to_aggregate(addrs)
+    for m in decoded:
+        agg.add_model(m)
+    out = agg.wait_and_get_aggregation(timeout=60)
+    torch.cuda.synchronize()
+    fold_ms = (time.perf_counter() - t0) * 1e3
+    agg.clear()
+    metrics = []
+    broadcast = out.encode_parameters()
+    for ln in learners:
+        ln.set_model(broadcast)
+        metrics.append(ln.evaluate())
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t_round) * 1e3
+
+    steps = P_NODES * (P_TRAIN // P_BATCH)
+    want = {**dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps}
+    if launches != want:
+        raise AssertionError(f"protocol {label}: kernel launches {launches}, expected {want}")
+    check_all_wgmma(f"protocol round ({label})", launches, wgmma)
+    if out.get_contributors() != addrs or out.get_num_samples() != P_NODES * P_TRAIN:
+        raise AssertionError(f"protocol {label}: contributors {out.get_contributors()}, "
+                             f"num_samples {out.get_num_samples()}")
+    if any(not np.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"protocol {label}: non-finite metrics {metrics}")
+    if Settings.WIRE_CODEC == "quant8":
+        for p, m in zip(payloads, models):
+            check_q8_leaves(p, m)
+    elif min(len(p) for p in payloads) < CNN_PARAM_BYTES or payloads[0][:1] != b"\x03":
+        raise AssertionError(f"protocol {label}: not a dense v3 payload")
+    plain, plain_c = plain_aggregate(label, decoded, prev)
+    got = dict(tree_items(out.get_parameters()))
+    for path, ref in plain.items():
+        torch.testing.assert_close(got[path].double(), ref, rtol=1e-6, atol=1e-7,
+                                   msg=lambda m, p=path: f"protocol {label}: {p}: {m}")
+    if plain_c is not None:
+        # f32 sums of four deltas: a few roundings of the largest term.
+        got_c = dict(tree_items(out.get_info("scaffold")["global_c"]))
+        if got_c.keys() != plain_c.keys():
+            raise AssertionError(f"protocol scaffold: global_c leaves {sorted(got_c)}")
+        for path, ref in plain_c.items():
+            torch.testing.assert_close(
+                got_c[path].double(), ref, rtol=1e-6, atol=1e-6 * ref.abs().max().item(),
+                msg=lambda m, p=path: f"protocol scaffold: global_c {p}: {m}")
+    return {"fit_ms": fit_ms,
+            "fit_samples_per_s": [P_TRAIN / ms * 1e3 for ms in fit_ms],
+            "encode_ms_4": encode_ms, "decode_ms_4": decode_ms, "fold_ms_4": fold_ms,
+            "round_wall_ms": wall_ms, "payload_bytes": len(payloads[0]),
+            "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+            "wgmma_launches": wgmma,
+            "mean_test_loss": float(np.mean([m["test_loss"] for m in metrics])),
+            "mean_test_acc": float(np.mean([m["test_metric"] for m in metrics]))}, (plain, plain_c)
+
+
+def host_ms(fn, iters: int = 7) -> float:
+    """Median host-clock time of ``fn()`` (ending in a synchronize) over
+    ``iters`` runs, after one warm-up run."""
+    fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def wire_timings(model) -> dict:
+    """Encode and decode of one CNN model's payload (params on the card;
+    a decode is ``build_copy(params=bytes)``, the upload included):
+    ms and MB/s of the params' 2,180,392 bytes."""
+    out = {}
+    for label, fmt, codec in (("v1", 1, "dense"), ("v3", 3, "dense"), ("v2 quant8", 3, "quant8")):
+        with setting("WIRE_FORMAT", fmt), setting("WIRE_CODEC", codec):
+            payload = model.encode_parameters()
+            enc = host_ms(model.encode_parameters)
+        dec = host_ms(lambda p=payload: model.build_copy(params=p))
+        out[label] = {"bytes": len(payload), "encode_ms": enc, "decode_ms": dec,
+                      "encode_mb_s": CNN_PARAM_BYTES / enc / 1e3,
+                      "decode_mb_s": CNN_PARAM_BYTES / dec / 1e3}
+    return out
+
+
+def protocol_reference_phase() -> float:
+    """One small f32 learner fit (narrow CNN through the kernels, two
+    fits) on the card against the same fit on the CPU: rtol 1e-3, atol
+    1e-4, TF32 off. Returns max |err|."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y, xt, yt = synthetic_classification((8, 8, 3), n_train=40, n_test=13, seed=3)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        module = CNN(channels=(4, 8), dense=16, compute_dtype=torch.float32, conv_impl="pallas")
+        model = TpflModel(module, init_params(module, (8, 8, 3), seed=0, device=dev), device=dev)
+        learner = TorchLearner(model, TpflDataset.from_arrays(x, y, xt, yt), addr="node-0",
+                               learning_rate=0.05, batch_size=8, device=dev)
+        for _ in range(2):
+            model = learner.fit()
+        out[dev] = {p: v.cpu() for p, v in tree_items(model.get_parameters())}
+    for path, want in out["cpu"].items():
+        torch.testing.assert_close(out["cuda"][path], want, rtol=1e-3, atol=1e-4,
+                                   msg=lambda m, p=path: f"protocol reference: {p}: {m}")
+    return max((out["cuda"][p] - out["cpu"][p]).abs().max().item() for p in out["cpu"])
+
+
+def protocol_kernel_check() -> dict:
+    """conv_dw and conv_dx at the protocol learners' shapes (both CNN
+    layers at one node of ``P_BATCH`` bf16 images: fewer images than the
+    card has SMs) through :func:`check_dw_case` / :func:`check_dx_case`:
+    each on its wgmma kernel, at the kernel phase's tolerances. Returns
+    {case: max |err| / max |ref|}."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for name, h, w, cin, cout, dx_needed in LAYERS:
+        case = (cin, cout, (h, w), P_BATCH, 1)
+        out[f"conv_dw[{name} B={P_BATCH} N=1]"] = check_dw_case(*case, gen)
+        if dx_needed:
+            out[f"conv_dx[{name} B={P_BATCH} N=1]"] = check_dx_case(*case, gen)
+    return out
+
+
+def protocol_path(card: str) -> tuple[dict, object]:
+    """The FedAvg round (a warm-up round, then the timed one), the same
+    round under ``WIRE_CODEC="quant8"``, under SCAFFOLD (lr 0.02) and
+    under FedProx; the wire timings of one fitted model; before them,
+    the conv kernels at the learners' shapes against their plain
+    versions. Returns the results and a FedAvg learner (for a profiled
+    fit)."""
+    out = {"kernels at one node (max |err| / max |ref|)": protocol_kernel_check()}
+    for label, codec, aggregator, lr in P_ROUNDS:
+        learners, agg, params = protocol_learners(aggregator, lr)
+        with setting("WIRE_CODEC", codec):
+            _, state = protocol_round(label, learners, agg, (params, None))  # warm-up, checked
+            result, _ = protocol_round(label, learners, agg, state)
+        out[label] = {"card": card, "wire_codec": codec, "aggregator": aggregator,
+                      "learning_rate": lr, "nodes": P_NODES, "samples_per_fit": P_TRAIN,
+                      **result}
+        if label == "fedavg":
+            out["wire"] = {"card": card, **wire_timings(learners[1].get_model())}
+            profile_learner = learners[1]
+    return out, profile_learner
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -1150,8 +1419,15 @@ def _union_ms(spans: list[tuple[float, float]]) -> float:
 
 
 def profile_round(fed_args: tuple) -> dict:
-    """One more round under ``torch.profiler``: device time by kernel,
-    and the share of the round's wall time in which the card ran no
+    """One more round of a main path under :func:`profile_call`."""
+    fed, params, xs, ys, state = fed_args
+    return profile_call(lambda: fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1,
+                                               **state))
+
+
+def profile_call(run) -> dict:
+    """``run()`` under ``torch.profiler``: device time by kernel,
+    and the share of the call's wall time in which the card ran no
     kernel. Device intervals are read from the trace's device events.
     Kernels that run at once (on different streams) overlap, so their
     summed time exceeds the time the card was busy: the busy time is
@@ -1161,11 +1437,10 @@ def profile_round(fed_args: tuple) -> dict:
     ``busy_over_wall`` is reported as measured, not clamped."""
     from torch.profiler import ProfilerActivity, profile
 
-    fed, params, xs, ys, state = fed_args
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1, **state)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
@@ -1239,6 +1514,11 @@ def main() -> int:
         + json.dumps(codec_phase()))
     for label, result in cnn_variant_paths(card).items():
         log(f"CNN main path ({label}): " + json.dumps(result))
+    log("protocol reference phase (TorchLearner fit, narrow f32 CNN through the kernels, "
+        f"card vs CPU): ok, max |err| {protocol_reference_phase():.3e}")
+    protocol, protocol_learner = protocol_path(card)
+    for label, result in protocol.items():
+        log(f"protocol path ({label}): " + json.dumps(result))
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()
@@ -1252,10 +1532,14 @@ def main() -> int:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
         log("profile (one ResNet-18 round, fedavg): " + json.dumps(profile_round(rn_args)))
+        log("profile (one protocol-phase learner fit, CNN at N = 1): "
+            + json.dumps(profile_call(protocol_learner.fit)))
     for row in rows:
         path = cnn if row["name"] in ("conv_dw", "conv_dx") else lm
         row["launches"] = path["launches"][row["name"]]
         row["wgmma_launches"] = path["wgmma_launches"][row["name"]]
+        if row["name"] in ("conv_dw", "conv_dx"):
+            row["protocol_round_launches"] = protocol["fedavg"]["launches"][row["name"]]
         if row["name"] in built:
             row["build"] = built[row["name"]]
     log(json.dumps({"kernels": rows}))

@@ -527,3 +527,137 @@ def test_engine_kind_round_on_card_matches_cpu(card, model, algorithm, aux_mode)
                                            msg=lambda m, path=path: f"{path}: {m}")
         else:
             torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-4)
+
+
+# ---- the protocol learning layer on the card -------------------------------
+
+
+def _learner(dev, data, agg=None, conv_impl="pallas", dtype=torch.float32, channels=(4, 8),
+             dense=16, shape=(8, 8, 3), lr=0.1, addr="node-0"):
+    """A TorchLearner of a small CNN on ``dev`` from seed-0 params."""
+    from tpfl_torch.learning.dataset import TpflDataset
+    from tpfl_torch.learning.model import TpflModel
+    from tpfl_torch.learning.torch_learner import TorchLearner
+    from tpfl_torch.models import CNN, init_params
+
+    module = CNN(channels=channels, dense=dense, compute_dtype=dtype, conv_impl=conv_impl)
+    model = TpflModel(module, init_params(module, shape, seed=0, device="cpu"), device=dev)
+    return TorchLearner(model, TpflDataset.from_arrays(*data), addr=addr, aggregator=agg,
+                        learning_rate=lr, batch_size=8, device=dev)
+
+
+def _small_data(n_train=40, n_test=13, shape=(8, 8, 3), seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(size=(n_train, *shape)).astype(np.float32),
+            rng.integers(0, 10, n_train).astype(np.int32),
+            rng.uniform(size=(n_test, *shape)).astype(np.float32),
+            rng.integers(0, 10, n_test).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", [None, "fedprox", "scaffold"])
+def test_learner_fit_on_card_matches_cpu(card, agg):
+    """Two fits of a small f32 CNN through the conv kernels (and its
+    evaluate) on the card against the CPU: rtol 1e-3, atol 1e-4, TF32
+    off."""
+    from tpfl_torch.interop import params_to_numpy
+    from tpfl_torch.learning.aggregators import FedProx, Scaffold
+    from tpfl_torch.utils.tree import tree_items
+
+    torch.backends.cudnn.allow_tf32 = False
+    data = _small_data()
+    runs = {}
+    for dev in ("cpu", card):
+        a = {None: None, "fedprox": FedProx("a", proximal_mu=0.2, device=dev),
+             "scaffold": Scaffold("a", device=dev)}[agg]
+        learner = _learner(dev, data, agg=a, lr=0.05)
+        for _ in range(2):
+            model = learner.fit()
+        runs[str(dev)] = (dict(tree_items(params_to_numpy(model.get_parameters()))),
+                          learner.evaluate())
+    (cpu, cpu_m), (gpu, gpu_m) = runs["cpu"], runs[str(card)]
+    for path in cpu:
+        np.testing.assert_allclose(gpu[path], cpu[path], rtol=1e-3, atol=1e-4, err_msg=path)
+    assert gpu_m == pytest.approx(cpu_m, rel=1e-3, abs=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fedavg", "scaffold", "fedmedian"])
+def test_aggregator_fold_on_card_matches_cpu(card, kind):
+    """The same four models folded on the card and on the CPU (f32
+    sums in other orders: rtol 1e-6; the median is exact)."""
+    from tpfl_torch.interop import params_to_numpy
+    from tpfl_torch.learning.aggregators import FedAvg, FedMedian, Scaffold
+    from tpfl_torch.learning.model import TpflModel
+    from tpfl_torch.utils.tree import tree_items
+
+    rng = np.random.default_rng(1)
+
+    def tree():
+        return {"Dense_0": {"kernel": rng.normal(size=(64, 33)).astype(np.float32),
+                            "bias": rng.normal(size=(33,)).astype(np.float32)}}
+
+    specs = [(f"n{i}", tree(), {"scaffold": {"delta_y_i": tree(), "delta_c_i": tree()}},
+              n) for i, n in enumerate([3, 1, 4, 2])]
+    outs = {}
+    for dev in ("cpu", card):
+        agg = {"fedavg": FedAvg, "scaffold": Scaffold, "fedmedian": FedMedian}[kind](
+            "a", device=dev)
+        agg.set_nodes_to_aggregate([s[0] for s in specs])
+        for name, params, info, n in specs:
+            agg.add_model(TpflModel(params=params, num_samples=n, contributors=[name],
+                                    additional_info=info, device=dev))
+        out = agg.wait_and_get_aggregation(timeout=10)
+        assert out.get_parameters()["Dense_0"]["kernel"].device.type == torch.device(dev).type
+        outs[str(dev)] = dict(tree_items(params_to_numpy(out.get_parameters())))
+    for path, want in outs["cpu"].items():
+        np.testing.assert_allclose(outs[str(card)][path], want, rtol=1e-6, atol=1e-7,
+                                   err_msg=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["v1", "v3", "quant8", "topk+quant8+zlib"])
+def test_encodes_of_card_tensors_equal_cpu_encodes(card, codec):
+    """v1 / v3 / v2 envelopes of card tensors (f32, bf16, int32, bool,
+    0-d, empty, non-contiguous) byte-equal to the same tensors' CPU
+    encodes."""
+    from tpfl_torch.learning import compression, serialization
+
+    gen = torch.Generator().manual_seed(0)
+    tree = {"a": {"kernel": torch.randn(33, 17, generator=gen),
+                  "bias": torch.randn(17, generator=gen).to(torch.bfloat16)},
+            "i": torch.arange(-3, 4, dtype=torch.int32), "b": torch.tensor([True, False]),
+            "z": torch.tensor(2.5), "e": torch.zeros(0, 3),
+            "t": torch.randn(6, 5, generator=gen).T}
+    info = {"mu": 0.1, "c": torch.ones(4)}
+
+    def encode(t, i):
+        if codec == "v1":
+            return serialization.encode_model_payload(t, ["a"], 3, i)
+        if codec == "v3":
+            return serialization.encode_model_payload_v3(t, ["a"], 3, i)
+        return compression.encode_model_payload(t, ["a"], 3, i, codec, topk_frac=0.2)
+
+    on_card = {k: ({kk: vv.to(card) for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.to(card)) for k, v in tree.items()}
+    assert encode(on_card, {"mu": 0.1, "c": info["c"].to(card)}) == encode(tree, info)
+
+
+@pytest.mark.cuda
+def test_learner_conv_launches_take_wgmma_at_one_node(card):
+    """The full-width bf16 CNN learner at N = 1, B = 128: each step's
+    two conv_dw and one conv_dx launches take the wgmma kernels."""
+    data = _small_data(n_train=256, n_test=8, shape=(32, 32, 3))
+    learner = _learner(card, data, dtype=torch.bfloat16, channels=(32, 64), dense=128,
+                       shape=(32, 32, 3))
+    learner.batch_size = 128
+    before = {n: (getattr(ck, n).launches, getattr(ck, n).wgmma_launches)
+              for n in ("conv_dw", "conv_dx")}
+    learner.fit()
+    torch.cuda.synchronize()
+    steps = 2
+    for name, per_step in (("conv_dw", 2), ("conv_dx", 1)):
+        fn = getattr(ck, name)
+        launched = fn.launches - before[name][0]
+        assert launched == per_step * steps, name
+        assert fn.wgmma_launches - before[name][1] == launched, name

@@ -23,8 +23,10 @@ for m in mods:
 import chip_smoke
 banned = sorted(
     m for m in sys.modules
-    if m in ("jax", "jaxlib", "flax", "optax", "tpfl")
-    or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "tpfl."))
+    if m in ("jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
+             "ml_dtypes")
+    or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "tpfl.", "msgpack.", "datasets.",
+                     "zstandard.", "ml_dtypes."))
 )
 print(json.dumps({"modules": mods, "banned": banned}))
 """
@@ -40,15 +42,24 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("parallel.conv_kernel", "parallel.engine", "parallel.flash_kernel",
                 "parallel.ring_attention", "models.zoo", "utils.tree", "interop",
-                "learning.compression", "settings"):
+                "learning.compression", "settings", "exceptions", "concurrency",
+                "learning.bufferpool", "learning._msgpack", "learning.serialization",
+                "learning.model", "learning.callbacks", "learning.learner",
+                "learning.torch_learner", "learning.dataset.export",
+                "learning.dataset.tpfl_dataset", "management.logger",
+                "learning.aggregators.aggregator", "learning.aggregators.fedavg",
+                "learning.aggregators.fedprox", "learning.aggregators.scaffold",
+                "learning.aggregators.fedmedian"):
         assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
 
 def test_sources_name_no_jax_package():
     """Belt and braces over the import probe: no source line of the
-    port imports jax, flax, optax or the tpfl package."""
-    banned = {"jax", "jaxlib", "flax", "optax", "tpfl"}
+    port imports jax, flax, optax or the tpfl package, nor a package the
+    card's machine lacks (msgpack, datasets, zstandard, ml_dtypes)."""
+    banned = {"jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
+              "ml_dtypes"}
     files = list((REPO / "tpfl_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for f in files:
         for line in f.read_text().splitlines():
@@ -59,10 +70,15 @@ def test_sources_name_no_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["engine", "federation", "create_model", "interop",
-                                   "transformer_lm", "resnet18_state", "scaffold"])
+                                   "transformer_lm", "resnet18_state", "scaffold",
+                                   "tpfl_model", "torch_learner", "fedavg", "scaffold_agg",
+                                   "fedmedian", "fedprox"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tpfl_torch.interop import params_from_flax
+    from tpfl_torch.learning.aggregators import FedAvg, FedMedian, FedProx, Scaffold
+    from tpfl_torch.learning.model import TpflModel
+    from tpfl_torch.learning.torch_learner import TorchLearner
     from tpfl_torch.models import CNN, ResNet18, TransformerLM, create_model, init_state
     from tpfl_torch.parallel import FederationEngine, VmapFederation
     from tpfl_torch.parallel.flash_kernel import flash_attention
@@ -76,6 +92,12 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
             TransformerLM(attention_fn=flash_attention), 2).init_params((16,)),
         "resnet18_state": lambda: init_state(ResNet18(), (32, 32, 3)),
         "scaffold": lambda: VmapFederation(CNN(), 2, algorithm="scaffold"),
+        "tpfl_model": lambda: TpflModel(CNN()),
+        "torch_learner": lambda: TorchLearner(),
+        "fedavg": lambda: FedAvg("n"),
+        "scaffold_agg": lambda: Scaffold("n"),
+        "fedmedian": lambda: FedMedian("n"),
+        "fedprox": lambda: FedProx("n"),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

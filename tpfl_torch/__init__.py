@@ -1,10 +1,12 @@
-"""tpfl_torch — the PyTorch / CUDA port of tpfl's federation engine.
+"""tpfl_torch — the PyTorch / CUDA port of tpfl.
 
-The port runs the N-node FedAvg round of :mod:`tpfl.parallel.engine` on
-an NVIDIA Hopper card: node-stacked parameters, local SGD+momentum on
-every node, the masked FedAvg fold and the broadcast of the aggregate.
-The per-node 3×3 conv backward runs through hand-written CUDA kernels
-(:mod:`tpfl_torch.parallel.conv_kernel`).
+The port runs the N-node federation round of :mod:`tpfl.parallel.engine`
+on an NVIDIA Hopper card (node-stacked parameters, local training on
+every node, the fold and the broadcast of the aggregate) and the
+protocol learning layer of :mod:`tpfl.learning` (one model per learner,
+the wire envelopes, the aggregators). The per-node 3×3 conv backward and
+flash attention run through hand-written CUDA kernels
+(:mod:`tpfl_torch.parallel.conv_kernel`, ``flash_kernel``).
 
 The package imports torch and numpy only. Every entry point takes
 ``device=None``, which means the card: without one it raises rather than

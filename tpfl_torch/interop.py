@@ -3,7 +3,9 @@
 Both packages keep the flax layout (HWIO conv kernels, ``[in, out]``
 dense kernels, NHWC flatten order), so no leaf is transposed: a flax
 param tree of numpy arrays, of any depth, becomes a nested dict of
-tensors with the same paths, and back.
+tensors with the same paths, and back. :func:`model_state_from_jax`
+carries a whole protocol-layer model's state across (read from the
+object's attributes: the port imports nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -43,3 +45,33 @@ def params_to_numpy(params: Params) -> dict[str, Any]:
         lambda v: (v.float() if v.dtype == torch.bfloat16 else v).detach().cpu().numpy(),
         params,
     )
+
+
+def _numpy_tree(tree: Any) -> Any:
+    """Arrays of any kind (jax, numpy) -> owning numpy copies; dicts,
+    lists and tuples kept; scalars and strings unchanged."""
+    if isinstance(tree, Mapping):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy_tree(v) for v in tree)
+    if hasattr(tree, "__array__") and not isinstance(tree, (bool, int, float, str)):
+        return np.array(tree)
+    return tree
+
+
+def model_state_from_jax(model: Any, device: DeviceLike = None) -> dict[str, Any]:
+    """The state of a JAX-package ``TpflModel`` as keyword arguments of
+    the port's ``TpflModel``: ``params`` and ``aux_state`` as tensors on
+    ``device`` (bf16 leaves kept bf16), ``num_samples``,
+    ``contributors``, and ``additional_info`` as numpy arrays (as a wire
+    decode gives them)."""
+    dev = resolve_device(device)
+    aux = getattr(model, "aux_state", None)
+    return {
+        "params": params_from_flax(_numpy_tree(model.get_parameters()), device=dev),
+        "aux_state": params_from_flax(_numpy_tree(aux), device=dev) if aux else None,
+        "num_samples": int(model.get_num_samples()),
+        "contributors": list(getattr(model, "_contributors", [])),
+        "additional_info": _numpy_tree(dict(model.additional_info)),
+        "device": dev,
+    }

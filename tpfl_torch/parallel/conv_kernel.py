@@ -195,12 +195,18 @@ def conv_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # whose halo'd chunks fit a 2-stage ring beside the weights on an H100 (512
 # pixels at Cout = 64; at Cout = 128 the weights take twice the room). About
 # 200 images, so the persistent blocks' image ranges cross node boundaries
-# (B = 1: every image is a node of its own).
+# (B = 1: every image is a node of its own); and Conv_1 of ONE_NODE_EDGES.
 _DX_EDGE_HW = {64: [(16, 16), (5, 7), (1, 1), (16, 32)],
                128: [(16, 16), (5, 7), (1, 1), (20, 22)]}
+# The zoo CNN's two layers at one node of 128 images, as a learner runs
+# them (Conv_0 32×32×3 -> 32, Conv_1 16×16×32 -> 64): fewer images than the
+# H100's 132 SMs, so each persistent block walks one image or none, all of
+# one node. (Cin, Cout, (H, W), B, N); conv_dx runs at Conv_1 only.
+ONE_NODE_EDGES = [(3, 32, (32, 32), 128, 1), (32, 64, (16, 16), 128, 1)]
+
 WGMMA_DX_EDGES = [(cin, cout, hw, b, 203 if b == 1 else 67)
                   for cin in (8, 32, 40, 64) for cout in (64, 128)
-                  for hw in _DX_EDGE_HW[cout] for b in (1, 3)]
+                  for hw in _DX_EDGE_HW[cout] for b in (1, 3)] + ONE_NODE_EDGES[1:]
 
 # bf16 conv_dw shapes at the edges of the wgmma kernel's rule, each of which
 # must take it: (Cin, Cout, (H, W), B, N) as WGMMA_DX_EDGES. Cin 3 takes the
@@ -209,13 +215,14 @@ WGMMA_DX_EDGES = [(cin, cout, hw, b, 203 if b == 1 else 67)
 # (two on the grid); images from one pixel to the largest whose ring fits
 # on an H100 (two stages in the 4-D view, the 3-D view's three: one per
 # consumer warpgroup), odd sizes whose pixels pad to a k-step of 16,
-# and ~200 images so the persistent blocks' ranges cross nodes.
+# ~200 images so the persistent blocks' ranges cross nodes; and both layers
+# of ONE_NODE_EDGES.
 _DW_EDGE_HW = {3: [(32, 32), (7, 8), (1, 8), (9, 16)],
                8: [(16, 16), (5, 7), (1, 1), (16, 32)],
                32: [(16, 16), (5, 7), (1, 1), (16, 32)]}
 WGMMA_DW_EDGES = [(cin, cout, hw, b, 203 if b == 1 else 67)
                   for cin in (3, 8, 32) for cout in (32, 64, 128)
-                  for hw in _DW_EDGE_HW[cin] for b in (1, 3)]
+                  for hw in _DW_EDGE_HW[cin] for b in (1, 3)] + ONE_NODE_EDGES
 
 conv_dw.launches = 0
 conv_dw.wgmma_launches = 0

@@ -7,6 +7,13 @@ whatever is not a mapping (tensors, numpy arrays); flax's
 ``FrozenDict`` is walked like a ``dict`` and comes out as one. Iteration follows
 the dicts' insertion order, so :func:`tree_leaves` and :func:`tree_map`
 visit leaves in the same order.
+
+The protocol layer also needs JAX's own pytree order, which its byte
+formats and flat leaf lists follow: :func:`canonical_leaves` and
+:func:`canonical_map` walk dicts in sorted key order, lists and tuples in
+order, and treat ``None`` as an empty subtree, as ``jax.tree_util`` does;
+:func:`canonical_map` builds its dicts with sorted keys, as JAX's
+``tree_map`` does.
 """
 
 from __future__ import annotations
@@ -43,4 +50,36 @@ def tree_leaves(tree: Any) -> list[Any]:
     return [leaf for _, leaf in tree_items(tree)]
 
 
-__all__ = ["Tree", "tree_items", "tree_leaves", "tree_map"]
+def canonical_leaves(tree: Any) -> list[Any]:
+    """Leaves in ``jax.tree_util.tree_leaves`` order."""
+    if tree is None:
+        return []
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in canonical_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in canonical_leaves(v)]
+    return [tree]
+
+
+def canonical_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``jax.tree_util.tree_map``: ``fn`` over the leaves of ``tree`` and
+    the same-structured ``rest``; dicts come out with sorted keys."""
+    if tree is None:
+        return None
+    if isinstance(tree, Mapping):
+        return {k: canonical_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        out = [canonical_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+        return type(tree)(out) if isinstance(tree, tuple) else out
+    return fn(tree, *rest)
+
+
+def canonical_unflatten(like: Any, leaves: list[Any]) -> Any:
+    """``tree_unflatten(tree_structure(like), leaves)``: ``like``'s
+    structure (dicts sorted) with ``leaves`` in canonical order."""
+    it = iter(leaves)
+    return canonical_map(lambda _v: next(it), like)
+
+
+__all__ = ["Tree", "canonical_leaves", "canonical_map", "canonical_unflatten", "tree_items",
+           "tree_leaves", "tree_map"]
