@@ -103,10 +103,33 @@
    oracle), SCAFFOLD (lr 0.02) and FedProx; fit, encode, decode, fold
    and round times, and encode / decode of one payload as v1, v3 and
    v2 ``quant8``.
+12. Byzantine phase (the robustness slice): ten full-width CNN
+   ``TorchLearner`` objects (the kernels at N = 1, 512 seeded samples
+   each, split by ``RandomIIDPartitionStrategy`` through
+   ``TpflDataset.generate_partitions``) under one seeded ``AttackPlan``
+   (sign flips on nodes 1 and 4, additive noise std 0.1 on nodes 6 and
+   8, through ``apply_attack_plan``); node 0 opens the ledger round on
+   the round-start params and folds the v3-decoded models. Arms: FedAvg
+   undefended, FedAvg with ``QUARANTINE_ENABLED`` (twice: the same
+   replayed verdicts), Krum (f = 3), MultiKrum (f = 3, m = 6) and
+   TrimmedMean (trim 2) with quarantine; a warm-up and 4 timed rounds
+   each. Every round: 80 ``conv_dw`` + 40 ``conv_dx`` launches, all on
+   wgmma; Krum's pick equal to a plain f64 scoring's, every other
+   aggregate within rtol 1e-6, atol 1e-7 of its plain f64 version over
+   the models the defense kept. Every defended arm: the ledger's
+   detections at precision = recall = 1.0 and the replayed quarantine
+   set exactly the planned adversaries. Timed: rounds, ``score_now`` per
+   contribution, each robust ``finalize`` over 10 models,
+   ``AttackPlan.poison`` of one noisy model. Then ``attack_scales``
+   (``AttackPlan.engine_scales``, [R, n]) in the small f32 CNN window on
+   the card against the CPU (dense trained, ``quant8`` aggregation-only),
+   and the 100-node CNN window under a sign flip on every fifth node:
+   all-ones scales bit-identical to no scales, then a timed window.
 
 ``--profile`` adds one round of each main path (the CNN, the
-transformer, ResNet-18 under FedAvg) and one protocol-phase learner fit
-under ``torch.profiler``: device time by kernel, and the device's idle
+transformer, ResNet-18 under FedAvg), one protocol-phase learner fit
+and one defended FedAvg round of the Byzantine phase under
+``torch.profiler``: device time by kernel, and the device's idle
 share from the union of its kernel intervals.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -129,12 +152,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tpfl_torch.attacks import AttackPlan, AttackSpec, apply_attack_plan
 from tpfl_torch.learning import compression
-from tpfl_torch.learning.aggregators import FedAvg, FedProx, Scaffold
-from tpfl_torch.learning.dataset import TpflDataset
+from tpfl_torch.learning.aggregators import (FedAvg, FedProx, Krum, MultiKrum, Scaffold,
+                                             TrimmedMean)
+from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, TpflDataset
 from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10, synthetic_classification
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.learning.torch_learner import TorchLearner
+from tpfl_torch.management import ledger, quarantine
 from tpfl_torch.models import CNN, ResNet18, TransformerLM, init_params
 from tpfl_torch.parallel import FederationEngine, VmapFederation, _build
 from tpfl_torch.parallel import conv_kernel as ck
@@ -580,6 +606,15 @@ def timed_window(fed, params: dict, state: dict, xs, ys) -> tuple:
     return wall, params, state, losses, launches, wgmma, (fed, params, xs, ys, state)
 
 
+def cnn_data(fed) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CNN round's seeded synthetic CIFAR-shaped batches, node-stacked
+    on the card ([N_NODES, N_BATCHES, BATCH, ...], bf16 images)."""
+    x, y, _, _ = synthetic_cifar10(n_train=N_NODES * N_BATCHES * BATCH, n_test=10, seed=0)
+    xs = torch.from_numpy(x.reshape(N_NODES, N_BATCHES, BATCH, 32, 32, 3)).to(
+        "cuda", torch.bfloat16)
+    return fed.shard_data(xs, y.reshape(N_NODES, N_BATCHES, BATCH))
+
+
 def cnn_rounds(conv_impl: str, algorithm: str = "fedavg", lr: float = 0.1) -> tuple:
     """The 100-node CNN round with ``conv_impl``, ``algorithm`` and
     learning rate ``lr`` (the wire codec as ``Settings.ENGINE_WIRE_CODEC``
@@ -588,11 +623,7 @@ def cnn_rounds(conv_impl: str, algorithm: str = "fedavg", lr: float = 0.1) -> tu
     launches, wgmma launches of the conv kernels, profile arguments)."""
     fed = VmapFederation(CNN(out_channels=10, conv_impl=conv_impl), n_nodes=N_NODES,
                          learning_rate=lr, seed=0, algorithm=algorithm)
-    per_node = N_BATCHES * BATCH
-    x, y, _, _ = synthetic_cifar10(n_train=N_NODES * per_node, n_test=10, seed=0)
-    xs = torch.from_numpy(x.reshape(N_NODES, N_BATCHES, BATCH, 32, 32, 3)).to(
-        "cuda", torch.bfloat16)
-    xs, ys = fed.shard_data(xs, y.reshape(N_NODES, N_BATCHES, BATCH))
+    xs, ys = cnn_data(fed)
     params = fed.init_params((32, 32, 3))
     state = ({"scaffold_state": fed.init_scaffold_state(params)}
              if algorithm == "scaffold" else {})
@@ -1005,11 +1036,13 @@ def flat_result(out: tuple) -> dict:
 
 
 def small_window(device: str, model: str, algorithm: str = "fedavg", aux_mode: str = "mean",
-                 epochs: int = 1, weights: tuple = (1.0, 0.0, 2.0), n_rounds: int = 2) -> dict:
+                 epochs: int = 1, weights: tuple = (1.0, 0.0, 2.0), n_rounds: int = 2,
+                 attack_scales=None) -> dict:
     """A small f32 window on ``device`` (3 nodes, 2 batches of 4 per node,
     8×8×3 inputs, node i's initial params scaled by 1 + i/4 so that the
     nodes differ): ResNet-18 with stage sizes (1, 1), or the CNN through
-    the kernels. Returns :func:`flat_result`."""
+    the kernels; ``attack_scales`` as ``run_rounds`` takes them. Returns
+    :func:`flat_result`."""
     rng = np.random.default_rng(0)
     xs = rng.uniform(size=(3, 2, 4, 8, 8, 3)).astype(np.float32)
     ys = rng.integers(0, 10, size=(3, 2, 4)).astype(np.int32)
@@ -1024,6 +1057,8 @@ def small_window(device: str, model: str, algorithm: str = "fedavg", aux_mode: s
     kw = {"aux": aux} if aux else {}
     if algorithm == "scaffold":
         kw["scaffold_state"] = eng.init_scaffold_state(params)
+    if attack_scales is not None:
+        kw["attack_scales"] = attack_scales
     return flat_result(eng.run_rounds(params, xs, ys, weights=list(weights), epochs=epochs,
                                       n_rounds=n_rounds, **kw))
 
@@ -1408,6 +1443,319 @@ def protocol_path(card: str) -> tuple[dict, object]:
     return out, profile_learner
 
 
+# ---- the Byzantine robustness slice -------------------------------------------
+
+# The bench's byzantine tier recipe (bench.py:2780-2870) at the CNN cell's
+# width, without the node runtime: 10 TorchLearners (the full-width CNN
+# through the conv kernels at N = 1, bf16 compute), 512 seeded synthetic
+# CIFAR-shaped samples each (4 batches of 128) and 256 test samples, lr
+# 0.1, 1 epoch, split by RandomIIDPartitionStrategy; 20% sign-flip + 20%
+# additive-noise adversaries from one seeded AttackPlan. Node 0 opens the
+# ledger round on the round-start params and folds the wire-decoded
+# models. A warm-up round, then B_ROUNDS timed ones.
+B_NODES, B_TRAIN, B_TEST, B_ROUNDS, B_SEED = 10, 512, 256, 4, 4242
+B_ADDRS = [f"node-{i}" for i in range(B_NODES)]
+# (label, aggregator factory, QUARANTINE_ENABLED and LEDGER_ENABLED)
+B_ARMS = [
+    ("fedavg", lambda: FedAvg("node-0", device="cuda"), False),
+    ("fedavg+quarantine", lambda: FedAvg("node-0", device="cuda"), True),
+    ("fedavg+quarantine (again)", lambda: FedAvg("node-0", device="cuda"), True),
+    ("krum", lambda: Krum("node-0", n_byzantine=3, device="cuda"), False),
+    ("multikrum+quarantine", lambda: MultiKrum("node-0", n_byzantine=3, m=6, device="cuda"),
+     True),
+    ("trimmedmean+quarantine", lambda: TrimmedMean("node-0", trim=2, device="cuda"), True),
+]
+
+
+def byzantine_plan() -> AttackPlan:
+    return AttackPlan({1: AttackSpec("sign_flip"), 4: AttackSpec("sign_flip"),
+                       6: AttackSpec("additive_noise", std=0.1),
+                       8: AttackSpec("additive_noise", std=0.1)}, seed=B_SEED)
+
+
+class Peer:
+    """What ``apply_attack_plan`` wraps: an address and a learner."""
+
+    def __init__(self, addr: str, learner) -> None:
+        self.addr, self.learner = addr, learner
+
+
+def byzantine_peers(parts: list) -> list:
+    """``B_NODES`` learners on the card from the same seed-0 params, the
+    plan's adversaries wrapped by ``apply_attack_plan``."""
+    module = CNN(out_channels=10, conv_impl="pallas")
+    params = init_params(module, (32, 32, 3), seed=0, device="cuda")
+    peers = [Peer(addr, TorchLearner(TpflModel(module, params, device="cuda"), parts[i],
+                                     addr=addr, learning_rate=0.1, batch_size=P_BATCH,
+                                     device="cuda"))
+             for i, addr in enumerate(B_ADDRS)]
+    truth = apply_attack_plan(peers, byzantine_plan())
+    if truth != byzantine_plan().adversary_map(B_ADDRS) or len(truth) != 4:
+        raise AssertionError(f"byzantine: adversary map {truth}")
+    return peers
+
+
+def plain_robust(label: str, kept: list) -> tuple[dict, "int | None"]:
+    """The aggregate of the decoded models ``kept`` (in intake order) by
+    plain torch in f64 on the card: Krum's pick (an index into ``kept``),
+    MultiKrum's sample-weighted mean of the 6 best, the trimmed mean, or
+    FedAvg's sample-weighted mean. Returns (params by path, {} for Krum;
+    Krum's index or None)."""
+    trees = [dict(tree_items(m.get_parameters())) for m in kept]
+    paths = sorted(trees[0])
+    w = torch.tensor([float(m.get_num_samples()) for m in kept], dtype=torch.float64,
+                     device="cuda")
+    if label.startswith(("krum", "multikrum")):
+        flat = torch.stack([torch.cat([t[p].double().reshape(-1) for p in paths])
+                            for t in trees])
+        d2 = ((flat[:, None, :] - flat[None, :, :]) ** 2).sum(-1)
+        d2.fill_diagonal_(float("inf"))
+        scores = torch.sort(d2, dim=1).values[:, :max(len(kept) - 3 - 2, 1)].sum(1)
+        if label == "krum":
+            return {}, int(torch.argmin(scores))
+        sel = sorted(int(i) for i in torch.argsort(scores, stable=True)[:6])
+        w, trees = w[sel], [trees[i] for i in sel]
+    if label.startswith("trimmedmean"):
+        trim = 2 if len(kept) > 4 else 0
+        return {p: torch.sort(torch.stack([t[p].double() for t in trees]), dim=0).values[
+            trim:len(kept) - trim].mean(0) for p in paths}, None
+    return {p: torch.tensordot(w, torch.stack([t[p].double() for t in trees]), dims=1) / w.sum()
+            for p in paths}, None
+
+
+def check_plain_robust(what: str, label: str, kept: list, out) -> None:
+    """Hold the aggregate ``out`` of the decoded models ``kept`` to
+    :func:`plain_robust`: Krum's aggregate must be the plain pick bit
+    for bit, the others within rtol 1e-6, atol 1e-7; all finite."""
+    plain, best = plain_robust(label, kept)
+    got = dict(tree_items(out.get_parameters()))
+    if best is not None:
+        pick = dict(tree_items(kept[best].get_parameters()))
+        if any(not torch.equal(got[p], pick[p]) for p in pick):
+            raise AssertionError(f"byzantine {what}: the aggregate is not candidate {best}, "
+                                 "the plain f64 scoring's pick")
+    for path, ref in plain.items():
+        torch.testing.assert_close(got[path].double(), ref, rtol=1e-6, atol=1e-7,
+                                   msg=lambda m, p=path: f"byzantine {what}: {p}: {m}")
+    if not all(torch.isfinite(v).all() for v in got.values()):
+        raise AssertionError(f"byzantine {what}: aggregate not finite")
+
+
+def byzantine_round(label: str, peers: list, agg, rnd: int) -> dict:
+    """One round: node 0 opens the ledger round on the round-start
+    params, every learner fits (an adversary poisons after its fit), each
+    model is v3-encoded and rebuilt from the bytes at node 0, which folds
+    them; the aggregate, held to :func:`plain_robust` over the models the
+    defense kept, goes back to every learner as bytes. The conv launch
+    counts are set to 0 just before the fits and read after them."""
+    node0 = peers[0].learner
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = tree_map(lambda v: v.clone(), node0.get_model().get_parameters())
+    ledger.contrib.open_round("node-0", rnd, start)
+    reset_launches()
+    models = [p.learner.fit() for p in peers]
+    launches, wgmma = read_launches(), read_wgmma_launches(("conv_dw", "conv_dx"))
+    decoded = [node0.get_model().build_copy(params=m.encode_parameters()) for m in models]
+    agg.set_nodes_to_aggregate(B_ADDRS)
+    for m in decoded:
+        agg.add_model(m)
+    out = agg.wait_and_get_aggregation(timeout=60)
+    excluded = agg.quarantined_peers()
+    agg.clear()
+    broadcast = out.encode_parameters()
+    for p in peers:
+        p.learner.set_model(broadcast)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    steps = B_NODES * (B_TRAIN // P_BATCH)
+    want = {**dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps}
+    if launches != want:
+        raise AssertionError(f"byzantine {label}: kernel launches {launches}, expected {want}")
+    check_all_wgmma(f"byzantine round ({label})", launches, wgmma)
+    if out.get_contributors() != B_ADDRS:
+        raise AssertionError(f"byzantine {label}: contributors {out.get_contributors()}")
+    kept = [m for m in decoded if m.get_contributors()[0] not in excluded]
+    check_plain_robust(label, label, kept, out)
+    return {"wall_ms": wall_ms, "kept": len(kept), "launches": launches, "wgmma": wgmma,
+            "decoded": decoded, "start": start}
+
+
+def byzantine_arm(label: str, make_agg, defend: bool, parts: list) -> dict:
+    """A warm-up round and ``B_ROUNDS`` timed ones of one arm; the
+    honest learners' mean test accuracy after them; for a defended arm
+    the ledger's detections and the replayed quarantine set, both held
+    to the plan's adversaries."""
+    ledger.contrib.reset()
+    with setting("QUARANTINE_ENABLED", defend), setting("LEDGER_ENABLED", defend):
+        peers = byzantine_peers(parts)
+        agg = make_agg()
+        agg.set_quarantine(quarantine.QuarantineEngine("node-0"))
+        rounds = [byzantine_round(label, peers, agg, r) for r in range(1 + B_ROUNDS)]
+        truth = set(byzantine_plan().adversary_map(B_ADDRS))
+        honest = [p.learner.evaluate()["test_metric"] for p in peers if p.addr not in truth]
+        out = {"round_ms": statistics.mean(r["wall_ms"] for r in rounds[1:]),
+               "round_ms_each": [r["wall_ms"] for r in rounds[1:]],
+               "kept_per_round": [r["kept"] for r in rounds],
+               "honest_mean_test_acc": float(np.mean(honest)),
+               "launches_per_round": {k: rounds[-1]["launches"][k]
+                                      for k in ("conv_dw", "conv_dx")},
+               "wgmma_launches_per_round": rounds[-1]["wgmma"]}
+        if defend:
+            det = ledger.contrib.detections()
+            flagged = set(det["flagged"])
+            hits = len(flagged & truth)
+            out["precision"] = hits / max(len(flagged), 1)
+            out["recall"] = hits / len(truth)
+            replay = quarantine.replay_decisions()
+            quarantined = quarantine.quarantined_from_replay(replay)
+            if out["precision"] != 1.0 or out["recall"] != 1.0 or quarantined != truth:
+                raise AssertionError(f"byzantine {label}: flagged {sorted(flagged)}, "
+                                     f"quarantined {sorted(quarantined)}, planned {sorted(truth)}")
+            out["_replay"] = [(a["peer"], a["round"], a["action"], tuple(a["reasons"]))
+                              for a in replay]
+            out["_entries"] = json.dumps(det["entries"], sort_keys=True)
+        out["_last"] = rounds[-1]
+
+    def one_more_round() -> dict:
+        with setting("QUARANTINE_ENABLED", defend), setting("LEDGER_ENABLED", defend):
+            return byzantine_round(label, peers, agg, 1 + B_ROUNDS)
+
+    out["_one_more_round"] = one_more_round
+    return out
+
+
+def byzantine_timings(last: dict) -> dict:
+    """On one round's decoded CNN models: ``score_now`` per contribution
+    (a fresh ledger round each time, so that it computes), ``finalize`` of
+    each robust aggregator over the 10 models (the streams filled
+    untimed; every aggregate held to :func:`plain_robust` over all 10,
+    adversaries included, so that Krum's and MultiKrum's selection runs
+    here even where quarantine leaves them nothing to select), and
+    ``AttackPlan.poison`` of one additive-noise model."""
+    decoded, start = last["decoded"], last["start"]
+
+    def score_all():
+        ledger.contrib.reset()
+        ledger.contrib.open_round("timing", 0, start)
+        for m in decoded:
+            ledger.contrib.score_now("timing", m)
+
+    with setting("QUARANTINE_ENABLED", True):
+        score_ms = host_ms(score_all) / len(decoded)
+    ledger.contrib.reset()
+    finalize_ms = {}
+    for name, agg in (("krum", Krum("t", n_byzantine=3, device="cuda")),
+                      ("multikrum", MultiKrum("t", n_byzantine=3, m=6, device="cuda")),
+                      ("trimmedmean", TrimmedMean("t", trim=2, device="cuda"))):
+        times = []
+        for _ in range(6):
+            st = agg.acc_init(decoded[0])
+            for m in decoded:
+                st = agg.accumulate(st, m)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = agg.finalize(st)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        finalize_ms[name] = statistics.median(times[1:])
+        check_plain_robust(f"{name} over all {len(decoded)} models", name, decoded, out)
+    plan = byzantine_plan()
+    spec = plan.spec_for(B_ADDRS[6], 6)
+    params = decoded[6].get_parameters()
+    poison_ms = host_ms(lambda: plan.poison(B_ADDRS[6], 3, spec, params))
+    return {"score_now_ms_per_contribution": score_ms,
+            "finalize_ms_over_10_models": finalize_ms,
+            "poison_ms_additive_noise_one_model": poison_ms}
+
+
+def byzantine_protocol_path(card: str) -> tuple[dict, object]:
+    """Every arm of ``B_ARMS``; the two defended FedAvg runs must give the
+    same (peer, round, action, reasons) replay. Returns the results and
+    a function that runs one more round of the defended FedAvg arm (for
+    a profiled round)."""
+    x, y, xt, yt = synthetic_cifar10(n_train=B_NODES * B_TRAIN, n_test=B_NODES * B_TEST,
+                                     seed=B_SEED)
+    parts = TpflDataset.from_arrays(x, y, xt, yt).generate_partitions(
+        B_NODES, RandomIIDPartitionStrategy, seed=B_SEED)
+    if any(p.num_samples() != B_TRAIN or p.num_samples(False) != B_TEST for p in parts):
+        raise AssertionError("byzantine: partitions of the wrong size")
+    out = {label: byzantine_arm(label, make_agg, defend, parts)
+           for label, make_agg, defend in B_ARMS}
+    first, again = out["fedavg+quarantine"], out["fedavg+quarantine (again)"]
+    if first["_replay"] != again["_replay"]:
+        raise AssertionError("byzantine: the two defended FedAvg runs replay differently")
+    result = {"card": card, "nodes": B_NODES, "samples_per_fit": B_TRAIN,
+              "timed_rounds": B_ROUNDS,
+              "adversaries": byzantine_plan().adversary_map(B_ADDRS),
+              "defended_replays_equal": True,
+              "defended_float_fields_byte_equal": first["_entries"] == again["_entries"],
+              **byzantine_timings(out["trimmedmean+quarantine"]["_last"])}
+    for label, arm in out.items():
+        result[label] = {k: v for k, v in arm.items() if not k.startswith("_")}
+    return result, again["_one_more_round"]
+
+
+def byzantine_engine_reference_phase() -> dict:
+    """``attack_scales`` ([R, n] from a plan's ``engine_scales``) in the
+    small f32 CNN window through the kernels, on the card against the
+    CPU: a trained dense window and a ``quant8`` aggregation-only one,
+    rtol 1e-3, atol 1e-4 (TF32 off). Returns {case: max |err|}."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = AttackPlan({1: AttackSpec("sign_flip"),
+                       2: AttackSpec("sign_flip", mode="ramp", ramp_rounds=2)}, seed=B_SEED)
+    scales = plan.engine_scales(["node-0", "node-1", "node-2"], 2)
+    out = {}
+    for codec, epochs in (("dense", 1), ("quant8", 0)):
+        with setting("ENGINE_WIRE_CODEC", codec):
+            card, cpu = (small_window(dev, "cnn", epochs=epochs, attack_scales=scales)
+                         for dev in ("cuda", "cpu"))
+        for path in cpu:
+            torch.testing.assert_close(card[path], cpu[path], rtol=1e-3, atol=1e-4,
+                                       msg=lambda m, p=path: f"attack_scales {codec}: {p}: {m}")
+        out[codec] = max((card[p] - cpu[p]).abs().max().item() for p in cpu)
+    return out
+
+
+def attacked_cnn_path(card: str) -> dict:
+    """The 100-node CNN window through the kernels under a sign-flip plan
+    on every fifth node (``engine_scales`` → ``attack_scales``): first
+    all-ones scales against no scales over a 3-round window from the
+    same params (bit for bit), then a warm-up round and a timed 3-round
+    window: 8 conv_dw and 4 conv_dx launches a round, all on wgmma,
+    finite losses, one aggregate on every node."""
+    eng = FederationEngine(CNN(out_channels=10, conv_impl="pallas"), N_NODES,
+                           learning_rate=0.1, seed=0, device="cuda")
+    xs, ys = cnn_data(eng)
+    params = eng.init_params((32, 32, 3))
+    plan = AttackPlan({i: AttackSpec("sign_flip") for i in range(0, N_NODES, 5)}, seed=B_SEED)
+    scales = plan.engine_scales([f"node-{i}" for i in range(N_NODES)], N_ROUNDS)
+    plain, _ = eng.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
+    ones, _ = eng.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS,
+                             attack_scales=np.ones_like(scales))
+    if not all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(plain),
+                                                           tree_items(ones))):
+        raise AssertionError("attacked CNN: all-ones scales changed the window's params")
+    params, _ = eng.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1,
+                               attack_scales=scales[0])  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    params, losses = eng.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS,
+                                    attack_scales=scales)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, wgmma = read_launches(), read_wgmma_launches(("conv_dw", "conv_dx"))
+    steps = N_BATCHES * EPOCHS * N_ROUNDS
+    check_main_path(params, losses, launches, {
+        **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
+    check_all_wgmma("attacked CNN round", launches, wgmma)
+    return {**cnn_result(card, "pallas", wall, losses), "adversaries": len(plan.peers),
+            "ones_bit_identical": True, "launches": launches, "wgmma_launches": wgmma}
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -1519,6 +1867,13 @@ def main() -> int:
     protocol, protocol_learner = protocol_path(card)
     for label, result in protocol.items():
         log(f"protocol path ({label}): " + json.dumps(result))
+    byzantine, byzantine_round_fn = byzantine_protocol_path(card)
+    log("byzantine path (10 CNN learners, 20% sign-flip + 20% noise; detections, quarantine, "
+        "robust aggregates held to plain f64): ok " + json.dumps(byzantine))
+    log("byzantine engine reference phase (attack_scales [R, n], small CNN, card vs CPU, "
+        "dense and quant8): ok " + json.dumps(byzantine_engine_reference_phase()))
+    attacked = attacked_cnn_path(card)
+    log("CNN main path (sign-flip attack_scales on every fifth node): " + json.dumps(attacked))
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()
@@ -1534,12 +1889,16 @@ def main() -> int:
         log("profile (one ResNet-18 round, fedavg): " + json.dumps(profile_round(rn_args)))
         log("profile (one protocol-phase learner fit, CNN at N = 1): "
             + json.dumps(profile_call(protocol_learner.fit)))
+        log("profile (one byzantine round, fedavg+quarantine, 10 learners): "
+            + json.dumps(profile_call(byzantine_round_fn)))
     for row in rows:
         path = cnn if row["name"] in ("conv_dw", "conv_dx") else lm
         row["launches"] = path["launches"][row["name"]]
         row["wgmma_launches"] = path["wgmma_launches"][row["name"]]
         if row["name"] in ("conv_dw", "conv_dx"):
             row["protocol_round_launches"] = protocol["fedavg"]["launches"][row["name"]]
+            row["byzantine_round_launches"] = byzantine["fedavg"]["launches_per_round"][
+                row["name"]]
         if row["name"] in built:
             row["build"] = built[row["name"]]
     log(json.dumps({"kernels": rows}))

@@ -8,8 +8,10 @@ num_samples and info — with the eager (on-arrival) and the deferred
 weights, ``ROUND_QUORUM < 1`` and ``remove_dead_nodes``. f32; rtol 1e-6
 (the folds round as the reference's do, in the same order).
 
-Every wait has a timeout. The knobs and seams of planes the port does
-not have raise ``NotImplementedError`` naming their ROADMAP item.
+Every wait has a timeout. The knobs and seams of the asynchronous rounds,
+which the port does not have, raise ``NotImplementedError`` naming their
+ROADMAP item (the quarantine intake and the ledger taps:
+``tests/test_torch_quarantine.py``, ``tests/test_torch_ledger.py``).
 """
 
 import threading
@@ -271,9 +273,8 @@ REFUSED = {
     "start_version": lambda a: a.add_model(_pairs(["a"], [1])[0][1], start_version=0),
     "set_async_schedule": lambda a: a.set_async_schedule(object()),
     "async_deadline_close": lambda a: a.async_deadline_close(),
-    "set_quarantine": lambda a: a.set_quarantine(object()),
 }
-REFUSED_KNOBS = ["ASYNC_ROUNDS", "QUARANTINE_ENABLED", "LEDGER_ENABLED"]
+REFUSED_KNOBS = ["ASYNC_ROUNDS"]
 
 
 @pytest.mark.parametrize("seam", list(REFUSED))

@@ -49,7 +49,10 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "learning.dataset.tpfl_dataset", "management.logger",
                 "learning.aggregators.aggregator", "learning.aggregators.fedavg",
                 "learning.aggregators.fedprox", "learning.aggregators.scaffold",
-                "learning.aggregators.fedmedian"):
+                "learning.aggregators.fedmedian", "learning.aggregators.robust",
+                "learning.dataset.partition_strategies", "utils.threefry",
+                "attacks", "attacks.attacks", "attacks.plan", "management.ledger",
+                "management.quarantine"):
         assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -72,16 +75,19 @@ def test_sources_name_no_jax_package():
 @pytest.mark.parametrize("entry", ["engine", "federation", "create_model", "interop",
                                    "transformer_lm", "resnet18_state", "scaffold",
                                    "tpfl_model", "torch_learner", "fedavg", "scaffold_agg",
-                                   "fedmedian", "fedprox"])
+                                   "fedmedian", "fedprox", "krum", "multikrum",
+                                   "trimmedmean", "random_bits"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tpfl_torch.interop import params_from_flax
-    from tpfl_torch.learning.aggregators import FedAvg, FedMedian, FedProx, Scaffold
+    from tpfl_torch.learning.aggregators import (FedAvg, FedMedian, FedProx, Krum, MultiKrum,
+                                                 Scaffold, TrimmedMean)
     from tpfl_torch.learning.model import TpflModel
     from tpfl_torch.learning.torch_learner import TorchLearner
     from tpfl_torch.models import CNN, ResNet18, TransformerLM, create_model, init_state
     from tpfl_torch.parallel import FederationEngine, VmapFederation
     from tpfl_torch.parallel.flash_kernel import flash_attention
+    from tpfl_torch.utils import threefry
 
     calls = {
         "engine": lambda: FederationEngine(CNN(), 2),
@@ -98,6 +104,10 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
         "scaffold_agg": lambda: Scaffold("n"),
         "fedmedian": lambda: FedMedian("n"),
         "fedprox": lambda: FedProx("n"),
+        "krum": lambda: Krum("n"),
+        "multikrum": lambda: MultiKrum("n"),
+        "trimmedmean": lambda: TrimmedMean("n"),
+        "random_bits": lambda: threefry.random_bits(threefry.PRNGKey(0), (4,)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -4,8 +4,10 @@ The port runs the N-node federation round of :mod:`tpfl.parallel.engine`
 on an NVIDIA Hopper card (node-stacked parameters, local training on
 every node, the fold and the broadcast of the aggregate) and the
 protocol learning layer of :mod:`tpfl.learning` (one model per learner,
-the wire envelopes, the aggregators). The per-node 3×3 conv backward and
-flash attention run through hand-written CUDA kernels
+the wire envelopes, the aggregators) with the Byzantine-robustness layer
+(:mod:`tpfl_torch.attacks`, the contribution ledger and quarantine of
+:mod:`tpfl_torch.management`, the robust aggregators). The per-node 3×3
+conv backward and flash attention run through hand-written CUDA kernels
 (:mod:`tpfl_torch.parallel.conv_kernel`, ``flash_kernel``).
 
 The package imports torch and numpy only. Every entry point takes

@@ -10,7 +10,17 @@ Parity with the reference:
   accumulator under ``Settings.AGG_STREAM_EAGER``, else at close in
   canonical (contributor-sorted) order;
 - ``wait_and_get_aggregation(timeout)``, ``remove_dead_nodes``,
-  ``stalled``, partial aggregation ``get_model(except_nodes)``.
+  ``stalled``, partial aggregation ``get_model(except_nodes)``;
+- the active defense's intake (``set_quarantine``,
+  ``Settings.QUARANTINE_ENABLED``): the attached
+  :class:`~tpfl_torch.management.quarantine.QuarantineEngine` judges
+  every contribution before it folds; an excluded one is kept as a
+  coverage-only passenger (its contributor counts toward coverage and
+  rides the aggregate's contributor list, its params never fold), an
+  all-quarantined mixture is dropped, and a round whose every held
+  model is excluded fails open to the undefended fold;
+- the ledger taps (``Settings.LEDGER_ENABLED``): ``add_model`` records
+  each accepted contribution, ``clear`` closes the ledger's round.
 
 The math lives in subclasses' ``acc_init`` / ``accumulate`` /
 ``finalize``, as torch ops on the aggregator's device (``device=None``
@@ -20,9 +30,8 @@ Not ported (each raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item when asked for, never skipped silently): the
 asynchronous buffered lifecycle (``set_nodes_to_aggregate(async_k=)``,
 ``start_version``, ``set_async_schedule``, ``async_deadline_close``,
-``Settings.ASYNC_ROUNDS``), the quarantine intake (``set_quarantine``,
-``Settings.QUARANTINE_ENABLED``) and the ledger taps
-(``Settings.LEDGER_ENABLED``). The reference's telemetry spans and
+``Settings.ASYNC_ROUNDS``, ``staleness_weight`` for τ > 0). The
+reference's telemetry spans and
 round profiler have no knob in the port; the fold and close times land
 in the logger's metrics registry (``tpfl_agg_fold_seconds``,
 ``tpfl_agg_aggregate_seconds``).
@@ -41,13 +50,12 @@ import torch
 from tpfl_torch import DeviceLike, resolve_device
 from tpfl_torch.concurrency import make_lock
 from tpfl_torch.learning.model import TpflModel, to_device
+from tpfl_torch.management import ledger
 from tpfl_torch.management.logger import logger
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import canonical_leaves, canonical_map, canonical_unflatten
 
 _ASYNC_ITEM = "ROADMAP.md §1 item 7, the node runtime: asynchronous buffered rounds"
-_DEFENSE_ITEM = "ROADMAP.md §1 item 6, the robustness slice: quarantine"
-_LEDGER_ITEM = "ROADMAP.md §1 item 9, simulation and observatories: management/ledger.py"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -58,10 +66,6 @@ def refuse_unported_knobs() -> None:
     """Raise for a Settings flag whose plane the port does not have."""
     if Settings.ASYNC_ROUNDS:
         raise not_ported("Settings.ASYNC_ROUNDS", _ASYNC_ITEM)
-    if Settings.QUARANTINE_ENABLED:
-        raise not_ported("Settings.QUARANTINE_ENABLED", _DEFENSE_ITEM)
-    if Settings.LEDGER_ENABLED:
-        raise not_ported("Settings.LEDGER_ENABLED", _LEDGER_ITEM)
 
 
 class NoModelsToAggregateError(Exception):
@@ -143,6 +147,16 @@ class Aggregator(ABC):
         # bundling one of them re-admits it (see _admit_locked).
         # guarded-by: _lock
         self._removed_dead: set[str] = set()
+        # Active-defense seam (tpfl_torch.management.quarantine): wired
+        # once before any thread adds models; None on bare aggregators.
+        # unguarded: written once at set-up, read-only after.
+        self._quarantine: Any = None
+        # Models accepted for COVERAGE but excluded from the fold by a
+        # quarantine verdict, keyed by object identity (they stay in
+        # _models so contributor bookkeeping is unchanged; only the math
+        # skips them).
+        # guarded-by: _lock
+        self._excluded: dict[int, str] = {}
         self._lock = make_lock("Aggregator._lock")
         self._finish_aggregation_event = threading.Event()
         self._finish_aggregation_event.set()
@@ -181,7 +195,18 @@ class Aggregator(ABC):
         raise NotImplementedError
 
     def set_quarantine(self, engine: Any) -> None:
-        raise not_ported("the quarantine intake (set_quarantine)", _DEFENSE_ITEM)
+        """Attach the node's QuarantineEngine, before any model arrives;
+        its verdicts gate the fold only while
+        ``Settings.QUARANTINE_ENABLED``."""
+        self._quarantine = engine
+
+    def quarantined_peers(self) -> set[str]:
+        """Peers the attached engine currently excludes (empty with no
+        engine or the defense off) — the robust aggregators' candidate
+        shrink at finalize."""
+        if self._quarantine is None or not Settings.QUARANTINE_ENABLED:
+            return set()
+        return self._quarantine.quarantined()
 
     def get_required_callbacks(self) -> list[str]:
         return list(self.REQUIRED_CALLBACKS)
@@ -208,6 +233,7 @@ class Aggregator(ABC):
             self._stream = None
             self._stream_dead = False
             self._removed_dead = set()
+            self._excluded = {}
             self.version += 1
             self._last_intake = time.monotonic()
             # Clear under the lock: a model arriving between the train-set
@@ -274,8 +300,13 @@ class Aggregator(ABC):
             self._stream = None
             self._stream_dead = False
             self._removed_dead = set()
+            self._excluded = {}
             self.version += 1
         self._finish_aggregation_event.set()
+        # Close the ledger's round (unconditional: a round opened with a
+        # knob on must release its pinned reference even if the knob was
+        # turned off mid-round).
+        ledger.contrib.close_round(self.node_name)
 
     # --- model intake ---
 
@@ -302,16 +333,38 @@ class Aggregator(ABC):
         except ValueError:
             logger.debug(self.node_name, "Dropping model with no contributors")
             return []
-        out = self._intake(model, contributors)
-        return [] if out is None else out
+        # Active-defense verdict BEFORE the fold, outside _lock (the
+        # engine and the ledger hold only their own locks). An excluded
+        # contribution is still accepted for coverage; re-pushes of the
+        # same (peer, round) are judged once.
+        verdict: "dict | None" = None
+        if Settings.QUARANTINE_ENABLED and self._quarantine is not None:
+            verdict = self._quarantine.assess(model, contributors, trace=trace)
+        if verdict is not None and verdict["exclude"] and not verdict["recorded"]:
+            # All-quarantined mixture: pure poison, and each member's own
+            # contribution covers it.
+            logger.debug(self.node_name, f"Dropping quarantined mixture from {contributors}")
+            return []
+        exclude = bool(verdict is not None and verdict["exclude"])
+        out = self._intake(model, contributors, exclude=exclude)
+        if out is None:
+            return []
+        # Ledger tap, outside _lock; the assessment above already
+        # recorded and scored single contributions.
+        if Settings.LEDGER_ENABLED and not (verdict is not None and verdict["recorded"]):
+            ledger.contrib.record(self.node_name, model, trace=trace)
+        return out
 
-    def _intake(self, model: TpflModel, contributors: list[str]) -> "list[str] | None":
+    def _intake(self, model: TpflModel, contributors: list[str],
+                exclude: bool = False) -> "list[str] | None":
         """The locked intake half of :meth:`add_model`: the covered list
-        on acceptance, None on rejection."""
+        on acceptance, None on rejection. ``exclude`` (a quarantine
+        verdict) accepts the model for coverage only."""
         with self._lock:
-            return self._admit_locked(model, contributors)
+            return self._admit_locked(model, contributors, exclude)
 
-    def _admit_locked(self, model: TpflModel, contributors: list[str]) -> "list[str] | None":
+    def _admit_locked(self, model: TpflModel, contributors: list[str],
+                      exclude: bool = False) -> "list[str] | None":
         """Caller holds ``_lock``: the coverage checks + fold bookkeeping
         of one contribution."""
         if self._finish_aggregation_event.is_set():
@@ -350,13 +403,27 @@ class Aggregator(ABC):
                          f"Dropping model: contributors {contributors} overlap {covered}")
             return None
         self._models.append(model)
+        eager = self.SUPPORTS_STREAMING and Settings.AGG_STREAM_EAGER and not self._stream_dead
+        if exclude:
+            # Quarantined: a coverage-only passenger. The eager stream
+            # counts it "offered" (like a skipped zero-sample fit), so the
+            # close still trusts the stream.
+            self._excluded[id(model)] = ",".join(sorted(contributors))
+            if eager:
+                try:
+                    if self._stream is None:
+                        self._stream = self.acc_init(model)
+                    self._stream.offered += 1
+                except Exception:
+                    self._stream = None
+                    self._stream_dead = True
         # Eager on-arrival reduce (Settings.AGG_STREAM_EAGER): fold the
         # accepted contribution into the device accumulator NOW, so the
         # round close is one finalize. The torch ops are enqueued
         # asynchronously on the card; the lock covers the enqueue. Any
         # fold error kills the stream for the round; close falls back to
         # the batch fold over the held models.
-        if self.SUPPORTS_STREAMING and Settings.AGG_STREAM_EAGER and not self._stream_dead:
+        if eager and not exclude:
             try:
                 t_fold = time.monotonic()
                 if self._stream is None:
@@ -395,6 +462,7 @@ class Aggregator(ABC):
             # the stream when it covers exactly the held models.
             models = sorted(self._models, key=lambda m: tuple(sorted(m.get_contributors())))
             stream, self._stream = self._stream, None
+            excluded_ids = dict(self._excluded)
             train_set = list(self._train_set)
         if not finished:
             missing = self.get_missing_models()
@@ -405,11 +473,29 @@ class Aggregator(ABC):
             )
         if not models:
             raise NoModelsToAggregateError(f"({self.node_name}) No models to aggregate")
+        # Quarantine verdicts: passengers never fold. If the verdicts
+        # emptied the fold (every contribution flagged), fail open, loud:
+        # a defense degrades to the undefended aggregate, never bricks
+        # the round.
+        fold_models = [m for m in models if id(m) not in excluded_ids]
+        if not fold_models:
+            if excluded_ids:
+                logger.warning(
+                    self.node_name,
+                    "Quarantine excluded EVERY held contribution "
+                    f"({sorted(excluded_ids.values())}); failing open to the undefended fold",
+                )
+                logger.metrics.counter("tpfl_quarantine_fail_open_total",
+                                       labels={"node": self.node_name})
+            fold_models = models
         t_close = time.monotonic()
         try:
             if stream is not None and stream.offered == len(models) and stream.count:
-                return self.finalize(stream)
-            return self.aggregate(models)
+                out = self.finalize(stream)
+            else:
+                out = self.aggregate(fold_models)
+            return self._with_passengers(out, models, excluded_ids,
+                                         folded_all=fold_models is models)
         finally:
             logger.metrics.observe("tpfl_agg_aggregate_seconds", time.monotonic() - t_close,
                                    labels={"node": self.node_name})
@@ -419,21 +505,48 @@ class Aggregator(ABC):
         ``except_nodes`` — what we gossip to a peer that already has
         those. None if nothing to send. Without partial aggregation, one
         of the peer's missing single-contributor models per call
-        (deterministic sorted order)."""
+        (deterministic sorted order, clean ones first). Quarantined
+        holdings never fold: a multi-model partial carries them as
+        coverage-only passengers, and a lone one is pushed verbatim."""
         except_nodes = except_nodes or []
         with self._lock:
             usable = sorted(
                 (m for m in self._models if not (set(m.get_contributors()) & set(except_nodes))),
                 key=lambda m: tuple(sorted(m.get_contributors())),
             )
+            excluded_ids = dict(self._excluded)
         if not usable:
             return None
         if len(usable) == 1:
             return usable[0]
         if not self.SUPPORTS_PARTIAL_AGGREGATION:
             singles = [m for m in usable if len(m.get_contributors()) == 1]
-            return singles[0] if singles else None
-        return self.aggregate(usable)
+            clean = [m for m in singles if id(m) not in excluded_ids]
+            pick = clean or singles
+            return pick[0] if pick else None
+        folded = [m for m in usable if id(m) not in excluded_ids]
+        if not folded:
+            # Every usable holding is quarantined: push one verbatim (the
+            # receiver assesses it) instead of aggregating poison.
+            return usable[0]
+        return self._with_passengers(self.aggregate(folded), usable, excluded_ids)
+
+    @staticmethod
+    def _with_passengers(out: TpflModel, models: list[TpflModel], excluded_ids: "dict[int, str]",
+                         folded_all: bool = False) -> TpflModel:
+        """The aggregate with the quarantine-excluded passengers among
+        ``models`` added to its contributor list. Their params never
+        folded, and ``num_samples`` stays the folded total, so the
+        payload weighs exactly the honest mass it carries."""
+        if folded_all or not excluded_ids:
+            return out
+        passengers = {c for m in models if id(m) in excluded_ids
+                      for c in m.get_contributors()} - set(out.get_contributors())
+        if not passengers:
+            return out
+        return out.build_copy(params=out.get_parameters(),
+                              contributors=sorted(set(out.get_contributors()) | passengers),
+                              num_samples=out.get_num_samples())
 
 
 __all__ = ["AggStream", "Aggregator", "NoModelsToAggregateError", "on_device",

@@ -9,9 +9,10 @@ picks the same rows as ``Dataset.train_test_split(test_size=1 -
 train_fraction, seed=seed)``: ``n_test = ceil(test_size · n)``, a
 permutation from ``np.random.default_rng(seed)``, its first ``n_test``
 rows the test split and the rest the train split, each in permutation
-order. The HF-hub / file constructors and ``generate_partitions`` (the
-partition strategies) are not ported yet and raise
-``NotImplementedError``.
+order. :meth:`TpflDataset.generate_partitions` splits through the
+partition strategies (:mod:`tpfl_torch.learning.dataset.partition_strategies`),
+index lists bit-equal to the reference's. The HF-hub / file
+constructors are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from typing import Any, Optional
 
 import numpy as np
 
-_PARTITIONS_ITEM = "ROADMAP.md §1 item 6, the robustness slice: the partition strategies"
 _HUB_ITEM = "ROADMAP.md §1 item 7, the node runtime: the HF-hub and file constructors"
 
 
@@ -181,7 +181,19 @@ class TpflDataset:
 
     def generate_partitions(self, num_partitions: int, strategy: Any, seed: int = 666,
                             label_tag: str = "label", **kwargs: Any) -> list["TpflDataset"]:
-        raise _not_ported("generate_partitions (the partition strategies)", _PARTITIONS_ITEM)
+        """Split into ``num_partitions`` datasets by index selection.
+        ``strategy`` is a :class:`DataPartitionStrategy` subclass (or
+        instance); both splits are partitioned with the same strategy and
+        seed."""
+        train, test = self.get_split(True), self.get_split(False)
+        train_idx, test_idx = strategy.generate_partitions(
+            train, test, num_partitions, seed=seed, label_tag=label_tag, **kwargs)
+        return [TpflDataset({self._train_split_name: train.select(train_idx[i]),
+                             self._test_split_name: test.select(test_idx[i])},
+                            train_split_name=self._train_split_name,
+                            test_split_name=self._test_split_name,
+                            batch_size=self.batch_size)
+                for i in range(num_partitions)]
 
     # --- export ---
 

@@ -17,7 +17,9 @@ threading, and the raw gradients summed when a callback
 ``wants_avg_grad``. The optimizer state is created again on every fit;
 batches come from ``Batches.stacked(epoch=round·10 000 + epoch)`` with
 the seed ``(Settings.SEED or 0) + crc32(addr)``. Evaluation is the
-reference's masked confusion-matrix pass over every test sample.
+reference's masked confusion-matrix pass over every test sample. Under
+``Settings.LEDGER_ENABLED`` each epoch's loss feeds the ledger's
+convergence monitor (``ledger.convergence.observe_loss``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from tpfl_torch import DeviceLike, resolve_device
 from tpfl_torch.learning.dataset.tpfl_dataset import TpflDataset
 from tpfl_torch.learning.learner import Learner
 from tpfl_torch.learning.model import TpflModel
+from tpfl_torch.management import ledger
 from tpfl_torch.management.logger import logger
 from tpfl_torch.models.zoo import apply
 from tpfl_torch.settings import Settings
@@ -351,6 +354,10 @@ class TorchLearner(Learner):
             n_steps += xs.shape[0]
             if in_exp:
                 logger.log_metric(self._addr, "train_loss", float(loss), step=epoch)
+            # Learning-plane fit seam: one attribute read when off.
+            if Settings.LEDGER_ENABLED:
+                ledger.convergence.observe_loss(self._addr, self._round_counter * 10_000 + epoch,
+                                                float(loss))
             if logger.get_level() <= logging.DEBUG:
                 logger.debug(self._addr, f"epoch {epoch}: loss={float(loss):.4f} "
                                          f"acc={float(acc):.4f}")

@@ -8,7 +8,10 @@ One round (``engine.py:1452-1584`` of the reference):
    round. Node ``i``'s loss depends on node ``i``'s params only, so one
    backward of the summed per-node losses gives every node its own
    gradient — the ``vmap`` of the reference, written out.
-2. With ``Settings.ENGINE_WIRE_CODEC`` other than "dense", every node's
+2. With ``attack_scales`` (an ``AttackPlan``'s sign-flip schedule,
+   ``AttackPlan.engine_scales``), every node's trained params are
+   multiplied by its scale, cast to the leaf's dtype. Then, with
+   ``Settings.ENGINE_WIRE_CODEC`` other than "dense", every node's
    trained params pass the wire codec's round trip (params only).
 3. The masked FedAvg fold: weights normalised with a uniform-over-valid
    fallback when all are zero; rows with normalised weight 0 are zeroed
@@ -30,8 +33,8 @@ The three algorithms and three kinds of the reference (``_kind``,
   II and ``c_g`` by the server rule in the fold.
 
 ``run_rounds`` is a Python loop over rounds where the reference has a
-device-side ``fori_loop``. Meshes, FedBuff schedules and attack scales
-are not ported yet and raise ``NotImplementedError``; nor is the
+device-side ``fori_loop``. Meshes and FedBuff schedules are not ported
+yet and raise ``NotImplementedError``; nor is the
 in-program telemetry carry (the port's Settings has no
 ``ENGINE_TELEMETRY`` knob to ask for it).
 """
@@ -165,6 +168,20 @@ class FederationEngine:
             weights = torch.ones((self.n_nodes,), dtype=torch.float32)
         w = torch.as_tensor(weights, dtype=torch.float32).to(self.device)
         return pad_node_weights(w, self.padded_nodes)
+
+    def pad_attack_scales(self, scales: Any) -> torch.Tensor:
+        """[n] (or per-round [R, n]) per-node attack multipliers -> padded
+        f32 on the device, pad entries one (a pad row's params ride
+        untouched: its fold weight is already zero)."""
+        s = torch.as_tensor(scales, dtype=torch.float32).to(self.device)
+        if s.shape[-1] != self.n_nodes:
+            raise ValueError(
+                f"attack_scales last axis is {s.shape[-1]} for {self.n_nodes} nodes")
+        extra = self.padded_nodes - self.n_nodes
+        if extra == 0:
+            return s
+        pad = torch.ones(s.shape[:-1] + (extra,), dtype=torch.float32, device=self.device)
+        return torch.cat([s, pad], dim=-1)
 
     def shard_data(self, xs: Any, ys: Any) -> tuple[torch.Tensor, torch.Tensor]:
         """Node-stacked data [N, n_batches, b, ...] on the device (the
@@ -302,11 +319,14 @@ class FederationEngine:
         return out_params, out_c, out_cg, out_aux
 
     def _round(self, kind: str, state: tuple, xs: torch.Tensor, ys: torch.Tensor,
-               w: torch.Tensor, epochs: int, codec: Callable) -> tuple[tuple, torch.Tensor]:
+               w: torch.Tensor, epochs: int, codec: Callable,
+               scale: Optional[torch.Tensor] = None) -> tuple[tuple, torch.Tensor]:
         params, c_locals, c_global, aux = state
         trained, new_c, new_aux, losses = self._local_train(
             kind, params, c_locals, c_global, aux, xs, ys, epochs)
         with torch.no_grad():  # the exchange leg: params only
+            if scale is not None:  # the seeded adversary (engine.py:1467-1475)
+                trained = tree_map(lambda t: _rows(scale, t).to(t.dtype) * t, trained)
             trained = tree_map(codec, trained)
         return self._fold(kind, trained, new_c, new_aux, c_locals, c_global, aux, w), losses
 
@@ -335,7 +355,10 @@ class FederationEngine:
         ``weights``: [n] per-node FedAvg weight (0 = not elected), or
         [n_rounds, n] per round; None = uniform. The wire codec is read
         from ``Settings.ENGINE_WIRE_CODEC`` / ``WIRE_TOPK_FRAC`` on each
-        call.
+        call. ``attack_scales`` ([n] or [n_rounds, n]): per-node
+        multipliers of each node's trained params before the codec leg
+        and the fold — ``AttackPlan.engine_scales``'s seeded sign-flip
+        adversary; None runs no attack op at all.
 
         Returns (params, losses) — with ``aux`` (possibly ``{}``)
         (params, aux, losses) — and for algorithm="scaffold"
@@ -352,9 +375,8 @@ class FederationEngine:
                schedule: Optional[Any] = None) -> tuple:
         """:meth:`run_rounds` with the codec given as (bits, top-k
         fraction) instead of read from the knobs."""
-        for name, val in (("attack_scales", attack_scales), ("a FedBuff schedule", schedule)):
-            if val is not None:
-                raise _not_ported(name)
+        if schedule is not None:
+            raise _not_ported("a FedBuff schedule")
         kind = self._kind(aux)
         if kind == "scaffold" and scaffold_state is None:
             raise ValueError(
@@ -366,6 +388,13 @@ class FederationEngine:
             raise ValueError(
                 f"per-round weights have {w.shape[0]} rows for {n_rounds} rounds"
             )
+        scales = None
+        if attack_scales is not None:
+            scales = self.pad_attack_scales(attack_scales)
+            if scales.dim() == 2 and scales.shape[0] != n_rounds:
+                raise ValueError(
+                    f"per-round attack_scales have {scales.shape[0]} rows for {n_rounds} rounds"
+                )
         c_locals, c_global = {}, {}
         if kind == "scaffold":
             c_locals, c_global = scaffold_state
@@ -376,8 +405,9 @@ class FederationEngine:
         roundtrip = compression.engine_codec_roundtrip_nodes(*codec)
         losses = torch.zeros((self.padded_nodes,), dtype=torch.float32, device=self.device)
         for r in range(n_rounds):
+            scale = None if scales is None else scales if scales.dim() == 1 else scales[r]
             state, losses = self._round(
-                kind, state, xs, ys, w if w.dim() == 1 else w[r], epochs, roundtrip)
+                kind, state, xs, ys, w if w.dim() == 1 else w[r], epochs, roundtrip, scale)
         params, c_locals, c_global, aux_out = state
         if kind == "scaffold":
             return params, aux_out, (c_locals, c_global), losses

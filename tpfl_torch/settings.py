@@ -6,9 +6,8 @@ Values are read at use time (per ``run_rounds`` call, per encode, per
 aggregation intake), so assigning ``Settings.X`` takes effect on the next
 use; ``LOCK_TRACING`` is read when a lock is built. Knobs are added here
 as the modules that read them are ported. The flags of planes the port
-does not have yet (``ASYNC_ROUNDS``, ``QUARANTINE_ENABLED``,
-``LEDGER_ENABLED``, ``WIRE_DELTA``) keep their reference defaults; the
-aggregator, or the encoder for ``WIRE_DELTA``, raises
+does not have yet (``ASYNC_ROUNDS``, ``WIRE_DELTA``) keep their reference
+defaults; the aggregator, or the encoder for ``WIRE_DELTA``, raises
 ``NotImplementedError`` when one is on.
 """
 
@@ -106,16 +105,73 @@ class Settings:
     ROUND_QUORUM < 1.0 additionally lets aggregation close before
     slow-but-alive members report."""
 
-    # --- observatories of the reference, not ported ---
-    LEDGER_ENABLED: bool = False
-    """Master gate for the reference's learning-plane observatory
-    (per-contribution statistics, anomaly scoring). Not ported: the
-    aggregator raises ``NotImplementedError`` while it is on."""
+    ASYNC_STALENESS_MAX: int = 16
+    """Staleness plausibility bound of the ledger's anomaly scorer: a
+    contribution past it (or whose version regresses) is flagged
+    ``stale_flood``. Negative disables the test. Synchronous rounds
+    (τ = 0) never trip it."""
 
+    AGG_ROBUST_BUFFER: int = 64
+    """Candidate-buffer budget of the robust aggregators (Krum /
+    MultiKrum / TrimmedMean): at most this many per-round candidates on
+    the device, with seeded reservoir sampling past the cap (exact up to
+    the cap, an unbiased sample beyond it)."""
+
+    # --- learning-plane observatory (contribution ledger) ---
+    LEDGER_ENABLED: bool = False
+    """Master gate for the learning-plane observatory
+    (tpfl_torch.management.ledger): per-contribution update statistics
+    (L2 norm, per-leaf norms, cosine vs the round-start reference and vs
+    the running update mean — f32 torch ops on the aggregator's device),
+    the bounded per-node ContributionLedger ring, the ConvergenceMonitor
+    and the AnomalyScorer's sign-flip / norm-outlier detection. Off,
+    every tap is one attribute read and adds no tensor op. Detection is
+    observational: flags never change aggregation results."""
+
+    LEDGER_RING: int = 1024
+    """Contribution-ledger capacity: the last N records retained per
+    node (also the anomaly scorer's running baseline window)."""
+
+    LEDGER_ANOMALY_Z: float = 6.0
+    """Robust z-score (vs the window's median / 1.4826·MAD) of a
+    contribution's update L2 norm at or above which it is flagged a norm
+    outlier (additive noise). Only applied once LEDGER_ANOMALY_MIN_N
+    samples exist."""
+
+    LEDGER_ANOMALY_COS: float = 0.0
+    """Cosine against the round-start reference at or below which a
+    contribution is flagged sign-flipped (a negated model sits at ≈ -1,
+    honest ones at ≈ +1; no history needed)."""
+
+    LEDGER_ANOMALY_MIN_N: int = 4
+    """Minimum samples in the scorer's window before the norm-outlier
+    z-test applies (the cosine test is exempt)."""
+
+    LEDGER_CONVERGENCE_WINDOW: int = 5
+    """Trailing window (rounds / fits) of the ConvergenceMonitor's
+    plateau / divergence tests and the loss-trajectory slope."""
+
+    # --- active Byzantine defense (quarantine) ---
     QUARANTINE_ENABLED: bool = False
-    """Master gate for the reference's active Byzantine defense
-    (quarantine at the aggregation intake). Not ported: the aggregator
-    raises ``NotImplementedError`` while it is on."""
+    """Master gate for the active defense (tpfl_torch.management
+    .quarantine): every single-contributor model at the aggregation
+    intake is scored by the ledger's AnomalyScorer BEFORE it can fold;
+    flagged contributions are excluded from the aggregate (kept as
+    coverage-only passengers so the round still closes), the peer enters
+    quarantine, and clean contributions earn re-admission after
+    QUARANTINE_PROBATION_ROUNDS. Turns on the ledger's round state even
+    when LEDGER_ENABLED is off. Unlike the ledger, verdicts change what
+    aggregates."""
+
+    QUARANTINE_PROBATION_ROUNDS: int = 2
+    """Rounds a quarantined peer's contributions must score clean
+    (strictly more than this many rounds past its last flagged round)
+    before it is re-admitted. A flag during probation re-arms the
+    window."""
+
+    ATTACK_NOISE_STD: float = 0.1
+    """Default standard deviation of the additive-noise attack when an
+    AttackPlan rule does not set one (tpfl_torch.attacks.plan)."""
 
     # --- engine (device-side) wire codec ---
     ENGINE_WIRE_CODEC: str = "dense"
