@@ -126,11 +126,33 @@
    and the 100-node CNN window under a sign flip on every fifth node:
    all-ones scales bit-identical to no scales, then a timed window.
 
+13. Federation phases (the node runtime: ``Node`` over the in-memory
+   transport, the stage workflow, FedAvg; ``Settings.set_test_settings()``
+   with the pooled simulation learner off and the logger at ERROR). A
+   reference phase: a 2-node LINE federation of a narrow f32 CNN through
+   the kernels, 2 rounds, on the card and on the CPU with the same
+   addresses, seeds and data (rtol 1e-3, atol 1e-4; every launch counted,
+   none on wgmma, which takes bf16 only). Then four Nodes of the CNN
+   cell's model (bf16, the kernels at N = 1, 512 seeded samples and 256
+   test samples each) on a LINE: a 1-round warm-up experiment, then a
+   3-round one; and six Nodes on a FULL topology with ``TRAIN_SET_SIZE =
+   4``, 2 rounds, so two nodes a round take the wait path. Each: complete
+   stage histories, every node's params finite and byte-equal to an
+   aggregate some node closed in the last round (trainers fold partial
+   aggregates as they arrive, so two closed aggregates may differ in
+   their last bits: all within rtol 1e-6 of each other), finite losses,
+   exactly ``rounds × 4 × 8`` ``conv_dw`` and ``× 4`` ``conv_dx`` launches,
+   all on wgmma, every aggregate a node closed within rtol 1e-6, atol
+   1e-7 of a plain f64 mean of that round's fitted models (recorded by a
+   learner and an aggregator subclass); experiment wall time, rounds/s
+   and the round profiler's vote / train / fold / gossip split.
+
 ``--profile`` adds one round of each main path (the CNN, the
-transformer, ResNet-18 under FedAvg), one protocol-phase learner fit
-and one defended FedAvg round of the Byzantine phase under
-``torch.profiler``: device time by kernel, and the device's idle
-share from the union of its kernel intervals.
+transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
+one defended FedAvg round of the Byzantine phase and one 3-round
+experiment of the 4-node federation under ``torch.profiler``: device
+time by kernel, and the device's idle share from the union of its
+kernel intervals.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -160,13 +182,16 @@ from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, TpflDataset
 from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10, synthetic_classification
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.learning.torch_learner import TorchLearner
-from tpfl_torch.management import ledger, quarantine
+from tpfl_torch.management import ledger, profiling, quarantine
+from tpfl_torch.management.logger import logger
 from tpfl_torch.models import CNN, ResNet18, TransformerLM, init_params
+from tpfl_torch.node import Node
 from tpfl_torch.parallel import FederationEngine, VmapFederation, _build
 from tpfl_torch.parallel import conv_kernel as ck
 from tpfl_torch.parallel import flash_kernel as fk
 from tpfl_torch.parallel.ring_attention import blockwise_attention
 from tpfl_torch.settings import Settings
+from tpfl_torch.utils import TopologyFactory, TopologyType, wait_convergence, wait_to_finish
 from tpfl_torch.utils.tree import tree_items, tree_map
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core FLOP/s.
@@ -1756,6 +1781,341 @@ def attacked_cnn_path(card: str) -> dict:
             "ones_bit_identical": True, "launches": launches, "wgmma_launches": wgmma}
 
 
+# ---- the node runtime: a federation of Nodes over the in-memory transport ----
+
+# The CNN cell's model (channels 32/64, dense 128, 10 classes, 32×32×3, bf16,
+# the kernels at N = 1) in FedAvg federations of Nodes on the card:
+# InMemoryCommunicationProtocol, Settings.set_test_settings() with the
+# pooled simulation learner off, each node 512 seeded synthetic
+# CIFAR-shaped samples (4 batches of 128) and 256 test samples, 1 epoch.
+# (label, nodes, topology, rounds, TRAIN_SET_SIZE, warm-up experiment)
+F_TRAIN, F_TEST, F_BATCH = 512, 256, 128
+F_RUNS = [("4 nodes, LINE", 4, "LINE", 3, 4, True),
+          ("6 nodes, FULL, train set 4", 6, "FULL", 2, 4, False)]
+
+
+def _experiment_round(addr: str) -> int:
+    """The round a node's running experiment is in (its logger record)."""
+    return logger.get_nodes()[addr]["experiment"].round
+
+
+class RecordingLearner(TorchLearner):
+    """A ``TorchLearner`` that keeps, by experiment round, a device copy of
+    each fit's params and its sample count (the plain reference's inputs,
+    widened to f64 only when checked, after the timed window), and counts
+    the wire payloads it adopts (init and full models)."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.fits: dict[int, tuple[dict, int]] = {}
+        self.decodes = 0
+
+    def set_model(self, model) -> None:
+        self.decodes += isinstance(model, bytes)
+        super().set_model(model)
+
+    def fit(self):
+        model = super().fit()
+        self.fits[_experiment_round(self.get_addr())] = (
+            {p: v.detach().clone() for p, v in tree_items(model.get_parameters())},
+            model.get_num_samples())
+        return model
+
+
+class RecordingFedAvg(FedAvg):
+    """FedAvg that keeps, by experiment round, each aggregate it closes,
+    and counts the peers' models it takes in (each decoded from a wire
+    payload)."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.closed: dict[int, dict] = {}
+        self.decodes = 0
+
+    def add_model(self, model, trace: str = "", start_version=None) -> list:
+        self.decodes += model.get_contributors() != [self.node_name]
+        return super().add_model(model, trace=trace, start_version=start_version)
+
+    def wait_and_get_aggregation(self, timeout=None):
+        out = super().wait_and_get_aggregation(timeout=timeout)
+        self.closed[_experiment_round(self.node_name)] = {
+            p: v.clone() for p, v in tree_items(out.get_parameters())}
+        return out
+
+
+class TimedNode(Node):
+    """A ``Node`` that stamps ``perf_counter`` when its stage workflow
+    returns, so an experiment's wall ends when its last workflow does
+    (not at ``wait_to_finish``'s next 0.1 s poll)."""
+
+    finished_at = 0.0
+
+    def _run_workflow(self) -> None:
+        super()._run_workflow()
+        self.finished_at = time.perf_counter()
+
+
+@contextlib.contextmanager
+def runtime_settings(**knobs):
+    """The test profile, the pooled simulation learner off, the logger at
+    ERROR, and ``knobs``; every setting restored after."""
+    snap = Settings.snapshot()
+    level = logger.get_level()
+    Settings.set_test_settings()
+    Settings.DISABLE_SIMULATION = True
+    for name, value in knobs.items():
+        setattr(Settings, name, value)
+    logger.set_level("ERROR")
+    try:
+        yield
+    finally:
+        Settings.restore(snap)
+        logger.set_level(level)
+
+
+def start_federation(nodes: list, topology: str) -> None:
+    for nd in nodes:
+        nd.start()
+    matrix = TopologyFactory.generate_matrix(TopologyType[topology], len(nodes))
+    TopologyFactory.connect_nodes(matrix, nodes)
+    wait_convergence(nodes, len(nodes) - 1, only_direct=False, wait=30)
+
+
+def check_history(label: str, nodes: list, rounds: int) -> None:
+    """Every node's complete stage history: ``1 + 4 × rounds`` stages in
+    the reference's pattern (a crashed stage ends a workflow early)."""
+    for nd in nodes:
+        h = nd.learning_workflow.history
+        ok = len(h) == 1 + 4 * rounds and h[0] == "StartLearningStage" and all(
+            h[1 + 4 * r:5 + 4 * r][0] == "VoteTrainSetStage"
+            and h[1 + 4 * r:5 + 4 * r][1] in ("TrainStage", "WaitAggregatedModelsStage")
+            and h[1 + 4 * r:5 + 4 * r][2:] == ["GossipModelStage", "RoundFinishedStage"]
+            for r in range(rounds))
+        if not ok:
+            raise AssertionError(f"federation {label}: {nd.addr} stage history {h}")
+
+
+def run_experiment(nodes: list, rounds: int) -> tuple[str, float]:
+    """One experiment started at node 0, to its end; (name, wall s). The
+    wall of :class:`TimedNode`s ends when the last workflow returned."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exp = nodes[0].set_start_learning(rounds=rounds, epochs=1)
+    wait_to_finish(nodes, timeout=600)
+    torch.cuda.synchronize()
+    end = max((getattr(nd, "finished_at", 0.0) for nd in nodes), default=0.0)
+    return exp, (end if end > t0 else time.perf_counter()) - t0
+
+
+def federation_reference_phase() -> float:
+    """A 2-node LINE federation of a narrow f32 CNN through the conv
+    kernels (``conv_impl="pallas"``, TF32 off), 2 rounds, on the card and
+    then on the CPU with the same addresses, seeds and data: final params
+    within rtol 1e-3, atol 1e-4; every card launch counted (2 rounds × 2
+    trainers × 4 steps: 32 ``conv_dw``, 16 ``conv_dx``, none on wgmma: the
+    rule takes bf16 only), none on the CPU. Returns max |err|."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y, xt, yt = synthetic_classification((8, 8, 3), n_train=128, n_test=32, seed=3)
+    parts = TpflDataset.from_arrays(x, y, xt, yt).generate_partitions(
+        2, RandomIIDPartitionStrategy, seed=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        module = CNN(channels=(4, 8), dense=16, compute_dtype=torch.float32, conv_impl="pallas")
+        params = init_params(module, (8, 8, 3), seed=0, device=dev)
+        with runtime_settings():
+            nodes = [Node(TpflModel(module, params, device=dev), parts[i], addr=f"fref-{i}",
+                          device=dev, learning_rate=0.05, batch_size=16) for i in range(2)]
+            try:
+                start_federation(nodes, "LINE")
+                reset_launches()
+                run_experiment(nodes, 2)
+                launches = read_launches()
+                wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+                check_history("reference", nodes, 2)
+            finally:
+                for nd in nodes:
+                    nd.stop()
+        want = {**dict.fromkeys(WRAPPERS, 0),
+                **({"conv_dw": 32, "conv_dx": 16} if dev == "cuda" else {})}
+        if launches != want or any(wgmma.values()):
+            raise AssertionError(f"federation reference ({dev}): launches {launches}, "
+                                 f"wgmma {wgmma}, expected {want} and no wgmma")
+        out[dev] = [{p: v.cpu() for p, v in tree_items(nd.learner.get_model().get_parameters())}
+                    for nd in nodes]
+    for i, want in enumerate(out["cpu"]):
+        for path, ref in want.items():
+            torch.testing.assert_close(out["cuda"][i][path], ref, rtol=1e-3, atol=1e-4,
+                                       msg=lambda m, p=path: f"federation reference: {p}: {m}")
+    return max((a[p] - b[p]).abs().max().item()
+               for a, b in zip(out["cuda"], out["cpu"]) for p in b)
+
+
+def check_round_aggregates(label: str, nodes: list, rounds: int) -> float:
+    """Each aggregate a node closed, per round, within rtol 1e-6, atol
+    1e-7 of the plain f64 sample-weighted mean of that round's fitted
+    models; at least one node closes every round. Returns the worst
+    max |err|."""
+    worst = 0.0
+    for r in range(rounds):
+        fits = [({p: v.double() for p, v in f.items()}, n)
+                for f, n in (nd.learner.fits[r] for nd in nodes if r in nd.learner.fits)]
+        w = torch.tensor([float(n) for _, n in fits], dtype=torch.float64, device="cuda")
+        plain = {p: torch.tensordot(w, torch.stack([f[p] for f, _ in fits]), dims=1) / w.sum()
+                 for p in fits[0][0]}
+        closed = [nd.aggregator.closed[r] for nd in nodes if r in nd.aggregator.closed]
+        if not closed or len(fits) != Settings.TRAIN_SET_SIZE:
+            raise AssertionError(f"federation {label} round {r}: {len(fits)} fits, "
+                                 f"{len(closed)} aggregates closed")
+        for agg in closed:
+            for path, ref in plain.items():
+                torch.testing.assert_close(
+                    agg[path].double(), ref, rtol=1e-6, atol=1e-7,
+                    msg=lambda m, p=path: f"federation {label} round {r}: {p}: {m}")
+                worst = max(worst, (agg[path].double() - ref).abs().max().item())
+    return worst
+
+
+def check_final_models(label: str, nodes: list, rounds: int) -> tuple[float, int]:
+    """Every node's final params finite and byte-equal to an aggregate
+    that some node closed in the last round (its own, or one it adopted
+    as a FullModel), and all within rtol 1e-6, atol 1e-7 of node 0's: the
+    trainers fold partial aggregates, grouped as they arrived, so two
+    closed aggregates may differ in their last bits. Returns (max |diff|
+    from node 0's, the count of distinct final models)."""
+    finals = [dict(tree_items(nd.learner.get_model().get_parameters())) for nd in nodes]
+    closed = [nd.aggregator.closed[rounds - 1] for nd in nodes
+              if rounds - 1 in nd.aggregator.closed]
+    distinct: list[dict] = []
+    for nd, final in zip(nodes, finals):
+        if not all(torch.isfinite(v).all() for v in final.values()):
+            raise AssertionError(f"federation {label}: {nd.addr} holds non-finite params")
+        if not any(all(torch.equal(final[p], agg[p]) for p in agg) for agg in closed):
+            raise AssertionError(f"federation {label}: {nd.addr} holds no closed aggregate")
+        if not any(all(torch.equal(final[p], d[p]) for p in d) for d in distinct):
+            distinct.append(final)
+        for path, v in final.items():
+            torch.testing.assert_close(v, finals[0][path], rtol=1e-6, atol=1e-7,
+                                       msg=lambda m, p=path: f"federation {label}: {p}: {m}")
+    spread = max((f[p] - finals[0][p]).abs().max().item() for f in finals for p in f)
+    return spread, len(distinct)
+
+
+def payload_bytes(nodes: list) -> float:
+    """Wire payload bytes the nodes' transports encoded so far."""
+    return sum(logger.metrics.value("tpfl_payload_bytes_total", {"node": nd.addr})
+               for nd in nodes)
+
+
+def round_split(nodes: list) -> dict:
+    """Mean seconds a round per component of the round profiler, over
+    every node and round of the experiment."""
+    recs = [r for nd in nodes for r in profiling.rounds.attribution(nd.addr)]
+    split = {c: statistics.mean(r["parts"][c] for r in recs) for c in profiling.COMPONENTS}
+    return {"records": len(recs), "wall_s": statistics.mean(r["wall"] for r in recs),
+            **{f"{c}_s": v for c, v in split.items()}}
+
+
+def federation_run(card: str, label: str, n: int, topology: str, rounds: int,
+                   train_set: int, warm_up: bool) -> tuple[dict, object]:
+    """One timed experiment of ``n`` Nodes (after a 1-round warm-up
+    experiment when ``warm_up``): complete stage histories, each node's
+    params one of the last round's closed aggregates
+    (:func:`check_final_models`), finite losses, exactly ``rounds ×
+    train_set × 8`` ``conv_dw`` and ``× 4`` ``conv_dx`` launches, all on
+    wgmma, and each round's aggregates held to plain f64. Returns the
+    results and (a function that runs one more experiment, for a
+    profiled one; a function that stops the nodes)."""
+    x, y, xt, yt = synthetic_cifar10(n_train=n * F_TRAIN, n_test=n * F_TEST, seed=1100 + n)
+    parts = TpflDataset.from_arrays(x, y, xt, yt).generate_partitions(
+        n, RandomIIDPartitionStrategy, seed=1)
+    module = CNN(out_channels=10, conv_impl="pallas")
+    params = init_params(module, (32, 32, 3), seed=0, device="cuda")
+    with runtime_settings(TRAIN_SET_SIZE=train_set):
+        nodes = [TimedNode(TpflModel(module, params, device="cuda"), parts[i],
+                           addr=f"fed{n}-{i}", learner=RecordingLearner,
+                           aggregator=RecordingFedAvg(device="cuda"), device="cuda",
+                           learning_rate=0.1, batch_size=F_BATCH) for i in range(n)]
+        try:
+            start_federation(nodes, topology)
+            if warm_up:
+                run_experiment(nodes, 1)
+            for nd in nodes:
+                nd.learner.fits.clear()
+                nd.aggregator.closed.clear()
+                nd.learner.decodes = nd.aggregator.decodes = 0
+            sent_bytes = payload_bytes(nodes)
+            profiling.rounds.reset()
+            reset_launches()
+            with setting("PROFILING_ENABLED", True):
+                exp, wall = run_experiment(nodes, rounds)
+            launches = read_launches()
+            wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+            check_history(label, nodes, rounds)
+            steps = rounds * train_set * (F_TRAIN // F_BATCH)
+            want = {**dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps}
+            if launches != want:
+                raise AssertionError(f"federation {label}: launches {launches}, expected {want}")
+            check_all_wgmma(f"federation ({label})", launches, wgmma)
+            spread, distinct = check_final_models(label, nodes, rounds)
+            local = logger.get_local_logs()[exp]
+            losses = [v for r in local.values() for m in r.values()
+                      for v in (s for _, s in m.get("train_loss", []))]
+            waited = sum(nd.learning_workflow.history.count("WaitAggregatedModelsStage")
+                         for nd in nodes)
+            if (len(losses) != rounds * train_set or not np.all(np.isfinite(losses))
+                    or waited != (n - train_set) * rounds):
+                raise AssertionError(f"federation {label}: losses {losses}, waited {waited}")
+            agg_err = check_round_aggregates(label, nodes, rounds)
+            accs = [nd.learner.evaluate()["test_metric"] for nd in nodes]
+            model = nodes[0].learner.get_model()
+            payload = model.encode_parameters()
+            wire = {"payload_bytes": len(payload),
+                    "payload_bytes_encoded": payload_bytes(nodes) - sent_bytes,
+                    "payloads_encoded": round((payload_bytes(nodes) - sent_bytes) / len(payload)),
+                    "payloads_decoded": sum(nd.learner.decodes + nd.aggregator.decodes
+                                            for nd in nodes),
+                    "encode_ms": host_ms(model.encode_parameters),
+                    "decode_ms": host_ms(lambda: model.build_copy(params=payload))}
+            result = {"card": card, "nodes": n, "topology": topology, "rounds": rounds,
+                      "train_set_size": train_set, "samples_per_fit": F_TRAIN,
+                      "experiment_wall_s": wall, "rounds_per_s": rounds / wall,
+                      "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+                      "wgmma_launches": wgmma, "waited_stages": waited,
+                      "distinct_final_models": distinct, "final_models_max_abs_diff": spread,
+                      "aggregate_max_abs_err_vs_f64": agg_err,
+                      "mean_train_loss_last_round": float(np.mean(
+                          [s for m in local[rounds - 1].values()
+                           for _, s in m.get("train_loss", [])])),
+                      "mean_test_acc": float(np.mean(accs)),
+                      "round_split": round_split(nodes), "wire": wire}
+        except BaseException:
+            for nd in nodes:
+                nd.stop()
+            raise
+
+    def one_more_experiment() -> None:
+        with runtime_settings(TRAIN_SET_SIZE=train_set):
+            run_experiment(nodes, rounds)
+
+    def stop() -> None:
+        with runtime_settings():
+            for nd in nodes:
+                nd.stop()
+
+    return result, (one_more_experiment, stop)
+
+
+def federation_path(card: str) -> tuple[dict, list]:
+    """Every run of ``F_RUNS``. Returns the results and, per run, (one
+    more experiment, stop) for a profiled experiment."""
+    out, handles = {}, []
+    for label, *args in F_RUNS:
+        out[label], h = federation_run(card, label, *args)
+        handles.append(h)
+    return out, handles
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -1874,6 +2234,18 @@ def main() -> int:
         "dense and quant8): ok " + json.dumps(byzantine_engine_reference_phase()))
     attacked = attacked_cnn_path(card)
     log("CNN main path (sign-flip attack_scales on every fifth node): " + json.dumps(attacked))
+    log("federation reference phase (2 Nodes, narrow f32 CNN through the kernels, card vs "
+        f"CPU): ok, max |err| {federation_reference_phase():.3e}")
+    federation, fed_handles = federation_path(card)
+    try:
+        for label, result in federation.items():
+            log(f"federation path ({label}): " + json.dumps(result))
+        if "--profile" in sys.argv[1:]:
+            log("profile (one federation experiment, 4 nodes, LINE, 3 rounds): "
+                + json.dumps(profile_call(fed_handles[0][0])))
+    finally:
+        for _, stop in fed_handles:
+            stop()
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()
@@ -1899,6 +2271,8 @@ def main() -> int:
             row["protocol_round_launches"] = protocol["fedavg"]["launches"][row["name"]]
             row["byzantine_round_launches"] = byzantine["fedavg"]["launches_per_round"][
                 row["name"]]
+            row["federation_experiment_launches"] = {
+                label: r["launches"][row["name"]] for label, r in federation.items()}
         if row["name"] in built:
             row["build"] = built[row["name"]]
     log(json.dumps({"kernels": rows}))

@@ -146,8 +146,11 @@ def test_logger_routes_metrics_by_step():
     log.experiment_started("n0", Exp())
     log.log_metric("n0", "loss", 1.5, step=0)
     log.log_metric("n0", "test_metric", 0.5)
-    assert log.get_local_logs() == {"exp": {2: {"loss": {"n0": [(0, 1.5)]}}}}
-    assert log.get_global_logs() == {"exp": {2: {"test_metric": {"n0": 0.5}}}}
+    # The reference's layouts (tpfl.management.metric_storage): local
+    # exp -> round -> node -> metric -> [(step, value)], global
+    # exp -> node -> metric -> [(round, value)].
+    assert log.get_local_logs() == {"exp": {2: {"n0": {"loss": [(0, 1.5)]}}}}
+    assert log.get_global_logs() == {"exp": {"n0": {"test_metric": [(2, 0.5)]}}}
     assert log.get_nodes()["n0"]["experiment"] is not None
     log.unregister_node("n0")
     assert "n0" not in log.get_nodes()

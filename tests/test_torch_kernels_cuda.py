@@ -661,3 +661,45 @@ def test_learner_conv_launches_take_wgmma_at_one_node(card):
         launched = fn.launches - before[name][0]
         assert launched == per_step * steps, name
         assert fn.wgmma_launches - before[name][1] == launched, name
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_under_concurrent_launches(card):
+    """8 threads × 16 launches of each conv kernel at once (every node of
+    an in-process federation fits on its own thread): every launch is
+    counted, every one on its wgmma kernel (bf16 Conv_1 of the CNN at one
+    node), and each result equals the plain version's."""
+    import threading
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn(1, 32, 16, 16, 32, device=card, generator=gen).bfloat16()
+    g = torch.randn(1, 32, 16, 16, 64, device=card, generator=gen).bfloat16()
+    w = torch.randn(1, 3, 3, 32, 64, device=card, generator=gen).bfloat16()
+    before = (ck.conv_dw.launches, ck.conv_dw.wgmma_launches,
+              ck.conv_dx.launches, ck.conv_dx.wgmma_launches)
+    start = threading.Barrier(8)
+    outs, errors = [], []
+
+    def launch_many():
+        try:
+            start.wait()
+            for _ in range(16):
+                outs.append((ck.conv_dw(x, g, 3), ck.conv_dx(g, w)))
+        except Exception as e:  # surfaced below: a thread's failure fails the test
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch_many) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    after = (ck.conv_dw.launches, ck.conv_dw.wgmma_launches,
+             ck.conv_dx.launches, ck.conv_dx.wgmma_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (128, 128, 128, 128)
+    dw_ref, dx_ref = ck.conv_dw_plain(x, g, 3), ck.conv_dx_plain(g, w).float()
+    for dw, dx in outs:
+        torch.testing.assert_close(dw, dw_ref, rtol=1e-4, atol=1e-4 * dw_ref.abs().max().item())
+        torch.testing.assert_close(dx.float(), dx_ref, rtol=2.0 ** -7,
+                                   atol=1e-3 * dx_ref.abs().max().item())

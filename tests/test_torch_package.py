@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -52,7 +53,14 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "learning.aggregators.fedmedian", "learning.aggregators.robust",
                 "learning.dataset.partition_strategies", "utils.threefry",
                 "attacks", "attacks.attacks", "attacks.plan", "management.ledger",
-                "management.quarantine"):
+                "management.quarantine", "experiment", "node", "node_state",
+                "communication", "communication.base", "communication.commands",
+                "communication.gossiper", "communication.heartbeater",
+                "communication.memory", "communication.message",
+                "communication.neighbors", "communication.protocol",
+                "communication.resilience", "stages", "stages.stage", "stages.base_node",
+                "utils.topologies", "utils.utils", "management.metric_storage",
+                "management.profiling", "management.tracing", "simulation"):
         assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -76,14 +84,16 @@ def test_sources_name_no_jax_package():
                                    "transformer_lm", "resnet18_state", "scaffold",
                                    "tpfl_model", "torch_learner", "fedavg", "scaffold_agg",
                                    "fedmedian", "fedprox", "krum", "multikrum",
-                                   "trimmedmean", "random_bits"])
+                                   "trimmedmean", "random_bits", "node"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tpfl_torch.interop import params_from_flax
     from tpfl_torch.learning.aggregators import (FedAvg, FedMedian, FedProx, Krum, MultiKrum,
                                                  Scaffold, TrimmedMean)
+    from tpfl_torch.learning.dataset import TpflDataset
     from tpfl_torch.learning.model import TpflModel
     from tpfl_torch.learning.torch_learner import TorchLearner
+    from tpfl_torch.node import Node
     from tpfl_torch.models import CNN, ResNet18, TransformerLM, create_model, init_state
     from tpfl_torch.parallel import FederationEngine, VmapFederation
     from tpfl_torch.parallel.flash_kernel import flash_attention
@@ -108,6 +118,9 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
         "multikrum": lambda: MultiKrum("n"),
         "trimmedmean": lambda: TrimmedMean("n"),
         "random_bits": lambda: threefry.random_bits(threefry.PRNGKey(0), (4,)),
+        "node": lambda: Node(TpflModel(CNN(), {}, device="cpu"), TpflDataset.from_arrays(
+            np.zeros((2, 8, 8, 3), np.float32), np.zeros(2, np.int32),
+            np.zeros((1, 8, 8, 3), np.float32), np.zeros(1, np.int32)), addr="no-card"),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -10,7 +10,7 @@ names.
   attack schedules and the ground-truth adversary map.
 
 Not ported, raising ``NotImplementedError`` naming ``ROADMAP.md`` §1
-item 7 (the node runtime): :func:`make_adversary`, :func:`apply_chaos`,
+item 2 (node runtime B): :func:`make_adversary`, :func:`apply_chaos`,
 :func:`apply_speed_plan` and the seeded-experiment harness
 (``run_seeded_experiment``, ``adversary_map``,
 ``controller_trajectories``, ``metric_table``, ``flatten_table``,

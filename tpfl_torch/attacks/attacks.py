@@ -28,7 +28,7 @@ from tpfl_torch.utils.tree import canonical_leaves, canonical_map, canonical_unf
 
 AttackFn = Callable[[Any], Any]  # tree -> tree
 
-NODE_ITEM = "ROADMAP.md §1 item 7, the node runtime"
+NODE_ITEM = "ROADMAP.md §1 item 2, node runtime B: chaos and the seeded-experiment harness"
 
 
 def not_ported(what: str) -> NotImplementedError:

@@ -54,3 +54,19 @@ class ConnectionTimeoutError(CommunicationError):
     opposed to actively refusing (connection refused / handshake
     rejected, plain :class:`CommunicationError`). The retry layer backs
     off and retries timeouts; tests can assert on the distinction."""
+
+
+# --- planes the port has not ported yet --------------------------------
+# Each seam the reference enters raises ``not_ported(what, ITEM)``, naming
+# the ROADMAP.md §1 queue item that ports it.
+RUNTIME_B_ITEM = ("ROADMAP.md §1 item 2, node runtime B: faults, chaos, telemetry and the "
+                  "seeded-experiment harness")
+ASYNC_ITEM = "ROADMAP.md §1 item 3, node runtime C: asynchronous buffered rounds"
+ENGINE_ITEM = "ROADMAP.md §1 item 4, the engine variants"
+SIMULATION_ITEM = "ROADMAP.md §1 item 5, simulation and observatories"
+MULTI_DEVICE_ITEM = "ROADMAP.md §1 item 7, multi-GPU and multi-host"
+REST_ITEM = "ROADMAP.md §1 item 8, the rest"
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"tpfl_torch: {what} is not ported yet ({item})")

@@ -30,11 +30,10 @@ Not ported (each raises ``NotImplementedError`` naming its
 ``ROADMAP.md`` item when asked for, never skipped silently): the
 asynchronous buffered lifecycle (``set_nodes_to_aggregate(async_k=)``,
 ``start_version``, ``set_async_schedule``, ``async_deadline_close``,
-``Settings.ASYNC_ROUNDS``, ``staleness_weight`` for τ > 0). The
-reference's telemetry spans and
-round profiler have no knob in the port; the fold and close times land
-in the logger's metrics registry (``tpfl_agg_fold_seconds``,
-``tpfl_agg_aggregate_seconds``).
+``Settings.ASYNC_ROUNDS``, ``staleness_weight`` for τ > 0). The fold
+and close times land in the logger's metrics registry
+(``tpfl_agg_fold_seconds``, ``tpfl_agg_aggregate_seconds``) and in the
+round profiler's ``fold`` component (:mod:`tpfl_torch.management.profiling`).
 """
 
 from __future__ import annotations
@@ -50,16 +49,15 @@ import torch
 from tpfl_torch import DeviceLike, resolve_device
 from tpfl_torch.concurrency import make_lock
 from tpfl_torch.learning.model import TpflModel, to_device
-from tpfl_torch.management import ledger
+from tpfl_torch.exceptions import ASYNC_ITEM as _ASYNC_ITEM
+from tpfl_torch.exceptions import not_ported as _not_ported
+from tpfl_torch.management import ledger, profiling
 from tpfl_torch.management.logger import logger
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import canonical_leaves, canonical_map, canonical_unflatten
 
-_ASYNC_ITEM = "ROADMAP.md §1 item 7, the node runtime: asynchronous buffered rounds"
-
-
 def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"tpfl_torch aggregators: {what} is not ported yet ({item})")
+    return _not_ported(f"aggregators: {what}", item)
 
 
 def refuse_unported_knobs() -> None:
@@ -246,6 +244,11 @@ class Aggregator(ABC):
     def async_deadline_close(self) -> bool:
         raise not_ported("async_deadline_close", _ASYNC_ITEM)
 
+    def is_open(self) -> bool:
+        """True while a round's aggregation is in progress (between
+        set_nodes_to_aggregate and full coverage / clear)."""
+        return not self._finish_aggregation_event.is_set()
+
     def stalled(self, stall_seconds: float) -> bool:
         """True when intake has gone quiet: the round is open, at least
         one contribution is held, and nothing new has arrived for
@@ -431,6 +434,8 @@ class Aggregator(ABC):
                 self._stream = self.accumulate(self._stream, model)
                 logger.metrics.observe("tpfl_agg_fold_seconds", time.monotonic() - t_fold,
                                        labels={"node": self.node_name})
+                # Eager folds are "fold" time even on a handler thread.
+                profiling.rounds.add(self.node_name, "fold", time.monotonic() - t_fold)
             except Exception as e:
                 logger.debug(self.node_name,
                              f"Eager accumulate failed ({e}); will batch-fold at round close")
@@ -499,6 +504,7 @@ class Aggregator(ABC):
         finally:
             logger.metrics.observe("tpfl_agg_aggregate_seconds", time.monotonic() - t_close,
                                    labels={"node": self.node_name})
+            profiling.rounds.add(self.node_name, "fold", time.monotonic() - t_close)
 
     def get_model(self, except_nodes: list[str] | None = None) -> TpflModel | None:
         """Partial aggregate of held models excluding contributions from

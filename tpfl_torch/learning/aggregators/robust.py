@@ -28,7 +28,7 @@ gauge carries the trim applied.
 
 Staleness: synchronous rounds fold every candidate at τ = 0, where the
 reference's staleness rejection and Krum's ``(1+τ)^exp`` penalty are the
-identity; τ > 0 (the async rounds, ``ROADMAP.md`` §1 item 7) is refused
+identity; τ > 0 (the async rounds, ``ROADMAP.md`` §1 item 3) is refused
 at ``accumulate`` through :func:`staleness_weight`.
 
 - Krum / Multi-Krum: Blanchard et al. 2017.

@@ -1,6 +1,7 @@
 """Seeded synthetic classification data, numpy only — a copy of the
-generators in :mod:`tpfl.learning.dataset.synthetic` that returns plain
-arrays (the port has no dataset wrapper yet).
+generators in :mod:`tpfl.learning.dataset.synthetic`: the classification
+generators return plain arrays, :func:`synthetic_mnist` a
+``TpflDataset`` as the reference's does.
 
 Each class has a fixed random prototype; samples are prototype plus
 Gaussian noise, clipped to [0, 1]. A small model separates them
@@ -9,7 +10,12 @@ quickly, and the same seed gives the same arrays as the reference.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
+
+if TYPE_CHECKING:
+    from tpfl_torch.learning.dataset.tpfl_dataset import TpflDataset
 
 Arrays = tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
 
@@ -44,3 +50,15 @@ def synthetic_cifar10(
         (32, 32, 3), n_classes=10, n_train=n_train, n_test=n_test, seed=seed,
         noise=noise,
     )
+
+
+def synthetic_mnist(
+    n_train: int = 1000, n_test: int = 200, seed: int = 0, noise: float = 0.8
+) -> "TpflDataset":
+    """28×28 grayscale, 10 classes — MNIST-shaped, as a
+    :class:`~tpfl_torch.learning.dataset.TpflDataset` (columns ``image``
+    / ``label``), the reference's ``synthetic_mnist``."""
+    from tpfl_torch.learning.dataset.tpfl_dataset import TpflDataset
+
+    return TpflDataset.from_arrays(*synthetic_classification(
+        (28, 28), n_classes=10, n_train=n_train, n_test=n_test, seed=seed, noise=noise))

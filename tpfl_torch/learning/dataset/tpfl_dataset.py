@@ -23,7 +23,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-_HUB_ITEM = "ROADMAP.md §1 item 7, the node runtime: the HF-hub and file constructors"
+_HUB_ITEM = "ROADMAP.md §1 item 8, the rest: the HF-hub and file constructors"
 
 
 class ColumnSplit:

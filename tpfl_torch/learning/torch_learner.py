@@ -37,7 +37,7 @@ from tpfl_torch import DeviceLike, resolve_device
 from tpfl_torch.learning.dataset.tpfl_dataset import TpflDataset
 from tpfl_torch.learning.learner import Learner
 from tpfl_torch.learning.model import TpflModel
-from tpfl_torch.management import ledger
+from tpfl_torch.management import ledger, profiling
 from tpfl_torch.management.logger import logger
 from tpfl_torch.models.zoo import apply
 from tpfl_torch.settings import Settings
@@ -324,7 +324,12 @@ class TorchLearner(Learner):
         return skipped
 
     def fit(self) -> TpflModel:
-        """Run ``self.epochs`` local epochs."""
+        """Run ``self.epochs`` local epochs (the round profiler's
+        ``train`` component)."""
+        with profiling.rounds.span(self._addr, "train"):
+            return self._fit()
+
+    def _fit(self) -> TpflModel:
         self._interrupt.clear()
         track = self._track_grads()
         if self._train_epoch_fn is None or track != self._train_epoch_track:

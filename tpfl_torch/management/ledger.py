@@ -31,9 +31,9 @@ the contribution count.
 The ``tpfl_contrib_*`` / ``tpfl_convergence_*`` series go to the port's
 ``logger.metrics``. Not ported: ``record_external`` (the engine
 telemetry carry's fan-out) raises ``NotImplementedError`` naming
-``ROADMAP.md`` §1 item 8; the flight-recorder ``contrib`` / ``anomaly``
+``ROADMAP.md`` §1 item 4; the flight-recorder ``contrib`` / ``anomaly``
 / ``divergence`` / ``plateau`` events and the registry's pull-style
-occupancy collector wait for ``telemetry.py`` (§1 item 7).
+occupancy collector wait for ``telemetry.py`` (§1 item 2).
 
 Gating: every entry point checks ``Settings.LEDGER_ENABLED`` (or, for
 the round state and ``score_now``, ``QUARANTINE_ENABLED``) first; with
@@ -62,7 +62,7 @@ metrics = logger.metrics
 _MAD_REL_FLOOR = 0.05
 _EPS = 1e-12
 
-_ENGINE_ITEM = "ROADMAP.md §1 item 8, the engine variants: the telemetry carry"
+_ENGINE_ITEM = "ROADMAP.md §1 item 4, the engine variants: the telemetry carry"
 
 #: builtin alias — the query APIs take a ``round`` kwarg.
 _round = round

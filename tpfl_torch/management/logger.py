@@ -1,25 +1,37 @@
-"""The subset of :mod:`tpfl.management.logger` that the ported learning
-layer calls: leveled, node-tagged logging, the node registry
-(``get_nodes``), metric routing (``log_metric``) and the process metrics
-registry (``logger.metrics.counter`` / ``observe`` / ``gauge``) as
-plain counts that can be read back.
+"""The subset of :mod:`tpfl.management.logger` that the port's learning
+layer and node runtime call: leveled, node-tagged logging (the level read
+from ``Settings.LOG_LEVEL`` when the logger is built), the node registry
+(``get_nodes``) and experiment lifecycle hooks, metric routing
+(``log_metric``) into the two-tier stores of
+:mod:`tpfl_torch.management.metric_storage`, the per-link send-health
+store (``transport_metrics``), and the process metrics registry
+(``logger.metrics.counter`` / ``observe`` / ``gauge``, pull-style
+collectors) as plain counts that can be read back.
 
 Routing rule (the reference's): a metric logged with a ``step`` goes to
 the *local* (per-step) store; one logged without goes to the *global*
 (per-round) store. The rest of the reference's management plane (file
-and async handlers, the web dashboard, Prometheus export, telemetry
-spans) waits for the node runtime (``ROADMAP.md`` §1 item 7).
+and async handlers, the web dashboard, Prometheus export) is not ported
+(``ROADMAP.md`` §1 item 5).
 """
 
 from __future__ import annotations
 
+import atexit
+import datetime
 import logging
-from typing import Any, Optional
+import logging.handlers
+import os
+import queue
+from typing import Any, Callable, Optional
 
 from tpfl_torch.concurrency import make_lock
-
-# The reference's LOG_LEVEL default.
-LOG_LEVEL = logging.INFO
+from tpfl_torch.management.metric_storage import (
+    GlobalMetricStorage,
+    LocalMetricStorage,
+    TransportMetricStorage,
+)
+from tpfl_torch.settings import Settings
 
 LabelKey = tuple[tuple[str, str], ...]
 
@@ -31,7 +43,9 @@ def _labels(labels: Optional[dict[str, str]]) -> LabelKey:
 class MetricsRegistry:
     """Counters, gauges and histogram summaries keyed by ``(name,
     labels)``, thread-safe, readable back (:meth:`value`,
-    :meth:`snapshot`)."""
+    :meth:`snapshot`). ``register_collector(fn)`` adds a callable run
+    (outside the registry's lock) at each :meth:`snapshot`, which
+    writes pull-style gauges through the registry it is given."""
 
     def __init__(self) -> None:
         self._lock = make_lock("MetricsRegistry._lock")
@@ -41,6 +55,8 @@ class MetricsRegistry:
         self._gauges: dict[tuple[str, LabelKey], float] = {}
         # guarded-by: _lock — [count, sum] per series
         self._observed: dict[tuple[str, LabelKey], list[float]] = {}
+        # guarded-by: _lock
+        self._collectors: list[Callable[["MetricsRegistry"], None]] = []
 
     def counter(self, name: str, value: float = 1.0,
                 labels: Optional[dict[str, str]] = None) -> None:
@@ -72,7 +88,20 @@ class MetricsRegistry:
             count, total = self._observed.get((name, _labels(labels)), [0, 0.0])
         return int(count), total
 
+    def register_collector(self, fn: Callable[["MetricsRegistry"], None]) -> None:
+        with self._lock:
+            self._collectors.append(fn)
+
+    def unregister_collector(self, fn: Callable[["MetricsRegistry"], None]) -> None:
+        with self._lock:
+            if fn in self._collectors:
+                self._collectors.remove(fn)
+
     def snapshot(self) -> dict[str, dict]:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            fn(self)
         with self._lock:
             return {"counters": dict(self._counters), "gauges": dict(self._gauges),
                     "observed": {k: tuple(v) for k, v in self._observed.items()}}
@@ -84,26 +113,99 @@ class MetricsRegistry:
             self._observed.clear()
 
 
+class FileFormatter(logging.Formatter):
+    def format(self, record: logging.LogRecord) -> str:
+        node = getattr(record, "node", "")
+        ts = datetime.datetime.fromtimestamp(record.created).isoformat()
+        return f"[{ts}|{record.levelname}|{node}] {record.getMessage()}"
+
+
+class _LazyFileHandler(logging.Handler):
+    """Creates ``Settings.LOG_DIR`` and the rotating file only at the
+    first record emitted while ``Settings.FILE_LOGGER`` is on: importing
+    the package never touches the file system."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._real: Optional[logging.handlers.RotatingFileHandler] = None
+
+    def emit(self, record: logging.LogRecord) -> None:
+        if not Settings.FILE_LOGGER:
+            return
+        if self._real is None:
+            os.makedirs(Settings.LOG_DIR, exist_ok=True)
+            self._real = logging.handlers.RotatingFileHandler(
+                os.path.join(Settings.LOG_DIR,
+                             f"tpfl-{datetime.datetime.now():%Y%m%d-%H%M%S}.log"),
+                maxBytes=Settings.LOG_FILE_MAX_BYTES,
+                backupCount=Settings.LOG_FILE_BACKUP_COUNT,
+            )
+            self._real.setFormatter(FileFormatter())
+        self._real.emit(record)
+
+    def close(self) -> None:
+        if self._real is not None:
+            self._real.close()
+        super().close()
+
+
+class _LazyQueueHandler(logging.handlers.QueueHandler):
+    """Hands records to a listener thread that runs ``handlers``; the
+    thread starts at the first record (importing the package starts no
+    thread) and stops at exit or :meth:`TpflLogger.cleanup`."""
+
+    def __init__(self, handlers: list[logging.Handler]) -> None:
+        super().__init__(queue.Queue(-1))
+        self.listener = logging.handlers.QueueListener(self.queue, *handlers,
+                                                       respect_handler_level=True)
+        self._start_lock = make_lock("TpflLogger._start_lock")
+        self._started = False  # guarded-by: _start_lock (written)
+        atexit.register(self.stop)
+
+    def enqueue(self, record: logging.LogRecord) -> None:
+        if not self._started:
+            with self._start_lock:
+                if not self._started:
+                    self.listener.start()
+                    self._started = True
+        super().enqueue(record)
+
+    def stop(self) -> None:
+        """Drain the queue and join the listener, if it runs."""
+        with self._start_lock:
+            if self._started:
+                self.listener.stop()
+                self._started = False
+
+
 class TpflLogger:
     """Python logging + node registry + metric stores."""
 
     def __init__(self) -> None:
         self._logger = logging.getLogger("tpfl_torch")
         self._logger.propagate = False
-        self._logger.setLevel(LOG_LEVEL)
+        self._logger.setLevel(getattr(logging, Settings.LOG_LEVEL, logging.INFO))
         if not self._logger.handlers:
             handler = logging.StreamHandler()
             handler.setFormatter(logging.Formatter("[ %(asctime)s | %(levelname)s ] "
                                                    "(%(node)s) %(message)s", "%H:%M:%S"))
             self._logger.addHandler(handler)
+            self._logger.addHandler(_LazyFileHandler())
+        if Settings.ASYNC_LOGGER and not any(isinstance(h, _LazyQueueHandler)
+                                             for h in self._logger.handlers):
+            handlers = list(self._logger.handlers)
+            for h in handlers:
+                self._logger.removeHandler(h)
+            self._logger.addHandler(_LazyQueueHandler(handlers))
         self.metrics = MetricsRegistry()
+        self.local_metrics = LocalMetricStorage()
+        self.global_metrics = GlobalMetricStorage()
+        # Per-(node, neighbor) send health, fed by the circuit breaker
+        # (communication.resilience) and mirrored into ``metrics``.
+        self.transport_metrics = TransportMetricStorage(self.metrics)
         self._lock = make_lock("TpflLogger._lock")
         # guarded-by: _lock — addr -> {"simulation": bool, "experiment": ...}
         self._nodes: dict[str, dict[str, Any]] = {}
-        # guarded-by: _lock — exp -> round -> metric -> node -> value
-        self._global: dict = {}
-        # guarded-by: _lock — exp -> round -> metric -> node -> [(step, value)]
-        self._local: dict = {}
 
     # --- levels / log methods ---
 
@@ -128,6 +230,12 @@ class TpflLogger:
     def error(self, node: str, message: str) -> None:
         self.log(logging.ERROR, node, message)
 
+    def cleanup(self) -> None:
+        """Drain and stop the async listener, if one runs."""
+        for h in self._logger.handlers:
+            if isinstance(h, _LazyQueueHandler):
+                h.stop()
+
     # --- node registry ---
 
     def register_node(self, node: str, simulation: bool = False) -> None:
@@ -150,40 +258,50 @@ class TpflLogger:
         ``round``) to a node: its learner's metrics are then logged."""
         with self._lock:
             self._nodes.setdefault(node, {"simulation": False})["experiment"] = experiment
+        self.info(node, f"Experiment '{getattr(experiment, 'exp_name', '?')}' started")
+
+    def experiment_finished(self, node: str) -> None:
+        self.info(node, "Experiment finished")
+
+    def round_finished(self, node: str) -> None:
+        self.debug(node, "Round finished")
 
     # --- metrics ---
 
+    def resolve_experiment(self, addr: str, round: Optional[int]) -> tuple[str, Optional[int]]:
+        """(exp_name, round) for a node, filling round from its running
+        experiment when not given."""
+        with self._lock:
+            info = self._nodes.get(addr)
+        exp_name = "unknown-exp"
+        if info is not None and info.get("experiment") is not None:
+            exp = info["experiment"]
+            exp_name = exp.exp_name
+            if round is None:
+                round = exp.round
+        return exp_name, round
+
     def log_metric(self, addr: str, metric: str, value: float, step: Optional[int] = None,
                    round: Optional[int] = None) -> None:
-        with self._lock:
-            info = self._nodes.get(addr) or {}
-            exp = info.get("experiment")
-            exp_name = getattr(exp, "exp_name", "unknown-exp") if exp is not None else \
-                "unknown-exp"
-            if round is None and exp is not None:
-                round = exp.round
-            if round is None:
-                raise ValueError(f"No round info for node {addr}; pass round=")
-            store = self._global if step is None else self._local
-            series = store.setdefault(exp_name, {}).setdefault(round, {}).setdefault(metric, {})
-            if step is None:
-                series[addr] = value
-            else:
-                series.setdefault(addr, []).append((step, value))
-
-    def get_global_logs(self) -> dict:
-        with self._lock:
-            return _copy(self._global)
+        exp_name, round = self.resolve_experiment(addr, round)
+        if round is None:
+            raise ValueError(f"No round info for node {addr}; pass round=")
+        if step is None:
+            self.global_metrics.add_log(exp_name, round, metric, addr, value)
+        else:
+            self.local_metrics.add_log(exp_name, round, metric, addr, value, step)
 
     def get_local_logs(self) -> dict:
-        with self._lock:
-            return _copy(self._local)
+        """exp -> round -> node -> metric -> [(step, value)], a copy."""
+        return self.local_metrics.get_all_logs()
 
+    def get_global_logs(self) -> dict:
+        """exp -> node -> metric -> [(round, value)], a copy."""
+        return self.global_metrics.get_all_logs()
 
-def _copy(tree: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _copy(v) for k, v in tree.items()}
-    return list(tree) if isinstance(tree, list) else tree
+    def get_transport_logs(self) -> dict:
+        """node -> neighbor -> send-health counters, a copy."""
+        return self.transport_metrics.get_all_logs()
 
 
 logger = TpflLogger()

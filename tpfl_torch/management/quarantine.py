@@ -26,7 +26,7 @@ the ledger's deduped :meth:`detections` view: the byte-stable receipt.
 
 ``tpfl_quarantine_*`` series go to the port's ``logger.metrics``; the
 flight-recorder ``quarantine`` / ``readmit`` events wait for
-``telemetry.py`` (``ROADMAP.md`` §1 item 7).
+``telemetry.py`` (``ROADMAP.md`` §1 item 2).
 """
 
 from __future__ import annotations

@@ -35,6 +35,19 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, took_wgmma: int) -> None:
+    """Count one kernel launch on a wrapper's ``launches`` and, when the
+    launcher took the Hopper (wgmma) kernel, ``wgmma_launches``; exact
+    under launches from several threads at once (every node of an
+    in-process federation fits on its own thread)."""
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.wgmma_launches += took_wgmma
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -24,7 +24,8 @@ a CUDA tensor it launches the kernel or raises. ``conv_dw.launches`` /
 ``conv_dx.launches`` count kernel launches; ``conv_dw.wgmma_launches``
 and ``conv_dx.wgmma_launches`` count those of them that took the Hopper
 (wgmma + TMA) kernel, which the launcher picks by shape and reports
-after the launch.
+after the launch. The counts are exact under launches from several
+threads at once (``_build.count_launch``).
 
 Restrictions (asserted, as in the reference): odd square kernels,
 stride 1, SAME padding.
@@ -37,6 +38,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from tpfl_torch.parallel._build import count_launch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -154,14 +157,14 @@ def conv_dw(x: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
                if partials else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     took_wgmma = ctypes.c_int(0)
-    err = lib.tpfl_conv_dw(
-        x.data_ptr(), g.data_ptr(),
-        None if partial is None else partial.data_ptr(), out.data_ptr(),
-        n, b, h, w, cin, cout, k, partials, code, stream, ctypes.byref(took_wgmma),
-    )
+    with torch.cuda.device(x.device):
+        err = lib.tpfl_conv_dw(
+            x.data_ptr(), g.data_ptr(),
+            None if partial is None else partial.data_ptr(), out.data_ptr(),
+            n, b, h, w, cin, cout, k, partials, code, stream, ctypes.byref(took_wgmma),
+        )
     _raise_on(err, "conv_dw")
-    conv_dw.launches += 1
-    conv_dw.wgmma_launches += took_wgmma.value
+    count_launch(conv_dw, took_wgmma.value)
     return out
 
 
@@ -181,11 +184,11 @@ def conv_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     stream = torch.cuda.current_stream(g.device).cuda_stream
     # The launcher picks the kernel by shape and says whether it took wgmma.
     took_wgmma = ctypes.c_int(0)
-    _raise_on(_lib().tpfl_conv_dx(g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, b, h, wd,
-                                  cin, cout, k, code, stream, ctypes.byref(took_wgmma)),
-              "conv_dx")
-    conv_dx.launches += 1
-    conv_dx.wgmma_launches += took_wgmma.value
+    with torch.cuda.device(g.device):
+        err = _lib().tpfl_conv_dx(g.data_ptr(), w.data_ptr(), dx.data_ptr(), n, b, h, wd,
+                                  cin, cout, k, code, stream, ctypes.byref(took_wgmma))
+    _raise_on(err, "conv_dx")
+    count_launch(conv_dx, took_wgmma.value)
     return dx
 
 

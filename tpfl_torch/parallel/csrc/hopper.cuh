@@ -295,6 +295,15 @@ inline bool make_bf16_map_nd(CUtensorMap* map, const void* base, int rank,
     return reinterpret_cast<Encode>(fn);
   }();
   if (encode == nullptr || rank < 1 || rank > 5) return false;
+  // The encoder is a driver call and needs the device's context current on
+  // this host thread, which the runtime binds lazily, at the thread's first
+  // runtime call that needs one. A thread whose first CUDA work is a launch
+  // through here (an in-process federation fits each node on a thread of
+  // its own) has none yet: cudaSetDevice binds the primary context. The
+  // wrappers make the tensors' device current (torch.cuda.device), so
+  // cudaGetDevice names that device and not the thread's default.
+  int dev;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return false;
   cuuint64_t strides[4];
   cuuint64_t stride = 2;
   for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];

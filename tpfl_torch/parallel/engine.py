@@ -34,9 +34,9 @@ The three algorithms and three kinds of the reference (``_kind``,
 
 ``run_rounds`` is a Python loop over rounds where the reference has a
 device-side ``fori_loop``. Meshes and FedBuff schedules are not ported
-yet and raise ``NotImplementedError``; nor is the
-in-program telemetry carry (the port's Settings has no
-``ENGINE_TELEMETRY`` knob to ask for it).
+yet and raise ``NotImplementedError``, as do the in-program telemetry
+carry and the other switches of ``settings.UNPORTED_SWITCHES`` at
+construction.
 """
 
 from __future__ import annotations
@@ -113,6 +113,7 @@ class FederationEngine:
             )
         if mesh is not None:
             raise _not_ported("a device mesh")
+        Settings.refuse_unported("engine")
         self.device = resolve_device(device)
         self.module = module
         self.n_nodes = int(n_nodes)

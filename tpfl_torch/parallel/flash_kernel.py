@@ -19,7 +19,8 @@ the CPU, and only then: on a CUDA tensor it launches the kernel or
 raises. ``flash_fwd.launches`` etc. count kernel launches;
 ``flash_fwd.wgmma_launches`` etc. count those of them that took the
 Hopper (wgmma + TMA) kernel, which the launcher picks by dtype and shape
-and reports after the launch. The plain versions loop over tiles of
+and reports after the launch; the counts are exact under launches from
+several threads at once (``_build.count_launch``). The plain versions loop over tiles of
 keys (forward) or blocks of rows (backward), so no ``S × S`` tensor is
 formed.
 
@@ -41,6 +42,8 @@ import math
 from typing import Optional
 
 import torch
+
+from tpfl_torch.parallel._build import count_launch
 
 NEG_INF = -1e30  # flash_kernel.py:35
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -227,12 +230,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     o = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
     lse = torch.empty((bh, s), device=q.device, dtype=torch.float32)
     took_wgmma = ctypes.c_int(0)
-    err = _lib().tpfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                lse.data_ptr(), bh, s, d, int(causal), _scale(d), code,
-                                out_code, _stream(q), ctypes.byref(took_wgmma))
+    with torch.cuda.device(q.device):
+        err = _lib().tpfl_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                    lse.data_ptr(), bh, s, d, int(causal), _scale(d), code,
+                                    out_code, _stream(q), ctypes.byref(took_wgmma))
     _raise_on(err, "flash_fwd")
-    flash_fwd.launches += 1
-    flash_fwd.wgmma_launches += took_wgmma.value
+    count_launch(flash_fwd, took_wgmma.value)
     return o, lse
 
 
@@ -247,13 +250,13 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool,
     bh, s, d = q.shape
     dq = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
     took_wgmma = ctypes.c_int(0)
-    err = _lib().tpfl_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                               lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
-                               int(causal), _scale(d), code, out_code, _stream(q),
-                               ctypes.byref(took_wgmma))
+    with torch.cuda.device(q.device):
+        err = _lib().tpfl_flash_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, d,
+                                   int(causal), _scale(d), code, out_code, _stream(q),
+                                   ctypes.byref(took_wgmma))
     _raise_on(err, "flash_dq")
-    flash_dq.launches += 1
-    flash_dq.wgmma_launches += took_wgmma.value
+    count_launch(flash_dq, took_wgmma.value)
     return dq
 
 
@@ -268,13 +271,13 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool,
     dk = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
     dv = torch.empty((bh, s, d), device=q.device, dtype=out_dtype)
     took_wgmma = ctypes.c_int(0)
-    err = _lib().tpfl_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                dv.data_ptr(), bh, s, d, int(causal), _scale(d), code,
-                                out_code, _stream(q), ctypes.byref(took_wgmma))
+    with torch.cuda.device(q.device):
+        err = _lib().tpfl_flash_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                    lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                    dv.data_ptr(), bh, s, d, int(causal), _scale(d), code,
+                                    out_code, _stream(q), ctypes.byref(took_wgmma))
     _raise_on(err, "flash_dkv")
-    flash_dkv.launches += 1
-    flash_dkv.wgmma_launches += took_wgmma.value
+    count_launch(flash_dkv, took_wgmma.value)
     return dk, dv
 
 

@@ -1,1 +1,21 @@
-"""Framework helpers of the port."""
+"""User-facing utilities — the port of :mod:`tpfl.utils`: topologies,
+convergence waits, model checks, and the tree and threefry helpers the
+port's modules share. The reference's mTLS certificate helpers serve its
+gRPC transport, which is not ported (``ROADMAP.md`` §1 item 8)."""
+
+from tpfl_torch.utils.topologies import TopologyFactory, TopologyType
+from tpfl_torch.utils.utils import (
+    check_equal_models,
+    full_connection,
+    wait_convergence,
+    wait_to_finish,
+)
+
+__all__ = [
+    "TopologyFactory",
+    "TopologyType",
+    "wait_convergence",
+    "wait_to_finish",
+    "full_connection",
+    "check_equal_models",
+]
