@@ -1,5 +1,5 @@
-"""Alternating A/B of the protocol round between two checkouts of this repo
-on one card.
+"""Alternating A/B of the protocol and Byzantine rounds between two
+checkouts of this repo on one card.
 
     python3 protocol_ab.py A_DIR B_DIR [--pairs 10] [--rounds 5]
 
@@ -8,12 +8,16 @@ Each trial is a fresh process that imports ``chip_smoke`` and
 round (``protocol_learners`` / ``protocol_round``: four CNN
 ``TorchLearner``s on the card, v3 wire, node 0 folds) for FedAvg and then
 FedProx: one warm-up round, then ``--rounds`` timed rounds, each checked
-as chip_smoke checks it. Trials run A, B, B, A, A, B, ... so neither arm
-always goes first; pair i is the i-th trial of each arm. Both checkouts'
-kernels are built before the first trial. Prints, per aggregator and arm,
-the median and quartiles of the trials' median round walls and fit
-times, and how many pairs B lost, as one JSON line after the card's name
-and power limit.
+as chip_smoke checks it. It then runs chip_smoke's Byzantine round
+(``byzantine_arm``: ten CNN learners, two sign flips and two noisy
+peers, v3 wire, node 0 folds) undefended and with ``QUARANTINE_ENABLED``
+and ``LEDGER_ENABLED``: a warm-up round and ``B_ROUNDS`` timed ones
+each, verdicts checked as chip_smoke checks them. Trials run A, B, B, A,
+A, B, ... so neither arm always goes first; pair i is the i-th trial of
+each arm. Both checkouts' kernels are built before the first trial.
+Prints, per round kind and arm, the median and quartiles of the trials'
+median round walls (and of the protocol round's fit times), and how many
+pairs B lost, as one JSON line after the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import subprocess
 import sys
 
 LABELS = ("fedavg", "fedprox")
+BYZANTINE_LABELS = ("fedavg", "fedavg+quarantine")
 
 
 def trial(tree: str, rounds: int) -> dict:
@@ -42,6 +47,14 @@ def trial(tree: str, rounds: int) -> dict:
                 walls.append(result["round_wall_ms"])
                 fits.extend(result["fit_ms"])
         out[label] = {"round_ms": statistics.median(walls), "fit_ms": statistics.median(fits)}
+    x, y, xt, yt = cs.synthetic_cifar10(n_train=cs.B_NODES * cs.B_TRAIN,
+                                        n_test=cs.B_NODES * cs.B_TEST, seed=cs.B_SEED)
+    parts = cs.TpflDataset.from_arrays(x, y, xt, yt).generate_partitions(
+        cs.B_NODES, cs.RandomIIDPartitionStrategy, seed=cs.B_SEED)
+    for label in BYZANTINE_LABELS:
+        _, make_agg, defend = next(a for a in cs.B_ARMS if a[0] == label)
+        arm = cs.byzantine_arm(label, make_agg, defend, parts)
+        out[f"byzantine {label}"] = {"round_ms": statistics.median(arm["round_ms_each"])}
     return out
 
 
@@ -81,11 +94,11 @@ def main(argv: list[str]) -> int:
         for tree in (first, second):
             runs[tree].append(run_child(tree, "--rounds", rounds))
     report = {"pairs": pairs, "timed_rounds_per_trial": int(rounds), "a": a, "b": b}
-    for label in LABELS:
+    for label in (*LABELS, *(f"byzantine {x}" for x in BYZANTINE_LABELS)):
         entry = {}
         for arm, tree in (("a", a), ("b", b)):
             entry[arm] = {key: quartiles([r[label][key] for r in runs[tree]])
-                          for key in ("round_ms", "fit_ms")}
+                          for key in ("round_ms", "fit_ms") if key in runs[tree][0][label]}
             entry[arm]["round_ms_trials"] = [r[label]["round_ms"] for r in runs[tree]]
         entry["b_slower_pairs"] = sum(rb[label]["round_ms"] > ra[label]["round_ms"]
                                       for ra, rb in zip(runs[a], runs[b]))

@@ -13,6 +13,8 @@ on the CPU.
   parts that need the node runtime raise ``NotImplementedError``.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -278,9 +280,23 @@ def test_planned_adversaries_fire_on_schedule():
 
 
 def test_node_runtime_parts_raise():
-    for call in (lambda: attacks.make_adversary(object(), sign_flip()),
-                 lambda: attacks.apply_chaos([]), lambda: attacks.apply_speed_plan([], None),
-                 lambda: attacks.run_seeded_experiment(1, 2, 1), attacks.adversary_map):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    """What of the node-runtime plane still raises: the harness without
+    data (its default, ``rendered_digits``, is item 8) and the speed
+    plan's async schedule (item 3). The rest of it works: make_adversary
+    wraps, apply_chaos with no plan changes nothing, unknown experiments
+    have no adversaries."""
+    for call, item in ((lambda: attacks.run_seeded_experiment(1, 2, 1, device="cpu"), "item 8"),
+                       (lambda: attacks.apply_speed_plan([], None), "item 3")):
+        snap = Settings.snapshot()
+        Settings.ASYNC_ROUNDS = True
+        try:
+            with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+                call()
+        finally:
+            Settings.restore(snap)
+    node = types.SimpleNamespace(addr="n", learner=object())
+    assert attacks.make_adversary(node, sign_flip()) is node
+    assert isinstance(node.learner, attacks.AdversarialLearner)
+    assert attacks.apply_chaos([]) == ({}, None)
+    assert attacks.adversary_map("no-such-experiment") == {}
     assert sorted(attacks.__all__) == sorted(__import__("tpfl.attacks").attacks.__all__)

@@ -18,7 +18,8 @@ from tpfl.learning.bufferpool import BufferPool as JaxBufferPool
 from tpfl_torch.concurrency import LockOrderError, TracedLock, lock_graph, make_lock
 from tpfl_torch.learning.bufferpool import BufferPool, default_pool
 from tpfl_torch.learning.aggregators import FedAvg
-from tpfl_torch.management.logger import MetricsRegistry, TpflLogger
+from tpfl_torch.management.logger import TpflLogger
+from tpfl_torch.management.telemetry import MetricsRegistry
 from tpfl_torch.settings import Settings
 
 
@@ -126,9 +127,10 @@ def test_metrics_registry_reads_back():
     reg.observe("h", 0.75, labels={"node": "a"})
     assert reg.value("c", {"node": "a"}) == 3.0 and reg.value("c", {"node": "b"}) == 0.0
     assert reg.value("g") == 3.5
-    assert reg.observed("h", {"node": "a"}) == (2, 1.0)
-    assert len(reg.snapshot()["counters"]) == 1
-    reg.clear()
+    hist = reg.fold()["histograms"][("h", (("node", "a"),))]
+    assert (hist[-1], hist[-2]) == (2, 1.0)  # count, sum
+    assert len(reg.fold()["counters"]) == 1
+    reg.reset()
     assert reg.value("c", {"node": "a"}) == 0.0
 
 

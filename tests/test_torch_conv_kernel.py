@@ -122,8 +122,8 @@ def test_wgmma_dx_edges_sit_on_the_kernels_rule():
     reach its edges: one pixel and the pixel cap (kDxWG · kDxTilesPerWG
     64-pixel tiles), Cin 8, a Cin that cuts a 32-channel tile, and
     kDxMaxCin; more images than the H100's 132 SMs, so a block walks
-    several, except in the learner's one-node shape (Conv_1 at N = 1,
-    B = 128), where each block takes one image or none."""
+    several, except in the learners' one-node shapes (Conv_1 at N = 1,
+    B = 128, 25 and 32), where each block takes one image or none."""
     src = (Path(ck.__file__).parent / "csrc" / "conv_bwd.cu").read_text()
     const = {}
     for name in ("kDxWG", "kDxTilesPerWG", "kDxMaxCin"):
@@ -135,7 +135,9 @@ def test_wgmma_dx_edges_sit_on_the_kernels_rule():
         assert cout % 64 == 0 and cin % 8 == 0 and 8 <= cin <= const["kDxMaxCin"]
         assert 1 <= h * w <= max_pixels and h + 2 <= 256 and w + 2 <= 256
         assert n * b > 132 or (cin, cout, (h, w), b, n) in ck.ONE_NODE_EDGES
-    assert ck.ONE_NODE_EDGES[1] in ck.WGMMA_DX_EDGES and ck.ONE_NODE_EDGES[1][3:] == (128, 1)
+    conv_1 = [case for case in ck.ONE_NODE_EDGES if case[:3] == (32, 64, (16, 16))]
+    assert [case[3:] for case in conv_1] == [(128, 1), (25, 1), (32, 1)]
+    assert all(case in ck.WGMMA_DX_EDGES for case in conv_1)
     pixels = {h * w for _, _, (h, w), _, _ in ck.WGMMA_DX_EDGES}
     cins = {cin for cin, *_ in ck.WGMMA_DX_EDGES}
     assert min(pixels) == 1 and max(pixels) == max_pixels
@@ -216,8 +218,8 @@ def test_wgmma_dw_edges_sit_on_the_kernels_rule():
     and 128, one pixel, odd sizes whose pixels pad to a k-step of 16, the
     largest images whose ring fits (two stages in the 4-D view, three in
     the 3-D one), more images than the H100's 132 SMs, so blocks cross
-    nodes, and the learner's one-node shapes (both CNN layers at N = 1,
-    B = 128: fewer images than SMs). The main-path shapes take it too,
+    nodes, and the learners' one-node shapes (both CNN layers at N = 1,
+    B = 128, 25 and 32: fewer images than SMs). The main-path shapes take it too,
     and larger images do not: at
     Cin 3, 32×40 would fit two stages but not the three its warpgroups
     own."""
@@ -229,7 +231,8 @@ def test_wgmma_dw_edges_sit_on_the_kernels_rule():
     for cin, cout, (h, w), b, n in ck.WGMMA_DW_EDGES:
         assert _dw_wgmma_stages(cin, cout, h, w, max_stages=max_stages) >= 2, (cin, cout, h, w)
         assert n * b > 132 or (cin, cout, (h, w), b, n) in ck.ONE_NODE_EDGES
-    assert all(case in ck.WGMMA_DW_EDGES and case[3:] == (128, 1) for case in ck.ONE_NODE_EDGES)
+    assert all(case in ck.WGMMA_DW_EDGES and case[4] == 1 for case in ck.ONE_NODE_EDGES)
+    assert sorted({case[3] for case in ck.ONE_NODE_EDGES}) == [25, 32, 128]
     assert _dw_wgmma_stages(3, 32, 32, 32) >= 2 and _dw_wgmma_stages(32, 64, 16, 16) >= 2
     assert not _dw_wgmma_stages(32, 64, 32, 32) and not _dw_wgmma_stages(3, 32, 64, 32)
     assert _dw_wgmma_stages(3, 32, 32, 32) == 3 and not _dw_wgmma_stages(3, 32, 32, 40)
@@ -239,7 +242,7 @@ def test_wgmma_dw_edges_sit_on_the_kernels_rule():
     assert {c for _, c, *_ in ck.WGMMA_DW_EDGES} == {32, 64, 128}
     pixels = {h * w for _, _, (h, w), _, _ in ck.WGMMA_DW_EDGES}
     assert min(pixels) == 1 and any(p % 16 for p in pixels)
-    assert {b for *_, b, _ in ck.WGMMA_DW_EDGES} == {1, 3, 128}
+    assert {b for *_, b, _ in ck.WGMMA_DW_EDGES} == {1, 3, 25, 32, 128}
 
 
 def test_input_grad_skipped_when_not_needed():

@@ -644,18 +644,21 @@ def test_encodes_of_card_tensors_equal_cpu_encodes(card, codec):
 
 
 @pytest.mark.cuda
-def test_learner_conv_launches_take_wgmma_at_one_node(card):
-    """The full-width bf16 CNN learner at N = 1, B = 128: each step's
-    two conv_dw and one conv_dx launches take the wgmma kernels."""
+@pytest.mark.parametrize("batch", ck.ONE_NODE_BATCHES)
+def test_learner_conv_launches_take_wgmma_at_one_node(card, batch):
+    """The full-width bf16 CNN learner at N = 1 and the batch sizes the
+    card's learners run (128, and the Byzantine and chaos federations'
+    25 and 32): each step's two conv_dw and one conv_dx launches take the
+    wgmma kernels."""
     data = _small_data(n_train=256, n_test=8, shape=(32, 32, 3))
     learner = _learner(card, data, dtype=torch.bfloat16, channels=(32, 64), dense=128,
                        shape=(32, 32, 3))
-    learner.batch_size = 128
+    learner.batch_size = batch
     before = {n: (getattr(ck, n).launches, getattr(ck, n).wgmma_launches)
               for n in ("conv_dw", "conv_dx")}
     learner.fit()
     torch.cuda.synchronize()
-    steps = 2
+    steps = 256 // batch
     for name, per_step in (("conv_dw", 2), ("conv_dx", 1)):
         fn = getattr(ck, name)
         launched = fn.launches - before[name][0]

@@ -192,6 +192,38 @@ def test_detections_scripted_rounds_two_observers():
     assert ledger.contrib.stats_for("obs-a") == jledger.contrib.stats_for("obs-a")
 
 
+@pytest.mark.parametrize("first", ["obs-a", "obs-b"])
+def test_score_now_window_is_the_first_observers_ring(first):
+    """``score_now``'s norm window is the observer's own ring, as in the
+    reference, and the verdict is cached for every later observer. Round
+    0: obs-a scores five honest singles, obs-b none. Round 1: a noisy
+    single is flagged against obs-a's round-0 entries when obs-a scores
+    it first, and not when obs-b (no prior entry) does; the second
+    observer gets the first one's verdict. Both packages agree."""
+    _set_both(LEDGER_ENABLED=True, QUARANTINE_ENABLED=True)
+    ref = _ref(2)
+    for mod in (ledger, jledger):
+        mod.contrib.open_round("obs-a", 0, ref)
+        mod.contrib.open_round("obs-b", 0, ref)
+    for i in range(5):
+        jm, tm = _pair(_honest(ref, i), f"h{i}")
+        jledger.contrib.score_now("obs-a", jm)
+        ledger.contrib.score_now("obs-a", tm)
+    for mod in (ledger, jledger):
+        for obs in ("obs-a", "obs-b"):
+            mod.contrib.close_round(obs)
+            mod.contrib.open_round(obs, 1, ref)
+    jm, tm = _pair(_noise(ref, 77, std=0.2), "noise")
+    got = ledger.contrib.score_now(first, tm)
+    want = jledger.contrib.score_now(first, jm)
+    _assert_entry(got, want)
+    assert got["flagged"] == (first == "obs-a")
+    other = "obs-b" if first == "obs-a" else "obs-a"
+    again = ledger.contrib.score_now(other, tm)
+    _assert_entry(again, jledger.contrib.score_now(other, jm))
+    assert again["flagged"] == got["flagged"]
+
+
 def test_partial_ring_and_round_lifecycle():
     _set_both(LEDGER_ENABLED=True, LEDGER_RING=8)
     ref = _ref()

@@ -11,6 +11,9 @@ paths beyond the plain synchronous round, on the CPU:
 - ``stop_learning`` mid-experiment, a node that crashes mid-learning
   (no disconnect: the heartbeat timeout drops it and the survivors
   finish every round), the lifecycle errors;
+- the planes node runtime B opened: tracing on (spans in the flight
+  ring, a node starting and stopping with it on, a stop dump), the
+  fault names of ``tpfl_torch.communication``;
 - the refusals: each unported plane raises ``NotImplementedError``
   naming its ``ROADMAP.md`` item; each switch of
   ``settings.UNPORTED_SWITCHES`` is refused where a Node or an engine
@@ -20,6 +23,7 @@ paths beyond the plain synchronous round, on the CPU:
 import hashlib
 import importlib.util
 import inspect
+import json
 import threading
 import time
 import uuid
@@ -42,6 +46,9 @@ from tpfl.utils import TopologyFactory as JaxTopologyFactory
 from tpfl.utils import TopologyType as JaxTopologyType
 from tpfl.utils import wait_convergence as jax_wait_convergence
 from tpfl.utils import wait_to_finish as jax_wait_to_finish
+from tpfl_torch.attacks import apply_speed_plan, run_seeded_experiment
+from tpfl_torch.communication import faults
+from tpfl_torch.communication.faults import AsyncSchedule, TrainerSpeedPlan
 from tpfl_torch.communication.memory import clear_registry
 from tpfl_torch.exceptions import LearnerRunningException, NodeRunningException, ZeroRoundsException
 from tpfl_torch.interop import model_state_from_jax
@@ -50,6 +57,7 @@ from tpfl_torch.learning.dataset.synthetic import synthetic_mnist
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.management import profiling, tracing
 from tpfl_torch.management.logger import logger
+from tpfl_torch.management.telemetry import flight
 from tpfl_torch.models import CNN, MLP
 from tpfl_torch.node import Node
 from tpfl_torch.parallel.engine import FederationEngine
@@ -317,7 +325,7 @@ def test_node_lifecycle_errors():
     node.start()
     try:
         # The buffer pool publishes through a pull-style collector.
-        gauges = logger.metrics.snapshot()["gauges"]
+        gauges = logger.metrics.fold()["gauges"]
         assert ("tpfl_bufferpool_hits", (("node", "life-0"),)) in gauges
         with pytest.raises(NodeRunningException):
             node.start()
@@ -365,16 +373,18 @@ REFUSALS = {
                         lambda: _node("ref-sim")),
     "async rounds": ("item 3", lambda: setattr(Settings, "ASYNC_ROUNDS", True),
                      lambda: _node("ref-async").start()),
-    "telemetry": ("item 2", lambda: setattr(Settings, "TELEMETRY_ENABLED", True),
-                  lambda: tracing.maybe_span("stage:x", "n")),
-    "telemetry at start": ("item 2", lambda: setattr(Settings, "TELEMETRY_ENABLED", True),
-                           lambda: _node("ref-tel").start()),
     "residual gossip": ("item 2", lambda: None, lambda: _start_learning_with(
         "ref-delta", "WIRE_DELTA")),
     "async rounds at learning": ("item 3", lambda: None, lambda: _start_learning_with(
         "ref-async2", "ASYNC_ROUNDS")),
-    "faults": ("item 2", lambda: None, lambda: communication.FaultInjector),
-    "fault plan": ("item 2", lambda: None, lambda: communication.FaultPlan),
+    "async schedule": ("item 3", lambda: None,
+                       lambda: AsyncSchedule.for_plan(TrainerSpeedPlan({"a": 0.1}))),
+    "speed plan under async rounds": ("item 3", lambda: setattr(Settings, "ASYNC_ROUNDS", True),
+                                      lambda: apply_speed_plan([], TrainerSpeedPlan({}))),
+    "telemetry dump dir at the engine": ("item 4", lambda: setattr(
+        Settings, "TELEMETRY_DUMP_DIR", "armed-dir"), lambda: _engine()),
+    "harness default data": ("item 8", lambda: None, lambda: run_seeded_experiment(
+        1, 2, 1, device="cpu")),
     "save checkpoint": ("item 4", lambda: None, lambda: _node("ref-ck").save_checkpoint("d")),
     "load checkpoint": ("item 4", lambda: None, lambda: _node("ref-lk").load_checkpoint("d")),
     "grpc": ("item 8", lambda: None, lambda: communication.GrpcCommunicationProtocol),
@@ -453,7 +463,6 @@ def _simulation_refused():
 GATES = {
     "Settings.DISABLE_SIMULATION": _simulation_refused,
     "Settings.ASYNC_ROUNDS": lambda: "node" in UNPORTED_SWITCHES["ASYNC_ROUNDS"][2],
-    "Settings.TELEMETRY_ENABLED": lambda: "node" in UNPORTED_SWITCHES["TELEMETRY_ENABLED"][2],
     "communication.GrpcCommunicationProtocol": _raises(
         lambda: communication.GrpcCommunicationProtocol),
     "parallel.FederationEngine(mesh=)": _raises(lambda: FederationEngine(
@@ -485,10 +494,57 @@ def test_every_unported_knob_gate_has_a_check():
 
 
 def test_tracing_gate_is_a_no_op_while_off():
+    """Off (the default), spans and events record nothing; ids still
+    mint (the reference's ``mint`` is not gated) and an unparsable
+    payload peeks empty."""
     assert not Settings.TELEMETRY_ENABLED
-    with tracing.maybe_span("encode", "n", trace="", byref=False) as span:
+    flight.clear("gate-off")
+    with tracing.maybe_span("encode", "gate-off", trace="", byref=False) as span:
         span.set(bytes=3)
-    tracing.event("retry", "n", peer="p")
-    assert tracing.mint("n") == "" and tracing.payload_trace_id(b"x") == ""
+    tracing.event("retry", "gate-off", peer="p")
+    assert flight.snapshot("gate-off") == []
+    assert len(tracing.mint("gate-off")) == 32 and tracing.payload_trace_id(b"x") == ""
     with pytest.raises(AttributeError):
         communication.NoSuchThing  # noqa: B018
+
+
+def test_telemetry_on_records_spans_and_events():
+    """Replaces the "telemetry" refusal case: with the knob on, a span and
+    an event land in the node's flight ring."""
+    Settings.TELEMETRY_ENABLED = True
+    flight.clear("tel-on")
+    with tracing.maybe_span("stage:x", "tel-on", trace="t1") as span:
+        span.set(bytes=3)
+    tracing.event("retry", "tel-on", peer="p")
+    got = flight.snapshot("tel-on")
+    assert [(e["kind"], e["name"]) for e in got] == [("span", "stage:x"), ("event", "retry")]
+    assert got[0]["trace"] == "t1" and got[0]["bytes"] == 3 and got[0]["t1"] >= got[0]["t0"]
+    flight.clear("tel-on")
+
+
+def test_node_starts_and_stops_with_telemetry_on(tmp_path):
+    """Replaces the "telemetry at start" refusal case: a Node starts with
+    the knob on, and its stop dumps its flight ring to the dump
+    directory as the document ``tools/traceview.py`` reads."""
+    Settings.TELEMETRY_ENABLED = True
+    Settings.TELEMETRY_DUMP_DIR = str(tmp_path)
+    node = Node(port_mlp(), synthetic_mnist(n_train=32, n_test=8, seed=0), addr="tel-start",
+                device="cpu")
+    node.start()
+    tracing.event("probe", node.addr)
+    node.stop()
+    doc = json.loads((tmp_path / "flight-tel-start-stop.json").read_text())
+    assert sorted(doc) == ["events", "node", "reason", "wall_anchor"]
+    assert doc["node"] == "tel-start" and doc["events"][-1]["name"] == "probe"
+    flight.clear("tel-start")
+
+
+@pytest.mark.parametrize("name", ["FaultInjector", "FaultPlan"])
+def test_fault_names_are_exported(name):
+    """Replaces the "faults" / "fault plan" refusal cases: the names are
+    the fault module's classes, and an injector attaches to a protocol."""
+    cls = getattr(communication, name)
+    assert cls is getattr(faults, name)
+    plan = communication.FaultPlan.from_dict({"links": {"*->*": {"drop": 0.5}}})
+    proto = communication.InMemoryCommunicationProtocol("fault-names")
+    assert communication.FaultInjector(plan, seed=1).attach(proto)._fault_injector is not None

@@ -302,3 +302,39 @@ def test_state_export_import_round_trip():
     assert fresh.state_export() == snap
     fresh.reset()
     assert fresh.quarantined() == set() and fresh.actions() == []
+
+
+def test_engine_state_is_what_that_engine_saw():
+    """An engine's state moves only on the contributions it assessed, as
+    in the reference: a second observer that never scored a peer's
+    flagged singles (it took them inside partial aggregates) admits the
+    peer's first clean single, while the observer that saw them holds it
+    on probation. Both packages give the same verdicts."""
+    Settings.QUARANTINE_ENABLED = JaxSettings.QUARANTINE_ENABLED = True
+    Settings.LEDGER_ENABLED = JaxSettings.LEDGER_ENABLED = True
+    verdicts = {}
+    for jax_side in (True, False):
+        side = Side(jax_side, eager=False)
+        late = side.q.QuarantineEngine("late")
+        ref = {"w": np.ones((3, 3), np.float32), "b": np.ones((3,), np.float32)}
+        if jax_side:
+            ref = {k: jnp.asarray(v) for k, v in ref.items()}
+        for rnd in range(3):
+            for node in ("obs", "late"):
+                side.ledger.contrib.open_round(node, rnd, ref)
+            if rnd < 2:  # "obs" alone scores the peer's sign-flipped singles
+                assert side.eng.assess(side.model(-1.0, 10, ["evil"]), ["evil"])["exclude"]
+            for node in ("obs", "late"):
+                side.ledger.contrib.close_round(node)
+        for node in ("obs", "late"):
+            side.ledger.contrib.open_round(node, 3, ref)
+        clean = side.model(1.01, 10, ["evil"])
+        verdicts["jax" if jax_side else "port"] = (
+            side.eng.assess(clean, ["evil"]), late.assess(clean, ["evil"]), late.quarantined())
+        for mod in (ledger, jledger):
+            mod.contrib.reset()
+    assert verdicts["port"] == verdicts["jax"]
+    obs, late_verdict, late_set = verdicts["port"]
+    assert obs == {"exclude": True, "recorded": True, "reasons": ["probation"]}
+    assert late_verdict == {"exclude": False, "recorded": True, "reasons": []}
+    assert late_set == set()

@@ -8,10 +8,8 @@ std)`` noise drawn from the port's copy of ``jax.random``
 reference's is, so the same seed poisons with the same bits up to the
 normals' last roundings. :func:`poison_model` is the one-shot
 corruption; :class:`AdversarialLearner` a persistent adversary that
-poisons every fit of the learner it wraps.
-
-:func:`make_adversary` wraps a node's learner; the node runtime is not
-ported, so it raises ``NotImplementedError`` naming its ROADMAP item.
+poisons every fit of the learner it wraps; :func:`make_adversary` turns
+a (not yet started) ``Node`` into one.
 """
 
 from __future__ import annotations
@@ -27,13 +25,6 @@ from tpfl_torch.utils import threefry
 from tpfl_torch.utils.tree import canonical_leaves, canonical_map, canonical_unflatten
 
 AttackFn = Callable[[Any], Any]  # tree -> tree
-
-NODE_ITEM = "ROADMAP.md §1 item 2, node runtime B: chaos and the seeded-experiment harness"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"tpfl_torch attacks: {what} is not ported yet ({NODE_ITEM})")
-
 
 def add_noise(params: Any, base: tuple[int, int], std: float) -> Any:
     """Each leaf ``i`` (JAX's pytree order) plus ``std · normal(fold_in(
@@ -163,8 +154,10 @@ class AdversarialLearner(Learner):
 
 
 def make_adversary(node: Any, attack: AttackFn, once: bool = False) -> Any:
-    """Wrap a node's learner — needs the node runtime."""
-    raise not_ported("make_adversary (a Node)")
+    """Turn a (not-yet-started) Node into an adversary by wrapping its
+    learner. Returns the node for chaining."""
+    node.learner = AdversarialLearner(node.learner, attack, once=once)
+    return node
 
 
 __all__ = ["AdversarialLearner", "AttackFn", "additive_noise", "make_adversary",

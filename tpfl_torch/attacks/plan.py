@@ -24,9 +24,10 @@ list at :func:`apply_attack_plan` time. A "node" here is anything with
 ``addr`` and ``learner`` attributes. The async replay modes
 (``stale_flood`` / ``withhold_replay``) parse and cache their first
 contribution (:meth:`PlannedAdversary.shape_contribution`) as the
-reference's do. :func:`apply_speed_plan` and :func:`apply_chaos` need the
-fault plans of the node runtime's ``communication/faults.py`` and raise
-``NotImplementedError`` naming its ROADMAP item.
+reference's do. :func:`apply_speed_plan` wraps a
+:class:`~tpfl_torch.communication.faults.TrainerSpeedPlan`'s slow
+trainers in :class:`SlowLearner`, and :func:`apply_chaos` wires an
+attack plan, a fault plan and a speed plan into one federation.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import Any, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from tpfl_torch.attacks.attacks import AdversarialLearner, add_noise, not_ported
+from tpfl_torch.attacks.attacks import AdversarialLearner, add_noise
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils import threefry
 from tpfl_torch.utils.tree import canonical_map
@@ -280,17 +281,50 @@ class SlowLearner(AdversarialLearner):
 
 
 def apply_speed_plan(nodes: "list[Any]", plan: Any) -> None:
-    """Wire a ``TrainerSpeedPlan`` into a federation — needs
-    ``communication/faults.py``."""
-    raise not_ported("apply_speed_plan (communication/faults.py)")
+    """Wire a :class:`tpfl_torch.communication.faults.TrainerSpeedPlan`
+    into a federation (nodes must not be started yet): every planned
+    node's learner is wrapped in a :class:`SlowLearner`. Under
+    ``Settings.ASYNC_ROUNDS`` the reference also gives every aggregator a
+    fork of the plan-seeded ``AsyncSchedule`` (its serialized
+    discipline); that raises ``NotImplementedError`` naming
+    ``ROADMAP.md`` §1 item 3."""
+    from tpfl_torch.communication.faults import AsyncSchedule
+
+    if Settings.ASYNC_ROUNDS:
+        AsyncSchedule.for_plan(plan)
+    for node in nodes:
+        delay = plan.delay_for(node.addr)
+        if delay > 0:
+            node.learner = SlowLearner(node.learner, delay)
 
 
-def apply_chaos(nodes: "list[Any]", attack_plan: Optional[AttackPlan] = None,
-                fault_plan: Optional[Any] = None, speed_plan: Optional[Any] = None,
-                seed: Optional[int] = None) -> "tuple[dict[str, str], Any]":
-    """One chaos spec (attack + fault + speed plans) — needs
-    ``communication/faults.py``."""
-    raise not_ported("apply_chaos (communication/faults.py)")
+def apply_chaos(
+    nodes: "list[Any]",
+    attack_plan: Optional[AttackPlan] = None,
+    fault_plan: Optional[Any] = None,
+    speed_plan: Optional[Any] = None,
+    seed: Optional[int] = None,
+) -> "tuple[dict[str, str], Any]":
+    """One chaos spec for one federation: malicious peers (attack
+    plan), drops/crashes/partitions (fault plan), and skewed trainer
+    speeds (speed plan) in one wiring call, before the nodes start.
+    Returns ``(adversary_map, fault_injector)`` — the injector (or None)
+    is attached to every node's protocol and its schedule clock started.
+    """
+    truth: dict[str, str] = {}
+    if attack_plan is not None:
+        truth = apply_attack_plan(nodes, attack_plan)
+    if speed_plan is not None:
+        apply_speed_plan(nodes, speed_plan)
+    injector = None
+    if fault_plan is not None:
+        from tpfl_torch.communication.faults import FaultInjector
+
+        injector = FaultInjector(fault_plan, seed=seed)
+        for node in nodes:
+            injector.attach(node.communication)
+        injector.start()
+    return truth, injector
 
 
 __all__ = ["ATTACKS", "AttackPlan", "AttackSpec", "MODES", "PlannedAdversary",

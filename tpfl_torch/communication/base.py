@@ -1,6 +1,6 @@
-"""Shared transport machinery — a copy of :mod:`tpfl.communication.base`
-without the chaos hooks (``communication/faults.py`` is not ported:
-``ROADMAP.md`` §1 item 2).
+"""Shared transport machinery — a copy of :mod:`tpfl.communication.base`,
+with its chaos hooks (``_fault_injector``, ``_dispatch_send``,
+``_transport_send_corrupted``; see :mod:`tpfl_torch.communication.faults`).
 
 The reference's in-memory protocol is an admitted copy-paste of its gRPC
 twin (``memory_communication_protocol.py:35-37``). Here the common 90% —
@@ -25,7 +25,11 @@ from tpfl_torch.communication.message import Message
 from tpfl_torch.communication.neighbors import Neighbors
 from tpfl_torch.communication.protocol import CommandHandler, CommunicationProtocol
 from tpfl_torch.communication.resilience import CircuitBreaker, backoff_delay
-from tpfl_torch.exceptions import CommunicationError, NeighborNotConnectedError
+from tpfl_torch.exceptions import (
+    ChunkIntegrityError,
+    CommunicationError,
+    NeighborNotConnectedError,
+)
 from tpfl_torch.management import tracing
 from tpfl_torch.management.logger import logger
 from tpfl_torch.settings import Settings
@@ -55,12 +59,14 @@ class ThreadedCommunicationProtocol(CommunicationProtocol):
             disconnect_fn=self._send_disconnect,
             close_fn=self._close_conn,
         )
-        # Send-health: retry jitter RNG (seeded per node) and the
-        # per-neighbor circuit breaker.
+        # Send-health: retry jitter RNG (seeded per node), per-neighbor
+        # circuit breaker, and an optional chaos-test fault injector
+        # (None in production — see communication.faults).
         self._breaker = CircuitBreaker(addr)
         self._retry_rng = random.Random(
             (Settings.SEED or 0) ^ zlib.crc32(addr.encode())
         )
+        self._fault_injector: Any = None
         self._gossiper = Gossiper(
             addr,
             self._gossip_send,
@@ -92,6 +98,17 @@ class ThreadedCommunicationProtocol(CommunicationProtocol):
     @abstractmethod
     def _transport_send(self, addr: str, conn: Any, msg: Message) -> None:
         """Push one message down an open connection."""
+
+    def _transport_send_corrupted(self, addr: str, conn: Any, msg: Message) -> None:
+        """Fault-injection hook: deliver a deliberately corrupted copy
+        of ``msg`` and raise when the receiver's integrity check rejects
+        it (the expected outcome). Transports with a real wire override
+        this to exercise their actual checks; this default simulates the
+        rejection for wire-less transports (in-memory passes objects by
+        reference, so there are no bytes to flip)."""
+        raise ChunkIntegrityError(
+            f"fault-injected corruption to {addr} rejected (simulated)"
+        )
 
     def _close_conn(self, conn: Any) -> None:
         """Release a transport connection (default: nothing)."""
@@ -330,7 +347,7 @@ class ThreadedCommunicationProtocol(CommunicationProtocol):
                 self._close_conn(conn)
 
     def _send_with_retry(self, nei: str, conn: Any, msg: Message) -> int:
-        """Run ``_transport_send`` with exponential backoff + jitter
+        """Run ``_dispatch_send`` with exponential backoff + jitter
         (Settings.RETRY_*). Returns the attempts used; re-raises the
         last error once the budget is exhausted. Retried deliveries are
         safe: control messages dedup by hash at the receiver, weight
@@ -338,7 +355,7 @@ class ThreadedCommunicationProtocol(CommunicationProtocol):
         attempts = max(1, int(Settings.RETRY_MAX_ATTEMPTS))
         for attempt in range(attempts):
             try:
-                self._transport_send(nei, conn, msg)
+                self._dispatch_send(nei, conn, msg)
                 return attempt + 1
             except Exception as e:
                 if attempt + 1 >= attempts:
@@ -355,6 +372,34 @@ class ThreadedCommunicationProtocol(CommunicationProtocol):
                 )
                 time.sleep(delay)
         return attempts  # unreachable; keeps type-checkers honest
+
+    def _dispatch_send(self, nei: str, conn: Any, msg: Message) -> None:
+        """One transport attempt, routed through the fault injector when
+        one is attached (chaos tests/bench; None in production)."""
+        fi = self._fault_injector
+        if fi is None:
+            self._transport_send(nei, conn, msg)
+            return
+        decision = fi.decide(self._addr, nei)
+        if decision.action == "block":
+            raise CommunicationError(f"fault: link {self._addr}->{nei} is down")
+        if decision.action == "drop":
+            raise CommunicationError(f"fault: dropped {self._addr}->{nei}")
+        if decision.action == "corrupt":
+            try:
+                self._transport_send_corrupted(nei, conn, msg)
+            except Exception:
+                fi.count(self._addr, nei, "corrupt_rejected")
+                raise
+            # The receiver ACCEPTED corrupted bytes — an integrity hole
+            # the chaos tests assert never happens.
+            fi.count(self._addr, nei, "corrupt_accepted")
+            return
+        if decision.delay > 0:
+            time.sleep(decision.delay)
+        for _ in range(decision.copies):
+            self._transport_send(nei, conn, msg)
+        fi.count(self._addr, nei, "delivered", decision.copies)
 
     def broadcast(self, msg: Message, node_list: Optional[list[str]] = None) -> None:
         targets = node_list or list(self._neighbors.get_all(only_direct=True))
@@ -394,6 +439,17 @@ class ThreadedCommunicationProtocol(CommunicationProtocol):
     # --- internals shared by all transports ---
 
     def _dial_and_handshake(self, addr: str) -> Any:
+        # Chaos: a blocked link (crashed/partitioned peer) must fail
+        # the dial too, or the half-open probe would "successfully"
+        # handshake an injector-crashed peer (the in-memory transport
+        # dials via a registry lookup, not the wire) and the breaker
+        # would flap evict -> re-admit -> evict for as long as the
+        # fault lasts.
+        fi = self._fault_injector
+        if fi is not None and fi.link_blocked(self._addr, addr):
+            raise CommunicationError(
+                f"fault: link {self._addr}->{addr} is down"
+            )
         conn = self._dial(addr)
         self._handshake(addr, conn)
         return conn
@@ -455,6 +511,10 @@ class ThreadedCommunicationProtocol(CommunicationProtocol):
         dispatch, TTL re-flood."""
         if not self._started:
             return
+        if self._fault_injector is not None and self._fault_injector.is_down(
+            self._addr
+        ):
+            return  # chaos: a crashed node hears nothing
         if not msg.is_weights:
             if not self._gossiper.check_and_set_processed(msg.msg_hash):
                 return

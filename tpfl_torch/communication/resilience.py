@@ -1,6 +1,6 @@
 """Transport resilience: retry backoff + per-neighbor circuit breaker — a
-copy of :mod:`tpfl.communication.resilience` (the chaos half,
-``communication/faults.py``, is not ported: ``ROADMAP.md`` §1 item 2).
+copy of :mod:`tpfl.communication.resilience` (the chaos half is
+:mod:`tpfl_torch.communication.faults`).
 
 The reference gives every unary RPC exactly one try with a fixed
 timeout and evicts the peer on the first failed send

@@ -51,8 +51,9 @@ from tpfl_torch.concurrency import make_lock
 from tpfl_torch.learning.model import TpflModel, to_device
 from tpfl_torch.exceptions import ASYNC_ITEM as _ASYNC_ITEM
 from tpfl_torch.exceptions import not_ported as _not_ported
-from tpfl_torch.management import ledger, profiling
+from tpfl_torch.management import ledger, profiling, tracing
 from tpfl_torch.management.logger import logger
+from tpfl_torch.management.telemetry import flight
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import canonical_leaves, canonical_map, canonical_unflatten
 
@@ -291,8 +292,14 @@ class Aggregator(ABC):
                     self._finish_aggregation_event.set()
             closed = self._finish_aggregation_event.is_set()
         if removable:
+            # Quorum degradation is a flight-recorder moment: record it
+            # (and flush the ring for the post-mortem) OUTSIDE _lock —
+            # telemetry must never extend a protocol critical section.
             logger.metrics.counter("tpfl_agg_quorum_degraded_total",
                                    labels={"node": self.node_name})
+            tracing.event("quorum_degraded", self.node_name,
+                          removed=",".join(sorted(removable)))
+            flight.dump(self.node_name, "quorum_degraded")
         return closed
 
     def clear(self) -> None:
@@ -495,12 +502,14 @@ class Aggregator(ABC):
             fold_models = models
         t_close = time.monotonic()
         try:
-            if stream is not None and stream.offered == len(models) and stream.count:
-                out = self.finalize(stream)
-            else:
-                out = self.aggregate(fold_models)
-            return self._with_passengers(out, models, excluded_ids,
-                                         folded_all=fold_models is models)
+            with tracing.maybe_span("aggregate", self.node_name, held=len(models),
+                                    eager=bool(stream is not None)):
+                if stream is not None and stream.offered == len(models) and stream.count:
+                    out = self.finalize(stream)
+                else:
+                    out = self.aggregate(fold_models)
+                return self._with_passengers(out, models, excluded_ids,
+                                             folded_all=fold_models is models)
         finally:
             logger.metrics.observe("tpfl_agg_aggregate_seconds", time.monotonic() - t_close,
                                    labels={"node": self.node_name})

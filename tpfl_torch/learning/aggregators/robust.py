@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import random
+import time
 import zlib
 from typing import Any, Iterator
 
@@ -55,6 +56,7 @@ from tpfl_torch.learning.aggregators.aggregator import (
 from tpfl_torch.learning.aggregators.fedavg import acc_finalize, acc_first, acc_update
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.management.logger import logger
+from tpfl_torch.management.telemetry import flight
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import canonical_leaves, canonical_map
 
@@ -293,6 +295,18 @@ class TrimmedMean(_RobustStream):
                 "or lower trim",
             )
             logger.metrics.counter("tpfl_agg_trimmed_no_trim_total", labels=labels)
+            flight.record(
+                self.node_name,
+                {
+                    "kind": "event",
+                    "name": "no_trim",
+                    "node": self.node_name,
+                    "trace": "",
+                    "t": time.monotonic(),
+                    "candidates": len(kept),
+                    "trim": self.trim,
+                },
+            )
         idx = torch.tensor(kept, dtype=torch.long, device=self.device)
         out = canonical_map(lambda b: trimmed_mean(b[:n][idx], self.trim),
                             state.extra["leaf_bufs"])

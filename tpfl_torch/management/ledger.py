@@ -28,12 +28,13 @@ the contribution count.
 - :class:`ConvergenceMonitor`: global-model delta norms and the
   loss-trajectory slope.
 
-The ``tpfl_contrib_*`` / ``tpfl_convergence_*`` series go to the port's
-``logger.metrics``. Not ported: ``record_external`` (the engine
-telemetry carry's fan-out) raises ``NotImplementedError`` naming
-``ROADMAP.md`` §1 item 4; the flight-recorder ``contrib`` / ``anomaly``
-/ ``divergence`` / ``plateau`` events and the registry's pull-style
-occupancy collector wait for ``telemetry.py`` (§1 item 2).
+The ``tpfl_contrib_*`` / ``tpfl_convergence_*`` series go to the process
+registry (:data:`tpfl_torch.management.telemetry.metrics`), with the
+``tpfl_ledger_entries`` / ``tpfl_ledger_flagged`` occupancy gauges from
+a pull-style collector; ``contrib`` / ``anomaly`` / ``divergence`` /
+``plateau`` records go to the flight recorder's ring. Not ported:
+``record_external`` (the engine telemetry carry's fan-out) raises
+``NotImplementedError`` naming ``ROADMAP.md`` §1 item 4.
 
 Gating: every entry point checks ``Settings.LEDGER_ENABLED`` (or, for
 the round state and ``score_now``, ``QUARANTINE_ENABLED``) first; with
@@ -52,10 +53,20 @@ import torch
 from tpfl_torch.concurrency import make_lock
 from tpfl_torch.learning.model import to_device
 from tpfl_torch.management.logger import logger
+from tpfl_torch.management.telemetry import flight, metrics
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import canonical_leaves
 
-metrics = logger.metrics
+#: Update L2 norms span tiny fine-tune deltas to whole-model-scale
+#: poison; log-ish buckets keep the histogram readable at both ends.
+NORM_BUCKETS: tuple[float, ...] = (
+    0.01, 0.03, 0.1, 0.3, 1.0, 3.0, 10.0, 30.0, 100.0, 300.0, 1000.0,
+)
+
+#: Cosine similarity buckets over [-1, 1].
+COSINE_BUCKETS: tuple[float, ...] = (
+    -0.8, -0.6, -0.4, -0.2, 0.0, 0.2, 0.4, 0.6, 0.8, 1.0,
+)
 
 #: MAD floor as a fraction of the median: a perfectly tight honest
 #: cluster must not make every later entry an infinite-z outlier.
@@ -451,20 +462,67 @@ class ContributionLedger:
             }
             self._ring(node).append(entry)
         metrics.counter("tpfl_contrib_total", labels={"node": node})
+        flight.record(
+            node,
+            {
+                "kind": "event",
+                "name": "contrib",
+                "node": node,
+                "trace": trace,
+                "t": entry["t"],
+                "peer": entry["peer"],
+                "round": entry["round"],
+                "num_samples": entry["num_samples"],
+                "flagged": False,
+            },
+        )
         return entry
 
     def _emit(self, entry: dict) -> None:
-        """Registry emission — OUTSIDE ``_lock``."""
+        """Registry + flight emission — OUTSIDE ``_lock``."""
         node = entry["node"]
         labels = {"node": node}
         metrics.counter("tpfl_contrib_total", labels=labels)
-        metrics.observe("tpfl_contrib_update_norm", entry["update_norm"], labels=labels)
-        metrics.observe("tpfl_contrib_cosine", entry["cos_ref"], labels=labels)
+        metrics.observe("tpfl_contrib_update_norm", entry["update_norm"], labels=labels,
+                        buckets=NORM_BUCKETS)
+        metrics.observe("tpfl_contrib_cosine", entry["cos_ref"], labels=labels,
+                        buckets=COSINE_BUCKETS)
         metrics.gauge("tpfl_contrib_last_z", entry["z_norm"], labels=labels)
+        flight.record(
+            node,
+            {
+                "kind": "event",
+                "name": "contrib",
+                "node": node,
+                "trace": entry["trace"],
+                "t": entry["t"],
+                "peer": entry["peer"],
+                "round": entry["round"],
+                "update_norm": round(entry["update_norm"], 6),
+                "cos_ref": round(entry["cos_ref"], 6),
+                "num_samples": entry["num_samples"],
+                "flagged": entry["flagged"],
+            },
+        )
         if entry["flagged"]:
             for reason in entry["reasons"]:
                 metrics.counter("tpfl_contrib_flagged_total",
                                 labels={"node": node, "reason": reason})
+            flight.record(
+                node,
+                {
+                    "kind": "event",
+                    "name": "anomaly",
+                    "node": node,
+                    "trace": entry["trace"],
+                    "t": entry["t"],
+                    "peer": entry["peer"],
+                    "round": entry["round"],
+                    "reasons": ",".join(entry["reasons"]),
+                    "z_norm": entry["z_norm"],
+                    "cos_ref": round(entry["cos_ref"], 6),
+                },
+            )
             logger.warning(
                 node,
                 f"Anomalous contribution from {entry['peer']} (round "
@@ -622,6 +680,19 @@ class ConvergenceMonitor:
             event = "plateau"
         if event:
             metrics.counter(f"tpfl_convergence_{event}_total", labels=labels)
+            flight.record(
+                node,
+                {
+                    "kind": "event",
+                    "name": event,
+                    "node": node,
+                    "trace": "",
+                    "t": time.monotonic(),
+                    "round": rnd,
+                    "delta_norm": _round(delta, 6),
+                    "rel_delta": _round(rel, 8),
+                },
+            )
             out["event"] = event
         return out
 
@@ -647,6 +718,18 @@ class ConvergenceMonitor:
         metrics.gauge("tpfl_convergence_loss_slope", slope, labels={"node": node})
         if len(points) == w and all(ys[i] < ys[i + 1] for i in range(n - 1)):
             metrics.counter("tpfl_convergence_divergence_total", labels={"node": node})
+            flight.record(
+                node,
+                {
+                    "kind": "event",
+                    "name": "divergence",
+                    "node": node,
+                    "trace": "",
+                    "t": time.monotonic(),
+                    "loss_slope": round(slope, 6),
+                    "window": n,
+                },
+            )
         return slope
 
     def reset(self) -> None:
@@ -656,10 +739,31 @@ class ConvergenceMonitor:
             self._losses.clear()
 
 
+# --- registry collector (pull-style occupancy gauges) ---------------------
+
+
+def _ledger_collector(registry: Any) -> None:
+    """Per-node ledger occupancy/flag gauges at scrape time — no
+    instrumentation on the record path. Flushes first so a scrape
+    observes scored entries, not pending ones."""
+    contrib.flush()
+    with contrib._lock:
+        per_node = {
+            n: (len(ring), sum(1 for e in ring if e["flagged"]))
+            for n, ring in contrib._rings.items()
+        }
+    for node, (n_entries, n_flagged) in per_node.items():
+        labels = {"node": node}
+        registry.gauge("tpfl_ledger_entries", float(n_entries), labels=labels)
+        registry.gauge("tpfl_ledger_flagged", float(n_flagged), labels=labels)
+
+
 #: Process-wide singletons (one federation per process).
 contrib = ContributionLedger()
 convergence = ConvergenceMonitor()
 scorer = AnomalyScorer()
+
+metrics.register_collector(_ledger_collector)
 
 __all__ = ["AnomalyScorer", "ContributionLedger", "ConvergenceMonitor", "active", "contrib",
            "convergence", "robust_z", "scorer"]

@@ -5,14 +5,12 @@ from ``Settings.LOG_LEVEL`` when the logger is built), the node registry
 (``log_metric``) into the two-tier stores of
 :mod:`tpfl_torch.management.metric_storage`, the per-link send-health
 store (``transport_metrics``), and the process metrics registry
-(``logger.metrics.counter`` / ``observe`` / ``gauge``, pull-style
-collectors) as plain counts that can be read back.
+``logger.metrics`` (:data:`tpfl_torch.management.telemetry.metrics`).
 
 Routing rule (the reference's): a metric logged with a ``step`` goes to
 the *local* (per-step) store; one logged without goes to the *global*
-(per-round) store. The rest of the reference's management plane (file
-and async handlers, the web dashboard, Prometheus export) is not ported
-(``ROADMAP.md`` §1 item 5).
+(per-round) store. The web dashboard and the HTTP metrics server of the
+reference's management plane are not ported (``ROADMAP.md`` §1 item 5).
 """
 
 from __future__ import annotations
@@ -23,95 +21,16 @@ import logging
 import logging.handlers
 import os
 import queue
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 from tpfl_torch.concurrency import make_lock
+from tpfl_torch.management import telemetry
 from tpfl_torch.management.metric_storage import (
     GlobalMetricStorage,
     LocalMetricStorage,
     TransportMetricStorage,
 )
 from tpfl_torch.settings import Settings
-
-LabelKey = tuple[tuple[str, str], ...]
-
-
-def _labels(labels: Optional[dict[str, str]]) -> LabelKey:
-    return tuple(sorted((labels or {}).items()))
-
-
-class MetricsRegistry:
-    """Counters, gauges and histogram summaries keyed by ``(name,
-    labels)``, thread-safe, readable back (:meth:`value`,
-    :meth:`snapshot`). ``register_collector(fn)`` adds a callable run
-    (outside the registry's lock) at each :meth:`snapshot`, which
-    writes pull-style gauges through the registry it is given."""
-
-    def __init__(self) -> None:
-        self._lock = make_lock("MetricsRegistry._lock")
-        # guarded-by: _lock
-        self._counters: dict[tuple[str, LabelKey], float] = {}
-        # guarded-by: _lock
-        self._gauges: dict[tuple[str, LabelKey], float] = {}
-        # guarded-by: _lock — [count, sum] per series
-        self._observed: dict[tuple[str, LabelKey], list[float]] = {}
-        # guarded-by: _lock
-        self._collectors: list[Callable[["MetricsRegistry"], None]] = []
-
-    def counter(self, name: str, value: float = 1.0,
-                labels: Optional[dict[str, str]] = None) -> None:
-        key = (name, _labels(labels))
-        with self._lock:
-            self._counters[key] = self._counters.get(key, 0.0) + value
-
-    def gauge(self, name: str, value: float, labels: Optional[dict[str, str]] = None) -> None:
-        with self._lock:
-            self._gauges[(name, _labels(labels))] = float(value)
-
-    def observe(self, name: str, value: float, labels: Optional[dict[str, str]] = None,
-                buckets: Any = None) -> None:
-        key = (name, _labels(labels))
-        with self._lock:
-            entry = self._observed.setdefault(key, [0, 0.0])
-            entry[0] += 1
-            entry[1] += float(value)
-
-    def value(self, name: str, labels: Optional[dict[str, str]] = None) -> float:
-        """A counter's or gauge's value (0 when never written)."""
-        key = (name, _labels(labels))
-        with self._lock:
-            return self._counters.get(key, self._gauges.get(key, 0.0))
-
-    def observed(self, name: str, labels: Optional[dict[str, str]] = None) -> tuple[int, float]:
-        """(count, sum) of the values observed under ``name``."""
-        with self._lock:
-            count, total = self._observed.get((name, _labels(labels)), [0, 0.0])
-        return int(count), total
-
-    def register_collector(self, fn: Callable[["MetricsRegistry"], None]) -> None:
-        with self._lock:
-            self._collectors.append(fn)
-
-    def unregister_collector(self, fn: Callable[["MetricsRegistry"], None]) -> None:
-        with self._lock:
-            if fn in self._collectors:
-                self._collectors.remove(fn)
-
-    def snapshot(self) -> dict[str, dict]:
-        with self._lock:
-            collectors = list(self._collectors)
-        for fn in collectors:
-            fn(self)
-        with self._lock:
-            return {"counters": dict(self._counters), "gauges": dict(self._gauges),
-                    "observed": {k: tuple(v) for k, v in self._observed.items()}}
-
-    def clear(self) -> None:
-        with self._lock:
-            self._counters.clear()
-            self._gauges.clear()
-            self._observed.clear()
-
 
 class FileFormatter(logging.Formatter):
     def format(self, record: logging.LogRecord) -> str:
@@ -197,12 +116,13 @@ class TpflLogger:
             for h in handlers:
                 self._logger.removeHandler(h)
             self._logger.addHandler(_LazyQueueHandler(handlers))
-        self.metrics = MetricsRegistry()
+        # The process metrics registry (tpfl_torch.management.telemetry).
+        self.metrics = telemetry.metrics
         self.local_metrics = LocalMetricStorage()
         self.global_metrics = GlobalMetricStorage()
         # Per-(node, neighbor) send health, fed by the circuit breaker
         # (communication.resilience) and mirrored into ``metrics``.
-        self.transport_metrics = TransportMetricStorage(self.metrics)
+        self.transport_metrics = TransportMetricStorage()
         self._lock = make_lock("TpflLogger._lock")
         # guarded-by: _lock — addr -> {"simulation": bool, "experiment": ...}
         self._nodes: dict[str, dict[str, Any]] = {}
@@ -306,4 +226,4 @@ class TpflLogger:
 
 logger = TpflLogger()
 
-__all__ = ["MetricsRegistry", "TpflLogger", "logger"]
+__all__ = ["TpflLogger", "logger"]

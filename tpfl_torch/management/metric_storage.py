@@ -21,16 +21,16 @@ Bounded: every per-series point list is capped at
 ``Settings.METRIC_MAX_POINTS`` (oldest evicted first) — a long-running
 node's per-step training series must not be the one unbounded
 allocation in the management layer. Transport counters are mirrored
-into the process metrics registry the store is built with
-(``logger.metrics``, :class:`tpfl_torch.management.logger.MetricsRegistry`).
+into the process metrics registry
+(:data:`tpfl_torch.management.telemetry.metrics`, ``logger.metrics``).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any
 
 from tpfl_torch.concurrency import make_lock
+from tpfl_torch.management import telemetry
 from tpfl_torch.settings import Settings
 
 
@@ -130,8 +130,7 @@ class TransportMetricStorage:
     process — they answer "how flaky has this link been", which a
     per-round store cannot."""
 
-    def __init__(self, registry: Any) -> None:
-        self._registry = registry
+    def __init__(self) -> None:
         # guarded-by: _lock
         self._store: TransportMetrics = {}
         self._lock = make_lock("TransportMetricStorage._lock")
@@ -158,12 +157,12 @@ class TransportMetricStorage:
             e["retries"] += max(0, attempts - 1)  # type: ignore[operator]
         # Mirror into the process registry (outside the store lock: no
         # lock-order edge between the two).
-        self._registry.counter(
+        telemetry.metrics.counter(
             "tpfl_transport_sends_total",
             labels={"node": node, "ok": "1" if ok else "0"},
         )
         if attempts > 1:
-            self._registry.counter(
+            telemetry.metrics.counter(
                 "tpfl_transport_retries_total",
                 float(attempts - 1),
                 labels={"node": node},
@@ -176,10 +175,10 @@ class TransportMetricStorage:
             if state == "open":
                 e["breaker_opens"] += 1  # type: ignore[operator]
         if state == "open":
-            self._registry.counter(
+            telemetry.metrics.counter(
                 "tpfl_breaker_opens_total", labels={"node": node}
             )
-        self._registry.gauge(
+        telemetry.metrics.gauge(
             "tpfl_breaker_open",
             1.0 if state == "open" else 0.0,
             labels={"node": node, "neighbor": neighbor},

@@ -24,21 +24,21 @@ reference, prior rounds' clean norm window), so every observer reaches
 the same one. :func:`replay_decisions` replays the state machine over
 the ledger's deduped :meth:`detections` view: the byte-stable receipt.
 
-``tpfl_quarantine_*`` series go to the port's ``logger.metrics``; the
-flight-recorder ``quarantine`` / ``readmit`` events wait for
-``telemetry.py`` (``ROADMAP.md`` §1 item 2).
+``tpfl_quarantine_*`` series go to the process registry
+(:data:`tpfl_torch.management.telemetry.metrics`), and ``quarantine`` /
+``readmit`` events (trace-id joined) to the flight recorder's ring.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 from tpfl_torch.concurrency import make_lock
 from tpfl_torch.management import ledger
 from tpfl_torch.management.logger import logger
+from tpfl_torch.management.telemetry import flight, metrics
 from tpfl_torch.settings import Settings
-
-metrics = logger.metrics
 
 #: Bound on the per-engine action log (quarantine/reject/readmit
 #: records) — diagnostics, not state; oldest dropped past the cap.
@@ -209,7 +209,7 @@ class QuarantineEngine:
         trace: str,
         active_n: int,
     ) -> None:
-        """Registry + log emission — OUTSIDE ``_lock``."""
+        """Registry + flight + log emission — OUTSIDE ``_lock``."""
         labels = {"node": self.node}
         if action == "quarantine":
             metrics.counter("tpfl_quarantine_total", labels=labels)
@@ -221,6 +221,20 @@ class QuarantineEngine:
                 labels={"node": self.node, "kind": "contribution"},
             )
         metrics.gauge("tpfl_quarantine_active", float(active_n), labels=labels)
+        if action in ("quarantine", "readmit"):
+            flight.record(
+                self.node,
+                {
+                    "kind": "event",
+                    "name": action,
+                    "node": self.node,
+                    "trace": trace,
+                    "t": time.monotonic(),
+                    "peer": peer,
+                    "round": rnd,
+                    "reasons": ",".join(rec.get("reasons", [])),
+                },
+            )
         if action == "quarantine":
             logger.warning(
                 self.node,

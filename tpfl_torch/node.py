@@ -13,9 +13,11 @@ workflow (:333-400).
 Refused with ``NotImplementedError`` naming the ``ROADMAP.md`` §1 item:
 the pooled simulation learner (``Settings.DISABLE_SIMULATION`` off, item
 5, at construction); asynchronous rounds (``Settings.ASYNC_ROUNDS``,
-item 3), the flight recorder (``Settings.TELEMETRY_ENABLED``, item 2)
-and residual gossip (``Settings.WIRE_DELTA``, item 2) when the node
-starts or joins an experiment; checkpoints (item 4).
+item 3) and residual gossip (``Settings.WIRE_DELTA``, item 2) when the
+node starts or joins an experiment; checkpoints (item 4). With
+``Settings.TELEMETRY_ENABLED`` the node's hops land in the flight
+recorder, and :meth:`Node.stop` dumps its ring (to
+``Settings.TELEMETRY_DUMP_DIR`` when set).
 """
 
 from __future__ import annotations
@@ -198,6 +200,16 @@ class Node:
         self._running = False
         logger.info(self.addr, "Node stopped")
         logger.metrics.unregister_collector(self._pool_collector)
+        if Settings.TELEMETRY_ENABLED:
+            # Flush this node's flight ring on the way out: the last N
+            # spans/events are the post-mortem for whatever ended the
+            # node (a JSON dump lands in Settings.TELEMETRY_DUMP_DIR
+            # when set — the traceview input).
+            from tpfl_torch.management.telemetry import flight
+
+            path = flight.dump(self.addr, "stop")
+            if path is not None:
+                logger.info(self.addr, f"Flight recorder dumped to {path}")
         if Settings.LOCK_TRACING:
             # Traced runs check the RUNTIME lock-acquisition graph on
             # the way out: a cycle is a latent deadlock, and the

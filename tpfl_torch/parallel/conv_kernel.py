@@ -201,15 +201,20 @@ def conv_dx(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # (B = 1: every image is a node of its own); and Conv_1 of ONE_NODE_EDGES.
 _DX_EDGE_HW = {64: [(16, 16), (5, 7), (1, 1), (16, 32)],
                128: [(16, 16), (5, 7), (1, 1), (20, 22)]}
-# The zoo CNN's two layers at one node of 128 images, as a learner runs
-# them (Conv_0 32×32×3 -> 32, Conv_1 16×16×32 -> 64): fewer images than the
-# H100's 132 SMs, so each persistent block walks one image or none, all of
-# one node. (Cin, Cout, (H, W), B, N); conv_dx runs at Conv_1 only.
-ONE_NODE_EDGES = [(3, 32, (32, 32), 128, 1), (32, 64, (16, 16), 128, 1)]
+# The zoo CNN's two layers at one node, as a learner runs them (Conv_0
+# 32×32×3 -> 32, Conv_1 16×16×32 -> 64), at the batch sizes of the
+# learners that run on the card: 128 (the protocol phase), 25 (the bench's
+# Byzantine tier) and 32 (its chaos tier). Fewer images than the H100's 132
+# SMs, so each persistent block walks one image or none, all of one node.
+# (Cin, Cout, (H, W), B, N); conv_dx runs at Conv_1 only.
+ONE_NODE_BATCHES = (128, 25, 32)
+ONE_NODE_EDGES = [(cin, cout, hw, b, 1) for b in ONE_NODE_BATCHES
+                  for cin, cout, hw in ((3, 32, (32, 32)), (32, 64, (16, 16)))]
 
 WGMMA_DX_EDGES = [(cin, cout, hw, b, 203 if b == 1 else 67)
                   for cin in (8, 32, 40, 64) for cout in (64, 128)
-                  for hw in _DX_EDGE_HW[cout] for b in (1, 3)] + ONE_NODE_EDGES[1:]
+                  for hw in _DX_EDGE_HW[cout] for b in (1, 3)] + [
+                      case for case in ONE_NODE_EDGES if case[0] == 32]
 
 # bf16 conv_dw shapes at the edges of the wgmma kernel's rule, each of which
 # must take it: (Cin, Cout, (H, W), B, N) as WGMMA_DX_EDGES. Cin 3 takes the

@@ -354,24 +354,30 @@ class Settings:
     parity; the port does not read it (``UNPORTED_KNOBS``)."""
 
     TELEMETRY_ENABLED: bool = False
-    """Master gate for the reference's hop-level tracing and flight
-    recorder. Not ported: the ``tracing`` gate's calls and
-    ``Node.start`` raise ``NotImplementedError`` while it is on
-    (``ROADMAP.md`` §1 item 2). The metrics registry
-    (``logger.metrics``) records regardless."""
+    """Master gate for hop-level tracing (``tpfl_torch.management.tracing``):
+    when on, payload encodes mint deterministic trace ids and every hop
+    (encode / send / recv / decode / fold, stages, retries, breaker
+    trips, quorum degradation, ledger and quarantine records) lands in
+    the per-node flight recorder ring, which ``Node.stop``, injected
+    crashes and quorum degradation dump. Off: one attribute read per
+    instrumented call. The metrics registry (``logger.metrics``) records
+    regardless."""
 
     TELEMETRY_RING: int = 512
-    """Flight-recorder capacity per node. Carried for parity; the port does
-    not read it (``UNPORTED_KNOBS``)."""
+    """Flight-recorder capacity per node (spans + events, oldest evicted
+    first), read when a node's ring is created."""
 
     TELEMETRY_MAX_LABELSETS: int = 64
-    """Label-set cap per metric of the reference's telemetry registry. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Label-set cap per metric of the process metrics registry: further
+    label sets of a metric collapse into one ``overflow="true"`` series."""
 
     TELEMETRY_DUMP_DIR: str = ""
-    """Directory for the reference's flight-recorder crash dumps. The
-    port has no flight recorder: ``Node.start`` and ``FederationEngine``
-    refuse a non-empty value (``UNPORTED_SWITCHES``)."""
+    """Directory for flight-recorder dumps (``flight-<node>-<reason>.json``,
+    the document ``tools/traceview.py`` reads); empty writes none. A
+    node's dumps (stop, injected crash, quorum degradation) honour it;
+    ``FederationEngine`` refuses a non-empty value, since the engine's
+    telemetry fan-out is not ported (``UNPORTED_SWITCHES``, ``ROADMAP.md``
+    §1 item 4)."""
 
     METRIC_MAX_POINTS: int = 4096
     """Per-series point cap in the local / global metric stores
@@ -975,9 +981,8 @@ class Settings:
 #: :meth:`Settings.refuse_unported` checks it).
 UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
     "ASYNC_ROUNDS": (ASYNC_ITEM, False, ("node",)),
-    "TELEMETRY_ENABLED": (RUNTIME_B_ITEM, False, ("node",)),
     "WIRE_DELTA": (RUNTIME_B_ITEM, False, ("node",)),
-    "TELEMETRY_DUMP_DIR": (RUNTIME_B_ITEM, "", ("node", "engine")),
+    "TELEMETRY_DUMP_DIR": (ENGINE_ITEM, "", ("engine",)),
     "TRACE_CONTRACTS": (ENGINE_ITEM, False, ("node", "engine")),
     "ENGINE_TELEMETRY": (ENGINE_ITEM, False, ("engine",)),
     "COMPILE_CACHE_DIR": (SIMULATION_ITEM, "", ("engine",)),
@@ -985,7 +990,6 @@ UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
 
 _SIM = ("Settings.DISABLE_SIMULATION", SIMULATION_ITEM)
 _ASYNC = ("Settings.ASYNC_ROUNDS", ASYNC_ITEM)
-_TELEMETRY = ("Settings.TELEMETRY_ENABLED", RUNTIME_B_ITEM)
 _GRPC = ("communication.GrpcCommunicationProtocol", REST_ITEM)
 _MESH = ("parallel.FederationEngine(mesh=)", MULTI_DEVICE_ITEM)
 _FED_LEARNER = ("parallel.federation_learner", SIMULATION_ITEM)
@@ -1002,7 +1006,6 @@ UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
     **dict.fromkeys(("ASYNC_BUFFER_K", "ASYNC_STALENESS_EXP", "ASYNC_ROUND_DEADLINE",
                      "ASYNC_SERIALIZED", "ASYNC_ADAPTIVE", "ASYNC_K_MIN", "ASYNC_K_MAX",
                      "ASYNC_CTL_EWMA", "ASYNC_CTL_QUANTILE", "ASYNC_UNTAGGED_POLICY"), _ASYNC),
-    **dict.fromkeys(("TELEMETRY_RING", "TELEMETRY_MAX_LABELSETS"), _TELEMETRY),
     **dict.fromkeys(("GRPC_TIMEOUT", "MAX_MESSAGE_SIZE", "GRPC_SERVER_WORKERS",
                      "WIRE_CHUNK_SIZE", "USE_SSL", "CA_CRT", "SERVER_CRT", "SERVER_KEY",
                      "CLIENT_CRT", "CLIENT_KEY"), _GRPC),
