@@ -188,6 +188,38 @@
    the loss difference (the bench's 5% target, reported) and the
    injector's totals.
 
+16. Async federation (node runtime C, the asynchronous buffered rounds,
+   and residual gossip), as gossiping Nodes of the CNN cell's model
+   through the harness (16a-c) or built directly (16d), on seeded
+   synthetic CIFAR-shaped data: (a) the bench's ``async`` tier
+   (``bench.py:3100-3180``): seed 3131, ten Nodes, hash election, a
+   ``TrainerSpeedPlan`` sleeping 2 trainers 2.5 s a fit and 8 of them
+   0.25 s, 2 epochs over 100 samples in batches of 25; a 2-round warm
+   async arm, then 5 synchronous rounds (exactly 400 steps' launches),
+   then 10 free-running async rounds with ``ASYNC_BUFFER_K`` 5; each arm's
+   rounds/s and steady loss, the speedup and loss ratio (reported, not
+   gated). (b) Its determinism arm (``:3182-3219``): two serialized runs
+   of 4 rounds, K 8, the adaptive controller on, the plan's schedule
+   forked into every aggregator: the final digests equal across runs, one
+   across the ten nodes, the controller trajectories equal and non-empty
+   at every node (each run exactly 320 steps' launches). (c) The
+   ``byzantine`` tier's async arm (``:2939-3033``): seed 4243, 8 rounds
+   × 4 epochs × 200 samples, serialized, K = n, ``ASYNC_STALENESS_MAX`` 2,
+   ``stale_flood`` on n1 and ``withhold_replay`` from round 2 on n4;
+   adversary-free at n = 8, staleness-blind (exp 0) and defended
+   (quarantine + ledger) at n = 10 (exact launch counts): in the defended
+   arm only n1 and n4 have ``stale_flood`` decisions, and from the first
+   one on each is excluded for it every round; whether the quarantined
+   set is exactly {n1, n4} (the z-score classes may add honest peers, as
+   in phase 14), the honest quarantines, honest accuracies and ratios
+   reported. (d) Four Nodes on a STAR, train set 2, dense codec, 3
+   rounds, ``WIRE_DELTA`` off then on: residual sends from round 1 on
+   (none with it off), no residual to a peer after its nack in that
+   round, every node's final params within rtol 1e-3, atol 1e-4 of the
+   delta-off arm's; bytes per payload reported. Every arm: complete stage
+   histories, finite final params and losses, every conv launch on
+   wgmma.
+
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
 one defended FedAvg round of the Byzantine phase and one 3-round
@@ -210,7 +242,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -219,7 +253,7 @@ import torch
 from tpfl_torch.attacks import (AttackPlan, AttackSpec, adversary_map, apply_attack_plan,
                                 final_model_digests, harness, metric_table,
                                 run_seeded_experiment)
-from tpfl_torch.communication import FaultInjector, FaultPlan
+from tpfl_torch.communication import FaultInjector, FaultPlan, TrainerSpeedPlan
 from tpfl_torch.learning import compression
 from tpfl_torch.learning.aggregators import (FedAvg, FedProx, Krum, MultiKrum, Scaffold,
                                              TrimmedMean)
@@ -430,6 +464,13 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
     return err.max().item()
 
 
+# (rtol, atol relative to max |plain|) of a conv kernel against its plain
+# version. conv_dw: f32 sums of the same bf16 products in another order.
+# conv_dx: bf16 outputs of f32 sums; one bf16 rounding (2^-8 relative)
+# apart at most, plus the f32 order near zero.
+CONV_DW_BOUND, CONV_DX_BOUND = (1e-4, 1e-4), (2.0 ** -7, 1e-3)
+
+
 def conv_layer_rows(n: int, batch: int, gen) -> dict:
     """Both conv kernels at the CNN's two layers, ``n`` nodes of ``batch``
     bf16 images each: each must take its wgmma kernel (``conv_dw`` with
@@ -444,15 +485,14 @@ def conv_layer_rows(n: int, batch: int, gen) -> dict:
         wk = (0.1 * torch.randn(n, 3, 3, cin, cout, device="cuda", generator=gen)).to(bf16)
         m = n * batch * h * w
         label = f"{name} B={batch} N={n}"
-        # conv_dw: f32 sums of the same bf16 products in another order;
-        # the same bits run to run (no float atomics).
+        # conv_dw: the same bits run to run (no float atomics).
         wgmma = ck.conv_dw.wgmma_launches
         dw = ck.conv_dw(x, g, 3)
         if ck.conv_dw.wgmma_launches != wgmma + 1:
             raise AssertionError(f"conv_dw[{label}]: did not take the wgmma kernel")
         if not torch.equal(ck.conv_dw(x, g, 3), dw):
             raise AssertionError(f"conv_dw[{label}]: two runs differ")
-        err = check_close(f"conv_dw[{label}]", dw, ck.conv_dw_plain(x, g, 3), 1e-4, 1e-4)
+        err = check_close(f"conv_dw[{label}]", dw, ck.conv_dw_plain(x, g, 3), *CONV_DW_BOUND)
         nbytes = (x.numel() + g.numel()) * 2 + dw.numel() * 4
         per["conv_dw"].append({
             **bound(nbytes, 2.0 * m * 9 * cin * cout),
@@ -463,13 +503,11 @@ def conv_layer_rows(n: int, batch: int, gen) -> dict:
         })
         if not dx_needed:
             continue
-        # conv_dx: bf16 outputs of f32 sums; one bf16 rounding (2^-8
-        # relative) apart at most, plus the f32 order near zero.
         wgmma = ck.conv_dx.wgmma_launches
         dx = ck.conv_dx(g, wk)
         if ck.conv_dx.wgmma_launches != wgmma + 1:
             raise AssertionError(f"conv_dx[{label}]: did not take the wgmma kernel")
-        err = check_close(f"conv_dx[{label}]", dx, ck.conv_dx_plain(g, wk), 2.0 ** -7, 1e-3)
+        err = check_close(f"conv_dx[{label}]", dx, ck.conv_dx_plain(g, wk), *CONV_DX_BOUND)
         nbytes = (g.numel() + wk.numel() + dx.numel()) * 2
         per["conv_dx"].append({
             **bound(nbytes, 2.0 * m * 9 * cout * cin),
@@ -2599,6 +2637,407 @@ def chaos_federation_path(card: str) -> dict:
             "no_timeout_burn": max(ch["per_round_s"]) < Settings.AGGREGATION_TIMEOUT}
 
 
+# --- phase 16: the async federation ---------------------------------------
+#
+# The bench's async tier (bench.py:3067-3222), the Byzantine tier's async
+# arm (bench.py:2939-3033) and residual gossip, as gossiping Nodes of the
+# CNN cell's model (PHASE_CNN, bf16, the kernels at N = 1) through the
+# port's harness (16a-c) or built directly (16d), on seeded synthetic
+# CIFAR-shaped data: the tiers' digits MLP needs PIL's rendered digits,
+# which the card's machine lacks.
+AS_SEED, AS_NODES, AS_SAMPLES, AS_BATCH, AS_EPOCHS, AS_K = 3131, 10, 100, 25, 2, 5
+AS_WARM, AS_SYNC_ROUNDS, AS_ASYNC_ROUNDS, AS_DET_ROUNDS, AS_DET_K = 2, 5, 10, 4, 8
+BA_SEED, BA_ROUNDS, BA_EPOCHS, BA_SAMPLES, BA_BATCH, BA_TEST = 4243, 8, 4, 200, 25, 1200
+BA_ADVERSARIES, BA_WITHHOLD_START = (1, 4), 2
+# (label, attack, defend, staleness-blind, nodes)
+BA_ARMS = [("adversary-free", False, False, False, 8),
+           ("staleness-blind", True, False, True, 10),
+           ("defended", True, True, False, 10)]
+RG_NODES, RG_ROUNDS, RG_SAMPLES, RG_BATCH, RG_TRAIN_SET = 4, 3, 200, 25, 2
+# Delta-on against delta-off final params, absolute: the bound
+# tests/test_torch_wire_delta.py holds both packages' two runs to on the
+# CPU (JAX 0 apart, the port at most 6e-8; a residual decodes as
+# (x − base) + base in f32). A residual decoded against a wrong base
+# moves the params by a whole update.
+RG_ATOL = 1e-6
+RG_EXPERIMENT = uuid.UUID(int=0x5EED_0000_0000_0000_0000_0000_0000_0D16)
+
+
+def as_speed_plan() -> TrainerSpeedPlan:
+    """The tier's fleet: 2 of 10 trainers sleep 2.5 s a fit, 8 sleep 0.25 s."""
+    return TrainerSpeedPlan.skewed([f"seed{AS_SEED}-n{i}" for i in range(AS_NODES)],
+                                   slow_frac=0.2, base_delay=0.25, skew=10.0, seed=AS_SEED)
+
+
+def cifar_data_fn(samples: int, n: int, n_test: int):
+    return lambda s: TpflDataset.from_arrays(*synthetic_cifar10(
+        n_train=samples * n, n_test=n_test, seed=s))
+
+
+def check_async_history(label: str, nodes: list, rounds: int) -> None:
+    """Every node's complete async stage history: StartLearningStage, then
+    AsyncRoundStage and RoundFinishedStage each round."""
+    want = ["StartLearningStage"] + ["AsyncRoundStage", "RoundFinishedStage"] * rounds
+    for nd in nodes:
+        if nd.learning_workflow.history != want:
+            raise AssertionError(f"{label}: {nd.addr} stage history "
+                                 f"{nd.learning_workflow.history}")
+
+
+def final_losses(exp: str, n: int) -> list:
+    """Every node's last test loss, finite, one per node."""
+    table = metric_table(exp)
+    vals = [table[nd]["test_loss"][-1][1] for nd in sorted(table) if table[nd].get("test_loss")]
+    if len(vals) != n or not all(np.isfinite(vals)):
+        raise AssertionError(f"final test losses {vals} for {n} nodes")
+    return vals
+
+
+class HeldKernel:
+    """Stands in for a conv kernel's wrapper while a path runs: each call
+    launches the kernel, runs its plain version on the same inputs and
+    holds the kernel's output to it at ``bound`` (the path goes on with
+    the kernel's output). The kernel counts its launches on the module's
+    name for it, which is this object while it stands in, so
+    ``launches`` and ``wgmma_launches`` read and write the kernel's own."""
+
+    launches = property(lambda self: self.kernel.launches,
+                        lambda self, v: setattr(self.kernel, "launches", v))
+    wgmma_launches = property(lambda self: self.kernel.wgmma_launches,
+                              lambda self, v: setattr(self.kernel, "wgmma_launches", v))
+
+    def __init__(self, kernel, plain, bound: tuple) -> None:
+        self.kernel, self.plain, self.bound = kernel, plain, bound
+        self.lock = threading.Lock()
+        self.stats = {"held": 0, "beyond_bound": 0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+
+    def __call__(self, *args):
+        out = self.kernel(*args)
+        got, ref = out.float(), self.plain(*args).float()
+        err = (got - ref).abs()
+        scale = ref.abs().max()
+        beyond = bool(((err > self.bound[0] * ref.abs() + self.bound[1] * scale)
+                       | ~torch.isfinite(got)).any())
+        worst, scale = err.max().item(), scale.item()
+        with self.lock:
+            st = self.stats
+            st["held"] += 1
+            st["beyond_bound"] += beyond
+            st["max_abs_err"] = max(st["max_abs_err"], worst)
+            st["max_rel_err"] = max(st["max_rel_err"], worst / max(scale, 1e-30))
+        return out
+
+
+@contextlib.contextmanager
+def held_convs():
+    """While open, every conv kernel launch is held to its plain version
+    (:class:`HeldKernel`, the kernel phase's bounds); yields each
+    kernel's running stats by name."""
+    held = {"conv_dw": HeldKernel(ck.conv_dw, ck.conv_dw_plain, CONV_DW_BOUND),
+            "conv_dx": HeldKernel(ck.conv_dx, ck.conv_dx_plain, CONV_DX_BOUND)}
+    ck.conv_dw, ck.conv_dx = held["conv_dw"], held["conv_dx"]
+    try:
+        yield {name: h.stats for name, h in held.items()}
+    finally:
+        ck.conv_dw, ck.conv_dx = held["conv_dw"].kernel, held["conv_dx"].kernel
+
+
+def async_run(card: str, label: str, rounds: int, knobs: dict, steps: "int | None",
+              n: int = AS_NODES, seed: int = AS_SEED, samples: int = AS_SAMPLES,
+              epochs: int = AS_EPOCHS, n_test: int = 200, speed: bool = True,
+              attack_plan=None, lr: float = 0.1, inside=None) -> tuple[dict, str, list]:
+    """One seeded experiment through the harness: every node's complete
+    history (sync or async), finite final params and test losses, the
+    conv launches all on wgmma (exactly ``steps`` steps' worth where
+    given). ``inside(exp)`` runs before the knobs are restored (the
+    quarantine replay reads them); its value is the result's "_inside".
+    Returns (result, experiment name, the HarnessNodes)."""
+    async_mode = bool(knobs.get("ASYNC_ROUNDS"))
+    with runtime_settings(ELECTION="hash", TRAIN_SET_SIZE=n, PROFILING_ENABLED=True, **knobs), \
+            harness_nodes() as nodes:
+        profiling.rounds.reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        exp = run_seeded_experiment(
+            seed, n, rounds, epochs=epochs, speed_plan=as_speed_plan() if speed else None,
+            attack_plan=attack_plan, model_fn=phase_model,
+            data_fn=cifar_data_fn(samples, n, n_test), samples_per_node=samples,
+            batch_size=AS_BATCH, learning_rate=lr, timeout=600.0, device=PHASE_DEVICE)
+        torch.cuda.synchronize()
+        call_wall = time.perf_counter() - t0
+        launches = read_launches()
+        wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+        split = round_split(nodes)
+        seen = inside(exp) if inside is not None else None
+    tag = f"async federation ({label})"
+    if len(nodes) != n:
+        raise AssertionError(f"{tag}: the harness built {len(nodes)} HarnessNodes, expected {n}")
+    (check_async_history if async_mode else check_history)(tag, nodes, rounds)
+    check_conv_launches(tag, launches, wgmma, steps)
+    check_node_finals(tag, nodes, agree=False)
+    losses = final_losses(exp, n)
+    wall = max(nd.finished_at for nd in nodes) - nodes[0].started_at
+    out = {"card": card, "nodes": n, "rounds": rounds, "experiment_wall_s": wall,
+           "rounds_per_s": rounds / wall, "harness_call_wall_s": call_wall,
+           "steady_loss": float(np.mean(losses)),
+           "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+           "wgmma_launches": wgmma, "round_split": split}
+    if inside is not None:
+        out["_inside"] = seen
+    return out, exp, nodes
+
+
+def async_ab(card: str) -> dict:
+    """16a: a warm async arm, then sync and free-running async (K = 5) over
+    the 10x-skewed fleet; both finish every round with finite losses.
+    Speedup and loss ratio are reported, not gated (fits run inline on one
+    interpreter here; the reference gates 1.5x on its pooled learner)."""
+    free = dict(ASYNC_ROUNDS=True, ASYNC_BUFFER_K=AS_K, ASYNC_SERIALIZED=False)
+    warm, _, _ = async_run(card, "warm, async", AS_WARM, free, None)
+    sync_steps = AS_SYNC_ROUNDS * AS_NODES * AS_EPOCHS * (AS_SAMPLES // AS_BATCH)
+    sync, _, _ = async_run(card, "sync", AS_SYNC_ROUNDS, {}, sync_steps)
+    asyn, _, _ = async_run(card, "async", AS_ASYNC_ROUNDS, free, None)
+    return {"seed": AS_SEED, "nodes": AS_NODES, "buffer_k": AS_K,
+            "skew": "2 of 10 trainers 10x slower (2.5 s against 0.25 s a fit)",
+            "warm": warm, "sync": sync, "async": asyn,
+            "speedup": asyn["rounds_per_s"] / sync["rounds_per_s"],
+            "loss_ratio": asyn["steady_loss"] / sync["steady_loss"]}
+
+
+def async_determinism(card: str) -> dict:
+    """16b: two serialized same-seed runs (K = 8, the adaptive controller
+    on, the plan's schedule forked into every aggregator): byte-identical
+    final digests across the runs, one digest across the ten nodes, and
+    identical, non-empty controller trajectories at every node."""
+    knobs = dict(ASYNC_ROUNDS=True, ASYNC_BUFFER_K=AS_DET_K, ASYNC_SERIALIZED=True,
+                 ASYNC_ADAPTIVE=True)
+    steps = AS_DET_ROUNDS * AS_NODES * AS_EPOCHS * (AS_SAMPLES // AS_BATCH)
+    runs = []
+    for i in range(2):
+        result, exp, _ = async_run(card, f"determinism, run {i + 1}", AS_DET_ROUNDS, knobs,
+                                   steps)
+        runs.append((result, final_model_digests(exp), harness.controller_trajectories(exp)))
+    (r1, d1, t1), (r2, d2, t2) = runs
+    distinct = len(set(d1.values()))
+    if d1 != d2 or distinct != 1:
+        raise AssertionError(f"async determinism: digests differ (runs equal: {d1 == d2}, "
+                             f"{distinct} distinct in run 1, {len(set(d2.values()))} in run 2)")
+    if t1 != t2 or sorted(t1) != sorted(d1) or not all(t1.values()):
+        raise AssertionError(f"async determinism: controller trajectories {t1} / {t2}")
+    return {"runs": [r1, r2], "byte_identical": True, "digest": sorted(set(d1.values())),
+            "controller_records_per_node": sorted({len(v) for v in t1.values()}),
+            "controller_trajectories_identical": True}
+
+
+def byzantine_async(card: str) -> dict:
+    """16c: the replay adversaries (stale_flood on n1, withhold_replay from
+    round 2 on n4) under serialized buffered rounds with K = n and
+    ASYNC_STALENESS_MAX 2: adversary-free at n = 8, staleness-blind
+    (exp 0, no defense) and defended (quarantine + ledger, exp 0.5) at
+    n = 10. Gated, in the defended arm: the version-tag signature (the
+    peers with a ``stale_flood`` decision are exactly {n1, n4}, and from
+    its first such decision on, each of them is excluded for
+    ``stale_flood`` in every round), and every conv launch held to its
+    plain version at the kernel phase's bounds (:func:`held_convs`), so
+    the verdicts are those of the kernels' own trajectory. Reported:
+    whether the quarantined set is exactly {n1, n4} (``quarantine_exact``).
+    It need not be: the ledger's z-score class scores each update norm
+    against every round's, and this cell's fits (the CNN at lr 0.1 on
+    synthetic data) swing by 30x from round to round, so which honest
+    update stands out depends on the trajectory's roundings. From the same
+    initial params the JAX package quarantined honest n3 for
+    ``norm_outlier`` on the CPU, and the card's trajectory through the
+    kernels quarantines honest n5-n8 (``byzantine_reference.py --async``,
+    PERF.md §6). Also reported: each honest quarantine with its round and
+    reasons, the largest honest update-norm z, the held launches' worst
+    errors, honest accuracies and the bench's ratios (synthetic data)."""
+    out = {}
+    truth_want = {f"seed{BA_SEED}-n{i}" for i in BA_ADVERSARIES}
+    for label, attack, defend, blind, n in BA_ARMS:
+        ledger.contrib.reset()
+        knobs = dict(ASYNC_ROUNDS=True, ASYNC_SERIALIZED=True, ASYNC_ADAPTIVE=False,
+                     ASYNC_BUFFER_K=n, ASYNC_STALENESS_MAX=2,
+                     ASYNC_STALENESS_EXP=0.0 if blind else 0.5,
+                     QUARANTINE_ENABLED=defend, LEDGER_ENABLED=defend)
+        plan = AttackPlan({1: AttackSpec("stale_flood"),
+                           4: AttackSpec("withhold_replay", start=BA_WITHHOLD_START)},
+                          seed=BA_SEED) if attack else None
+        # Each node fits once a round; a replay adversary fits until its
+        # window opens (stale_flood: round 0 only; withhold_replay: rounds
+        # 0 to start − 1) and replays after.
+        fits = BA_ROUNDS * (n - len(BA_ADVERSARIES)) + 1 + BA_WITHHOLD_START if attack \
+            else BA_ROUNDS * n
+        steps = fits * BA_EPOCHS * (BA_SAMPLES // BA_BATCH)
+        with held_convs() if defend else contextlib.nullcontext() as held:
+            result, exp, _ = async_run(card, f"byzantine, {label}", BA_ROUNDS, knobs, steps,
+                                       n=n, seed=BA_SEED, samples=BA_SAMPLES, epochs=BA_EPOCHS,
+                                       n_test=BA_TEST, speed=False, attack_plan=plan,
+                                       inside=lambda _: (quarantine.replay_decisions(),
+                                                         ledger.contrib.detections()["entries"]))
+        if held is not None:
+            for name, st in held.items():
+                if st["held"] != result["launches"][name] or st["beyond_bound"]:
+                    raise AssertionError(f"byzantine async ({label}): {name} held to its plain "
+                                         f"version: {st}, {result['launches'][name]} launches")
+            result["kernels_held_to_plain"] = held
+        replay, entries = result.pop("_inside")
+        truth = set(adversary_map(exp))
+        if truth != (truth_want if attack else set()):
+            raise AssertionError(f"byzantine async ({label}): adversary map {sorted(truth)}")
+        result["honest_acc"] = honest_acc(exp, BA_ADVERSARIES)
+        if defend:
+            stale = {a["peer"]: a["round"] for a in reversed(replay)
+                     if "stale_flood" in a["reasons"]}  # peer -> first stale_flood round
+            excluded = {(a["peer"], a["round"]) for a in replay
+                        if "stale_flood" in a["reasons"] and a["action"] in ("quarantine", "reject")}
+            if set(stale) != truth or not all((p, r) in excluded for p, r0 in stale.items()
+                                              for r in range(r0, BA_ROUNDS)):
+                raise AssertionError(f"byzantine async (defended): stale_flood decisions from "
+                                     f"{stale}, planned {sorted(truth)}, decisions "
+                                     f"{[(a['round'], a['peer'], a['action'], a['reasons']) for a in replay]}")
+            quarantines = [a for a in replay if a["action"] == "quarantine"]
+            flagged = {a["peer"] for a in quarantines}
+            result.update(
+                stale_flood_from_round=stale, stale_flood_excluded_every_round=True,
+                quarantine_exact=flagged == truth, decisions=len(replay),
+                honest_quarantined=[[a["round"], a["peer"], a["reasons"]] for a in quarantines
+                                    if a["peer"] not in truth],
+                max_honest_z=max((float(e["z_norm"]) for e in entries
+                                  if e["peer"] not in truth), default=None))
+        out[label] = result
+    ideal, blind, defended = (out[a[0]]["honest_acc"] for a in BA_ARMS)
+    ledger.contrib.reset()
+    return {"arms": out, "blind_ratio": blind / max(ideal, 1e-9),
+            "defended_ratio": defended / max(ideal, 1e-9),
+            "stale_degrades": bool(blind <= 0.98 * defended),
+            "defended_recovers": bool(defended >= 0.95 * ideal)}
+
+
+def residual_run(card: str, delta: bool) -> dict:
+    """16d, one arm: RG_NODES CNN Nodes on a STAR, TRAIN_SET_SIZE
+    RG_TRAIN_SET (hash election, so waiters take the round's model over
+    the wire), dense codec, ``WIRE_DELTA`` as given. Records every payload
+    encoded (kind, bytes), every full-model send (peer, round, kind) and
+    every nack; checks complete histories and exactly the elected fits'
+    conv launches, all on wgmma."""
+    x, y, xt, yt = synthetic_cifar10(n_train=RG_SAMPLES * RG_NODES, n_test=100, seed=5)
+    parts = TpflDataset.from_arrays(x, y, xt, yt).generate_partitions(
+        RG_NODES, RandomIIDPartitionStrategy, seed=5)
+    encodes, sends, nacks = [], [], []
+    # One experiment name for both arms: the hash election ranks on it, so
+    # the two arms elect the same trainers.
+    saved_uuid4, uuid.uuid4 = uuid.uuid4, lambda: RG_EXPERIMENT
+    with runtime_settings(ELECTION="hash", TRAIN_SET_SIZE=RG_TRAIN_SET, WIRE_CODEC="dense",
+                          WIRE_DELTA=delta, SEED=AS_SEED):
+        nodes = [TimedNode(phase_model(11), parts[i], addr=f"resid-{i}", device=PHASE_DEVICE,
+                           learning_rate=0.05, batch_size=RG_BATCH) for i in range(RG_NODES)]
+        for nd in nodes:
+            payload_fn, send_fn = nd.communication.model_payload, nd.communication.send
+            nack_fn = nd.communication._commands["codec_nack"]
+
+            def model_payload(model, delta_base=None, nd=nd, f=payload_fn):
+                out = f(model, delta_base=delta_base) if delta_base is not None else f(model)
+                encodes.append(("delta" if delta_base is not None else "dense", len(out)))
+                return out
+
+            def send(nei, msg, create_connection=False, nd=nd, f=send_fn):
+                if msg.cmd == "full_model":
+                    kind = "delta" if compression.payload_is_delta(msg.payload) else "dense"
+                    sends.append((nd.addr, nei, msg.round, kind))
+                return f(nei, msg, create_connection=create_connection)
+
+            def codec_nack(source, round, nd=nd, f=nack_fn, **kw):
+                nacks.append((len(sends), nd.addr, source, round))
+                return f(source, round, **kw)
+
+            nd.communication.model_payload = model_payload
+            nd.communication.send = send
+            nd.communication.add_command("codec_nack", codec_nack)
+        try:
+            start_federation(nodes, "STAR")
+            reset_launches()
+            exp, wall = run_experiment(nodes, RG_ROUNDS)
+            launches = read_launches()
+            wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+            finals = [{p: v.detach().clone()
+                       for p, v in tree_items(nd.learner.get_model().get_parameters())}
+                      for nd in nodes]
+        finally:
+            for nd in nodes:
+                nd.stop()
+            uuid.uuid4 = saved_uuid4
+    tag = f"residual gossip (WIRE_DELTA {'on' if delta else 'off'})"
+    check_history(tag, nodes, RG_ROUNDS)
+    check_conv_launches(tag, launches, wgmma,
+                        RG_ROUNDS * RG_TRAIN_SET * (RG_SAMPLES // RG_BATCH))
+    for nd, final in zip(nodes, finals):
+        if not all(torch.isfinite(v).all() for v in final.values()):
+            raise AssertionError(f"{tag}: {nd.addr} holds non-finite params")
+    by_kind = {k: [b for kk, b in encodes if kk == k] for k in ("dense", "delta")}
+    return {"card": card, "experiment_wall_s": wall, "rounds_per_s": RG_ROUNDS / wall,
+            "_finals": finals, "_sends": sends, "_nacks": nacks,
+            "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+            "wgmma_launches": wgmma,
+            "payloads": {k: {"count": len(v), "mean_bytes": float(np.mean(v)) if v else None}
+                         for k, v in by_kind.items()},
+            "full_model_sends": {k: sum(s[3] == k for s in sends) for k in ("dense", "delta")},
+            "nacks": len(nacks)}
+
+
+def residual_gossip(card: str) -> dict:
+    """16d: WIRE_DELTA off, then on. Gated: residual full-model sends from
+    round 1 on (none before), none with it off; after a nack, its sender
+    sends that peer only dense payloads for the round; every node's final
+    params within RG_ATOL of the delta-off arm's."""
+    off, on = residual_run(card, False), residual_run(card, True)
+    delta_sends = [s for s in on["_sends"] if s[3] == "delta"]
+    if not delta_sends or any(r < 1 for _, _, r, _ in delta_sends):
+        raise AssertionError(f"residual gossip: delta sends {delta_sends}")
+    if any(s[3] == "delta" for s in off["_sends"]):
+        raise AssertionError("residual gossip: a delta sent with WIRE_DELTA off")
+    for at, node, peer, rnd in on["_nacks"]:
+        late = [s for s in on["_sends"][at:] if s[:3] == (node, peer, rnd) and s[3] == "delta"]
+        if late:
+            raise AssertionError(f"residual gossip: {node} sent {peer} a delta after its nack "
+                                 f"in round {rnd}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(on["_finals"], off["_finals"])):
+        for path, v in a.items():
+            torch.testing.assert_close(v, b[path], rtol=0, atol=RG_ATOL,
+                                       msg=lambda m, p=path: f"residual gossip node {i} {p}: {m}")
+            worst = max(worst, (v - b[path]).abs().max().item())
+    for arm in (off, on):
+        for k in ("_finals", "_sends", "_nacks"):
+            arm.pop(k)
+    return {"nodes": RG_NODES, "rounds": RG_ROUNDS, "train_set": RG_TRAIN_SET,
+            "delta_off": off, "delta_on": on,
+            "delta_on_vs_off_max_abs_diff": worst,
+            "payload_bytes_delta_over_dense": (on["payloads"]["delta"]["mean_bytes"]
+                                               / on["payloads"]["dense"]["mean_bytes"])}
+
+
+def async_federation_path(card: str) -> dict:
+    """Phase 16: 16a-16d, each logged as it passes."""
+    out = {}
+    for part, run in (("async_ab", async_ab), ("async_determinism", async_determinism),
+                      ("byzantine_async", byzantine_async), ("residual_gossip", residual_gossip)):
+        out[part] = run(card)
+        log(f"async federation ({part}; every check passed): " + json.dumps(out[part]))
+    return out
+
+
+def async_launches(fed: dict, name: str) -> dict:
+    """Phase 16's launches of one conv kernel, by part and arm."""
+    ab, det = fed["async_ab"], fed["async_determinism"]
+    out = {f"16a {arm}": ab[arm]["launches"][name] for arm in ("warm", "sync", "async")}
+    out.update({f"16b run {i + 1}": r["launches"][name] for i, r in enumerate(det["runs"])})
+    out.update({f"16c {arm}": r["launches"][name]
+                for arm, r in fed["byzantine_async"]["arms"].items()})
+    out.update({f"16d delta {arm[6:]}": fed["residual_gossip"][arm]["launches"][name]
+                for arm in ("delta_off", "delta_on")})
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -2740,6 +3179,7 @@ def main() -> int:
     chaos_fed = chaos_federation_path(card)
     log("chaos federation (4 CNN Nodes, 20% drop and one crash; every check passed): "
         + json.dumps(chaos_fed))
+    async_fed = async_federation_path(card)
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()
@@ -2772,6 +3212,7 @@ def main() -> int:
             row["chaos_federation_launches"] = {
                 label: chaos_fed[label]["launches"][row["name"]]
                 for label in ("fault_free", "chaos")}
+            row["async_federation_launches"] = async_launches(async_fed, row["name"])
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
         if row["name"] in built:
             row["build"] = built[row["name"]]

@@ -8,10 +8,13 @@ num_samples and info — with the eager (on-arrival) and the deferred
 weights, ``ROUND_QUORUM < 1`` and ``remove_dead_nodes``. f32; rtol 1e-6
 (the folds round as the reference's do, in the same order).
 
-Every wait has a timeout. The knobs and seams of the asynchronous rounds,
-which the port does not have, raise ``NotImplementedError`` naming their
-ROADMAP item (the quarantine intake and the ledger taps:
-``tests/test_torch_quarantine.py``, ``tests/test_torch_ledger.py``).
+Every wait has a timeout. The seams of the asynchronous rounds
+(``async_k``, ``start_version``, ``set_async_schedule``,
+``async_deadline_close``, ``Settings.ASYNC_ROUNDS``) give the JAX
+package's results here; their full cases are ``tests/test_torch_async.py``
+and ``tests/test_torch_async_control.py`` (the quarantine intake and the
+ledger taps: ``tests/test_torch_quarantine.py``,
+``tests/test_torch_ledger.py``).
 """
 
 import threading
@@ -268,32 +271,80 @@ def test_scaffold_ignores_skipped_models_and_refuses_missing_info():
         tagg.wait_and_get_aggregation(timeout=TIMEOUT)
 
 
-REFUSED = {
-    "async_k": lambda a: a.set_nodes_to_aggregate(["a"], async_k=1),
-    "start_version": lambda a: a.add_model(_pairs(["a"], [1])[0][1], start_version=0),
-    "set_async_schedule": lambda a: a.set_async_schedule(object()),
-    "async_deadline_close": lambda a: a.async_deadline_close(),
-}
-REFUSED_KNOBS = ["ASYNC_ROUNDS"]
+def _async_k(aggs, pairs):
+    """An async round of K = 2 over three peers: two contributions close
+    it on buffer-full."""
+    for agg in aggs:
+        agg.set_nodes_to_aggregate(["a", "b", "c"], async_k=2, round_ordinal=3)
+    for j, (jm, tm) in enumerate(pairs[:2]):
+        assert aggs[0].add_model(jm, start_version=3) == aggs[1].add_model(tm, start_version=3)
+    return "buffer_full"
 
 
-@pytest.mark.parametrize("seam", list(REFUSED))
-def test_unported_seams_raise(seam):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        REFUSED[seam](FedAvg("r", device="cpu"))
+def _start_version(aggs, pairs):
+    """Tags two and three versions behind the round: staleness weights."""
+    for agg in aggs:
+        agg.set_nodes_to_aggregate(["a", "b"], async_k=2, round_ordinal=5)
+    for (jm, tm), v in zip(pairs[:2], (3, 2)):
+        assert aggs[0].add_model(jm, start_version=v) == aggs[1].add_model(tm, start_version=v)
+    return "buffer_full"
 
 
-@pytest.mark.parametrize("knob", REFUSED_KNOBS)
-def test_unported_knobs_raise(both_settings, knob):
-    agg = FedAvg("r", device="cpu")
-    setattr(Settings, knob, True)
-    with pytest.raises(NotImplementedError, match=knob):
-        agg.set_nodes_to_aggregate(["a"])
-    setattr(Settings, knob, False)
-    agg.set_nodes_to_aggregate(["a"])
-    setattr(Settings, knob, True)
-    with pytest.raises(NotImplementedError, match=knob):
-        agg.add_model(_pairs(["a"], [1])[0][1])
+def _set_async_schedule(aggs, pairs):
+    """A seeded schedule: the reverse-order arrivals admit in its order."""
+    from tpfl.communication.faults import AsyncSchedule as JaxSchedule
+    from tpfl_torch.communication.faults import AsyncSchedule
+
+    aggs[0].set_async_schedule(JaxSchedule({"a": 1.0, "b": 1.0}, seed=4))
+    aggs[1].set_async_schedule(AsyncSchedule({"a": 1.0, "b": 1.0}, seed=4))
+    for agg in aggs:
+        agg.set_nodes_to_aggregate(["a", "b"], async_k=2, round_ordinal=1)
+    for jm, tm in reversed(pairs[:2]):
+        assert aggs[0].add_model(jm, start_version=0) == aggs[1].add_model(tm, start_version=0)
+    return "buffer_full"
+
+
+def _async_deadline_close(aggs, pairs):
+    """The deadline closes a K = 3 round holding one contribution."""
+    for agg in aggs:
+        agg.set_nodes_to_aggregate(["a", "b", "c"], async_k=3, round_ordinal=0)
+        assert agg.async_deadline_close() is False
+    jm, tm = pairs[0]
+    assert aggs[0].add_model(jm, start_version=0) == aggs[1].add_model(tm, start_version=0)
+    assert aggs[0].async_deadline_close() is aggs[1].async_deadline_close() is True
+    return "deadline"
+
+
+ASYNC_SEAMS = {"async_k": _async_k, "start_version": _start_version,
+               "set_async_schedule": _set_async_schedule,
+               "async_deadline_close": _async_deadline_close}
+
+
+@pytest.mark.parametrize("seam", list(ASYNC_SEAMS))
+def test_async_seams_match_jax(both_settings, seam):
+    """Each async seam closes the round as the JAX package's does, with
+    the same aggregate (the staleness-weighted fold)."""
+    _set_both(ASYNC_STALENESS_EXP=0.5)
+    aggs = (JaxFedAvg("r"), FedAvg("r", device="cpu"))
+    reason = ASYNC_SEAMS[seam](aggs, _pairs(["a", "b"], [3, 5], seed=8))
+    assert aggs[0].close_reason() == aggs[1].close_reason() == reason
+    assert aggs[1].is_async() and not aggs[1].is_open() and aggs[1].wait_closed(timeout=0.0)
+    _assert_same(aggs[1].wait_and_get_aggregation(timeout=TIMEOUT),
+                 aggs[0].wait_and_get_aggregation(timeout=TIMEOUT), seam)
+
+
+@pytest.mark.parametrize("knob", ["ASYNC_ROUNDS"])
+def test_async_knobs_leave_sync_rounds_alone(both_settings, knob):
+    """The async master switch is the stages' to read: a synchronous
+    round (no ``async_k``) closes on coverage with it on, as the JAX
+    package's does."""
+    _set_both(**{knob: True})
+    jagg, tagg, _, covered = _round("fedavg", ["a", "b"], [2, 3])
+    assert [t for _, t in covered] == [j for j, _ in covered] == [["a"], ["a", "b"]]
+    assert tagg.close_reason() == jagg.close_reason() == "coverage"
+    assert not tagg.is_async()
+    _assert_same(tagg.wait_and_get_aggregation(timeout=TIMEOUT),
+                 jagg.wait_and_get_aggregation(timeout=TIMEOUT), knob)
 
 
 def test_stack_models_and_staleness_weight_match():
@@ -309,8 +360,7 @@ def test_stack_models_and_staleness_weight_match():
                               tree_items(_numpy(jstacked))):
         np.testing.assert_array_equal(g, w, err_msg=k)
     assert staleness_weight(0) == jax_staleness(0) == 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        staleness_weight(2)
+    assert staleness_weight(2) == jax_staleness(2) == 3.0 ** -0.5
 
 
 @pytest.mark.parametrize("eager", [False, True])

@@ -37,6 +37,7 @@ from tpfl_torch.attacks import (
     poison_model,
     sign_flip,
 )
+from tpfl_torch.communication.faults import TrainerSpeedPlan
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils import threefry
@@ -281,19 +282,25 @@ def test_planned_adversaries_fire_on_schedule():
 
 def test_node_runtime_parts_raise():
     """What of the node-runtime plane still raises: the harness without
-    data (its default, ``rendered_digits``, is item 8) and the speed
-    plan's async schedule (item 3). The rest of it works: make_adversary
-    wraps, apply_chaos with no plan changes nothing, unknown experiments
-    have no adversaries."""
-    for call, item in ((lambda: attacks.run_seeded_experiment(1, 2, 1, device="cpu"), "item 8"),
-                       (lambda: attacks.apply_speed_plan([], None), "item 3")):
-        snap = Settings.snapshot()
-        Settings.ASYNC_ROUNDS = True
-        try:
-            with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
-                call()
-        finally:
-            Settings.restore(snap)
+    data (its default, ``rendered_digits``, is item 8). The rest of it
+    works: the speed plan under the serialized async rounds forks one
+    schedule per aggregator, make_adversary wraps, apply_chaos with no
+    plan changes nothing, unknown experiments have no adversaries."""
+    snap = Settings.snapshot()
+    Settings.ASYNC_ROUNDS = True
+    Settings.ASYNC_SERIALIZED = True
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
+            attacks.run_seeded_experiment(1, 2, 1, device="cpu")
+        attached = []
+        peers = [types.SimpleNamespace(addr=a, learner=object(), aggregator=types.SimpleNamespace(
+            set_async_schedule=attached.append)) for a in ("a", "b")]
+        attacks.apply_speed_plan(peers, TrainerSpeedPlan({"a": 0.5, "b": 0.25}, seed=3))
+        assert len(attached) == 2 and attached[0] is not attached[1]
+        assert [s.expected() for s in attached] == ["b", "b"]
+        assert isinstance(peers[0].learner, attacks.SlowLearner)
+    finally:
+        Settings.restore(snap)
     node = types.SimpleNamespace(addr="n", learner=object())
     assert attacks.make_adversary(node, sign_flip()) is node
     assert isinstance(node.learner, attacks.AdversarialLearner)

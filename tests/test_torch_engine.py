@@ -259,6 +259,19 @@ def test_init_params_flax_initialisers():
     assert all(not v["bias"].any() for v in p.values())
 
 
+def test_init_params_are_the_same_under_every_torch():
+    """A seed draws the same params under every torch release: the CNN at
+    seed 4243 is the draw torch 2.11's ``trunc_normal_`` made (sha256 of
+    the f32 leaves in JAX's order, as ``final_model_digests`` hashes
+    them), which torch 2.13's ``trunc_normal_`` does not reproduce."""
+    from tpfl_torch.attacks.harness import params_digest
+    from tpfl_torch.models import init_params
+
+    params = init_params(CNN(out_channels=10), (32, 32, 3), seed=4243, device="cpu")
+    assert params_digest(params) == (
+        "55b37e95481f5bf7dcdd6998db22f35d3262a5a4e2ad426400c7aa852e6d4e89")
+
+
 def test_unported_options_raise():
     """Meshes and FedBuff schedules are not ported yet (FedProx, SCAFFOLD
     and aux state are: tests/test_torch_engine_kinds.py; attack scales:

@@ -183,9 +183,25 @@ def test_trainer_speed_plan_equals_the_reference(seed):
     assert got.delay_for("n3") == want.delay_for("n3") and got.delay_for("zz") == 0.0
 
 
-def test_async_schedule_is_refused_naming_item_3():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 3"):
-        faults.AsyncSchedule.for_plan(faults.TrainerSpeedPlan({"a": 0.1}))
+def test_async_schedule_orders_as_the_reference():
+    """The plan-seeded schedule and every fork give the JAX package's
+    order, virtual times included; ``skip`` passes the head over."""
+    addrs = [f"n{i}" for i in range(6)]
+    plan = faults.TrainerSpeedPlan.skewed(addrs, slow_frac=0.34, base_delay=0.1, seed=21)
+    jplan = jax_faults.TrainerSpeedPlan.skewed(addrs, slow_frac=0.34, base_delay=0.1, seed=21)
+    got, want = faults.AsyncSchedule.for_plan(plan), jax_faults.AsyncSchedule.for_plan(jplan)
+    for sched, ref in ((got, want), (got.fork(), want.fork())):
+        seq, ref_seq = [], []
+        for _ in range(40):
+            seq.append((sched.expected(), sched.expected_time()))
+            ref_seq.append((ref.expected(), ref.expected_time()))
+            sched.advance()
+            ref.advance()
+        assert seq == ref_seq
+    assert got.skip() == want.skip() and got.expected() == want.expected()
+    assert got.knows("n0") and not got.knows("zz")
+    empty = faults.AsyncSchedule({})
+    assert empty.expected() is None and empty.expected_time() is None and empty.skip() is None
 
 
 # --- the chaos hooks of the in-memory transport -----------------------------

@@ -79,14 +79,15 @@ def test_encode_parameters_codec_byte_equal(models, wire_settings, codec):
     assert tm.encode_parameters() == jm.encode_parameters()
 
 
-def test_wire_delta_refused_without_a_base(models, wire_settings):
-    """``WIRE_DELTA`` belongs to the node runtime, which picks the delta
-    base: the encoder refuses it rather than send a dense payload, and a
-    residual asked for by ``delta_base=`` is byte-equal to the JAX one."""
+@pytest.mark.parametrize("codec,fmt", [("dense", 3), ("dense", 1), ("quant8", 3)])
+def test_wire_delta_without_a_base_encodes_as_jax(models, wire_settings, codec, fmt):
+    """Under ``WIRE_DELTA`` with no ``delta_base`` the encoder emits what
+    the JAX package's does (dense v3 / v1, or the configured codec): the
+    stages pick the base and pass it. A residual asked for by
+    ``delta_base=`` is byte-equal to the JAX one."""
     jm, tm = models
-    _set_both(WIRE_DELTA=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.encode_parameters()
+    _set_both(WIRE_DELTA=True, WIRE_CODEC=codec, WIRE_FORMAT=fmt)
+    assert tm.encode_parameters() == jm.encode_parameters()
     base = (3, b"fp", tm.get_parameters())
     jbase = (3, b"fp", jm.get_parameters())
     assert tm.encode_parameters(delta_base=base) == jm.encode_parameters(delta_base=jbase)

@@ -14,6 +14,9 @@ paths beyond the plain synchronous round, on the CPU:
 - the planes node runtime B opened: tracing on (spans in the flight
   ring, a node starting and stopping with it on, a stop dump), the
   fault names of ``tpfl_torch.communication``;
+- the planes node runtime C opened (``ASYNC_ROUNDS``, ``WIRE_DELTA``,
+  ``AsyncSchedule``, the speed plan's schedule forks) run where they
+  were refused;
 - the refusals: each unported plane raises ``NotImplementedError``
   naming its ``ROADMAP.md`` item; each switch of
   ``settings.UNPORTED_SWITCHES`` is refused where a Node or an engine
@@ -361,26 +364,82 @@ def _started(addr):
     return node
 
 
-def _start_learning_with(addr, knob):
-    """A running node asked to start an experiment with ``knob`` on."""
+def _one_node_experiment(addr, **knobs):
+    """A lone running node's one-round experiment with ``knobs`` on, to
+    its end; returns its stage history."""
     node = _started(addr)
-    setattr(Settings, knob, True)
+    for k, v in knobs.items():
+        setattr(Settings, k, v)
     node.set_start_learning(1, 1)
+    wait_to_finish([node], timeout=30)
+    return node.learning_workflow.history
+
+
+def _starts_with(knob):
+    """A Node and a FederationEngine start with ``knob`` on."""
+    setattr(Settings, knob, True)
+    _started(f"sw-{knob.lower()}")
+    _engine()
+    return True
+
+
+def _knobs_read():
+    """The async knobs, once only parity, are read by the port's code."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "tpfl_torch"
+    read = {n.attr for f in root.rglob("*.py") if f.name != "settings.py"
+            for n in ast.walk(ast.parse(f.read_text())) if isinstance(n, ast.Attribute)
+            and isinstance(n.value, ast.Name) and n.value.id == "Settings"}
+    knobs = {"ASYNC_BUFFER_K", "ASYNC_STALENESS_EXP", "ASYNC_ROUND_DEADLINE",
+             "ASYNC_SERIALIZED", "ASYNC_ADAPTIVE", "ASYNC_K_MIN", "ASYNC_K_MAX",
+             "ASYNC_CTL_EWMA", "ASYNC_CTL_QUANTILE", "ASYNC_UNTAGGED_POLICY"}
+    return knobs <= read and not knobs & set(UNPORTED_KNOBS)
+
+
+def _speed_plan_forks():
+    Settings.ASYNC_ROUNDS = True
+    nodes = [_node(f"ported-sp{i}") for i in range(2)]
+    apply_speed_plan(nodes, TrainerSpeedPlan({nodes[0].addr: 0.01}, seed=1))
+    scheds = [nd.aggregator._async_sched for nd in nodes]
+    return scheds[0] is not scheds[1] and scheds[0].expected() == scheds[1].expected()
+
+
+# Each replaces the refusal case of the same name: the ported plane runs.
+PORTED = {
+    "async rounds": lambda: (setattr(Settings, "ASYNC_ROUNDS", True),
+                             _started("ported-async"))[1]._running,
+    "residual gossip": lambda: _one_node_experiment("ported-delta", WIRE_DELTA=True) == [
+        "StartLearningStage", "VoteTrainSetStage", "TrainStage", "GossipModelStage",
+        "RoundFinishedStage"],
+    "async rounds at learning": lambda: _one_node_experiment(
+        "ported-async2", ASYNC_ROUNDS=True, ASYNC_BUFFER_K=1) == [
+        "StartLearningStage", "AsyncRoundStage", "RoundFinishedStage"],
+    "async schedule": lambda: AsyncSchedule.for_plan(
+        TrainerSpeedPlan({"a": 0.1})).expected() == "a",
+    "speed plan under async rounds": _speed_plan_forks,
+    "switch ASYNC_ROUNDS": lambda: _starts_with("ASYNC_ROUNDS"),
+    "switch WIRE_DELTA": lambda: _starts_with("WIRE_DELTA"),
+    "gate Settings.ASYNC_ROUNDS": _knobs_read,
+}
+
+
+@pytest.mark.parametrize("seam", sorted(PORTED))
+def test_ported_seams_run(seam):
+    snap = Settings.snapshot()
+    try:
+        assert PORTED[seam]() is True
+    finally:
+        Settings.restore(snap)
+        while _made:
+            _made.pop().stop()
+        assert not [a for a in logger.get_nodes() if a.startswith(("ported-", "sw-"))]
 
 
 REFUSALS = {
     "simulation pool": ("item 5", lambda: setattr(Settings, "DISABLE_SIMULATION", False),
                         lambda: _node("ref-sim")),
-    "async rounds": ("item 3", lambda: setattr(Settings, "ASYNC_ROUNDS", True),
-                     lambda: _node("ref-async").start()),
-    "residual gossip": ("item 2", lambda: None, lambda: _start_learning_with(
-        "ref-delta", "WIRE_DELTA")),
-    "async rounds at learning": ("item 3", lambda: None, lambda: _start_learning_with(
-        "ref-async2", "ASYNC_ROUNDS")),
-    "async schedule": ("item 3", lambda: None,
-                       lambda: AsyncSchedule.for_plan(TrainerSpeedPlan({"a": 0.1}))),
-    "speed plan under async rounds": ("item 3", lambda: setattr(Settings, "ASYNC_ROUNDS", True),
-                                      lambda: apply_speed_plan([], TrainerSpeedPlan({}))),
     "telemetry dump dir at the engine": ("item 4", lambda: setattr(
         Settings, "TELEMETRY_DUMP_DIR", "armed-dir"), lambda: _engine()),
     "harness default data": ("item 8", lambda: None, lambda: run_seeded_experiment(
@@ -462,7 +521,6 @@ def _simulation_refused():
 # How each entry point of UNPORTED_KNOBS is closed to a caller of the port.
 GATES = {
     "Settings.DISABLE_SIMULATION": _simulation_refused,
-    "Settings.ASYNC_ROUNDS": lambda: "node" in UNPORTED_SWITCHES["ASYNC_ROUNDS"][2],
     "communication.GrpcCommunicationProtocol": _raises(
         lambda: communication.GrpcCommunicationProtocol),
     "parallel.FederationEngine(mesh=)": _raises(lambda: FederationEngine(

@@ -219,8 +219,20 @@ def test_krum_scores_match_f64():
     assert int(np.argmin(got)) == int(np.argmin(want))
 
 
-def test_async_staleness_is_refused():
-    agg = Krum("t", device="cpu")
-    (_, tm), = _pairs(["a"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        agg.accumulate(agg.acc_init(tm), tm, staleness=2)
+def test_async_staleness_matches_jax():
+    """Candidates buffered with their async τ: the ``ASYNC_STALENESS_MAX``
+    cut at finalize (τ = 3 dropped, τ = max kept), Krum's ``(1+τ)^exp``
+    score penalty and Multi-Krum's ``staleness_weight`` discount give the
+    JAX package's aggregate; an all-stale buffer fails open to it too."""
+    _set_both(ASYNC_STALENESS_MAX=2, ASYNC_STALENESS_EXP=0.5)
+    pairs = _pairs([f"p{i}" for i in range(7)], seed=5, outliers=("p6",))
+    taus = [0, 1, 2, 0, 3, 1, 0]
+    for kind, (make_jax, make_port) in AGGREGATORS.items():
+        for label, ts in (("mixed", taus), ("all stale", [5] * len(taus))):
+            jagg, tagg = make_jax("st"), make_port("st")
+            jst, tst = jagg.acc_init(pairs[0][0]), tagg.acc_init(pairs[0][1])
+            for (jm, tm), t in zip(pairs, ts):
+                jst = jagg.accumulate(jst, jm, staleness=t)
+                tst = tagg.accumulate(tst, tm, staleness=t)
+            assert tst.extra["taus"] == jst.extra["taus"] == ts
+            _assert_same(tagg.finalize(tst), jagg.finalize(jst), f"{kind} {label}")

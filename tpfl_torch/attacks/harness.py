@@ -59,10 +59,7 @@ def final_model_digests(exp_name: str) -> dict[str, str]:
 
 def controller_trajectories(exp_name: str) -> dict[str, list]:
     """``{addr: per-round controller decisions}`` captured at experiment
-    finish. The adaptive async controller belongs to the asynchronous
-    rounds (``ROADMAP.md`` §1 item 3), which the port does not run, so
-    every node's list is empty — as the reference's is for a run without
-    ``ASYNC_ADAPTIVE``."""
+    finish (empty lists for runs without ``ASYNC_ADAPTIVE``)."""
     return {k: [dict(r) for r in v] for k, v in _CTL_TRAJECTORIES.get(exp_name, {}).items()}
 
 
@@ -172,7 +169,14 @@ def run_seeded_experiment(
         _FINAL_DIGESTS[exp_name] = {
             node.addr: params_digest(node.learner.get_model().get_parameters())
             for node in nodes}
-        _CTL_TRAJECTORIES[exp_name] = {node.addr: [] for node in nodes}
+        # The controllers' receipts: experiment teardown (RoundFinishedStage
+        # -> state.clear) has reset a node's controller by the time the
+        # last node finishes, so read the archived log when the live one
+        # is gone.
+        _CTL_TRAJECTORIES[exp_name] = {
+            node.addr: (node.state.async_controller.trajectory()
+                        or node.state.async_controller.last_trajectory())
+            for node in nodes}
         return exp_name
     finally:
         for node in nodes:

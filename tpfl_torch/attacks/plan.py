@@ -283,19 +283,22 @@ class SlowLearner(AdversarialLearner):
 def apply_speed_plan(nodes: "list[Any]", plan: Any) -> None:
     """Wire a :class:`tpfl_torch.communication.faults.TrainerSpeedPlan`
     into a federation (nodes must not be started yet): every planned
-    node's learner is wrapped in a :class:`SlowLearner`. Under
-    ``Settings.ASYNC_ROUNDS`` the reference also gives every aggregator a
-    fork of the plan-seeded ``AsyncSchedule`` (its serialized
-    discipline); that raises ``NotImplementedError`` naming
-    ``ROADMAP.md`` §1 item 3."""
+    node's learner is wrapped in a :class:`SlowLearner`, and under the
+    async serialized discipline (``Settings.ASYNC_ROUNDS`` +
+    ``ASYNC_SERIALIZED``) every node's aggregator gets its own fork of
+    the plan-seeded :class:`~tpfl_torch.communication.faults
+    .AsyncSchedule`, so arrival order serializes identically at every
+    node and across same-seed runs."""
     from tpfl_torch.communication.faults import AsyncSchedule
 
-    if Settings.ASYNC_ROUNDS:
-        AsyncSchedule.for_plan(plan)
     for node in nodes:
         delay = plan.delay_for(node.addr)
         if delay > 0:
             node.learner = SlowLearner(node.learner, delay)
+    if Settings.ASYNC_ROUNDS and Settings.ASYNC_SERIALIZED:
+        schedule = AsyncSchedule.for_plan(plan)
+        for node in nodes:
+            node.aggregator.set_async_schedule(schedule.fork())
 
 
 def apply_chaos(

@@ -1,6 +1,6 @@
 """Application protocol verbs (commands) — a copy of
-:mod:`tpfl.communication.commands`; the asynchronous-round intake is
-refused (``Settings.ASYNC_ROUNDS``, ``ROADMAP.md`` §1 item 3).
+:mod:`tpfl.communication.commands`, with the asynchronous-round intake of
+``partial_model`` (``Settings.ASYNC_ROUNDS``).
 
 Parity with reference ``p2pfl/communication/commands/`` — the 11 verbs
 dispatched by the transport's server into node internals
@@ -351,11 +351,15 @@ class PartialModelCommand(NodeCommand):
         st = self.state
         if st.round is None:
             return
-        from tpfl_torch.exceptions import ASYNC_ITEM, not_ported
         from tpfl_torch.settings import Settings as _S
 
         if _S.ASYNC_ROUNDS:
-            raise not_ported("the asynchronous-round intake", ASYNC_ITEM)
+            # Async buffered rounds: the sender's round number is its own
+            # cadence; the model-version ordinal it trained from
+            # (``version`` on the envelope) sets the staleness against
+            # whatever round is forming here.
+            self._execute_async(source, weights, contributors, num_samples, kwargs)
+            return
         if round == st.round + 1:
             # Fast peer already in the next round: hold the model until
             # our TrainStage opens that round (drained there), instead
@@ -363,7 +367,7 @@ class PartialModelCommand(NodeCommand):
             # aggregation timeout.
             st.stash_pending_partial(
                 (source, round, weights, contributors, num_samples,
-                 int(kwargs.get("version", -1))),
+                 int(kwargs.get("version", -1)), kwargs.get("trace", "")),
                 round,
             )
             # Close the stash/drain race: if our round advanced (and its
@@ -379,6 +383,7 @@ class PartialModelCommand(NodeCommand):
                         contributors=args[3],
                         num_samples=args[4],
                         version=args[5],
+                        trace=args[6],
                     )
             return
         if round != st.round:
@@ -407,6 +412,52 @@ class PartialModelCommand(NodeCommand):
         if covered:
             st.set_models_aggregated(st.addr, covered)
             send_models_aggregated(self.node, covered)
+
+    def _execute_async(self, source: str, weights: bytes, contributors: list[str],
+                       num_samples: int, kwargs: dict) -> None:
+        """Async-round intake: fold into whatever round is forming. A
+        contribution arriving between rounds (buffer just closed) is
+        stashed and replayed when ``AsyncRoundStage`` opens the next one;
+        the serialized discipline holds it in the aggregator's reorder
+        buffer instead."""
+        st = self.state
+        trace = kwargs.get("trace", "")
+        raw_version = int(kwargs.get("version", -1))
+        start_version = None if raw_version < 0 else raw_version
+        agg = self.node.aggregator
+        try:
+            with tracing.maybe_span(
+                "decode", st.addr, trace=trace, cmd=self.name, peer=source,
+            ):
+                model = self.node.learner.get_model().build_copy(params=weights)
+        except Exception as e:
+            logger.error(st.addr, f"PartialModel decode failed: {e}")
+            return
+        with tracing.maybe_span(
+            "fold", st.addr, trace=trace, peer=source,
+        ) as fold_span:
+            covered = agg.add_model(model, trace=trace, start_version=start_version)
+            fold_span.set(covered=len(covered))
+        if (not covered and not agg.is_open() and st.round is not None
+                and not agg.reorders(contributors)):
+            # Between rounds with no reorder buffer to hold it: stash for
+            # the round this node opens next rather than waste a finished
+            # fit. That is st.round itself once RoundFinishedStage has
+            # advanced it (or before the first round opens): the JAX
+            # package stashes for st.round + 1 there, so the contribution
+            # misses that round, which then waits for its deadline
+            # (ROADMAP.md §3).
+            opened = agg.is_async() and agg.round_ordinal() == st.round
+            nxt = st.round + 1 if opened else st.round
+            st.stash_pending_partial(
+                (source, nxt, weights, contributors, num_samples, raw_version, trace), nxt)
+            # Close the stash/drain race: if that round opened (and
+            # AsyncRoundStage drained) while we were stashing, replay now;
+            # drain is pop-once, so nothing is delivered twice.
+            if agg.is_open() and agg.round_ordinal() == nxt:
+                for args in st.drain_pending_partials(nxt):
+                    self._execute_async(args[0], args[2], args[3], args[4],
+                                        {"version": args[5], "trace": args[6]})
 
 
 class CodecNackCommand(NodeCommand):

@@ -28,12 +28,14 @@ Injection points (wired in ``base.py``):
 The injector is test/bench machinery: a production node simply never
 attaches one (``protocol._fault_injector is None`` — zero overhead on
 the send path beyond the None check). :class:`TrainerSpeedPlan` is the
-trainer-speed chaos spec; the reference's ``AsyncSchedule`` belongs to
-the asynchronous rounds and is refused here (``ROADMAP.md`` §1 item 3).
+trainer-speed chaos spec, and :class:`AsyncSchedule` the seeded total
+order the serialized asynchronous rounds admit contributions in, built
+from the same plan.
 """
 
 from __future__ import annotations
 
+import heapq
 import random
 import threading
 import time
@@ -41,7 +43,6 @@ import zlib
 from dataclasses import dataclass, field
 from typing import Any, Iterable, Optional
 
-from tpfl_torch.exceptions import ASYNC_ITEM, not_ported
 from tpfl_torch.settings import Settings
 
 WILDCARD = "*"
@@ -329,8 +330,8 @@ class FaultInjector:
 class TrainerSpeedPlan:
     """Declarative seeded trainer-speed skew: ``addr -> fit delay``
     (seconds slept around every local fit — the chaos knob that makes
-    heterogeneous fleets reproducible). In the reference the SAME plan
-    seeds the ``AsyncSchedule`` of the async rounds. Pure data: the
+    heterogeneous fleets reproducible). The SAME plan seeds the
+    :class:`AsyncSchedule` that serializes async arrival order. Pure data: the
     learner wrapping lives in ``tpfl_torch.attacks.plan`` (layering —
     this module cannot import the learning layer)."""
 
@@ -374,13 +375,80 @@ class TrainerSpeedPlan:
 
 
 class AsyncSchedule:
-    """The seeded total order over async contributions of the
-    reference's serialized buffered rounds — not ported: the
-    asynchronous rounds are ``ROADMAP.md`` §1 item 3."""
+    """Seeded total order over async contributions — the serialized
+    arrival discipline (``Settings.ASYNC_SERIALIZED``).
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise not_ported("communication.faults.AsyncSchedule", ASYNC_ITEM)
+    Built from per-trainer periods (a :class:`TrainerSpeedPlan`'s
+    delays), the schedule assigns contribution ``c`` of trainer ``t``
+    the virtual finish time ``(c+1) * period(t)`` and orders all
+    contributions by ``(virtual time, seeded trainer rank)``. An
+    aggregator holding out-of-order arrivals in a reorder buffer and
+    folding strictly in this order folds an identical sequence at
+    every node and in every same-seed run. Because the periods mirror
+    the real (injected) trainer speeds, actual arrival order tracks
+    schedule order and the reorder buffer rarely waits.
+
+    Stateful consumer-side: each aggregator takes its OWN instance
+    (:meth:`fork`) — same ``(periods, seed)`` ⇒ same order everywhere.
+    """
+
+    def __init__(
+        self, periods: dict[str, float], seed: Optional[int] = None
+    ) -> None:
+        # unguarded: all mutable state is owned by one Aggregator and
+        # accessed under its _lock (the schedule is handed over whole).
+        self._seed = seed
+        self.periods = {
+            a: max(float(p), 1e-3) for a, p in dict(periods).items()
+        }
+        ordered = sorted(self.periods)
+        # Seeded rank breaks virtual-time ties between equal-period
+        # trainers without depending on address sort order alone.
+        rng = random.Random(
+            ((Settings.SEED or 0) if seed is None else seed) ^ 0x5EED
+        )
+        shuffled = list(ordered)
+        rng.shuffle(shuffled)
+        self._rank = {a: i for i, a in enumerate(shuffled)}
+        self._heap: list[tuple[float, int, str]] = [
+            (self.periods[a], self._rank[a], a) for a in ordered
+        ]
+        heapq.heapify(self._heap)
 
     @classmethod
-    def for_plan(cls, plan: Any) -> "AsyncSchedule":
-        return cls(plan)
+    def for_plan(cls, plan: TrainerSpeedPlan) -> "AsyncSchedule":
+        return cls(plan.delays, seed=plan.seed)
+
+    def fork(self) -> "AsyncSchedule":
+        """A fresh same-order instance (one per aggregator)."""
+        return AsyncSchedule(self.periods, seed=self._seed)
+
+    def knows(self, addr: str) -> bool:
+        return addr in self.periods
+
+    def expected(self) -> Optional[str]:
+        """The trainer whose contribution is next in schedule order
+        (None for an empty schedule)."""
+        return self._heap[0][2] if self._heap else None
+
+    def expected_time(self) -> Optional[float]:
+        """The head contribution's VIRTUAL finish time — the seeded
+        clock the adaptive controller's serialized-mode observations
+        derive from."""
+        return self._heap[0][0] if self._heap else None
+
+    def advance(self) -> None:
+        """Consume the head (its contribution was admitted) and
+        schedule that trainer's next contribution."""
+        if not self._heap:
+            return
+        vt, rank, addr = heapq.heappop(self._heap)
+        heapq.heappush(self._heap, (vt + self.periods[addr], rank, addr))
+
+    def skip(self) -> Optional[str]:
+        """Liveness escape: advance past the head WITHOUT a
+        contribution (deadline close on a dead trainer). Breaks the
+        byte-determinism guarantee for this run — the caller logs it."""
+        head = self.expected()
+        self.advance()
+        return head

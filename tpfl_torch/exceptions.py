@@ -59,9 +59,6 @@ class ConnectionTimeoutError(CommunicationError):
 # --- planes the port has not ported yet --------------------------------
 # Each seam the reference enters raises ``not_ported(what, ITEM)``, naming
 # the ROADMAP.md §1 queue item that ports it.
-RUNTIME_B_ITEM = ("ROADMAP.md §1 item 2, node runtime B: faults, chaos, telemetry and the "
-                  "seeded-experiment harness")
-ASYNC_ITEM = "ROADMAP.md §1 item 3, node runtime C: asynchronous buffered rounds"
 ENGINE_ITEM = "ROADMAP.md §1 item 4, the engine variants"
 SIMULATION_ITEM = "ROADMAP.md §1 item 5, simulation and observatories"
 MULTI_DEVICE_ITEM = "ROADMAP.md §1 item 7, multi-GPU and multi-host"

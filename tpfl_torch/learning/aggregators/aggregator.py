@@ -1,5 +1,5 @@
 """Aggregation state machine — the port of
-:mod:`tpfl.learning.aggregators.aggregator`, synchronous rounds.
+:mod:`tpfl.learning.aggregators.aggregator`.
 
 Parity with the reference:
 
@@ -20,18 +20,25 @@ Parity with the reference:
   all-quarantined mixture is dropped, and a round whose every held
   model is excluded fails open to the undefended fold;
 - the ledger taps (``Settings.LEDGER_ENABLED``): ``add_model`` records
-  each accepted contribution, ``clear`` closes the ledger's round.
+  each accepted contribution, ``clear`` closes the ledger's round;
+- the asynchronous buffered lifecycle (``Settings.ASYNC_ROUNDS``):
+  ``set_nodes_to_aggregate(async_k=, round_ordinal=)`` opens a round
+  that closes on ``async_k`` distinct contributors (``close_reason``
+  "buffer_full") or ``async_deadline_close`` ("deadline"); a
+  contribution tagged ``add_model(start_version=)`` folds at its sample
+  count times :func:`staleness_weight` of ``round_ordinal −
+  start_version``, untagged ones per ``Settings.ASYNC_UNTAGGED_POLICY``.
+  Free-running (``ASYNC_SERIALIZED`` off) folds eagerly on arrival;
+  serialized defers the fold to the close, in canonical order, and with
+  a seeded ``AsyncSchedule`` attached (``set_async_schedule``) admits
+  single contributions strictly in schedule order through a reorder
+  buffer that survives round boundaries. ``take_arrival_observations``
+  feeds the adaptive controller.
 
 The math lives in subclasses' ``acc_init`` / ``accumulate`` /
 ``finalize``, as torch ops on the aggregator's device (``device=None``
-means the card).
-
-Not ported (each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item when asked for, never skipped silently): the
-asynchronous buffered lifecycle (``set_nodes_to_aggregate(async_k=)``,
-``start_version``, ``set_async_schedule``, ``async_deadline_close``,
-``Settings.ASYNC_ROUNDS``, ``staleness_weight`` for τ > 0). The fold
-and close times land in the logger's metrics registry
+means the card); the staleness weights scale the running sums there.
+The fold and close times land in the logger's metrics registry
 (``tpfl_agg_fold_seconds``, ``tpfl_agg_aggregate_seconds``) and in the
 round profiler's ``fold`` component (:mod:`tpfl_torch.management.profiling`).
 """
@@ -49,35 +56,39 @@ import torch
 from tpfl_torch import DeviceLike, resolve_device
 from tpfl_torch.concurrency import make_lock
 from tpfl_torch.learning.model import TpflModel, to_device
-from tpfl_torch.exceptions import ASYNC_ITEM as _ASYNC_ITEM
-from tpfl_torch.exceptions import not_ported as _not_ported
 from tpfl_torch.management import ledger, profiling, tracing
 from tpfl_torch.management.logger import logger
 from tpfl_torch.management.telemetry import flight
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import canonical_leaves, canonical_map, canonical_unflatten
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return _not_ported(f"aggregators: {what}", item)
-
-
-def refuse_unported_knobs() -> None:
-    """Raise for a Settings flag whose plane the port does not have."""
-    if Settings.ASYNC_ROUNDS:
-        raise not_ported("Settings.ASYNC_ROUNDS", _ASYNC_ITEM)
-
-
 class NoModelsToAggregateError(Exception):
     """wait_and_get_aggregation timed out with zero models."""
 
 
 def staleness_weight(tau: int) -> float:
-    """FedBuff-style decay ``1/(1+τ)**0.5`` of the reference's async
-    rounds; synchronous rounds fold every contribution at τ = 0, where
-    it is 1. The port has no async rounds, so τ > 0 is refused."""
-    if tau <= 0:
+    """FedBuff-style staleness decay ``w(τ) = 1/(1+τ)**exp``
+    (``Settings.ASYNC_STALENESS_EXP``): τ ≤ 0 (fresh) folds at full
+    weight, and exp = 0 disables discounting. Synchronous rounds fold
+    every contribution at τ = 0."""
+    exp = float(Settings.ASYNC_STALENESS_EXP)
+    if exp == 0.0 or tau <= 0:
         return 1.0
-    raise not_ported("staleness-weighted folds", _ASYNC_ITEM)
+    return float((1.0 + float(tau)) ** -exp)
+
+
+def untagged_staleness() -> "int | None":
+    """Staleness of an UNTAGGED async contribution per
+    ``Settings.ASYNC_UNTAGGED_POLICY``: "fresh" → 0, "max-stale" →
+    ``ASYNC_STALENESS_MAX``, "reject" → None (the intake refuses it).
+    One resolution point, so the fold weight, the robust candidates' τ
+    and the quarantine / ledger window see the same number."""
+    policy = str(Settings.ASYNC_UNTAGGED_POLICY)
+    if policy == "reject":
+        return None
+    if policy == "max-stale":
+        return max(0, int(Settings.ASYNC_STALENESS_MAX))
+    return 0
 
 
 def on_device(tree: Any, device: torch.device) -> Any:
@@ -156,6 +167,41 @@ class Aggregator(ABC):
         # skips them).
         # guarded-by: _lock
         self._excluded: dict[int, str] = {}
+        # --- asynchronous buffered rounds (Settings.ASYNC_ROUNDS) ---
+        # Buffer size that closes the open round (0 = synchronous round).
+        # Writes under _lock; lock-free int reads see at worst one round
+        # of drift.
+        # guarded-by: _lock writes
+        self._async_k: int = 0
+        # Model-version ordinal of the round being formed (the "r" of
+        # τ = r − start_version).
+        # guarded-by: _lock writes
+        self._round_ordinal: int = 0
+        # Per-held-model staleness, keyed by object identity.
+        # guarded-by: _lock
+        self._staleness: dict[int, int] = {}
+        # Why the open round closed: "coverage", "buffer_full" or
+        # "deadline"; None while open.
+        # guarded-by: _lock writes
+        self._close_reason: "str | None" = None
+        # Serialized-arrival discipline: the attached seeded
+        # AsyncSchedule (written once per experiment, before the nodes
+        # start; its state mutates only under _lock) and the reorder
+        # buffer of out-of-order arrivals by contributor, which survives
+        # round boundaries.
+        # guarded-by: _lock writes
+        self._async_sched: Any = None
+        # guarded-by: _lock
+        self._async_hold: dict[str, list] = {}
+        # Per-round (τ, stamp) arrival observations for the adaptive
+        # controller: the schedule's virtual time for drained
+        # admissions, the arrival ordinal serialized without a schedule,
+        # time.monotonic() free-running.
+        # guarded-by: _lock
+        self._arrivals: list[tuple[int, float]] = []
+        # Deadline attempt ordinal of the open async round.
+        # guarded-by: _lock
+        self._deadline_attempt: int = 0
         self._lock = make_lock("Aggregator._lock")
         self._finish_aggregation_event = threading.Event()
         self._finish_aggregation_event.set()
@@ -220,12 +266,13 @@ class Aggregator(ABC):
     def set_nodes_to_aggregate(self, nodes: list[str], async_k: "int | None" = None,
                                round_ordinal: int = 0) -> None:
         """Start a round: declare the train set whose contributions we
-        await. ``async_k`` (the buffered async round) is refused."""
-        if async_k:
-            raise not_ported("set_nodes_to_aggregate(async_k=...)", _ASYNC_ITEM)
-        refuse_unported_knobs()
+        await. ``async_k`` opens an asynchronous buffered round instead:
+        it closes on ``async_k`` distinct covered contributors (clamped
+        to ``[1, len(nodes)]``), whoever they are; ``round_ordinal`` is
+        the model-version ordinal the round produces."""
         if not self._finish_aggregation_event.is_set():
             raise Exception(f"({self.node_name}) Aggregation already in progress")
+        drained: list = []
         with self._lock:
             self._train_set = list(nodes)
             self._models = []
@@ -233,22 +280,68 @@ class Aggregator(ABC):
             self._stream_dead = False
             self._removed_dead = set()
             self._excluded = {}
+            self._staleness = {}
+            self._close_reason = None
+            self._arrivals = []
+            self._deadline_attempt = 0
+            self._async_k = max(1, min(int(async_k), len(nodes))) if async_k else 0
+            self._round_ordinal = int(round_ordinal)
             self.version += 1
             self._last_intake = time.monotonic()
             # Clear under the lock: a model arriving between the train-set
             # assignment and the clear would otherwise be dropped.
             self._finish_aggregation_event.clear()
+            # Contributions the reorder buffer held while no round was
+            # open admit into this one.
+            if self._async_k and self._async_sched is not None:
+                drained = self._drain_schedule_locked()
+        self._post_admit(drained)
 
     def set_async_schedule(self, schedule: Any) -> None:
-        raise not_ported("set_async_schedule", _ASYNC_ITEM)
+        """Attach this aggregator's own seeded
+        :class:`~tpfl_torch.communication.faults.AsyncSchedule` (callers
+        ``fork()`` one per node): async intake then admits single
+        contributions strictly in schedule order. ``None`` detaches.
+        Resets the reorder buffer either way."""
+        with self._lock:
+            self._async_sched = schedule
+            self._async_hold = {}
 
-    def async_deadline_close(self) -> bool:
-        raise not_ported("async_deadline_close", _ASYNC_ITEM)
+    def reorders(self, contributors: list[str]) -> bool:
+        """True when the attached schedule admits this contribution
+        through the reorder buffer (a single contributor it knows) in an
+        async round. Under ``ASYNC_ROUNDS`` the buffer holds it before
+        this node's first round opens too, so a peer's fit that beats that
+        open keeps its schedule slot; the JAX package's intake waits for
+        the first ``async_k`` round and the ``partial_model`` command then
+        stashes the contribution for round 1 (``ROADMAP.md`` §3). A
+        synchronous round never reorders."""
+        sched = self._async_sched
+        return (sched is not None and bool(self._async_k or Settings.ASYNC_ROUNDS)
+                and len(contributors) == 1 and sched.knows(contributors[0]))
+
+    def is_async(self) -> bool:
+        """True while the open (or last-opened) round is buffered async."""
+        return bool(self._async_k)
+
+    def round_ordinal(self) -> int:
+        """The model-version ordinal of the open (or last-opened) round."""
+        return self._round_ordinal
+
+    def close_reason(self) -> "str | None":
+        """Why the current round closed ("coverage", "buffer_full",
+        "deadline"); None while still open."""
+        return self._close_reason
 
     def is_open(self) -> bool:
         """True while a round's aggregation is in progress (between
         set_nodes_to_aggregate and full coverage / clear)."""
         return not self._finish_aggregation_event.is_set()
+
+    def wait_closed(self, timeout: "float | None" = None) -> bool:
+        """Block until the open round closes (coverage, buffer-full,
+        deadline or clear); True when closed."""
+        return self._finish_aggregation_event.wait(timeout=timeout)
 
     def stalled(self, stall_seconds: float) -> bool:
         """True when intake has gone quiet: the round is open, at least
@@ -277,6 +370,9 @@ class Aggregator(ABC):
         with self._lock:
             if self._finish_aggregation_event.is_set():
                 return True
+            if self._async_k:
+                # Async rounds await no specific member: nothing to shrink.
+                return False
             covered = {c for m in self._models for c in m.get_contributors()}
             removable = [a for a in addrs if a in self._train_set and a not in covered]
             if removable:
@@ -302,6 +398,41 @@ class Aggregator(ABC):
             flight.dump(self.node_name, "quorum_degraded")
         return closed
 
+    def async_deadline_close(self) -> bool:
+        """Deadline failsafe of an async round
+        (``Settings.ASYNC_ROUND_DEADLINE``, polled by ``AsyncRoundStage``):
+        close with whatever the buffer holds; True when the round is
+        (now) closed. An EMPTY buffer fails open loudly: the deadline
+        event and counter fire with the round's attempt ordinal, the
+        round stays open, and the caller re-arms."""
+        with self._lock:
+            if self._finish_aggregation_event.is_set():
+                return True
+            if not self._async_k:
+                return False
+            held = bool(self._models)
+            self._deadline_attempt += 1
+            attempt = self._deadline_attempt
+            if held:
+                self._close_reason = "deadline"
+                self._finish_aggregation_event.set()
+        outcome = "closed" if held else "empty"
+        logger.metrics.counter("tpfl_agg_deadline_total",
+                               labels={"node": self.node_name, "outcome": outcome})
+        tracing.event("round_deadline", self.node_name, outcome=outcome,
+                      round=self._round_ordinal, attempt=attempt)
+        if not held:
+            logger.metrics.counter("tpfl_agg_deadline_rearm_total",
+                                   labels={"node": self.node_name})
+            logger.warning(
+                self.node_name,
+                f"Async round {self._round_ordinal} deadline expired with an EMPTY buffer "
+                f"(attempt {attempt}); failing open (round stays open, deadline re-arms)",
+            )
+            return False
+        self._emit_async_close("deadline")
+        return True
+
     def clear(self) -> None:
         """End a round."""
         with self._lock:
@@ -311,6 +442,10 @@ class Aggregator(ABC):
             self._stream_dead = False
             self._removed_dead = set()
             self._excluded = {}
+            self._staleness = {}
+            self._close_reason = None
+            self._arrivals = []
+            self._deadline_attempt = 0
             self.version += 1
         self._finish_aggregation_event.set()
         # Close the ledger's round (unconditional: a round opened with a
@@ -330,53 +465,143 @@ class Aggregator(ABC):
             covered = {c for m in self._models for c in m.get_contributors()}
             return set(self._train_set) - covered
 
+    def _staleness_of(self, start_version: "int | None") -> int:
+        """Staleness of a contribution trained from ``start_version``
+        folding into the round being formed: 0 in synchronous rounds;
+        untagged async ones per :func:`untagged_staleness` ("reject" is
+        enforced by ``add_model`` first)."""
+        if not self._async_k:
+            return 0
+        if start_version is None:
+            return untagged_staleness() or 0
+        return max(0, int(self._round_ordinal) - int(start_version))
+
+    def take_arrival_observations(self) -> "list[tuple[int, float]]":
+        """Drain the round's (τ, stamp) arrival observations — the
+        adaptive controller's feed."""
+        with self._lock:
+            out, self._arrivals = self._arrivals, []
+        return out
+
     def add_model(self, model: TpflModel, trace: str = "",
                   start_version: "int | None" = None) -> list[str]:
         """Add a (possibly partially-aggregated) model; returns the list
         of contributors now covered, or [] if the model was rejected.
-        ``start_version`` (async rounds) is refused."""
-        if start_version is not None:
-            raise not_ported("add_model(start_version=...)", _ASYNC_ITEM)
-        refuse_unported_knobs()
+        ``start_version`` (async rounds): the model-version ordinal the
+        contributor trained from; the fold weight and the ledger /
+        quarantine taps carry the staleness it gives."""
         try:
             contributors = model.get_contributors()
         except ValueError:
             logger.debug(self.node_name, "Dropping model with no contributors")
             return []
+        if self._async_k and start_version is None and untagged_staleness() is None:
+            # ASYNC_UNTAGGED_POLICY == "reject", loudly.
+            logger.metrics.counter("tpfl_agg_untagged_rejected_total",
+                                   labels={"node": self.node_name})
+            logger.debug(self.node_name, f"Dropping untagged contribution from {contributors} "
+                                         "(ASYNC_UNTAGGED_POLICY=reject)")
+            return []
+        staleness = self._staleness_of(start_version)
         # Active-defense verdict BEFORE the fold, outside _lock (the
         # engine and the ledger hold only their own locks). An excluded
         # contribution is still accepted for coverage; re-pushes of the
         # same (peer, round) are judged once.
         verdict: "dict | None" = None
         if Settings.QUARANTINE_ENABLED and self._quarantine is not None:
-            verdict = self._quarantine.assess(model, contributors, trace=trace)
+            verdict = self._quarantine.assess(model, contributors, trace=trace,
+                                              staleness=staleness)
         if verdict is not None and verdict["exclude"] and not verdict["recorded"]:
             # All-quarantined mixture: pure poison, and each member's own
             # contribution covers it.
             logger.debug(self.node_name, f"Dropping quarantined mixture from {contributors}")
             return []
         exclude = bool(verdict is not None and verdict["exclude"])
-        out = self._intake(model, contributors, exclude=exclude)
+        recorded = bool(verdict is not None and verdict["recorded"])
+        # Serialized async discipline: single contributions from
+        # scheduled trainers enter the reorder buffer and admit strictly
+        # in schedule order (possibly later, possibly unblocking others).
+        if self.reorders(contributors):
+            with self._lock:
+                self._async_hold.setdefault(contributors[0], []).append(
+                    (model, start_version, exclude, trace, recorded))
+                drained = ([] if self._finish_aggregation_event.is_set()
+                           else self._drain_schedule_locked())
+                covered = {c for m in self._models for c in m.get_contributors()}
+            self._post_admit(drained)
+            return sorted(covered)
+        out = self._intake(model, contributors, exclude=exclude, start_version=start_version)
         if out is None:
             return []
         # Ledger tap, outside _lock; the assessment above already
         # recorded and scored single contributions.
-        if Settings.LEDGER_ENABLED and not (verdict is not None and verdict["recorded"]):
-            ledger.contrib.record(self.node_name, model, trace=trace)
+        if Settings.LEDGER_ENABLED and not recorded:
+            ledger.contrib.record(self.node_name, model, trace=trace, staleness=staleness)
         return out
 
-    def _intake(self, model: TpflModel, contributors: list[str],
-                exclude: bool = False) -> "list[str] | None":
+    def _drain_schedule_locked(self) -> list:
+        """Caller holds ``_lock``. Admit held contributions in schedule
+        order while the round stays open and the schedule's head is
+        held; returns the admitted entries for :meth:`_post_admit`."""
+        admitted: list = []
+        sched = self._async_sched
+        while not self._finish_aggregation_event.is_set():
+            exp = sched.expected()
+            if exp is None:
+                break
+            queue = self._async_hold.get(exp)
+            if not queue:
+                break
+            model, start_version, exclude, trace, recorded = queue.pop(0)
+            # The virtual-clock stamp of this admission, read before
+            # advance() consumes the head. The slot is consumed whether or
+            # not the coverage checks accept the model: every node sees
+            # the same sequence, so a rejection is the same everywhere.
+            vt = sched.expected_time()
+            sched.advance()
+            covered = self._admit_locked(model, [exp], exclude=exclude,
+                                         start_version=start_version, virtual_stamp=vt)
+            admitted.append((model, trace, recorded, covered, self._staleness.get(id(model), 0)))
+        return admitted
+
+    def _post_admit(self, admitted: list) -> None:
+        """Ledger taps and close telemetry of schedule-drained
+        admissions, outside ``_lock``."""
+        closed_now = False
+        for model, trace, recorded, covered, tau in admitted:
+            if covered is None:
+                continue
+            closed_now = closed_now or not self.is_open()
+            if Settings.LEDGER_ENABLED and not recorded:
+                ledger.contrib.record(self.node_name, model, trace=trace, staleness=tau)
+        if closed_now:
+            self._emit_async_close("buffer_full")
+
+    def _emit_async_close(self, reason: str) -> None:
+        """An async round's close: a counter and a flight event."""
+        logger.metrics.counter("tpfl_agg_async_close_total",
+                               labels={"node": self.node_name, "reason": reason})
+        tracing.event("round_close", self.node_name, reason=reason, round=self._round_ordinal)
+
+    def _intake(self, model: TpflModel, contributors: list[str], exclude: bool = False,
+                start_version: "int | None" = None) -> "list[str] | None":
         """The locked intake half of :meth:`add_model`: the covered list
         on acceptance, None on rejection. ``exclude`` (a quarantine
         verdict) accepts the model for coverage only."""
         with self._lock:
-            return self._admit_locked(model, contributors, exclude)
+            was_open = not self._finish_aggregation_event.is_set()
+            out = self._admit_locked(model, contributors, exclude, start_version=start_version)
+            closed_now = was_open and out is not None and self._finish_aggregation_event.is_set()
+        if closed_now and self._async_k:
+            self._emit_async_close("buffer_full")
+        return out
 
-    def _admit_locked(self, model: TpflModel, contributors: list[str],
-                      exclude: bool = False) -> "list[str] | None":
+    def _admit_locked(self, model: TpflModel, contributors: list[str], exclude: bool = False,
+                      start_version: "int | None" = None,
+                      virtual_stamp: "float | None" = None) -> "list[str] | None":
         """Caller holds ``_lock``: the coverage checks + fold bookkeeping
-        of one contribution."""
+        of one contribution. ``virtual_stamp``: the schedule's virtual
+        time of a drained admission."""
         if self._finish_aggregation_event.is_set():
             logger.debug(self.node_name, "Dropping model: no aggregation in progress")
             return None
@@ -385,7 +610,11 @@ class Aggregator(ABC):
             return None
         extras = set(contributors) - set(self._train_set)
         if extras:
-            if extras <= self._removed_dead:
+            if self._async_k:
+                # Async rounds police no elected set: a peer that joined
+                # since the round opened grows it.
+                self._train_set = list(self._train_set) + sorted(extras)
+            elif extras <= self._removed_dead:
                 # A peer bundles a member we declared dead: its
                 # contribution is real, re-admit it (it arrives covered
                 # by this very model, so nothing new is awaited).
@@ -413,7 +642,25 @@ class Aggregator(ABC):
                          f"Dropping model: contributors {contributors} overlap {covered}")
             return None
         self._models.append(model)
-        eager = self.SUPPORTS_STREAMING and Settings.AGG_STREAM_EAGER and not self._stream_dead
+        tau = 0
+        if self._async_k:
+            tau = self._staleness_of(start_version)
+            self._staleness[id(model)] = tau
+            # The controller's observation: virtual clock (drained) >
+            # arrival ordinal (serialized) > monotonic (free-running).
+            if virtual_stamp is not None:
+                stamp = float(virtual_stamp)
+            elif Settings.ASYNC_SERIALIZED:
+                stamp = float(len(self._arrivals))
+            else:
+                stamp = time.monotonic()
+            self._arrivals.append((tau, stamp))
+        # Eager folds: sync rounds follow Settings.AGG_STREAM_EAGER; async
+        # rounds fold eagerly only free-running — the serialized
+        # discipline defers every fold to the close, in canonical order.
+        eager = (self.SUPPORTS_STREAMING and not self._stream_dead
+                 and (Settings.AGG_STREAM_EAGER if not self._async_k
+                      else not Settings.ASYNC_SERIALIZED))
         if exclude:
             # Quarantined: a coverage-only passenger. The eager stream
             # counts it "offered" (like a skipped zero-sample fit), so the
@@ -427,18 +674,24 @@ class Aggregator(ABC):
                 except Exception:
                     self._stream = None
                     self._stream_dead = True
-        # Eager on-arrival reduce (Settings.AGG_STREAM_EAGER): fold the
-        # accepted contribution into the device accumulator NOW, so the
-        # round close is one finalize. The torch ops are enqueued
-        # asynchronously on the card; the lock covers the enqueue. Any
-        # fold error kills the stream for the round; close falls back to
-        # the batch fold over the held models.
+        # Eager on-arrival reduce: fold the accepted contribution into the
+        # device accumulator NOW, so the round close is one finalize. The
+        # torch ops are enqueued asynchronously on the card; the lock
+        # covers the enqueue. Any fold error kills the stream for the
+        # round; close falls back to the batch fold over the held models.
         if eager and not exclude:
             try:
                 t_fold = time.monotonic()
                 if self._stream is None:
                     self._stream = self.acc_init(model)
-                self._stream = self.accumulate(self._stream, model)
+                if self._async_k:
+                    # FedBuff: sample mass decayed by the version distance;
+                    # τ rides along for the robust family's cut.
+                    self._stream = self.accumulate(
+                        self._stream, model,
+                        weight=model.get_num_samples() * staleness_weight(tau), staleness=tau)
+                else:
+                    self._stream = self.accumulate(self._stream, model)
                 logger.metrics.observe("tpfl_agg_fold_seconds", time.monotonic() - t_fold,
                                        labels={"node": self.node_name})
                 # Eager folds are "fold" time even on a handler thread.
@@ -455,7 +708,13 @@ class Aggregator(ABC):
             self.node_name,
             f"Model added ({len(covered)}/{len(self._train_set)}) from {contributors}",
         )
-        if self._covered_meets_quorum(covered):
+        if self._async_k:
+            # Buffer-full close (FedBuff's K): whoever reported first.
+            if len(covered) >= self._async_k:
+                self._close_reason = "buffer_full"
+                self._finish_aggregation_event.set()
+        elif self._covered_meets_quorum(covered):
+            self._close_reason = "coverage"
             self._finish_aggregation_event.set()
         return sorted(covered)
 
@@ -475,6 +734,8 @@ class Aggregator(ABC):
             models = sorted(self._models, key=lambda m: tuple(sorted(m.get_contributors())))
             stream, self._stream = self._stream, None
             excluded_ids = dict(self._excluded)
+            async_k = self._async_k
+            staleness = dict(self._staleness)
             train_set = list(self._train_set)
         if not finished:
             missing = self.get_missing_models()
@@ -506,6 +767,16 @@ class Aggregator(ABC):
                                     eager=bool(stream is not None)):
                 if stream is not None and stream.offered == len(models) and stream.count:
                     out = self.finalize(stream)
+                elif async_k and self.SUPPORTS_STREAMING:
+                    # Serialized async close: the deferred
+                    # staleness-weighted fold in canonical order.
+                    state = self.acc_init(fold_models[0])
+                    for m in fold_models:
+                        tau = staleness.get(id(m), 0)
+                        state = self.accumulate(
+                            state, m, weight=m.get_num_samples() * staleness_weight(tau),
+                            staleness=tau)
+                    out = self.finalize(state)
                 else:
                     out = self.aggregate(fold_models)
                 return self._with_passengers(out, models, excluded_ids,
@@ -565,4 +836,4 @@ class Aggregator(ABC):
 
 
 __all__ = ["AggStream", "Aggregator", "NoModelsToAggregateError", "on_device",
-           "refuse_unported_knobs", "stack_models", "staleness_weight"]
+           "stack_models", "staleness_weight", "untagged_staleness"]

@@ -26,10 +26,14 @@ with ``n ≤ 2·trim`` cannot trim, warns and counts
 ``tpfl_agg_trimmed_no_trim_total``; the ``tpfl_agg_effective_trim``
 gauge carries the trim applied.
 
-Staleness: synchronous rounds fold every candidate at τ = 0, where the
-reference's staleness rejection and Krum's ``(1+τ)^exp`` penalty are the
-identity; τ > 0 (the async rounds, ``ROADMAP.md`` §1 item 3) is refused
-at ``accumulate`` through :func:`staleness_weight`.
+Staleness-aware (async buffered rounds): every buffered candidate
+carries its version distance τ (``accumulate(..., staleness=)``). At
+finalize, candidates past ``Settings.ASYNC_STALENESS_MAX`` are rejected
+before any scoring (τ == max is kept; an all-stale buffer fails open),
+Krum / Multi-Krum scores are multiplied by ``(1+τ)^ASYNC_STALENESS_EXP``,
+and Multi-Krum's average discounts each selected model's sample weight by
+``staleness_weight(τ)``. Synchronous rounds see τ = 0 everywhere, where
+all three are the identity.
 
 - Krum / Multi-Krum: Blanchard et al. 2017.
 - Trimmed mean: Yin et al. 2018.
@@ -124,12 +128,12 @@ class _RobustStream(Aggregator):
         st.extra["peers"] = []  # contributor tuple per slot
         st.extra["weights"] = []  # num_samples per slot
         st.extra["params"] = []  # parameter tree per slot
+        st.extra["taus"] = []  # staleness ordinal per slot (async τ)
         st.extra["rng"] = random.Random((Settings.SEED or 0) ^ zlib.crc32(self.node_name.encode()))
         return st
 
     def accumulate(self, state: AggStream, model: TpflModel, weight: "float | None" = None,
                    staleness: int = 0) -> AggStream:
-        staleness_weight(staleness)  # τ > 0 (async rounds) is refused
         cap = max(1, int(Settings.AGG_ROBUST_BUFFER))
         peers = state.extra["peers"]
         if len(peers) < cap:
@@ -137,6 +141,7 @@ class _RobustStream(Aggregator):
             peers.append(tuple(sorted(model.get_contributors())))
             state.extra["weights"].append(int(model.get_num_samples()))
             state.extra["params"].append(model.get_parameters())
+            state.extra["taus"].append(int(staleness))
         else:
             # Vitter's algorithm R: every candidate seen so far has equal
             # probability of holding a slot; deterministic under SEED.
@@ -146,6 +151,7 @@ class _RobustStream(Aggregator):
                 peers[slot] = tuple(sorted(model.get_contributors()))
                 state.extra["weights"][slot] = int(model.get_num_samples())
                 state.extra["params"][slot] = model.get_parameters()
+                state.extra["taus"][slot] = int(staleness)
         if slot is not None:
             self._buffer_write(state, model, slot, cap)
         state.contributors.update(model.get_contributors())
@@ -158,9 +164,12 @@ class _RobustStream(Aggregator):
         raise NotImplementedError
 
     def _kept_slots(self, state: AggStream) -> list[int]:
-        """Candidate slots surviving the quarantine verdicts that landed
-        after a contribution was buffered; fails open (every slot kept,
-        a warning) when the shrink would empty the set."""
+        """Candidate slots surviving the finalize-time shrinks, in order:
+        quarantine verdicts that landed after a contribution was
+        buffered, then candidates whose τ exceeds
+        ``Settings.ASYNC_STALENESS_MAX`` (negative disables it). Each
+        fails open (its input slots kept, a warning) when it would empty
+        the set."""
         peers = state.extra["peers"]
         kept = list(range(len(peers)))
         quarantined = self.quarantined_peers()
@@ -176,6 +185,20 @@ class _RobustStream(Aggregator):
                                            value=len(kept) - len(clean),
                                            labels={"node": self.node_name})
                 kept = clean
+        max_tau = int(Settings.ASYNC_STALENESS_MAX)
+        taus = state.extra["taus"]
+        if max_tau >= 0 and any(taus[i] > max_tau for i in kept):
+            fresh = [i for i in kept if taus[i] <= max_tau]
+            if not fresh:
+                logger.warning(self.node_name,
+                               f"Every {type(self).__name__} candidate is past "
+                               f"ASYNC_STALENESS_MAX ({max_tau}); failing open to the "
+                               "quarantine-kept buffer")
+            else:
+                logger.metrics.counter("tpfl_agg_stale_rejected_total",
+                                       value=len(kept) - len(fresh),
+                                       labels={"node": self.node_name})
+                kept = fresh
         return kept
 
     def finalize(self, state: AggStream) -> TpflModel:
@@ -216,11 +239,20 @@ class Krum(_RobustStream):
                                    labels={"node": self.node_name})
 
     def _scores(self, state: AggStream, kept: list[int]) -> torch.Tensor:
-        """Krum scores over the kept candidate rows."""
+        """Krum scores over the kept candidate rows, each multiplied by
+        ``(1+τ)^ASYNC_STALENESS_EXP`` (distance alone is blind to a
+        replayed old model inside the honest cluster of its own
+        version); τ = 0 everywhere multiplies by exactly 1."""
         flat = state.extra["flat"][:len(state.extra["peers"])]
         if len(kept) < flat.shape[0]:
             flat = flat[torch.tensor(kept, dtype=torch.long, device=flat.device)]
-        return krum_scores(flat, self.n_byzantine)
+        scores = krum_scores(flat, self.n_byzantine)
+        taus = [state.extra["taus"][i] for i in kept]
+        if any(taus):
+            exp = float(Settings.ASYNC_STALENESS_EXP)
+            scores = scores * torch.tensor([(1.0 + float(t)) ** exp for t in taus],
+                                           dtype=torch.float32, device=scores.device)
+        return scores
 
     def _finalize_kept(self, state: AggStream, kept: list[int]) -> TpflModel:
         self._check_preconditions(len(kept))
@@ -252,7 +284,7 @@ class MultiKrum(Krum):
             selected = [kept[int(i)] for i in order]
         acc = None
         for i in sorted(selected):  # canonical fold order
-            w = np.float32(state.extra["weights"][i] * staleness_weight(0))
+            w = np.float32(state.extra["weights"][i] * staleness_weight(state.extra["taus"][i]))
             p = on_device(state.extra["params"][i], self.device)
             acc = acc_first(p, w) if acc is None else acc_update(acc, p, w)
         avg = acc_finalize(acc, on_device(state.template.get_parameters(), self.device))

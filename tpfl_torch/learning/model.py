@@ -196,16 +196,12 @@ class TpflModel:
         acknowledged base (a v2 envelope). Dense payloads are v3 under
         ``Settings.WIRE_FORMAT >= 3``, else v1, with float leaves
         downcast to ``Settings.WIRE_DTYPE`` when it is set. ``trace_id``:
-        hop-tracing id embedded in whichever envelope is emitted. Raises
-        ``NotImplementedError`` under ``Settings.WIRE_DELTA`` without a
-        ``delta_base`` (the node runtime that picks one is not ported)."""
+        hop-tracing id embedded in whichever envelope is emitted.
+        ``Settings.WIRE_DELTA`` alone changes nothing here: the stages
+        pick the base and pass ``delta_base``."""
         from tpfl_torch.learning import compression
         from tpfl_torch.settings import Settings
 
-        if Settings.WIRE_DELTA and delta_base is None:
-            raise NotImplementedError(
-                "tpfl_torch: Settings.WIRE_DELTA is not ported yet: the node runtime picks "
-                "the delta base (ROADMAP.md §1 item 7); pass delta_base= to encode a residual")
         params = params if params is not None else self._params
         spec = Settings.WIRE_CODEC if codec is None else codec
         if delta_base is not None or not compression.is_dense(spec):

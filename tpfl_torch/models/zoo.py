@@ -164,11 +164,17 @@ def _lecun_normal(shape: Sequence[int], gen: torch.Generator,
                   device: torch.device) -> torch.Tensor:
     """flax ``lecun_normal``: truncated normal, variance 1/fan_in, with
     fan_in = prod(shape[:-1]) (receptive field × in for HWIO, in for
-    [in, out])."""
+    [in, out]), cut at ±2 std. Drawn by inverse CDF from ``gen``'s
+    uniforms, spelled out here rather than through
+    ``torch.nn.init.trunc_normal_``, whose draws changed between torch
+    releases: a seed gives the same params under every torch."""
     fan_in = math.prod(shape[:-1])
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
     t = torch.empty(tuple(shape), dtype=torch.float32)
-    torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+    t.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=gen)
+    t.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(min=-2.0 * std, max=2.0 * std)
     return t.to(device)
 
 

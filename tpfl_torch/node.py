@@ -10,11 +10,12 @@ Parity with reference ``p2pfl/node.py:57-413``: wires protocol + learner
 ModelInitialized and spawns the daemon learning thread running the stage
 workflow (:333-400).
 
+Under ``Settings.ASYNC_ROUNDS`` the stage workflow runs asynchronous
+buffered rounds; free-running (``ASYNC_SERIALIZED`` off) each node also
+runs one trainer thread, which :meth:`Node.stop` interrupts and joins.
 Refused with ``NotImplementedError`` naming the ``ROADMAP.md`` §1 item:
 the pooled simulation learner (``Settings.DISABLE_SIMULATION`` off, item
-5, at construction); asynchronous rounds (``Settings.ASYNC_ROUNDS``,
-item 3) and residual gossip (``Settings.WIRE_DELTA``, item 2) when the
-node starts or joins an experiment; checkpoints (item 4). With
+5, at construction); checkpoints (item 4). With
 ``Settings.TELEMETRY_ENABLED`` the node's hops land in the flight
 recorder, and :meth:`Node.stop` dumps its ring (to
 ``Settings.TELEMETRY_DUMP_DIR`` when set).
@@ -168,6 +169,12 @@ class Node:
         self.completed_experiment: Optional[str] = None
         self.learning_workflow = LearningWorkflow()
         self._learning_thread: Optional[threading.Thread] = None
+        # Free-running async trainer loop (AsyncRoundStage
+        # ._ensure_trainer_loop): one daemon thread per experiment, exits
+        # through check_early_stop / an experiment-name change.
+        # unguarded: written only by the learning thread (stage entry);
+        # the thread object itself is the synchronization.
+        self._async_trainer_thread: Optional[threading.Thread] = None
         self._running = False
         self.rng = random.Random((Settings.SEED or 0) + zlib.crc32(self.addr.encode()))
 
@@ -195,6 +202,14 @@ class Node:
             return
         if self.state.status == "Learning":
             self.stop_learning()
+        # The free-running async trainer: interrupt its in-flight fit and
+        # let the thread drain before the transport goes down — a daemon
+        # thread left mid-launch at interpreter teardown can abort the
+        # process.
+        trainer = self._async_trainer_thread
+        if trainer is not None and trainer.is_alive():
+            self.learner.interrupt_fit()
+            trainer.join(timeout=5.0)
         self.communication.stop()
         logger.unregister_node(self.addr)
         self._running = False

@@ -1,6 +1,5 @@
 """NodeState — all mutable per-node learning state, a copy of
-:mod:`tpfl.node_state` without the adaptive async controller (the
-asynchronous rounds are ``ROADMAP.md`` §1 item 3).
+:mod:`tpfl.node_state` (with the adaptive async controller).
 
 Parity with reference ``p2pfl/node_state.py:26-127``: the dicts/events
 here are the synchronization points between protocol handler threads
@@ -139,6 +138,18 @@ class NodeState:
         # _lock); the reference itself is written once here.
         self.quarantine = QuarantineEngine(addr)
 
+        # Adaptive async control plane (tpfl_torch.learning.async_control):
+        # AsyncRoundStage consults it at every async round open and
+        # feeds it the closed round's arrival observations. Static
+        # knob passthrough while Settings.ASYNC_ADAPTIVE is off; its
+        # learned state belongs to one experiment and resets with the
+        # rest of the learning state (clear()).
+        from tpfl_torch.learning.async_control import AsyncController
+
+        # unguarded: AsyncController is internally synchronized (own
+        # _lock); the reference itself is written once here.
+        self.async_controller = AsyncController(addr)
+
         # unguarded: handler threads add(), the learning thread tests
         # membership and replaces the set wholesale at round
         # boundaries — all GIL-atomic set ops on a best-effort hint
@@ -249,6 +260,7 @@ class NodeState:
             self.nei_status = {}
         self.model_initialized_event.clear()
         self.quarantine.reset()
+        self.async_controller.reset()
 
     def __repr__(self) -> str:
         return (

@@ -26,11 +26,9 @@ import os
 from typing import Any
 
 from tpfl_torch.exceptions import (
-    ASYNC_ITEM,
     ENGINE_ITEM,
     MULTI_DEVICE_ITEM,
     REST_ITEM,
-    RUNTIME_B_ITEM,
     SIMULATION_ITEM,
     not_ported,
 )
@@ -199,11 +197,9 @@ class Settings:
     WIRE_DELTA: bool = False
     """Residual (delta) gossip: once a round's aggregate is adopted it
     becomes a base (``tpfl_torch.learning.compression.BaseCache``) and
-    later full-model pushes carry ``current - base``. The encoder and
-    decoder are ported; the stages' residual branches are not, so a
-    ``Node`` refuses it (``ROADMAP.md`` §1 item 2), and
-    ``encode_parameters`` raises while it is on and no ``delta_base=``
-    is passed."""
+    ``GossipModelStage``'s full-model pushes to a peer that announced
+    that round carry ``current - base``; a peer missing the base nacks
+    (``codec_nack``) and gets the dense payload."""
 
     WIRE_CHUNK_SIZE: int = 256 * 1024
     """Chunk size (bytes) of the reference's gRPC payload streaming. Carried
@@ -269,56 +265,92 @@ class Settings:
 
     # --- asynchronous buffered rounds (FedBuff-style) ---
     ASYNC_ROUNDS: bool = False
-    """Master gate for the reference's asynchronous (FedBuff-style)
-    round lifecycle. Not ported: ``Node.start``, the workflow and the
-    aggregator raise ``NotImplementedError`` while it is on
-    (``ROADMAP.md`` §1 item 3)."""
+    """Master gate for the asynchronous round lifecycle
+    (``stages.base_node.AsyncRoundStage``): every live peer trains
+    continuously and contributes whenever its fit finishes — no vote
+    election and no slowest-trainer barrier. Each node's aggregator
+    folds arrivals as a buffered FedBuff-style round
+    (``Aggregator.set_nodes_to_aggregate(async_k=...)``): a
+    contribution trained from model-version ordinal ``v`` folding into
+    round ``r`` carries staleness ``τ = r - v`` and weight
+    ``num_samples / (1 + τ)**ASYNC_STALENESS_EXP``; the round closes on
+    buffer-full (``ASYNC_BUFFER_K`` distinct contributors) or the
+    ``ASYNC_ROUND_DEADLINE`` failsafe. Off (default): the synchronous
+    vote/train/wait lifecycle."""
 
     ASYNC_BUFFER_K: int = 4
-    """Contributions that close an async round (FedBuff's K). Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Contributions (distinct contributors) that close an async
+    round's buffer — FedBuff's K. Clamped per round to the live peer
+    count; 1 is the degenerate fully-sequential buffer (every single
+    contribution makes a round)."""
 
     ASYNC_STALENESS_EXP: float = 0.5
-    """Staleness-decay exponent of async folds, ``w(τ) = 1/(1+τ)**exp``.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Staleness-decay exponent: a contribution ``τ`` versions stale
+    folds at weight ``w(τ) = 1/(1+τ)**exp`` times its sample count.
+    0 disables staleness discounting (pure buffered FedAvg); 0.5 is
+    FedBuff's ``1/sqrt(1+τ)``."""
 
     ASYNC_ROUND_DEADLINE: float = 30.0
-    """Failsafe (s) on an async round staying open. Carried for parity; the
-    port does not read it (``UNPORTED_KNOBS``)."""
+    """Failsafe (s) on an async round staying open short of
+    ASYNC_BUFFER_K contributions: at the deadline the round closes
+    with whatever the buffer holds (``round_deadline`` flight event +
+    ``tpfl_agg_deadline_total``). An EMPTY buffer at the deadline
+    fails open loudly — the round stays open and the stage re-arms the
+    deadline."""
 
     ASYNC_SERIALIZED: bool = True
-    """Deterministic, deferred async folds. Carried for parity; the port does
-    not read it (``UNPORTED_KNOBS``)."""
+    """Deterministic async discipline (test/standalone profiles):
+    arrivals buffer without folding and the round-close fold runs in a
+    deterministic order — schedule order when a seeded
+    :class:`tpfl_torch.communication.faults.AsyncSchedule` is attached
+    to the aggregator (the reorder buffer that makes same-seed runs
+    byte-identical), else canonical (contributor-sorted) order, each fit
+    inline on the learning thread. False (scale profile): free-running —
+    a trainer thread per node, contributions fold eagerly in arrival
+    order, no reproducibility guarantee."""
 
     ASYNC_ADAPTIVE: bool = False
-    """The async controller tuning K and the deadline per round. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Adaptive async control plane
+    (:class:`tpfl_torch.learning.async_control.AsyncController`): when
+    on, each node tunes its effective buffer K and round deadline per
+    round from the observed inter-arrival and staleness distributions,
+    bounded by [ASYNC_K_MIN, ASYNC_K_MAX] and (0, ASYNC_ROUND_DEADLINE].
+    In serialized mode the observations derive from the seeded
+    AsyncSchedule's virtual clock (arrival ordinals without one), so
+    same-seed runs keep identical trajectories at every node. Off
+    (default): the static knobs."""
 
     ASYNC_K_MIN: int = 2
-    """Lower bound on the async controller's K. Carried for parity; the port
-    does not read it (``UNPORTED_KNOBS``)."""
+    """Lower bound on the adaptive controller's effective buffer K
+    (ASYNC_ADAPTIVE)."""
 
     ASYNC_K_MAX: int = 16
-    """Upper bound on the async controller's K. Carried for parity; the port
-    does not read it (``UNPORTED_KNOBS``)."""
+    """Upper bound on the adaptive controller's effective buffer K
+    (further clamped per round to the live fleet size)."""
 
     ASYNC_CTL_EWMA: float = 0.3
-    """EWMA factor of the async controller. Carried for parity; the port does
-    not read it (``UNPORTED_KNOBS``)."""
+    """EWMA smoothing factor of the controller's per-round observation
+    summaries: ``s <- (1-a)*s + a*x``. Only read when ASYNC_ADAPTIVE."""
 
     ASYNC_CTL_QUANTILE: float = 0.9
-    """Inter-arrival quantile the async controller's deadline targets. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Inter-arrival quantile the controller's deadline targets: the
+    effective deadline covers ``K`` arrivals at this quantile (x a fixed
+    4x margin), clamped to ASYNC_ROUND_DEADLINE. Only read when
+    ASYNC_ADAPTIVE."""
 
     ASYNC_STALENESS_MAX: int = 16
-    """Staleness plausibility bound of the ledger's anomaly scorer: a
-    contribution past it (or whose version regresses) is flagged
-    ``stale_flood``. Negative disables the test. Synchronous rounds
-    (τ = 0) never trip it."""
+    """Staleness plausibility bound, two consumers: the robust
+    aggregators (Krum/MultiKrum/TrimmedMean) reject buffered candidates
+    whose ``τ`` exceeds it at finalize (boundary τ == max is kept; an
+    all-rejected buffer fails open), and the ledger's anomaly scorer
+    flags a contribution past it — or whose version regresses — as
+    ``stale_flood``. Negative disables both."""
 
     ASYNC_UNTAGGED_POLICY: str = "fresh"
-    """Staleness of untagged contributions in async rounds. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Staleness of an UNTAGGED async contribution (``Message.version ==
+    -1``): "fresh" — τ=0, full weight; "max-stale" — τ =
+    ASYNC_STALENESS_MAX; "reject" — refused at intake
+    (``tpfl_agg_untagged_rejected_total``). Sync rounds ignore it."""
 
     # --- aggregation (streaming accumulators) ---
     AGG_STREAM_EAGER: bool = True
@@ -826,9 +858,7 @@ class Settings:
         """Single-host simulation at 100+ nodes: the reference's scale
         profile, knob for knob — hash election, throttles and timeouts
         sized for large federations, the quant8 wire codec with residual
-        gossip, by-reference handoff and eager folds. A ``Node`` refuses
-        this profile as it stands: it turns on ``WIRE_DELTA``
-        (``UNPORTED_SWITCHES``)."""
+        gossip, by-reference handoff and eager folds."""
         cls.ELECTION = "hash"
         cls.GRPC_TIMEOUT = 10.0
         cls.GOSSIP_PERIOD = 0.0
@@ -980,8 +1010,6 @@ class Settings:
 #: item, the value at which the plane is off, where
 #: :meth:`Settings.refuse_unported` checks it).
 UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
-    "ASYNC_ROUNDS": (ASYNC_ITEM, False, ("node",)),
-    "WIRE_DELTA": (RUNTIME_B_ITEM, False, ("node",)),
     "TELEMETRY_DUMP_DIR": (ENGINE_ITEM, "", ("engine",)),
     "TRACE_CONTRACTS": (ENGINE_ITEM, False, ("node", "engine")),
     "ENGINE_TELEMETRY": (ENGINE_ITEM, False, ("engine",)),
@@ -989,7 +1017,6 @@ UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
 }
 
 _SIM = ("Settings.DISABLE_SIMULATION", SIMULATION_ITEM)
-_ASYNC = ("Settings.ASYNC_ROUNDS", ASYNC_ITEM)
 _GRPC = ("communication.GrpcCommunicationProtocol", REST_ITEM)
 _MESH = ("parallel.FederationEngine(mesh=)", MULTI_DEVICE_ITEM)
 _FED_LEARNER = ("parallel.federation_learner", SIMULATION_ITEM)
@@ -1003,9 +1030,6 @@ _FLEETOBS = ("management.fleetobs", SIMULATION_ITEM)
 UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
     **dict.fromkeys(("SIM_WORKERS", "SIM_BATCH_WINDOW", "SIM_BATCH_MAX_WAIT",
                      "SIM_MAX_BATCH_NODES", "SIM_PROCESS_ISOLATION"), _SIM),
-    **dict.fromkeys(("ASYNC_BUFFER_K", "ASYNC_STALENESS_EXP", "ASYNC_ROUND_DEADLINE",
-                     "ASYNC_SERIALIZED", "ASYNC_ADAPTIVE", "ASYNC_K_MIN", "ASYNC_K_MAX",
-                     "ASYNC_CTL_EWMA", "ASYNC_CTL_QUANTILE", "ASYNC_UNTAGGED_POLICY"), _ASYNC),
     **dict.fromkeys(("GRPC_TIMEOUT", "MAX_MESSAGE_SIZE", "GRPC_SERVER_WORKERS",
                      "WIRE_CHUNK_SIZE", "USE_SSL", "CA_CRT", "SERVER_CRT", "SERVER_KEY",
                      "CLIENT_CRT", "CLIENT_KEY"), _GRPC),

@@ -1,8 +1,8 @@
-"""The six FL round stages — a copy of :mod:`tpfl.stages.base_node`
-(reference ``p2pfl/stages/base_node/``) without ``AsyncRoundStage`` (the
-asynchronous buffered rounds, ``ROADMAP.md`` §1 item 3) and without the
-residual (``Settings.WIRE_DELTA``) gossip, which ``Node`` refuses when an
-experiment starts.
+"""The FL round stages — a copy of :mod:`tpfl.stages.base_node`
+(reference ``p2pfl/stages/base_node/``): the synchronous vote / train /
+wait / gossip / finish lifecycle, ``AsyncRoundStage`` in its place under
+``Settings.ASYNC_ROUNDS``, and residual full-model gossip under
+``Settings.WIRE_DELTA``.
 
 Synchronization-point differences from
 the reference (each fixes a reference wart without changing semantics):
@@ -33,7 +33,6 @@ from tpfl_torch.communication.commands import (
     VoteTrainSetCommand,
     send_models_aggregated,
 )
-from tpfl_torch.exceptions import ASYNC_ITEM, not_ported
 from tpfl_torch.experiment import Experiment
 from tpfl_torch.learning.aggregators.aggregator import NoModelsToAggregateError
 from tpfl_torch.management import ledger, profiling, tracing
@@ -155,7 +154,7 @@ class StartLearningStage(Stage):
         )
         time.sleep(Settings.WAIT_HEARTBEATS_CONVERGENCE)
         if Settings.ASYNC_ROUNDS:
-            raise not_ported("AsyncRoundStage (Settings.ASYNC_ROUNDS)", ASYNC_ITEM)
+            return AsyncRoundStage
         return VoteTrainSetStage
 
 
@@ -322,7 +321,7 @@ class TrainStage(Stage):
         # Replay partial models that arrived before this round opened
         # (stashed by PartialModelCommand; see NodeState.pending_partials).
         for args in st.drain_pending_partials(st.round):
-            source, rnd, weights, contributors, num_samples, version = args
+            source, rnd, weights, contributors, num_samples, version, trace = args
             PartialModelCommand(node).execute(
                 source,
                 rnd,
@@ -330,6 +329,7 @@ class TrainStage(Stage):
                 contributors=contributors,
                 num_samples=num_samples,
                 version=version,
+                trace=trace,
             )
 
         TrainStage._evaluate(node)
@@ -558,6 +558,17 @@ class TrainStage(Stage):
                         st.model_round_origin = max(
                             st.model_round_origin, st.round + 1
                         )
+                    # This round's delta-gossip base is the WIRE ROUND
+                    # TRIP of our aggregate: a dense receiver holds
+                    # decode(encode(agg)), and the base fingerprints must
+                    # match bit for bit for next round's residual pushes
+                    # (receivers register theirs in FullModelCommand).
+                    if Settings.WIRE_DELTA:
+                        try:
+                            rt = agg_model.build_copy(params=agg_model.encode_parameters())
+                            st.wire_bases.put(st.round, rt.get_parameters())
+                        except Exception as e:
+                            logger.debug(node.addr, f"Base round-trip failed: {e}")
         node.communication.broadcast(
             node.communication.build_msg(
                 ModelsReadyCommand.name, [], round=st.round
@@ -579,6 +590,195 @@ class TrainStage(Stage):
                 MetricsCommand.name, flat, round=node.state.round
             )
         )
+
+
+class AsyncRoundStage(Stage):
+    """FedBuff-style asynchronous buffered round (``Settings.ASYNC_ROUNDS``,
+    chosen by StartLearningStage / RoundFinishedStage in place of the
+    vote / train / wait lifecycle).
+
+    No election, no barrier: every live peer trains every round, each
+    contribution is pushed to all peers the moment its fit finishes
+    (tagged with the model-version ordinal it trained FROM), and each
+    node's aggregator closes its buffered round on ``ASYNC_BUFFER_K``
+    distinct contributors or the ``ASYNC_ROUND_DEADLINE`` failsafe; a late
+    contribution folds into a later round at a staleness-discounted
+    weight. Under ``ASYNC_SERIALIZED`` each round fits once, inline, and
+    the fold is deferred to a canonical-order close (with a seeded
+    ``AsyncSchedule`` attached, arrivals admit in schedule order, which is
+    what makes same-seed runs byte-identical); free-running, a trainer
+    thread per node fits continuously and folds eagerly on arrival."""
+
+    name = "AsyncRoundStage"
+
+    @staticmethod
+    def execute(node: "Node") -> Optional[Type[Stage]]:
+        st = node.state
+        if check_early_stop(node):
+            return None
+        profiling.rounds.begin_round(node.addr, st.round)
+        # Every live peer is a trainer; the snapshot is bookkeeping, not an
+        # expectation (the aggregator grows it for late joiners).
+        st.train_set = sorted(set(node.communication.get_neighbors()) | {node.addr})
+        # The adaptive control plane re-derives the effective (K,
+        # deadline) pair; static knob passthrough while it is off.
+        ctl = st.async_controller
+        eff_k, eff_deadline = ctl.round_open(
+            st.round if st.round is not None else 0, len(st.train_set))
+        node.aggregator.set_nodes_to_aggregate(
+            st.train_set, async_k=eff_k,
+            round_ordinal=st.round if st.round is not None else 0)
+        if ledger.active():
+            ledger.contrib.open_round(
+                node.addr, st.round,
+                node.learner.get_model().get_parameters(),
+            )
+        # Contributions stashed while the previous buffer was closed fold
+        # into this round (their staleness tags set their weight).
+        for args in st.drain_pending_partials(st.round):
+            source, rnd, weights, contributors, num_samples, version, trace = args
+            PartialModelCommand(node).execute(
+                source,
+                rnd,
+                weights=weights,
+                contributors=contributors,
+                num_samples=num_samples,
+                version=version,
+                trace=trace,
+            )
+
+        TrainStage._evaluate(node)
+        if check_early_stop(node):
+            node.aggregator.clear()
+            return None
+
+        if Settings.ASYNC_SERIALIZED:
+            # Deterministic discipline: ONE fit per round, inline, trained
+            # from the previous round's output — the contribution sequence
+            # is then a function of the seed.
+            start_version = st.model_round_origin
+            node.learner.set_fit_group_hint(min(eff_k, len(st.train_set)))
+            logger.info(node.addr, f"Training async (round {st.round}, from v{start_version})")
+            with tracing.maybe_span(
+                "train_fit", node.addr,
+                round=st.round if st.round is not None else -1,
+            ):
+                fitted = node.learner.fit()
+            if check_early_stop(node):
+                node.aggregator.clear()
+                return None
+            AsyncRoundStage._contribute(node, fitted, start_version)
+        else:
+            # Free-running: the trainer loop fits continuously on its own
+            # thread; the round loop below advances on ARRIVALS.
+            AsyncRoundStage._ensure_trainer_loop(node)
+
+        # Wait for the buffer to fill, or the (controller-tuned) deadline;
+        # an empty-buffer deadline fails open and re-arms.
+        deadline = time.monotonic() + eff_deadline
+        with profiling.rounds.span(node.addr, "gossip"):
+            while not node.aggregator.wait_closed(timeout=min(Settings.ROUND_WAIT_POLL, 0.25)):
+                if check_early_stop(node):
+                    node.aggregator.clear()
+                    return None
+                if time.monotonic() >= deadline:
+                    if node.aggregator.async_deadline_close():
+                        break
+                    deadline = time.monotonic() + eff_deadline
+        # The closed round's observations go to the controller before the
+        # fold (they are complete at close).
+        ctl.observe_round(st.round, node.aggregator.take_arrival_observations(),
+                          node.aggregator.close_reason(), eff_deadline)
+        try:
+            # The event is set: the staleness-weighted fold runs now.
+            agg_model = node.aggregator.wait_and_get_aggregation(timeout=1.0)
+        except NoModelsToAggregateError:
+            logger.error(node.addr, "Nothing aggregated this async round")
+            return RoundFinishedStage
+        except Exception as e:  # byzantine/malformed peer payloads
+            logger.error(node.addr, f"Async aggregation failed: {e}")
+            return RoundFinishedStage
+        node.learner.set_model(agg_model)
+        if st.round is not None:
+            with st.relay_lock:
+                st.last_full_model_round = max(st.last_full_model_round, st.round)
+                st.model_round_origin = max(st.model_round_origin, st.round + 1)
+        return RoundFinishedStage
+
+    @staticmethod
+    def _contribute(node: "Node", fitted, start_version: int) -> None:
+        """Fold one finished fit locally (through the same intake, and
+        reorder buffer, as every peer's) and push it to every live peer
+        as one single-contributor payload."""
+        st = node.state
+        # Contribution-shaping seam: the attack plan's replay adversaries
+        # (stale_flood / withhold_replay) rewrite the (model, version tag)
+        # pair here; plain learners do not have it.
+        shape = getattr(node.learner, "shape_contribution", None)
+        if shape is not None:
+            fitted, start_version = shape(fitted, start_version)
+        node.aggregator.add_model(fitted, start_version=start_version)
+        try:
+            payload = node.communication.model_payload(fitted)
+            try:
+                contributors = fitted.get_contributors()
+            except ValueError:
+                contributors = [node.addr]
+            msg = node.communication.build_weights(
+                PartialModelCommand.name,
+                st.round if st.round is not None else 0,
+                payload,
+                contributors=contributors,
+                num_samples=fitted.get_num_samples(),
+                version=start_version,
+            )
+            with profiling.rounds.span(node.addr, "gossip"):
+                for nei in list(st.train_set):
+                    if nei != node.addr:
+                        node.communication.send(nei, msg, create_connection=True)
+        except Exception as e:
+            logger.warning(node.addr, f"Async contribution push failed: {e}")
+
+    @staticmethod
+    def _ensure_trainer_loop(node: "Node") -> None:
+        """Start (once per experiment) the free-running trainer thread:
+        fit from whatever model the node holds, tag the contribution with
+        the version the fit STARTED from, contribute, repeat; exits when
+        the experiment ends or learning stops."""
+        import threading
+
+        alive = node._async_trainer_thread
+        if alive is not None and alive.is_alive():
+            return
+        exp = node.state.exp_name
+
+        def loop() -> None:
+            st = node.state
+            while True:
+                if check_early_stop(node) or st.exp_name != exp:
+                    return
+                start_version = st.model_round_origin
+                node.learner.set_fit_group_hint(
+                    min(Settings.ASYNC_BUFFER_K, max(1, len(st.train_set))))
+                try:
+                    t_fit = time.monotonic()
+                    with tracing.maybe_span(
+                        "train_fit", node.addr,
+                        round=st.round if st.round is not None else -1,
+                    ):
+                        fitted = node.learner.fit()
+                    profiling.rounds.add(node.addr, "train", time.monotonic() - t_fit)
+                except Exception as e:
+                    logger.error(node.addr, f"Async trainer fit failed: {e}")
+                    return
+                if check_early_stop(node) or st.exp_name != exp:
+                    return
+                AsyncRoundStage._contribute(node, fitted, start_version)
+
+        node._async_trainer_thread = threading.Thread(
+            target=loop, daemon=True, name=f"async-trainer-{node.addr}")
+        node._async_trainer_thread.start()
+
 
 
 class WaitAggregatedModelsStage(Stage):
@@ -652,30 +852,53 @@ class GossipModelStage(Stage):
                 if status.get(n, -1) < st.round
             ]
 
-        # One encode per MODEL VERSION: per-push re-encodes
-        # (device->host + msgpack each) would burn the GIL the
-        # diffusion wave needs — same caching rule as TrainStage's
-        # partial pushes and StartLearningStage's init payload. Keyed
-        # on state.model_version, NOT once per stage entry: a node that
-        # entered holding its timed-out PARTIAL aggregate can receive
-        # the round's authoritative FullModel mid-push, and the stale
-        # cached bytes must not keep flowing (peers accept same-round
-        # FullModels unconditionally).
+        # One encode per (MODEL VERSION, wire form): per-push re-encodes
+        # (device->host + msgpack each) would burn the GIL the diffusion
+        # wave needs. Keyed on state.model_version, NOT once per stage
+        # entry: a node that entered holding its timed-out PARTIAL
+        # aggregate can receive the round's authoritative FullModel
+        # mid-push, and the stale cached bytes must not keep flowing.
+        # Two wire forms per version at most: dense, and under
+        # Settings.WIRE_DELTA the residual against the previous round's
+        # aggregate for peers that announced holding it (nei_status ==
+        # round-1 via their ModelsReady); a peer missing the base nacks
+        # (CodecNackCommand) and drops back to the dense form.
         fullmodel_cache: dict = {}
 
         def model_for(nei: str) -> Optional[object]:
             version = st.model_version
-            hit = fullmodel_cache.get(version)
+            if fullmodel_cache.get("version") != version:
+                fullmodel_cache.clear()
+                fullmodel_cache["version"] = version
+            base = None
+            if (
+                Settings.WIRE_DELTA
+                and st.round is not None
+                and st.round > 0
+                and nei not in st.delta_nack_peers
+                and st.nei_status_of(nei, -2) == st.round - 1
+            ):
+                base = st.wire_bases.get(st.round - 1)  # (fp, params)
+            key = "delta" if base is not None else "dense"
+            hit = fullmodel_cache.get(key)
             if hit is None:
                 model = node.learner.get_model()
                 try:
                     contributors = model.get_contributors()
                 except ValueError:
                     contributors = [node.addr]
-                hit = (node.communication.model_payload(model), contributors,
-                       model.get_num_samples())
-                fullmodel_cache.clear()
-                fullmodel_cache[version] = hit
+                if base is not None:
+                    try:
+                        payload = node.communication.model_payload(
+                            model, delta_base=(st.round - 1, base[0], base[1]))
+                    except Exception as e:
+                        # Structure drift vs the base: residual impossible.
+                        logger.debug(node.addr, f"Delta encode failed, dense: {e}")
+                        payload = node.communication.model_payload(model)
+                else:
+                    payload = node.communication.model_payload(model)
+                hit = (payload, contributors, model.get_num_samples())
+                fullmodel_cache[key] = hit
             payload, contributors, num_samples = hit
             return node.communication.build_weights(
                 FullModelCommand.name,
@@ -735,7 +958,17 @@ class RoundFinishedStage(Stage):
         )
 
         if st.round is not None and st.total_rounds is not None and st.round < st.total_rounds:
+            if Settings.ASYNC_ROUNDS:
+                return AsyncRoundStage
             return VoteTrainSetStage
+
+        # Experiment done: release the free-running async trainer BEFORE
+        # clearing state — its in-flight fit returns at the next epoch
+        # boundary on the interrupt, and the loop's next early-stop check
+        # sees the cleared experiment and exits.
+        trainer = node._async_trainer_thread
+        if trainer is not None and trainer.is_alive():
+            node.learner.interrupt_fit()
 
         # Experiment done: final eval, back to idle (reference :66-74).
         TrainStage._evaluate(node)
