@@ -4,6 +4,7 @@
         [--device cpu|cuda] [--conv-impl fwd_bwd|pallas] [--port-init] [--check-kernels]
         [--dump FILE]
     JAX_PLATFORMS=cpu python3 byzantine_reference.py [--async] --replay FILE
+    JAX_PLATFORMS=cpu python3 byzantine_reference.py --engine-carry CHIP_SMOKE_LOG
 
 Runs the bench's ``byzantine`` tier recipe at the cell ``chip_smoke.py``
 runs on the card, with the CNN cell's model (channels 32 / 64, dense 128,
@@ -43,6 +44,11 @@ version on the same inputs and reports the worst difference.
 ``--replay FILE`` runs nothing: it replays each run of a ``--dump``
 file through both packages' verdict code (``detections``,
 ``replay_decisions``) and says whether each gives that run's decisions.
+``--engine-carry LOG`` runs nothing either: it replays the engine
+window's telemetry carry that ``chip_smoke.py``'s phase 17b logged (the
+100-node CNN cell with a sign flip on every fifth node) through both
+packages' ``engine_obs.replay_window`` and prints each package's flags
+by class and round.
 A run takes
 a few minutes on the CPU (the JAX package compiles each node's step).
 """
@@ -294,6 +300,46 @@ def run_port(arrays, arm: dict, async_: bool, rounds: int, device: str, conv_imp
     return out
 
 
+def replay_engine_carry(log_file: str) -> None:
+    """Replay the engine window's telemetry carry that ``chip_smoke.py``'s
+    phase 17b logged (``sign_flip_carry``: a sign flip on every fifth of
+    the CNN cell's nodes) through both packages' ``engine_obs.replay_window``
+    and print each package's flagged peers, by class and round."""
+    from tpfl.management import engine_obs as jax_engine_obs
+    from tpfl.management import ledger as jax_ledger
+    from tpfl.settings import Settings as JaxSettings
+    from tpfl_torch.management import engine_obs, ledger
+    from tpfl_torch.settings import Settings
+
+    marker = "engine variants (telemetry; every check passed): "
+    with open(log_file) as f:
+        line = next(x for x in f if marker in x)
+    # The logger's stderr lines may share the line: decode the object only.
+    logged, _ = json.JSONDecoder().raw_decode(line.split(marker, 1)[1])
+    carry = {k: np.asarray(v, np.float32) for k, v in logged["sign_flip_carry"].items()}
+    n = carry["loss"].shape[1]
+    truth = {f"engine-node-{i}" for i in range(0, n, 5)}
+    for name, settings, obs, lg in (("tpfl (JAX)", JaxSettings, jax_engine_obs, jax_ledger),
+                                    ("tpfl_torch", Settings, engine_obs, ledger)):
+        settings.set_test_settings()
+        settings.LEDGER_ENABLED = True
+        lg.contrib.reset()
+        obs.replay_window("engine:replay", "cnn", 0, carry, n, weights=np.ones(n, np.float32))
+        det = lg.contrib.detections()
+        by_class: dict = {}
+        for e in det["entries"]:
+            for r in e["reasons"]:
+                by_class.setdefault(r, {}).setdefault(e["round"], []).append(e["peer"])
+        print(json.dumps({
+            "package": name, "flagged": len(det["flagged"]),
+            "sign_flip_peers_are_the_flippers": {
+                e["peer"] for e in det["entries"] if "sign_flip" in e["reasons"]} == truth,
+            "honest_flagged": sorted(set(det["flagged"]) - truth),
+            "flags_by_class_and_round": {c: {r: len(ps) for r, ps in v.items()}
+                                         for c, v in by_class.items()},
+        }), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--async", dest="async_", action="store_true",
@@ -310,7 +356,12 @@ def main() -> int:
     ap.add_argument("--dump", default=None, help="write the entries and rings here (JSON)")
     ap.add_argument("--replay", default=None,
                     help="replay a --dump file's entries in both packages instead of a run")
+    ap.add_argument("--engine-carry", default=None,
+                    help="replay phase 17b's logged engine carry in both packages instead")
     args = ap.parse_args()
+    if args.engine_carry:
+        replay_engine_carry(args.engine_carry)
+        return 0
     if args.replay:
         replay_dump(args.replay, args.async_)
         return 0

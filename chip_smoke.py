@@ -255,17 +255,21 @@ from tpfl_torch.attacks import (AttackPlan, AttackSpec, adversary_map, apply_att
                                 run_seeded_experiment)
 from tpfl_torch.communication import FaultInjector, FaultPlan, TrainerSpeedPlan
 from tpfl_torch.learning import compression
+from tpfl_torch.learning.async_control import AsyncController
 from tpfl_torch.learning.aggregators import (FedAvg, FedProx, Krum, MultiKrum, Scaffold,
                                              TrimmedMean)
 from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, TpflDataset
 from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10, synthetic_classification
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.learning.torch_learner import TorchLearner
-from tpfl_torch.management import ledger, profiling, quarantine, telemetry, tracing
+from tpfl_torch.management import engine_obs, ledger, profiling, quarantine, telemetry, tracing
+from tpfl_torch.management.checkpoint import EngineCheckpointer
+from tpfl_torch.management.quarantine import QuarantineEngine
 from tpfl_torch.management.logger import logger
 from tpfl_torch.models import CNN, ResNet18, TransformerLM, init_params
 from tpfl_torch.node import Node
-from tpfl_torch.parallel import FederationEngine, VmapFederation, _build
+from tpfl_torch.parallel import (FedBuffSchedule, FederationEngine, MembershipView,
+                                 VmapFederation, WindowPipeline, _build)
 from tpfl_torch.parallel import conv_kernel as ck
 from tpfl_torch.parallel import flash_kernel as fk
 from tpfl_torch.parallel.ring_attention import blockwise_attention
@@ -3038,6 +3042,428 @@ def async_launches(fed: dict, name: str) -> dict:
     return out
 
 
+# --- phase 17: the engine's variants ---------------------------------------------
+#
+# The CNN cell of the main path (N_NODES nodes × N_BATCHES × BATCH, bf16,
+# conv_impl="pallas", lr 0.1, seed 0) through FedBuff windows and the window
+# pipeline (17a, the engine_async tier's recipe, bench.py:2010-2130), the
+# telemetry carry (17b), elastic membership (17c, the elastic tier's storm,
+# bench.py:2296-2330) and kill-and-resume (17d). Every arm counts its conv
+# launches exactly (8 conv_dw + 4 conv_dx a round), every one on wgmma.
+
+EV_ROUNDS, EV_WINDOW, EV_HOST_LEG = 12, 3, 0.02
+EV_ADDRS = engine_obs.peer_names(N_NODES)
+# The elastic tier's 20 events over 30 rounds (bench.py:2296-2330).
+EV_STORM = [("leave", "n1"), ("join", "n1"), ("crash", "n2"), ("join", "n2"),
+            ("quarantine", "n3"), ("readmit", "n3"), ("leave", "n0"), ("join", "n0"),
+            ("quarantine", "n1"), ("readmit", "n1"), ("crash", "n3"), ("join", "n3"),
+            ("leave", "n2"), ("join", "n2"), ("quarantine", "n0"), ("readmit", "n0"),
+            ("join", "n4"), ("leave", "n4"), ("join", "n4"), ("quarantine", "n4")]
+EV_STORM_ROUNDS = 30
+
+
+def ev_plan(rounds: int) -> tuple[TrainerSpeedPlan, FedBuffSchedule]:
+    """The tier's skewed fleet (20% of trainers 10x slower) lowered to a
+    FedBuff schedule of ``rounds`` rounds."""
+    plan = TrainerSpeedPlan.skewed(EV_ADDRS, slow_frac=0.2, base_delay=0.05, skew=10.0, seed=7)
+    return plan, FedBuffSchedule.from_plan(plan, EV_ADDRS, rounds)
+
+
+def ev_engine(n: int = N_NODES) -> FederationEngine:
+    return FederationEngine(CNN(out_channels=10, conv_impl="pallas"), n, learning_rate=0.1,
+                            seed=0)
+
+
+_EV_DATA: list = []
+
+
+def ev_data(eng: FederationEngine) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cell's data on the card (made once), on ``eng``'s node axis
+    (pad rows clone row 0)."""
+    if not _EV_DATA:
+        _EV_DATA.extend(cnn_data(ev_engine()))
+    return eng.shard_data(*_EV_DATA)
+
+
+def ev_start() -> tuple:
+    """(engine, initial params, xs, ys) of the cell, warmed by one round."""
+    eng = ev_engine()
+    xs, ys = ev_data(eng)
+    params = eng.init_params((32, 32, 3))
+    eng.run_rounds(params, xs, ys, n_rounds=1)
+    torch.cuda.synchronize()
+    return eng, params, xs, ys
+
+
+def ev_counted(label: str, rounds: int, run) -> tuple:
+    """``run()`` with the launch counts set to 0 just before it: exactly
+    ``rounds`` rounds' conv launches, all on wgmma. Returns (its value,
+    the launches)."""
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_conv_launches(label, launches, read_wgmma_launches(("conv_dw", "conv_dx")),
+                        rounds * N_BATCHES * EPOCHS)
+    return out, launches
+
+
+def ev_equal(a: dict, b: dict) -> bool:
+    """Byte equality of two param trees (leaves matched by path)."""
+    other = dict(tree_items(b))
+    return all(torch.equal(v, other[path]) for path, v in tree_items(a))
+
+
+def ev_chain(eng, p, xs, ys, rounds: int, schedule=None, start: int = 0) -> tuple:
+    """Sequential windows of EV_WINDOW through ``run_rounds``: (params,
+    wall seconds)."""
+    t0 = time.perf_counter()
+    for done in range(0, rounds, EV_WINDOW):
+        k = min(EV_WINDOW, rounds - done)
+        sub = None if schedule is None else schedule.window(start + done, k)
+        p, _ = eng.run_rounds(p, xs, ys, n_rounds=k, schedule=sub)
+    torch.cuda.synchronize()
+    return p, time.perf_counter() - t0
+
+
+def ev_fedbuff_pipeline(card: str) -> dict:
+    """17a: sync and FedBuff chains, two same-seed pipelined FedBuff runs,
+    τ-0 against sync, the stragglers' rows; the virtual-clock composition;
+    the sequential and pipelined drivers' idle gaps with a 20 ms host leg,
+    and the host's enqueue time per window beside its device time."""
+    plan, sched = ev_plan(EV_ROUNDS)
+    eng, p0, xs, ys = ev_start()
+    launches = {}
+    (sync_p, sync_wall), launches["sync chain"] = ev_counted(
+        "17a sync chain", EV_ROUNDS, lambda: ev_chain(eng, p0, xs, ys, EV_ROUNDS))
+    (fb_p, fb_wall), launches["fedbuff chain"] = ev_counted(
+        "17a fedbuff chain", EV_ROUNDS, lambda: ev_chain(eng, p0, xs, ys, EV_ROUNDS, sched))
+
+    def piped():
+        (p, _), done = WindowPipeline(eng).run(p0, xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW,
+                                               schedule=sched)
+        assert done == EV_ROUNDS
+        return p
+
+    runs = []
+    for i in (1, 2):
+        p, launches[f"fedbuff pipeline {i}"] = ev_counted(f"17a fedbuff pipeline {i}",
+                                                          EV_ROUNDS, piped)
+        runs.append(p)
+    if not ev_equal(runs[0], fb_p):
+        raise AssertionError("17a: pipelined FedBuff bytes differ from the sequential chain's")
+    if not ev_equal(runs[0], runs[1]):
+        raise AssertionError("17a: two same-seed pipelined FedBuff runs differ")
+    tau0 = FedBuffSchedule.from_periods([1] * N_NODES, EV_WINDOW)
+    (fb0, _), launches["tau-0 fedbuff"] = ev_counted("17a tau-0", EV_WINDOW, lambda: eng.run_rounds(
+        p0, xs, ys, n_rounds=EV_WINDOW, schedule=tau0))
+    (sync3, _), launches["sync window"] = ev_counted("17a sync window", EV_WINDOW,
+                                                     lambda: eng.run_rounds(p0, xs, ys,
+                                                                            n_rounds=EV_WINDOW))
+    if not ev_equal(fb0, sync3):
+        raise AssertionError("17a: an all-arrive τ-0 schedule differs from the sync window")
+    # After the last round, arrivals hold its aggregate; the in-flight
+    # nodes hold their own trained rows, none of them the aggregate.
+    last = sched.arrivals[-1] > 0
+    arrived, flight_rows = np.flatnonzero(last), np.flatnonzero(~last)
+    for path, v in tree_items(fb_p):
+        agg = v[int(arrived[0])]
+        if not torch.equal(v[torch.as_tensor(arrived, device=v.device)],
+                           agg.expand(len(arrived), *agg.shape)):
+            raise AssertionError(f"17a: {path}: the arrivals do not hold one aggregate")
+        if any(torch.equal(v[int(i)], agg) for i in flight_rows):
+            raise AssertionError(f"17a: {path}: an in-flight node holds the aggregate")
+
+    # The tier's virtual clock: a sync round waits for the slowest
+    # trainer, a FedBuff round ticks at the fastest cadence.
+    delays = [plan.delay_for(a) for a in EV_ADDRS]
+    c_sync, c_fb = sync_wall / EV_ROUNDS, fb_wall / EV_ROUNDS
+    tick, slowest = min(d for d in delays if d > 0), max(delays)
+    unskewed = 1.0 / (0.05 + c_sync)
+    clock = {"program_s_per_round_sync": c_sync, "program_s_per_round_fedbuff": c_fb,
+             "virtual_rps_unskewed": unskewed, "virtual_rps_sync_skewed": 1.0 / (slowest + c_sync),
+             "virtual_rps_fedbuff_skewed": 1.0 / (tick + c_fb),
+             "fedbuff_vs_unskewed": (1.0 / (tick + c_fb)) / unskewed,
+             "sync_vs_unskewed": (1.0 / (slowest + c_sync)) / unskewed}
+
+    def staged(widx, start, k):
+        time.sleep(EV_HOST_LEG)  # the tier's data staging stand-in
+        return None
+
+    def sequential():
+        p, gaps, enq, dev, t_ready = p0, [], [], [], None
+        for done in range(0, EV_ROUNDS, EV_WINDOW):
+            staged(done // EV_WINDOW, done, EV_WINDOW)
+            t_disp = time.monotonic()
+            if t_ready is not None:
+                gaps.append(t_disp - t_ready)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            handle = eng.dispatch_window(p, xs, ys, n_rounds=EV_WINDOW)
+            enq.append((time.monotonic() - t_disp) * 1e3)
+            b.record()
+            b.synchronize()
+            t_ready = time.monotonic()
+            p = handle.finalize()[0]
+            dev.append(a.elapsed_time(b))
+        return p, gaps, enq, dev
+
+    (seq_p, seq_gaps, enq, dev), launches["sequential driver"] = ev_counted(
+        "17a sequential driver", EV_ROUNDS, sequential)
+    pipe = WindowPipeline(eng)
+
+    def pipelined():
+        (p, _), _ = pipe.run(p0, xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW, data_for=staged,
+                             prefetch=True)
+        return p
+
+    pipe_p, launches["pipelined driver"] = ev_counted("17a pipelined driver", EV_ROUNDS,
+                                                      pipelined)
+    if not ev_equal(seq_p, pipe_p) or not ev_equal(seq_p, sync_p):
+        raise AssertionError("17a: the drivers' bytes differ from the sync chain's")
+    return {"card": card, "nodes": N_NODES, "rounds": EV_ROUNDS, "window": EV_WINDOW,
+            "sync_rounds_per_s": EV_ROUNDS / sync_wall, "fedbuff_rounds_per_s": EV_ROUNDS / fb_wall,
+            "slow_nodes": int((sched.arrivals.sum(0) < EV_ROUNDS).sum()),
+            "arrivals_per_round": sched.arrivals.sum(1).tolist(),
+            "pipelined_equals_sequential": True, "same_seed_pipelines_identical": True,
+            "tau0_equals_sync": True, "virtual_clock": clock,
+            "host_leg_s_per_window": EV_HOST_LEG,
+            "seq_idle_gaps_s": seq_gaps, "pipeline_idle_gaps_s": pipe.idle_gaps,
+            "seq_idle_gap_mean_s": statistics.mean(seq_gaps),
+            "pipeline_idle_gap_mean_s": statistics.mean(pipe.idle_gaps),
+            "enqueue_ms_per_window": enq, "device_ms_per_window": dev, "launches": launches}
+
+
+def ev_telemetry(card: str) -> dict:
+    """17b: a 3-round window with the carry off and on (params byte-identical,
+    every carry field finite, participation N_NODES), walls of each; then a
+    sign flip on every fifth node with the ledger on: the detections'
+    sign-flip class holds exactly the flippers, each in every round; the
+    honest nodes the norm class flags are reported, with the window's
+    carry."""
+    eng, p0, xs, ys = ev_start()
+    launches, walls, outs = {}, {}, {}
+    snap = Settings.snapshot()
+    try:
+        for on in (False, True, False, True):
+            Settings.ENGINE_TELEMETRY = on
+            label = "telemetry on" if on else "telemetry off"
+
+            def window():
+                t0 = time.perf_counter()
+                handle = eng.dispatch_window(p0, xs, ys, n_rounds=EV_WINDOW)
+                tele = handle.telemetry()
+                p = handle.finalize()[0]
+                torch.cuda.synchronize()
+                return p, tele, time.perf_counter() - t0
+
+            (outs[on], tele, wall), launches[label] = ev_counted(f"17b {label}", EV_WINDOW, window)
+            walls.setdefault(label, []).append(wall)
+            if on:
+                bad = [k for k, v in tele.items() if not np.isfinite(v).all()]
+                if bad or not (tele["participation"] == N_NODES).all():
+                    raise AssertionError(f"17b: carry fields {bad} not finite or participation "
+                                         f"{tele['participation']}")
+                carry = {k: v.tolist() for k, v in tele.items()
+                         if k in ("delta_norm", "model_norm", "participation", "wire_bytes")}
+        if not ev_equal(outs[False], outs[True]):
+            raise AssertionError("17b: params differ with the telemetry carry on and off")
+        plan = AttackPlan({i: AttackSpec("sign_flip") for i in range(0, N_NODES, 5)}, seed=7)
+        truth = set(plan.adversary_map(EV_ADDRS))
+        Settings.ENGINE_TELEMETRY, Settings.LEDGER_ENABLED = True, True
+        ledger.contrib.reset()
+        def attacked():
+            handle = eng.dispatch_window(p0, xs, ys, n_rounds=EV_WINDOW,
+                                         attack_scales=plan.engine_scales(EV_ADDRS, EV_WINDOW))
+            tele = handle.telemetry()
+            handle.finalize()
+            return tele
+
+        tele, launches["sign flip"] = ev_counted("17b sign flip", EV_WINDOW, attacked)
+        det = ledger.contrib.detections()
+        flagged = set(det["flagged"])
+        # The sign-flip class (cos_ref at the threshold) is the attack's
+        # signature: exactly the flippers, every round. The norm class
+        # scores each norm against every round's norms, so which honest
+        # update stands out depends on the trajectory (ROADMAP.md §3):
+        # reported.
+        flips = {e["peer"] for e in det["entries"] if "sign_flip" in e["reasons"]}
+        every_round = all(len(det["flagged"].get(p, {}).get("rounds", [])) == EV_WINDOW
+                          for p in truth)
+        if flips != truth or not every_round:
+            raise AssertionError(f"17b: sign_flip flags on {sorted(flips ^ truth)} beside the "
+                                 f"{len(truth)} flippers, or a flipper missed a round")
+        honest = {p: v for p, v in det["flagged"].items() if p not in truth}
+    finally:
+        Settings.restore(snap)
+        ledger.contrib.reset()
+    return {"card": card, "wall_s": walls, "params_identical_on_off": True, "carry": carry,
+            "sign_flips": len(truth), "sign_flip_flags_exact": True,
+            "flagged_exactly_the_flippers": flagged == truth, "honest_flagged": len(honest),
+            "honest_flag_rounds": sorted({r for v in honest.values() for r in v["rounds"]}),
+            "honest_flag_reasons": sorted({r for v in honest.values() for r in v["reasons"]}),
+            # The window's carry, for byzantine_reference.py --engine-carry
+            # (both packages' verdict code over the card's values).
+            "sign_flip_carry": {k: v.tolist() for k, v in tele.items()},
+            "launches": launches}
+
+
+def ev_elastic(card: str) -> dict:
+    """17c: a MembershipView over N_NODES live addresses (capacity 128)
+    through the tier's storm over 30 rounds: resize_nodes calls equal the
+    view's tier moves; the masked capacity-128 window against an exact
+    n = N_NODES one after 2 rounds (rtol 1e-3, atol 1e-4); one window's
+    conv launches at N = 128 held to their plain versions."""
+    view = MembershipView([f"n{i}" for i in range(N_NODES)])
+    eng = ev_engine()
+    eng.attach_membership(view)
+    resizes = []
+    real_resize = eng.resize_nodes
+
+    def resize(n):
+        resizes.append(n)
+        real_resize(n)
+
+    eng.resize_nodes = resize
+    xs, ys = ev_data(eng)
+    p = eng.init_params((32, 32, 3))
+    shapes = [v.shape for _, v in tree_items(p)]
+    eng.run_rounds(p, xs, ys, weights=view.weights(), n_rounds=1)
+
+    def storm():
+        nonlocal p, xs, ys
+        t0 = time.perf_counter()
+        for r in range(EV_STORM_ROUNDS):
+            if r < len(EV_STORM):
+                getattr(view, EV_STORM[r][0])(EV_STORM[r][1])
+            if eng.sync_membership():  # a tier move: the one resize of the state
+                p, xs, ys = (eng.pad_stacked(tree_map(lambda t: t[:eng.n_nodes], tree))
+                             for tree in (p, xs, ys))
+            p, _ = eng.run_rounds(p, xs, ys, weights=view.weights(), n_rounds=1)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    launches = {}
+    wall, launches["storm"] = ev_counted("17c storm", EV_STORM_ROUNDS, storm)
+    moves = view.tier_events()
+    if len(resizes) != len(moves) or (not moves and [v.shape for _, v in tree_items(p)] != shapes):
+        raise AssertionError(f"17c: {len(resizes)} resizes for {len(moves)} tier moves")
+    # Masked capacity-128 against exact n = N_NODES, from the same params.
+    exact, p0, xs0, ys0 = ev_start()
+    masked = ev_engine()
+    masked.attach_membership(MembershipView([f"n{i}" for i in range(N_NODES)]))
+    mw = masked.membership.weights()
+    p128, (x128, y128) = masked.pad_stacked(p0), masked.shard_data(xs0, ys0)
+    (want, _), launches[f"exact n={N_NODES}"] = ev_counted("17c exact", 2, lambda: exact.run_rounds(
+        p0, xs0, ys0, n_rounds=2))
+    (got, _), launches[f"masked {masked.n_nodes}"] = ev_counted("17c masked", 2, lambda: masked.run_rounds(
+        p128, x128, y128, weights=mw, n_rounds=2))
+    worst = 0.0
+    want_by = dict(tree_items(want))
+    for path, v in tree_items(got):
+        torch.testing.assert_close(v[:N_NODES], want_by[path], rtol=1e-3, atol=1e-4, msg=path)
+        worst = max(worst, (v[:N_NODES] - want_by[path]).abs().max().item())
+    with held_convs() as held:
+        masked.run_rounds(p128, x128, y128, weights=mw, n_rounds=1)
+        torch.cuda.synchronize()
+    steps = N_BATCHES * EPOCHS
+    if (held["conv_dw"]["held"], held["conv_dx"]["held"]) != (2 * steps, steps) or any(
+            h["beyond_bound"] for h in held.values()):
+        raise AssertionError(f"17c: conv launches at N = 128 against their plain versions: {held}")
+    return {"card": card, "live": N_NODES, "capacity": int(view.capacity),
+            "storm_events": len(EV_STORM), "storm_rounds": EV_STORM_ROUNDS,
+            "storm_rounds_per_s": EV_STORM_ROUNDS / wall, "tier_moves": moves,
+            "resize_calls": len(resizes), "masked_vs_exact_max_abs_diff": worst,
+            "held_at_capacity": held, "launches": launches}
+
+
+def ev_resume(card: str) -> dict:
+    """17d: 3 rounds, export_state (controller and quarantine attached),
+    EngineCheckpointer through a temporary directory, import_state on a
+    fresh engine, 3 more rounds: byte-identical to 6 uninterrupted rounds,
+    sync and FedBuff; then the pipeline with a snapshot every window
+    against none (walls reported)."""
+    eng, p0, xs, ys = ev_start()
+    _, sched = ev_plan(6)
+    launches, out = {}, {}
+    for label, schedule in (("sync", None), ("fedbuff", sched)):
+        full, launches[f"{label} uninterrupted"] = ev_counted(
+            f"17d {label} uninterrupted", 6, lambda: ev_chain(eng, p0, xs, ys, 6, schedule)[0])
+
+        def killed_and_resumed():
+            first = ev_engine()
+            first.controller = AsyncController("engine")
+            q = QuarantineEngine("engine")
+            pb, _ = ev_chain(first, p0, xs, ys, 3, schedule)
+            with tempfile.TemporaryDirectory() as tmp:
+                ck = EngineCheckpointer(tmp, node="engine")
+                t0 = time.perf_counter()
+                ck.save(first.export_state(pb, quarantine=q), step=3)
+                state, meta = ck.restore()
+                io = time.perf_counter() - t0
+            resumed = ev_engine()
+            resumed.controller = AsyncController("engine")
+            back = resumed.import_state(state, quarantine=QuarantineEngine("engine"))
+            if resumed._rounds_done != 3 or meta["step"] != 3:
+                raise AssertionError(f"17d: resumed at {resumed._rounds_done}, step {meta}")
+            pc, _ = ev_chain(resumed, back["params"], xs, ys, 3, schedule,
+                             start=resumed._rounds_done)
+            return pc, io
+
+        (resumed, io), launches[f"{label} killed + resumed"] = ev_counted(
+            f"17d {label} resume", 6, killed_and_resumed)
+        if not ev_equal(resumed, full):
+            raise AssertionError(f"17d: the resumed {label} run differs from the uninterrupted")
+        out[label] = {"byte_identical": True, "save_restore_s": io}
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(max_workers=1) as pool:
+        ck = EngineCheckpointer(tmp, node="engine")
+        pending = []
+
+        def run(snapshots: bool) -> float:
+            pipe = WindowPipeline(eng)
+            t0 = time.perf_counter()
+            result, done = pipe.run(
+                p0, xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW,
+                snapshot_every=1 if snapshots else 0,
+                snapshot_to=lambda r, s: pending.append(pool.submit(ck.save, s, step=r)))
+            torch.cuda.synchronize()
+            for f in pending:
+                f.result()
+            pending.clear()
+            return time.perf_counter() - t0
+
+        walls = {"plain": [], "snapshots": []}
+        for snapshots in (False, True, True, False):
+            wall, _ = ev_counted("17d snapshot cadence", EV_ROUNDS, lambda: run(snapshots))
+            walls["snapshots" if snapshots else "plain"].append(wall)
+        published = ck.latest_step()
+    overhead = min(walls["snapshots"]) / min(walls["plain"]) - 1.0
+    return {"card": card, **out, "snapshot_walls_s": walls, "snapshot_overhead": overhead,
+            "snapshots_published_to_round": published, "launches": launches}
+
+
+def engine_variants_path(card: str) -> dict:
+    """Phase 17: 17a-17d, each logged as it passes."""
+    out = {}
+    for part, run in (("fedbuff_pipeline", ev_fedbuff_pipeline), ("telemetry", ev_telemetry),
+                      ("elastic", ev_elastic), ("resume", ev_resume)):
+        t0 = time.perf_counter()
+        out[part] = run(card)
+        out[part]["phase_s"] = time.perf_counter() - t0
+        log(f"engine variants ({part}; every check passed): " + json.dumps(out[part]))
+    return out
+
+
+def ev_launches(ev: dict, name: str) -> dict:
+    """Phase 17's launches of one conv kernel, by part and arm."""
+    return {f"17{tag} {arm}": counts[name]
+            for tag, part in zip("abcd", ("fedbuff_pipeline", "telemetry", "elastic", "resume"))
+            for arm, counts in ev[part]["launches"].items()}
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -3180,6 +3606,7 @@ def main() -> int:
     log("chaos federation (4 CNN Nodes, 20% drop and one crash; every check passed): "
         + json.dumps(chaos_fed))
     async_fed = async_federation_path(card)
+    variants = engine_variants_path(card)
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()
@@ -3213,6 +3640,7 @@ def main() -> int:
                 label: chaos_fed[label]["launches"][row["name"]]
                 for label in ("fault_free", "chaos")}
             row["async_federation_launches"] = async_launches(async_fed, row["name"])
+            row["engine_variant_launches"] = ev_launches(variants, row["name"])
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
         if row["name"] in built:
             row["build"] = built[row["name"]]

@@ -496,6 +496,33 @@ def test_contribution_after_the_round_advanced_is_stashed_for_it():
     assert tnode.aggregator.get_aggregated_models() == ["peer"]
 
 
+def test_contribution_from_a_later_round_waits_for_that_round():
+    """Serialized rounds without a schedule: a peer's round-1 contribution
+    that reaches a node still in round 0 waits for round 1 in the port, so
+    round 0 folds the peer's round-0 contribution; the JAX package folds
+    the round-1 one into round 0 (and then drops the round-0 one as a
+    duplicate)."""
+    from tpfl.experiment import Experiment as JaxExperiment
+    from tpfl_torch.experiment import Experiment
+
+    _set_both(ASYNC_ROUNDS=True)
+    jnode, tnode = _nodes("later")
+    for node, exp in ((jnode, JaxExperiment("e", 4)), (tnode, Experiment("e", 4))):
+        node.state.set_experiment(exp)
+        node.aggregator.set_nodes_to_aggregate(["peer", node.addr], async_k=2, round_ordinal=0)
+        _deliver(node, 1, 1)
+    assert jnode.aggregator.get_aggregated_models() == ["peer"] and _pending(jnode) == []
+    assert tnode.aggregator.get_aggregated_models() == [] and _pending(tnode) == [1]
+    _deliver(tnode, 0, 0)
+    assert tnode.aggregator.get_aggregated_models() == ["peer"]
+    tnode.aggregator.clear()
+    tnode.state.increase_round()
+    tnode.aggregator.set_nodes_to_aggregate(["peer", tnode.addr], async_k=2, round_ordinal=1)
+    for args in tnode.state.drain_pending_partials(1):
+        _deliver(tnode, args[1], args[5])
+    assert tnode.aggregator.get_aggregated_models() == ["peer"] and _pending(tnode) == []
+
+
 def test_scheduled_contribution_before_the_first_round_is_held():
     """With a schedule attached and no round opened yet, the port's reorder
     buffer holds the contribution and admits it at round 0's open; the

@@ -238,8 +238,17 @@ def test_partial_ring_and_round_lifecycle():
     assert ledger.contrib.stats_for("obs") == {"entries": 8, "flagged": 0}
     ledger.contrib.close_round("obs")
     assert ledger.contrib.record("obs", _pair(ref, "late")[1]) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ledger.contrib.record_external("obs", "p", 0, 1.0, 1.0)
+    # The engine carry's entry point records into the same ring, as the
+    # JAX ledger's does from the same ring state.
+    jledger.contrib.open_round("obs", 1, jax.tree_util.tree_map(jnp.asarray, ref))
+    for i in range(30):
+        jledger.contrib.record("obs", _pair(_honest(ref, i), f"n{i}")[0])
+    jledger.contrib.close_round("obs")
+    got = ledger.contrib.record_external("obs", "p", 0, 1.0, 1.0)
+    want = jledger.contrib.record_external("obs", "p", 0, 1.0, 1.0)
+    keys = ("peer", "single", "round", "staleness", "version", "flagged", "reasons", "z_norm")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert len(ledger.contrib.entries("obs")) == 8
 
 
 # --- convergence ------------------------------------------------------------------

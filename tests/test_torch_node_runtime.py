@@ -25,7 +25,6 @@ paths beyond the plain synchronous round, on the CPU:
 
 import hashlib
 import importlib.util
-import inspect
 import json
 import threading
 import time
@@ -406,8 +405,34 @@ def _speed_plan_forks():
     return scheds[0] is not scheds[1] and scheds[0].expected() == scheds[1].expected()
 
 
+def _node_checkpoint_round_trip(which):
+    """A node's checkpoint published by ``save_checkpoint`` loads back
+    through ``load_checkpoint``; ``which`` picks the side checked."""
+    import os
+    import tempfile
+
+    src, dst = _node("ported-ck-src"), _node("ported-ck-dst")
+    with tempfile.TemporaryDirectory() as d:
+        src.save_checkpoint(d)
+        published = "LATEST" in os.listdir(d)
+        meta = dst.load_checkpoint(d)
+    got = dict(tree_items(dst.learner.get_model().get_parameters()))
+    same = all(torch.equal(v, got[k])
+               for k, v in tree_items(src.learner.get_model().get_parameters()))
+    return published if which == "save" else (meta["round"] == src.state.round and same)
+
+
+def _dump_dir_engine():
+    Settings.TELEMETRY_DUMP_DIR = "armed-dir"
+    return _engine().n_nodes == 2
+
+
 # Each replaces the refusal case of the same name: the ported plane runs.
 PORTED = {
+    "save checkpoint": lambda: _node_checkpoint_round_trip("save"),
+    "load checkpoint": lambda: _node_checkpoint_round_trip("load"),
+    "telemetry dump dir at the engine": _dump_dir_engine,
+    "switch ENGINE_TELEMETRY": lambda: _starts_with("ENGINE_TELEMETRY"),
     "async rounds": lambda: (setattr(Settings, "ASYNC_ROUNDS", True),
                              _started("ported-async"))[1]._running,
     "residual gossip": lambda: _one_node_experiment("ported-delta", WIRE_DELTA=True) == [
@@ -440,12 +465,11 @@ def test_ported_seams_run(seam):
 REFUSALS = {
     "simulation pool": ("item 5", lambda: setattr(Settings, "DISABLE_SIMULATION", False),
                         lambda: _node("ref-sim")),
-    "telemetry dump dir at the engine": ("item 4", lambda: setattr(
-        Settings, "TELEMETRY_DUMP_DIR", "armed-dir"), lambda: _engine()),
+    "client population at the engine": ("item 5", lambda: None,
+                                        lambda: _engine().attach_population(object())),
     "harness default data": ("item 8", lambda: None, lambda: run_seeded_experiment(
         1, 2, 1, device="cpu")),
-    "save checkpoint": ("item 4", lambda: None, lambda: _node("ref-ck").save_checkpoint("d")),
-    "load checkpoint": ("item 4", lambda: None, lambda: _node("ref-lk").load_checkpoint("d")),
+    "engine donation report": ("item 8", lambda: None, lambda: _engine().donation_report()),
     "grpc": ("item 8", lambda: None, lambda: communication.GrpcCommunicationProtocol),
 }
 
@@ -525,14 +549,12 @@ GATES = {
         lambda: communication.GrpcCommunicationProtocol),
     "parallel.FederationEngine(mesh=)": _raises(lambda: FederationEngine(
         MLP(hidden_sizes=(8,), out_channels=10), 2, mesh="auto", device="cpu")),
-    "parallel.FederationEngine.run_rounds(donate=)": lambda: "donate" not in inspect.signature(
-        FederationEngine.run_rounds).parameters,
+    "parallel.FederationEngine.donation_report": _raises(lambda: _engine().donation_report()),
     "management.profiling.CompileObservatory": lambda: not hasattr(profiling,
                                                                    "CompileObservatory"),
     **{m: _closed_module(m) for m in (
-        "parallel.federation_learner", "management.fleetobs", "management.checkpoint",
-        "parallel.population", "parallel.membership", "parallel.ranksafe",
-        "management.node_monitor")},
+        "parallel.federation_learner", "management.fleetobs", "parallel.population",
+        "parallel.ranksafe", "management.node_monitor")},
 }
 
 

@@ -358,7 +358,7 @@ class PartialModelCommand(NodeCommand):
             # cadence; the model-version ordinal it trained from
             # (``version`` on the envelope) sets the staleness against
             # whatever round is forming here.
-            self._execute_async(source, weights, contributors, num_samples, kwargs)
+            self._execute_async(source, round, weights, contributors, num_samples, kwargs)
             return
         if round == st.round + 1:
             # Fast peer already in the next round: hold the model until
@@ -413,18 +413,36 @@ class PartialModelCommand(NodeCommand):
             st.set_models_aggregated(st.addr, covered)
             send_models_aggregated(self.node, covered)
 
-    def _execute_async(self, source: str, weights: bytes, contributors: list[str],
+    def _execute_async(self, source: str, round: int, weights: bytes, contributors: list[str],
                        num_samples: int, kwargs: dict) -> None:
         """Async-round intake: fold into whatever round is forming. A
         contribution arriving between rounds (buffer just closed) is
         stashed and replayed when ``AsyncRoundStage`` opens the next one;
         the serialized discipline holds it in the aggregator's reorder
-        buffer instead."""
+        buffer instead, or, without a schedule, until this node opens the
+        round the sender made it in."""
         st = self.state
         trace = kwargs.get("trace", "")
         raw_version = int(kwargs.get("version", -1))
         start_version = None if raw_version < 0 else raw_version
         agg = self.node.aggregator
+        from tpfl_torch.settings import Settings
+
+        if (Settings.ASYNC_SERIALIZED and st.round is not None and round > st.round
+                and not agg.reorders(contributors)):
+            # Serialized rounds fit once each, in lockstep: a peer that
+            # closed this round first sent this for its next one. Folded
+            # now it is a duplicate of the peer's contribution to this
+            # round and is dropped, and the peer's push after it fills
+            # this node's next round at the wrong version. The JAX
+            # package folds it into the forming round (ROADMAP.md §3).
+            st.stash_pending_partial(
+                (source, round, weights, contributors, num_samples, raw_version, trace), round)
+            if agg.is_open() and agg.round_ordinal() == round:
+                for args in st.drain_pending_partials(round):
+                    self._execute_async(args[0], args[1], args[2], args[3], args[4],
+                                        {"version": args[5], "trace": args[6]})
+            return
         try:
             with tracing.maybe_span(
                 "decode", st.addr, trace=trace, cmd=self.name, peer=source,
@@ -456,7 +474,7 @@ class PartialModelCommand(NodeCommand):
             # drain is pop-once, so nothing is delivered twice.
             if agg.is_open() and agg.round_ordinal() == nxt:
                 for args in st.drain_pending_partials(nxt):
-                    self._execute_async(args[0], args[2], args[3], args[4],
+                    self._execute_async(args[0], args[1], args[2], args[3], args[4],
                                         {"version": args[5], "trace": args[6]})
 
 

@@ -227,13 +227,15 @@ class FaultInjector:
         # the flight recorder exists for — record it and flush the
         # victim's ring (a JSON dump lands in
         # Settings.TELEMETRY_DUMP_DIR when set, traceview-readable).
-        # The reference also aborts the victim's engine window pipeline
-        # here; the port has no window pipeline (ROADMAP.md §1 item 4).
         from tpfl_torch.management import tracing
         from tpfl_torch.management.telemetry import flight
+        from tpfl_torch.parallel import window_pipeline
 
         tracing.event("crash_injected", addr)
         flight.dump(addr, "crash")
+        # A crashed node's in-flight engine window stops at its boundary,
+        # as on Node.stop's graceful path.
+        window_pipeline.interrupt_for(addr)
 
     def revive(self, addr: str) -> None:
         with self._lock:

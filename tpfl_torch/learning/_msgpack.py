@@ -19,13 +19,30 @@ types below :func:`packb` gives the same bytes as that call and
 
 Anything else raises ``TypeError`` on pack; malformed, truncated or
 trailing input raises ``ValueError`` on unpack (extension types are
-not part of the subset).
+not part of the envelopes' subset).
+
+:func:`packb_ext` / :func:`unpackb_ext` are ``flax.serialization``'s
+``msgpack_serialize`` / ``msgpack_restore`` for host trees, the engine
+checkpoint's byte format (``management/checkpoint.py``): two extension
+types, an array (ext 1) and a numpy scalar (ext 3), each carried as
+``packb((shape, dtype name, C-order bytes))``; dicts packed with sorted
+keys (flax maps the tree through ``jax.tree_util`` first); exact types
+only (flax packs with ``strict_types=True``, so a tuple, a subclass of
+``float`` such as ``np.float64`` and any other type are not the plain
+type: tuples raise, numpy scalars take ext 3). A CPU torch tensor packs
+as an array of its dtype's name, so bf16 leaves, which numpy cannot
+hold, round-trip as ``torch.bfloat16`` tensors. Leaves above
+``MAX_LEAF_BYTES`` raise: flax splits them into chunk dicts, which the
+port neither writes nor reads.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any
+from typing import Any, Optional
+
+import numpy as np
+import torch
 
 _F64 = struct.Struct(">d")
 _F32 = struct.Struct(">f")
@@ -111,11 +128,13 @@ def packb(obj: Any) -> bytes:
 
 
 class _Reader:
-    __slots__ = ("data", "pos")
+    __slots__ = ("data", "pos", "ext")
 
-    def __init__(self, data: Any) -> None:
+    def __init__(self, data: Any, ext: Optional[Any] = None) -> None:
         self.data = memoryview(data).cast("B") if not isinstance(data, bytes) else data
         self.pos = 0
+        # ext(code, data) -> object decodes extension types; None refuses them.
+        self.ext = ext
 
     def take(self, n: int) -> Any:
         end = self.pos + n
@@ -162,6 +181,10 @@ class _Reader:
             return self.array(self.uint(2 if code == 0xDC else 4))
         if code in (0xDE, 0xDF):
             return self.map(self.uint(2 if code == 0xDE else 4))
+        if self.ext is not None and (0xD4 <= code <= 0xD8 or 0xC7 <= code <= 0xC9):
+            n = 1 << (code - 0xD4) if code >= 0xD4 else self.uint(1 << (code - 0xC7))
+            kind = int.from_bytes(self.take(1), "big", signed=True)
+            return self.ext(kind, self.take(n))
         raise ValueError(f"msgpack: unsupported type code 0x{code:02x}")
 
     def str(self, n: int) -> str:
@@ -177,6 +200,9 @@ class _Reader:
         out = {}
         for _ in range(n):
             k = self.read()
+            if self.ext is not None and not isinstance(k, (str, bytes)):
+                # msgpack.unpackb's strict_map_key, on in flax's restore.
+                raise ValueError(f"msgpack: {type(k).__name__} map key {k!r} is not allowed")
             try:
                 out[k] = self.read()
             except TypeError as e:  # unhashable key
@@ -194,4 +220,132 @@ def unpackb(data: Any) -> Any:
     return obj
 
 
-__all__ = ["packb", "unpackb"]
+# --- flax.serialization's extension types --------------------------------
+
+#: flax's ``_MsgpackExtType``: ``ndarray`` and ``npscalar``.
+EXT_NDARRAY = 1
+EXT_NPSCALAR = 3
+
+#: flax's ``MAX_CHUNK_SIZE``: a larger leaf is split into chunk dicts.
+MAX_LEAF_BYTES = 2**30
+
+#: numpy's dtype names of the torch dtypes a leaf may have; bfloat16 is
+#: the name flax's ``_dtype_from_name`` maps to JAX's bfloat16.
+_TORCH_NAMES = {
+    "torch.float64": "float64", "torch.float32": "float32", "torch.float16": "float16",
+    "torch.bfloat16": "bfloat16", "torch.int64": "int64", "torch.int32": "int32",
+    "torch.int16": "int16", "torch.int8": "int8", "torch.uint8": "uint8", "torch.bool": "bool",
+}
+
+
+def _array_record(shape: tuple, name: str, buf: Any, nbytes: int) -> bytearray:
+    """flax's ``_ndarray_to_bytes``: ``packb((shape, dtype name, bytes))``
+    of the C-order bytes in ``buf``."""
+    if nbytes > MAX_LEAF_BYTES:
+        raise ValueError(
+            f"msgpack: a {name} leaf of shape {tuple(shape)} holds {nbytes} bytes, above "
+            f"{MAX_LEAF_BYTES}; flax would split it into chunks, which this format does not "
+            "carry")
+    out = bytearray()
+    _pack(out, [list(shape), name, buf])
+    return out
+
+
+def _raw(arr: np.ndarray) -> memoryview:
+    """The C-order bytes of an array, without a copy when it is contiguous."""
+    return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
+
+
+def _ext(out: bytearray, kind: int, data: bytearray) -> None:
+    n = len(data)
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(n)
+    if fixed is not None:
+        out.append(fixed)
+    elif n <= 0xFF:
+        out += bytes((0xC7, n))
+    elif n <= 0xFFFF:
+        out.append(0xC8)
+        out += n.to_bytes(2, "big")
+    else:
+        out.append(0xC9)
+        out += n.to_bytes(4, "big")
+    out.append(kind)
+    out += data
+
+
+def _pack_ext(out: bytearray, obj: Any) -> None:
+    kind = type(obj)
+    if obj is None or kind in (bool, int, float, str, bytes):
+        _pack(out, obj)
+    elif kind is list:
+        _pack_len(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack_ext(out, v)
+    elif kind is dict:
+        _pack_len(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for k in sorted(obj):
+            _pack_ext(out, k)
+            _pack_ext(out, obj[k])
+    elif isinstance(obj, np.ndarray):
+        if obj.dtype.hasobject or obj.dtype.isalignedstruct:
+            raise ValueError("msgpack: object and structured dtypes are not serializable")
+        _ext(out, EXT_NDARRAY, _array_record(obj.shape, obj.dtype.name, _raw(obj), obj.nbytes))
+    elif isinstance(obj, np.generic):
+        arr = np.asarray(obj)
+        _ext(out, EXT_NPSCALAR, _array_record((), arr.dtype.name, _raw(arr), arr.nbytes))
+    elif isinstance(obj, torch.Tensor):
+        name = _TORCH_NAMES.get(str(obj.dtype))
+        if name is None or obj.device.type != "cpu":
+            raise TypeError(f"can not serialize a {obj.dtype} tensor on {obj.device}")
+        t = obj.detach().contiguous().reshape(-1)
+        raw = _raw(t.view(torch.uint8).numpy()) if t.numel() else b""
+        _ext(out, EXT_NDARRAY, _array_record(tuple(obj.shape), name, raw, len(raw)))
+    else:
+        raise TypeError(f"can not serialize {kind.__name__!r} object")
+
+
+def packb_ext(obj: Any) -> bytes:
+    """``flax.serialization.msgpack_serialize(obj)`` for a host tree
+    (dicts, lists, scalars, numpy arrays and scalars, CPU tensors)."""
+    out = bytearray()
+    _pack_ext(out, obj)
+    return bytes(out)
+
+
+def _array_from_record(data: Any) -> Any:
+    """flax's ``_ndarray_from_bytes``: a writable numpy array, or a
+    ``torch.bfloat16`` tensor over the same bytes for bfloat16."""
+    rec = _Reader(data).read()
+    if not (isinstance(rec, list) and len(rec) == 3):
+        raise ValueError("msgpack: malformed array record")
+    shape, name, buf = rec
+    name = name.decode() if isinstance(name, bytes) else name
+    raw = bytearray(buf)
+    if name == "bfloat16":
+        flat = (torch.frombuffer(raw, dtype=torch.bfloat16) if raw
+                else torch.empty((0,), dtype=torch.bfloat16))
+        return flat.reshape(tuple(shape))
+    return np.frombuffer(raw, dtype=np.dtype(name)).reshape(tuple(shape))
+
+
+def _ext_hook(kind: int, data: Any) -> Any:
+    if kind == EXT_NDARRAY:
+        return _array_from_record(data)
+    if kind == EXT_NPSCALAR:
+        arr = _array_from_record(data)
+        return arr if not isinstance(arr, np.ndarray) else arr[()]
+    raise ValueError(f"msgpack: unsupported extension type {kind}")
+
+
+def unpackb_ext(data: Any) -> Any:
+    """``flax.serialization.msgpack_restore(data)`` (no chunked leaves):
+    arrays come back as numpy arrays (``torch.bfloat16`` tensors for
+    bfloat16), numpy scalars as numpy scalars, tuples as lists."""
+    r = _Reader(data, ext=_ext_hook)
+    obj = r.read()
+    if r.pos != len(r.data):
+        raise ValueError(f"msgpack: {len(r.data) - r.pos} bytes of extra data")
+    return obj
+
+
+__all__ = ["MAX_LEAF_BYTES", "packb", "packb_ext", "unpackb", "unpackb_ext"]

@@ -32,9 +32,9 @@ The ``tpfl_contrib_*`` / ``tpfl_convergence_*`` series go to the process
 registry (:data:`tpfl_torch.management.telemetry.metrics`), with the
 ``tpfl_ledger_entries`` / ``tpfl_ledger_flagged`` occupancy gauges from
 a pull-style collector; ``contrib`` / ``anomaly`` / ``divergence`` /
-``plateau`` records go to the flight recorder's ring. Not ported:
-``record_external`` (the engine telemetry carry's fan-out) raises
-``NotImplementedError`` naming ``ROADMAP.md`` §1 item 4.
+``plateau`` records go to the flight recorder's ring.
+:meth:`ContributionLedger.record_external` records the entries of the
+engine's telemetry carry (:mod:`tpfl_torch.management.engine_obs`).
 
 Gating: every entry point checks ``Settings.LEDGER_ENABLED`` (or, for
 the round state and ``score_now``, ``QUARANTINE_ENABLED``) first; with
@@ -72,8 +72,6 @@ COSINE_BUCKETS: tuple[float, ...] = (
 #: cluster must not make every later entry an infinite-z outlier.
 _MAD_REL_FLOOR = 0.05
 _EPS = 1e-12
-
-_ENGINE_ITEM = "ROADMAP.md §1 item 4, the engine variants: the telemetry carry"
 
 #: builtin alias — the query APIs take a ``round`` kwarg.
 _round = round
@@ -382,10 +380,60 @@ class ContributionLedger:
     def record_external(self, node: str, peer: str, round: "int | None", update_norm: float,
                         cos_ref: float, num_samples: int = 1, trace: str = "",
                         staleness: int = 0) -> "dict | None":
-        """Score-and-record a contribution whose stats the engine's
-        telemetry carry computed — not ported."""
-        raise NotImplementedError(
-            f"tpfl_torch ledger: record_external is not ported yet ({_ENGINE_ITEM})")
+        """Score and record one contribution whose statistics the
+        engine's telemetry carry already computed
+        (:mod:`tpfl_torch.management.engine_obs`): no open round, no
+        reference params, no tensor op. Scored against the observer's
+        prior clean window with :class:`AnomalyScorer`'s thresholds and
+        emitted like an intake entry, so :meth:`detections` and the
+        quarantine replay judge engine-tier contributions as protocol-tier
+        ones. Deduped by (peer, round) per observer: a replayed window
+        returns the existing entry."""
+        if not active():
+            return None
+        rnd = int(round) if round is not None else -1
+        version = rnd - int(staleness)
+        with self._lock:
+            ring = self._ring(node)
+            for e in reversed(ring):
+                if (e["single"] and e["peer"] == peer and e["round"] == rnd
+                        and e["update_norm"] is not None):
+                    return e
+            vkey = (node, peer)
+            prev_version = self._peer_version.get(vkey)
+            regressed = prev_version is not None and version < prev_version
+            self._peer_version[vkey] = (version if prev_version is None
+                                        else max(prev_version, version))
+            window = [x["update_norm"] for x in ring
+                      if x["single"] and x["update_norm"] is not None
+                      and x.get("version", x["round"]) < version and not x["flagged"]]
+            flagged, reasons, z_norm = AnomalyScorer.score(
+                float(update_norm), float(cos_ref), window, staleness=staleness,
+                version_regressed=regressed)
+            entry = {
+                "node": node,
+                "peer": peer,
+                "contributors": [peer],
+                "single": True,
+                "round": rnd,
+                "staleness": int(staleness),
+                "version": version,
+                "num_samples": int(num_samples),
+                "update_norm": float(update_norm),
+                "ref_norm": None,
+                "cos_ref": float(cos_ref),
+                "cos_mean": None,
+                "leaf_norms": [],
+                "trace": trace,
+                "t": time.monotonic(),
+                "z_norm": _round(z_norm, 4),
+                "flagged": flagged,
+                "reasons": list(reasons),
+                "quarantined": False,
+            }
+            ring.append(entry)
+        self._emit(entry)  # OUTSIDE _lock
+        return entry
 
     def flush(self, node: Optional[str] = None) -> None:
         """Materialize pending entries: each parked contribution's stats

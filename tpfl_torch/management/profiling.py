@@ -14,6 +14,12 @@ everything measured. Components may overlap in wall time (a fold on a
 sender's thread runs while the learning thread waits in gossip), so the
 measured sum can exceed the wall; coverage is reported, not clamped.
 
+:meth:`RoundProfiler.record_external` appends a round whose component
+seconds were measured elsewhere: the engine's telemetry fan-out
+(:mod:`tpfl_torch.management.engine_obs`) divides a window's measured
+dispatch / train split over its rounds. :func:`module_tag` names an
+architecture in those rows' ``engine:<tag>`` node.
+
 Everything is gated by ``Settings.PROFILING_ENABLED``: off, a span is a
 shared no-op and nothing is recorded. The reference's compile
 observatory, cost model and HBM tracker are not ported (``ROADMAP.md``
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import os
 import time
+import zlib
 from collections import deque
 from typing import Any
 
@@ -33,6 +40,9 @@ from tpfl_torch.settings import Settings
 
 #: Round attribution components; ``host_other`` is the residual.
 COMPONENTS = ("vote", "train", "fold", "gossip", "host_other")
+
+#: builtin alias — the profiler's API takes a ``round`` kwarg.
+_round = round
 
 #: The logger tag of the profiler's own messages (a pseudo-node: the
 #: trace is process-wide, not owned by any one federation node).
@@ -85,6 +95,9 @@ class RoundProfiler:
         self._active: dict[str, list[dict]] = {}
         # guarded-by: _lock
         self._done: deque = deque(maxlen=1024)
+
+    def enabled(self) -> bool:
+        return bool(Settings.PROFILING_ENABLED)
 
     def begin_round(self, node: str, round: "int | None") -> None:
         if not Settings.PROFILING_ENABLED:
@@ -159,6 +172,44 @@ class RoundProfiler:
         logger.metrics.observe("tpfl_round_wall_seconds", wall, labels={"node": node})
         return record
 
+    def record_external(self, node: str, round: "int | None", parts: dict,
+                        wall: float) -> "dict | None":
+        """Append one completed round record whose component seconds were
+        measured elsewhere (the engine fan-out's per-round rows, marked
+        ``external``): the same ``tpfl_round_*`` series as
+        :meth:`end_round`, ``host_other`` the residual, and a ``round``
+        span in the node's flight ring."""
+        if not Settings.PROFILING_ENABLED:
+            return None
+        from tpfl_torch.management.telemetry import flight
+
+        wall = max(float(wall), 1e-9)
+        parts = {k: float(v) for k, v in parts.items()}
+        measured = sum(parts.values())
+        parts.setdefault("host_other", max(0.0, wall - measured))
+        record = {
+            "node": node,
+            "round": int(round) if round is not None else -1,
+            "wall": wall,
+            "parts": parts,
+            "coverage": sum(parts.values()) / wall,
+            "measured_frac": measured / wall,
+            "external": True,
+        }
+        with self._lock:
+            self._done.append(record)
+        for comp, secs in parts.items():
+            logger.metrics.observe("tpfl_round_attr_seconds", secs,
+                                   labels={"node": node, "component": comp})
+        logger.metrics.observe("tpfl_round_wall_seconds", wall, labels={"node": node})
+        now = time.monotonic()
+        flight.record(node, {
+            "kind": "span", "name": "round", "node": node, "trace": "", "t0": now - wall,
+            "t1": now, "round": record["round"],
+            **{f"s_{k}": _round(v, 6) for k, v in parts.items()},
+        })
+        return record
+
     def attribution(self, node: "str | None" = None) -> list[dict]:
         """Completed round records (optionally one node's), oldest first."""
         with self._lock:
@@ -171,6 +222,12 @@ class RoundProfiler:
         with self._lock:
             self._active.clear()
             self._done.clear()
+
+
+def module_tag(module: Any) -> str:
+    """Short stable tag of an architecture: the CRC-32 of its ``repr``,
+    four hex digits (the reference's ``module_tag``)."""
+    return f"{zlib.crc32(repr(module).encode()) & 0xFFFF:04x}"
 
 
 # --- torch.profiler trace wrap (any run) -------------------------------------

@@ -13,9 +13,11 @@ workflow (:333-400).
 Under ``Settings.ASYNC_ROUNDS`` the stage workflow runs asynchronous
 buffered rounds; free-running (``ASYNC_SERIALIZED`` off) each node also
 runs one trainer thread, which :meth:`Node.stop` interrupts and joins.
-Refused with ``NotImplementedError`` naming the ``ROADMAP.md`` §1 item:
-the pooled simulation learner (``Settings.DISABLE_SIMULATION`` off, item
-5, at construction); checkpoints (item 4). With
+:meth:`Node.save_checkpoint` / :meth:`Node.load_checkpoint` persist and
+restore the node's model (``management/checkpoint.py``, the JAX
+package's format). Refused with ``NotImplementedError`` naming the
+``ROADMAP.md`` §1 item: the pooled simulation learner
+(``Settings.DISABLE_SIMULATION`` off, item 5, at construction). With
 ``Settings.TELEMETRY_ENABLED`` the node's hops land in the flight
 recorder, and :meth:`Node.stop` dumps its ring (to
 ``Settings.TELEMETRY_DUMP_DIR`` when set).
@@ -34,11 +36,9 @@ from tpfl_torch.communication.memory import InMemoryCommunicationProtocol
 from tpfl_torch.communication.protocol import CommunicationProtocol
 from tpfl_torch import DeviceLike
 from tpfl_torch.exceptions import (
-    ENGINE_ITEM,
     LearnerRunningException,
     NodeRunningException,
     ZeroRoundsException,
-    not_ported,
 )
 from tpfl_torch.learning.aggregators import FedAvg
 from tpfl_torch.learning.aggregators.aggregator import Aggregator
@@ -210,6 +210,11 @@ class Node:
         if trainer is not None and trainer.is_alive():
             self.learner.interrupt_fit()
             trainer.join(timeout=5.0)
+        # An engine window pipeline running for this node retires its
+        # in-flight window and joins its prefetch thread first.
+        from tpfl_torch.parallel import window_pipeline
+
+        window_pipeline.interrupt_for(self.addr)
         self.communication.stop()
         logger.unregister_node(self.addr)
         self._running = False
@@ -357,16 +362,28 @@ class Node:
         st.votes_ready_event.set()
         self.aggregator.clear()
 
-    # --- checkpoint / resume (not ported) ---
+    # --- checkpoint / resume ---
 
     def save_checkpoint(self, directory: str) -> None:
-        """Persist this node's model + round metadata (the reference's
-        ``management/checkpoint.py``)."""
-        raise not_ported("Node.save_checkpoint (management/checkpoint.py)", ENGINE_ITEM)
+        """Persist this node's model + round metadata
+        (``management/checkpoint.py``). A node restarted from it rejoins
+        the federation and is caught up by full-model gossip."""
+        from tpfl_torch.management.checkpoint import save_node_checkpoint
+
+        save_node_checkpoint(directory, self.learner.get_model(), round=self.state.round,
+                             exp_name=self.state.exp_name)
+        logger.info(self.addr, f"Checkpoint saved to {directory}")
 
     def load_checkpoint(self, directory: str) -> dict:
-        """Restore model weights saved by :meth:`save_checkpoint`."""
-        raise not_ported("Node.load_checkpoint (management/checkpoint.py)", ENGINE_ITEM)
+        """Restore model weights saved by :meth:`save_checkpoint` (or by
+        the JAX package's node); returns the checkpoint metadata. Call
+        before (re)starting learning."""
+        from tpfl_torch.management.checkpoint import load_node_checkpoint
+
+        model, meta = load_node_checkpoint(directory, self.learner.get_model())
+        self.learner.set_model(model)
+        logger.info(self.addr, f"Checkpoint loaded from {directory}")
+        return meta
 
     # --- introspection ---
 

@@ -1,22 +1,26 @@
-"""The port's federation engine and its CUDA conv kernels.
+"""The port's federation engine, its drivers and its CUDA conv kernels.
 
-``FederationEngine`` and ``VmapFederation`` load on first access: the
-model zoo imports ``conv_kernel`` from this package, and the engine
-imports the zoo.
+The exports load on first access: the model zoo imports ``conv_kernel``
+from this package, and the engine imports the zoo.
 """
 
+import importlib
 from typing import Any
 
-__all__ = ["FederationEngine", "VmapFederation"]
+_EXPORTS = {
+    "FederationEngine": "engine",
+    "FedBuffSchedule": "engine",
+    "EngineWindow": "engine",
+    "VmapFederation": "federation",
+    "WindowPipeline": "window_pipeline",
+    "MembershipView": "membership",
+}
+
+__all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name: str) -> Any:
-    if name == "FederationEngine":
-        from tpfl_torch.parallel.engine import FederationEngine
-
-        return FederationEngine
-    if name == "VmapFederation":
-        from tpfl_torch.parallel.federation import VmapFederation
-
-        return VmapFederation
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

@@ -1,6 +1,6 @@
 """Node-axis padding helpers — the single-device subset of
-:mod:`tpfl.parallel.mesh` (``padded_node_count``, ``pad_node_axis``,
-``pad_node_weights``, ``valid_node_mask``).
+:mod:`tpfl.parallel.mesh` (``padded_node_count``, ``capacity_tier``,
+``pad_node_axis``, ``pad_node_weights``, ``valid_node_mask``).
 
 Without a mesh the stacked node axis needs no padding, so
 ``padded_node_count`` is the identity; the other helpers keep the
@@ -23,6 +23,18 @@ def padded_node_count(n_nodes: int) -> int:
     """Stacked node-axis length for ``n_nodes`` on one device: no pad
     rows (the reference rounds up to the mesh's node shards)."""
     return int(n_nodes)
+
+
+def capacity_tier(n_live: int, floor: int = 1) -> int:
+    """Smallest power of two ≥ ``max(n_live, floor, 1)``: the elastic
+    engine's capacity buckets (:mod:`tpfl_torch.parallel.membership`).
+    The engine's node-stacked state is shaped for the tier, not the live
+    count, so churn inside a tier edits the weight mask only."""
+    n = max(int(n_live), int(floor), 1)
+    tier = 1
+    while tier < n:
+        tier *= 2
+    return tier
 
 
 def pad_node_axis(tree: Any, n_padded: int) -> Any:

@@ -26,7 +26,6 @@ import os
 from typing import Any
 
 from tpfl_torch.exceptions import (
-    ENGINE_ITEM,
     MULTI_DEVICE_ITEM,
     REST_ITEM,
     SIMULATION_ITEM,
@@ -406,10 +405,8 @@ class Settings:
     TELEMETRY_DUMP_DIR: str = ""
     """Directory for flight-recorder dumps (``flight-<node>-<reason>.json``,
     the document ``tools/traceview.py`` reads); empty writes none. A
-    node's dumps (stop, injected crash, quorum degradation) honour it;
-    ``FederationEngine`` refuses a non-empty value, since the engine's
-    telemetry fan-out is not ported (``UNPORTED_SWITCHES``, ``ROADMAP.md``
-    §1 item 4)."""
+    node's dumps (stop, injected crash, quorum degradation) and a failed
+    ``FederationEngine`` dispatch's ``engine`` ring honour it."""
 
     METRIC_MAX_POINTS: int = 4096
     """Per-series point cap in the local / global metric stores
@@ -562,20 +559,22 @@ class Settings:
 
     POPULATION_CLIENTS: int = 0
     """Registered clients of the reference's cross-device population tier.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    Carried for parity; the port does not read it (``UNPORTED_KNOBS``,
+    ``ROADMAP.md`` §1 item 5)."""
 
     POPULATION_SAMPLE: int = 100
     """Clients sampled per round from the reference's population tier. Carried
     for parity; the port does not read it (``UNPORTED_KNOBS``)."""
 
     SHARD_ROUNDS_PER_DISPATCH: int = 1
-    """Rounds per dispatch of the reference's ``FederationLearner``. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Rounds per dispatch: ``WindowPipeline.run``'s default window."""
 
     ENGINE_TELEMETRY: bool = False
-    """The reference engine's in-program telemetry carry. The port's
-    ``FederationEngine`` refuses True at construction
-    (``UNPORTED_SWITCHES``)."""
+    """The engine's telemetry carry, read at each dispatch: per round and
+    node loss, update norm and reference cosine, per round the global
+    model's stats, replayed into the observatory planes at the window's
+    finalize (``management/engine_obs.py``). Model bytes are the same
+    with it on and off."""
 
     ENGINE_WIRE_CODEC: str = "dense"
     """Device-side wire codec of the engine's exchange
@@ -588,17 +587,17 @@ class Settings:
     ``run_rounds`` call; the top-k fraction rides ``WIRE_TOPK_FRAC``."""
 
     ENGINE_PREFETCH: bool = False
-    """Free-running windows of the reference's ``FederationLearner``. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """``WindowPipeline.run``'s default for staging the next window's data
+    on a background thread."""
 
     ENGINE_DONATE: bool = True
     """Buffer donation of the reference engine's dispatch. The port's
-    ``run_rounds`` takes no ``donate=`` and never consumes its inputs.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    ``run_rounds`` takes ``donate=`` for parity and never consumes its
+    inputs. Carried for parity; the port does not read it
+    (``UNPORTED_KNOBS``: the reference's donation report, item 8)."""
 
     ELASTIC_CAPACITY_MIN: int = 2
-    """Floor of the reference's elastic capacity tiers. Carried for parity;
-    the port does not read it (``UNPORTED_KNOBS``)."""
+    """Floor of ``MembershipView``'s capacity tiers."""
 
     COMPILE_CACHE_DIR: str = ""
     """JAX's persistent compilation cache directory. The port compiles
@@ -619,13 +618,13 @@ class Settings:
 
     # --- concurrency diagnostics ---
     TRACE_CONTRACTS: bool = False
-    """The reference's stamps on cached compiled programs. The port
-    caches no programs: ``FederationEngine`` and ``Node.start`` refuse
-    True (``UNPORTED_SWITCHES``)."""
+    """The reference's stamps on cached compiled programs and its lock
+    contracts. The port caches no programs: ``FederationEngine`` and
+    ``Node.start`` refuse True (``UNPORTED_SWITCHES``, item 8)."""
 
     STATE_CONTRACTS: bool = False
-    """Self-verification of the reference's engine checkpoints. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """``EngineCheckpointer.save`` re-reads its own bytes and refuses to
+    publish a snapshot whose fields do not survive the round trip."""
 
     RANK_CONTRACTS: bool = False
     """Cross-rank dispatch receipts of the reference's multi-host engine.
@@ -1010,9 +1009,7 @@ class Settings:
 #: item, the value at which the plane is off, where
 #: :meth:`Settings.refuse_unported` checks it).
 UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
-    "TELEMETRY_DUMP_DIR": (ENGINE_ITEM, "", ("engine",)),
-    "TRACE_CONTRACTS": (ENGINE_ITEM, False, ("node", "engine")),
-    "ENGINE_TELEMETRY": (ENGINE_ITEM, False, ("engine",)),
+    "TRACE_CONTRACTS": (REST_ITEM, False, ("node", "engine")),
     "COMPILE_CACHE_DIR": (SIMULATION_ITEM, "", ("engine",)),
 }
 
@@ -1035,15 +1032,13 @@ UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
                      "CLIENT_CRT", "CLIENT_KEY"), _GRPC),
     **dict.fromkeys(("SHARD_NODES", "SHARD_DEVICES", "SHARD_MODEL", "SHARD_LAYOUT",
                      "SHARD_HOSTS"), _MESH),
-    **dict.fromkeys(("SHARD_ROUNDS_PER_DISPATCH", "ENGINE_PREFETCH", "CHECKPOINT_DIR",
-                     "CHECKPOINT_EVERY_WINDOWS", "CHECKPOINT_ON_SIGTERM"), _FED_LEARNER),
+    **dict.fromkeys(("CHECKPOINT_DIR", "CHECKPOINT_EVERY_WINDOWS", "CHECKPOINT_ON_SIGTERM"),
+                    _FED_LEARNER),
     **dict.fromkeys(("FLEETOBS_SNAPSHOT_PERIOD", "FLEETOBS_DIR", "SLO_TARGETS", "SLO_EWMA",
                      "SLO_BREACH_WINDOWS"), _FLEETOBS),
-    "STATE_CONTRACTS": ("management.checkpoint", ENGINE_ITEM),
-    "POPULATION_CLIENTS": ("parallel.population", ENGINE_ITEM),
-    "POPULATION_SAMPLE": ("parallel.population", ENGINE_ITEM),
-    "ELASTIC_CAPACITY_MIN": ("parallel.membership", ENGINE_ITEM),
-    "ENGINE_DONATE": ("parallel.FederationEngine.run_rounds(donate=)", ENGINE_ITEM),
+    "POPULATION_CLIENTS": ("parallel.population", SIMULATION_ITEM),
+    "POPULATION_SAMPLE": ("parallel.population", SIMULATION_ITEM),
+    "ENGINE_DONATE": ("parallel.FederationEngine.donation_report", REST_ITEM),
     "RANK_CONTRACTS": ("parallel.ranksafe", MULTI_DEVICE_ITEM),
     "RESOURCE_MONITOR_PERIOD": ("management.node_monitor", SIMULATION_ITEM),
     "PROFILING_RECOMPILE_WARN": ("management.profiling.CompileObservatory", SIMULATION_ITEM),
