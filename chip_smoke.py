@@ -219,13 +219,37 @@
    delta-off arm's; bytes per payload reported. Every arm: complete stage
    histories, finite final params and losses, every conv launch on
    wgmma.
+17. Engine variants phase (phase 17): FedBuff windows and the window
+   pipeline, the telemetry carry, elastic membership and kill-and-resume
+   on the CNN cell.
+18. Simulation plane phase (phase 18): the reference's default fit path,
+   every Node's fits batched by ``SuperLearnerPool`` into node-stacked
+   programs. (a) Phase 14's FedAvg fault-free and attacked arms with the
+   pool on: one batched dispatch of all ten fits a round, no fallback,
+   exactly 192 node-batched steps' launches (384 ``conv_dw`` + 192
+   ``conv_dx``, all wgmma, all at N = 16), final models within rtol 1e-6,
+   rounds/s beside phase 14's inline arm; a pooled fit held to the same
+   learner's inline fit on the card at the bound stated beside
+   ``SP_TWIN_RTOL``. (b) Phase 16a's three arms with the pool on
+   (``SIM_BATCH_MAX_WAIT`` 0.6): batched dispatches in each, no
+   fallback, every launch wgmma. (c) Two gossiping Nodes, each a
+   ``FederationLearner`` of 8 local CNN rows (the multislice example's
+   defaults): each fit one window at N = 8 with exact launch counts, the
+   two models within rtol 1e-6; a capacity-tier restack (N = 16) and a
+   byte-identical kill-and-resume through ``CHECKPOINT_DIR``. (d) The
+   ``sim1m`` cell (1,000,000 clients, K 100, its checkpoint exact, RSS
+   growth under 256 MB) and the ``sim1000`` cell (1,000 nodes, ~10%
+   elected) on the MLP; one isolated fit (``SIM_PROCESS_ISOLATION``) on
+   the card within rtol 1e-6 of the inline fit; ``conv_dw`` / ``conv_dx``
+   at N 16 B 25 and N 8 B 32 against their plain versions, timed.
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
-one defended FedAvg round of the Byzantine phase and one 3-round
-experiment of the 4-node federation under ``torch.profiler``: device
-time by kernel, and the device's idle share from the union of its
-kernel intervals.
+one defended FedAvg round of the Byzantine phase, one 3-round
+experiment of the 4-node federation, one pooled train stage and one
+pooled 1-round experiment under ``torch.profiler``: device time by
+kernel, and the device's idle share from the union of its kernel
+intervals.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero, with no
@@ -266,14 +290,17 @@ from tpfl_torch.management import engine_obs, ledger, profiling, quarantine, tel
 from tpfl_torch.management.checkpoint import EngineCheckpointer
 from tpfl_torch.management.quarantine import QuarantineEngine
 from tpfl_torch.management.logger import logger
-from tpfl_torch.models import CNN, ResNet18, TransformerLM, init_params
+from tpfl_torch.models import CNN, MLP, ResNet18, TransformerLM, init_params
 from tpfl_torch.node import Node
-from tpfl_torch.parallel import (FedBuffSchedule, FederationEngine, MembershipView,
-                                 VmapFederation, WindowPipeline, _build)
+from tpfl_torch.parallel import (ClientPopulation, FedBuffSchedule, FederationEngine,
+                                 FederationLearner, MembershipView, VmapFederation,
+                                 WindowPipeline, _build)
 from tpfl_torch.parallel import conv_kernel as ck
 from tpfl_torch.parallel import flash_kernel as fk
+from tpfl_torch.parallel.engine import DENSE
 from tpfl_torch.parallel.ring_attention import blockwise_attention
 from tpfl_torch.settings import Settings
+from tpfl_torch.simulation import SuperLearnerPool, VirtualNodeLearner, batched_fit, isolated
 from tpfl_torch.utils import TopologyFactory, TopologyType, wait_convergence, wait_to_finish
 from tpfl_torch.utils.tree import tree_items, tree_map
 
@@ -1955,7 +1982,11 @@ class TimedNode(Node):
 @contextlib.contextmanager
 def runtime_settings(**knobs):
     """The test profile, the pooled simulation learner off, the logger at
-    ERROR, and ``knobs``; every setting restored after."""
+    ERROR, and ``knobs``; every setting restored after. Inline fits are
+    the default here because phases 11-17 are the N = 1 cells: each
+    Node's learner fits on its own, the conv kernels at one node. Phase 18
+    passes ``DISABLE_SIMULATION=False``: the reference's default, pooled
+    path."""
     snap = Settings.snapshot()
     level = logger.get_level()
     Settings.set_test_settings()
@@ -2108,7 +2139,10 @@ def round_split(nodes: list) -> dict:
     """Mean seconds a round per component of the round profiler, over
     every node and round of the experiment."""
     recs = [r for nd in nodes for r in profiling.rounds.attribution(nd.addr)]
-    split = {c: statistics.mean(r["parts"][c] for r in recs) for c in profiling.COMPONENTS}
+    # The pool's batched fits add a "dispatch" part (enqueue) beside "train".
+    parts = list(profiling.COMPONENTS) + sorted(
+        {c for r in recs for c in r["parts"]} - set(profiling.COMPONENTS))
+    split = {c: statistics.mean(r["parts"].get(c, 0.0) for r in recs) for c in parts}
     return {"records": len(recs), "wall_s": statistics.mean(r["wall"] for r in recs),
             **{f"{c}_s": v for c, v in split.items()}}
 
@@ -3464,6 +3498,557 @@ def ev_launches(ev: dict, name: str) -> dict:
             for arm, counts in ev[part]["launches"].items()}
 
 
+# --- phase 18: the simulation plane ------------------------------------------------
+#
+# The reference's default fit path (Settings.DISABLE_SIMULATION off): every
+# Node's learner wrapped in a VirtualNodeLearner, and the concurrent fits of
+# a round's train set batched by the SuperLearnerPool into one node-stacked
+# program, so the CNN's conv kernels run at N = the chunk's power-of-two
+# bucket where phases 14-17 ran them at N = 1 (those phases keep
+# runtime_settings' inline fits: they are the N = 1 cells). 18a the
+# byzantine tier's FedAvg arms pooled (phase 14's recipe), 18b the async
+# tier's speed arms pooled (phase 16a's recipe, SIM_BATCH_MAX_WAIT 0.6 as
+# bench.py:3112), 18c FederationLearner at the multislice example's
+# defaults (tpfl/examples/multislice.py:77-82), 18d the population cells
+# sim1m (bench.py:946-1017) and sim1000 (bench.py:3689-3722) on the MLP,
+# one isolated fit (SIM_PROCESS_ISOLATION), and the conv kernels at the
+# pooled shapes.
+SP_ARMS = [("fedavg, fault-free", False), ("fedavg, attacked", True)]
+SP_NODES = 10
+SP_BUCKET = 16  # the pool's power-of-two bucket of the 10-node train set
+SP_STEPS = BF_ROUNDS * BF_EPOCHS * (BF_SAMPLES // BF_BATCH)  # node-batched steps an arm
+# Pooled against inline fits of one learner on the card: the same bf16 ops
+# at another node count, where a library kernel may round an element
+# another way and the conv kernels stay within their bounds. Elementwise
+# CONV_DX_BOUND's one bf16 rounding (2^-7 relative), plus, per step of the
+# fit, its absolute term (1e-3 of the leaf's largest |param|).
+SP_TWIN_RTOL = CONV_DX_BOUND[0]
+SP_TWIN_ATOL_PER_STEP = CONV_DX_BOUND[1]
+FL_LOCAL, FL_SAMPLES, FL_BATCH, FL_ROUNDS, FL_SEED = 8, 2000, 32, 2, 666
+FL_STEPS = (FL_SAMPLES // FL_LOCAL) // FL_BATCH  # steps of one local round
+POP_CENSUS, POP_K, POP_ROUNDS = 1_000_000, 100, 3
+S1K_NODES, S1K_BATCH, S1K_ROUNDS = 1000, 32, 30
+
+
+class CountingKernel:
+    """Stands in for a conv kernel's wrapper: records each launch's node
+    count (the first argument's leading axis) and launches the kernel. The
+    kernel counts its launches on the module's name for it, this object
+    while it stands in, so the counters pass through to the kernel's."""
+
+    launches = property(lambda self: self.kernel.launches,
+                        lambda self, v: setattr(self.kernel, "launches", v))
+    wgmma_launches = property(lambda self: self.kernel.wgmma_launches,
+                              lambda self, v: setattr(self.kernel, "wgmma_launches", v))
+
+    def __init__(self, kernel) -> None:
+        self.kernel = kernel
+        self.lock = threading.Lock()
+        self.nodes: dict[int, int] = {}
+
+    def __call__(self, *args):
+        with self.lock:
+            n = int(args[0].shape[0])
+            self.nodes[n] = self.nodes.get(n, 0) + 1
+        return self.kernel(*args)
+
+
+@contextlib.contextmanager
+def conv_node_counts():
+    """While open, each conv launch's node count is recorded; yields
+    {kernel: {N: launches}}."""
+    spies = {"conv_dw": CountingKernel(ck.conv_dw), "conv_dx": CountingKernel(ck.conv_dx)}
+    ck.conv_dw, ck.conv_dx = spies["conv_dw"], spies["conv_dx"]
+    try:
+        yield {name: s.nodes for name, s in spies.items()}
+    finally:
+        ck.conv_dw, ck.conv_dx = spies["conv_dw"].kernel, spies["conv_dx"].kernel
+
+
+def pool_stats() -> dict:
+    p = SuperLearnerPool.instance()
+    return {"batched_dispatches": p.batched_dispatches, "batched_fits": p.batched_fits,
+            "group_sizes": list(p.group_sizes), "singles": p.singles, "fallbacks": p.fallbacks}
+
+
+def check_at_nodes(label: str, counts: dict, want: dict) -> None:
+    """Every conv launch at the node counts ``want`` ({kernel: {N: n}})."""
+    got = {k: dict(v) for k, v in counts.items()}
+    if got != want:
+        raise AssertionError(f"{label}: conv launches by node count {got}, expected {want}")
+
+
+def pooled_bf_arm(card: str, label: str, attack: bool, inline: dict) -> dict:
+    """18a, one arm: phase 14's seeded experiment of ten Nodes with the
+    pool on. Checks complete histories, one batched dispatch of all ten
+    fits a round with no fallback and no single, exactly SP_STEPS
+    node-batched steps' conv launches (2 conv_dw + 1 conv_dx a step), all
+    on wgmma and all at N = SP_BUCKET, finite test losses, and every
+    node's final params within rtol 1e-6 of node 0's. Reports rounds/s
+    beside the inline arm of phase 14, the round split, host→device
+    copies a round and the pad rows' share of the work."""
+    SuperLearnerPool.reset()
+    h2d = batched_fit.h2d_copies
+    with runtime_settings(DISABLE_SIMULATION=False, TRAIN_SET_SIZE=SP_NODES, ELECTION="hash",
+                          PROFILING_ENABLED=True), harness_nodes() as nodes, \
+            conv_node_counts() as by_n:
+        profiling.rounds.reset()
+        reset_launches()
+        t0 = time.perf_counter()
+        exp = run_seeded_experiment(
+            BF_SEED, SP_NODES, BF_ROUNDS, epochs=BF_EPOCHS,
+            attack_plan=bf_plan() if attack else None, model_fn=phase_model,
+            data_fn=cifar_data_fn(BF_SAMPLES, SP_NODES, BF_TEST), samples_per_node=BF_SAMPLES,
+            batch_size=BF_BATCH, learning_rate=0.1, timeout=300.0, device=PHASE_DEVICE)
+        torch.cuda.synchronize()
+        call_wall = time.perf_counter() - t0
+        launches = read_launches()
+        wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+        split = round_split(nodes)
+        stats = pool_stats()
+        losses = final_losses(exp, SP_NODES)
+    tag = f"simulation plane, pooled byzantine ({label})"
+    if len(nodes) != SP_NODES:
+        raise AssertionError(f"{tag}: the harness built {len(nodes)} HarnessNodes")
+    check_history(tag, nodes, BF_ROUNDS)
+    check_conv_launches(tag, launches, wgmma, SP_STEPS)
+    check_at_nodes(tag, by_n, {"conv_dw": {SP_BUCKET: 2 * SP_STEPS},
+                               "conv_dx": {SP_BUCKET: SP_STEPS}})
+    if stats["group_sizes"] != [SP_NODES] * BF_ROUNDS or stats["fallbacks"] or stats["singles"]:
+        raise AssertionError(f"{tag}: pool {stats}, expected one dispatch of {SP_NODES} fits "
+                             f"a round")
+    spread = check_node_finals(tag, nodes, agree=True)
+    wall = max(nd.finished_at for nd in nodes) - nodes[0].started_at
+    rps = BF_ROUNDS / wall
+    return {"card": card, "nodes": SP_NODES, "rounds": BF_ROUNDS, "experiment_wall_s": wall,
+            "rounds_per_s": rps, "inline_rounds_per_s": inline["rounds_per_s"],
+            "speedup_over_inline": rps / inline["rounds_per_s"],
+            "harness_call_wall_s": call_wall, "mean_test_loss": float(np.mean(losses)),
+            "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+            "inline_launches": inline["launches"], "wgmma_launches": wgmma,
+            "launches_by_node_count": {k: {str(n): c for n, c in v.items()}
+                                       for k, v in by_n.items()},
+            "pool": stats, "h2d_copies_per_round": (batched_fit.h2d_copies - h2d) / BF_ROUNDS,
+            "pad_row_share": (SP_BUCKET - SP_NODES) / SP_BUCKET,
+            "final_models_max_abs_diff": spread, "round_split": split,
+            "inline_round_split": inline["round_split"]}
+
+
+def sp_learner(seed: int, addr: str) -> TorchLearner:
+    """A learner of the cell: 200 seeded CIFAR-shaped samples, B 25, lr 0.1."""
+    data = TpflDataset.from_arrays(*synthetic_cifar10(n_train=BF_SAMPLES, n_test=BF_BATCH,
+                                                      seed=seed))
+    return TorchLearner(phase_model(BF_SEED), data, addr=addr, learning_rate=0.1,
+                        batch_size=BF_BATCH, device=PHASE_DEVICE)
+
+
+def fit_together(learners: list) -> None:
+    """Each learner's fit through the pool, all at once."""
+    threads = [threading.Thread(target=VirtualNodeLearner(ln).fit) for ln in learners]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a pooled fit did not return")
+
+
+def twin_check(label: str, got: dict, want: dict, start: dict, steps: int) -> dict:
+    """``got`` within SP_TWIN_RTOL · |want| + steps · SP_TWIN_ATOL_PER_STEP
+    · max|want leaf| of ``want``; returns the largest error over the
+    largest update the fit made, both relative to the leaf's scale."""
+    err = upd = 0.0
+    for path, w in want.items():
+        scale = w.abs().max().item()
+        diff = (got[path].float() - w.float()).abs()
+        limit = SP_TWIN_RTOL * w.float().abs() + steps * SP_TWIN_ATOL_PER_STEP * scale
+        if not torch.isfinite(got[path]).all() or bool((diff > limit).any()):
+            raise AssertionError(f"{label}: {path} max |err| {diff.max().item():.3e} beyond "
+                                 f"the bound (max |param| {scale:.3e})")
+        err = max(err, diff.max().item() / max(scale, 1e-30))
+        upd = max(upd, (w.float() - start[path].float()).abs().max().item() / max(scale, 1e-30))
+    return {"max_rel_err": err, "max_rel_update": upd}
+
+
+def pooled_vs_inline_fit() -> dict:
+    """One learner of the cell fitted inline (1 epoch: 8 steps at N = 1)
+    and two clones of it fitted as twins through the pool (the same
+    address, so the same batch order; N = 2): each twin within the
+    stated bound of the inline fit."""
+    inline = sp_learner(BF_SEED, "sp-twin")
+    inline.set_epochs(1)
+    start = {p: v.clone() for p, v in tree_items(inline.get_model().get_parameters())}
+    inline.fit()
+    want = {p: v.clone() for p, v in tree_items(inline.get_model().get_parameters())}
+    twins = [sp_learner(BF_SEED, "sp-twin") for _ in range(2)]
+    for ln in twins:
+        ln.set_epochs(1)
+    SuperLearnerPool.reset()
+    fit_together(twins)
+    stats = pool_stats()
+    if stats["group_sizes"] != [2] or stats["fallbacks"] or stats["singles"]:
+        raise AssertionError(f"pooled twins: pool {stats}")
+    steps = BF_SAMPLES // BF_BATCH
+    out = {}
+    for i, ln in enumerate(twins):
+        got = dict(tree_items(ln.get_model().get_parameters()))
+        out[f"twin {i}"] = twin_check(f"pooled twin {i}", got, want, start, steps)
+    return {"steps": steps, "rtol": SP_TWIN_RTOL, "atol_per_step_rel": SP_TWIN_ATOL_PER_STEP,
+            **out}
+
+
+def pooled_round_fn(n: int = SP_NODES):
+    """One pooled train stage of a round as a function: ``n`` learners of
+    the cell fit BF_EPOCHS epochs through the pool, hinted as one group,
+    so one batched dispatch."""
+    learners = [sp_learner(BF_SEED + i, f"sp-round-{i}") for i in range(n)]
+    wrapped = [VirtualNodeLearner(ln) for ln in learners]
+    for ln, v in zip(learners, wrapped):
+        ln.set_epochs(BF_EPOCHS)
+        v.set_fit_group_hint(n)
+
+    def run() -> None:
+        threads = [threading.Thread(target=v.fit) for v in wrapped]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+
+    return run
+
+
+def pooled_byzantine(card: str, byzantine_fed: dict) -> dict:
+    """18a: both pooled arms beside phase 14's inline ones, the pooled fit
+    held to the inline fit on the card, and one pooled train stage timed
+    alone (wall and device time, CUDA events)."""
+    arms = {label: pooled_bf_arm(card, label, attack, byzantine_fed["arms"][label])
+            for label, attack in SP_ARMS}
+    twins = pooled_vs_inline_fit()
+    run = pooled_round_fn()
+    SuperLearnerPool.reset()
+    run()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    stage = time.perf_counter() - t0
+    return {"arms": arms, "pooled_vs_inline_fit": twins,
+            "train_stage_alone_s": stage, "train_stage_steps": BF_EPOCHS * 8,
+            "pool_after_stage": pool_stats()}
+
+
+def pooled_async(card: str, async_fed: dict) -> dict:
+    """18b: phase 16a's three arms with the pool on (SIM_BATCH_MAX_WAIT
+    0.6): completion, finite params, every launch on wgmma, batched
+    dispatches > 0 and no fallback in each arm. Group sizes follow the
+    fits' timing, so launch counts are reported, not gated; rounds/s and
+    the speedup beside 16a's inline ones."""
+    free = dict(ASYNC_ROUNDS=True, ASYNC_BUFFER_K=AS_K, ASYNC_SERIALIZED=False)
+    pooled = dict(DISABLE_SIMULATION=False, SIM_BATCH_MAX_WAIT=0.6)
+    arms = {}
+    for label, rounds, knobs in (("warm", AS_WARM, free), ("sync", AS_SYNC_ROUNDS, {}),
+                                 ("async", AS_ASYNC_ROUNDS, free)):
+        SuperLearnerPool.reset()
+        result, _, _ = async_run(card, f"pooled {label}", rounds, {**knobs, **pooled}, None)
+        stats = pool_stats()
+        if not stats["batched_dispatches"] or stats["fallbacks"]:
+            raise AssertionError(f"pooled async ({label}): pool {stats}")
+        result["pool"] = stats
+        arms[label] = result
+    ab = async_fed["async_ab"]
+    return {**arms, "speedup": arms["async"]["rounds_per_s"] / arms["sync"]["rounds_per_s"],
+            "inline_sync_rounds_per_s": ab["sync"]["rounds_per_s"],
+            "inline_async_rounds_per_s": ab["async"]["rounds_per_s"],
+            "inline_speedup": ab["speedup"],
+            "sync_over_inline": arms["sync"]["rounds_per_s"] / ab["sync"]["rounds_per_s"],
+            "async_over_inline": arms["async"]["rounds_per_s"] / ab["async"]["rounds_per_s"]}
+
+
+def fl_learner(seed: int, **kw) -> FederationLearner:
+    return FederationLearner(n_local_nodes=FL_LOCAL, local_rounds=1, learning_rate=0.1,
+                             batch_size=FL_BATCH, seed=seed, device=PHASE_DEVICE, **kw)
+
+
+def fl_shards() -> list:
+    data = TpflDataset.from_arrays(*synthetic_cifar10(n_train=2 * FL_SAMPLES, n_test=400,
+                                                      seed=FL_SEED))
+    return data.generate_partitions(2, RandomIIDPartitionStrategy, seed=FL_SEED)
+
+
+def fl_federation(card: str) -> dict:
+    """18c, the federation: two gossiping Nodes, each a FederationLearner
+    of FL_LOCAL local CNN rows (2,000 samples, B 32, local_rounds 1), 2
+    rounds: complete histories, each fit one window at N = FL_LOCAL
+    (exactly 4 fits × FL_STEPS steps' launches, all wgmma), the two
+    Nodes' final models within rtol 1e-6."""
+    shards = fl_shards()
+    with runtime_settings(DISABLE_SIMULATION=False, SHARD_ROUNDS_PER_DISPATCH=1,
+                          PROFILING_ENABLED=True), conv_node_counts() as by_n:
+        profiling.rounds.reset()
+        nodes = [TimedNode(phase_model(FL_SEED), shards[i], addr=f"slice-{i}",
+                           learner=fl_learner(i), device=PHASE_DEVICE) for i in range(2)]
+        try:
+            start_federation(nodes, "LINE")
+            reset_launches()
+            _, wall = run_experiment(nodes, FL_ROUNDS)
+            launches = read_launches()
+            wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+            evals = [nd.learner.evaluate() for nd in nodes]
+            finals = [{p: v.clone() for p, v in tree_items(nd.learner.get_model().get_parameters())}
+                      for nd in nodes]
+            split = round_split(nodes)
+            check_history("simulation plane (FederationLearner)", nodes, FL_ROUNDS)
+        finally:
+            for nd in nodes:
+                nd.stop()
+    tag = "simulation plane (FederationLearner)"
+    fits = 2 * FL_ROUNDS
+    check_conv_launches(tag, launches, wgmma, fits * FL_STEPS)
+    check_at_nodes(tag, by_n, {"conv_dw": {FL_LOCAL: 2 * fits * FL_STEPS},
+                               "conv_dx": {FL_LOCAL: fits * FL_STEPS}})
+    for path, v in finals[0].items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{tag}: non-finite {path}")
+        torch.testing.assert_close(finals[1][path], v, rtol=1e-6, atol=1e-7,
+                                   msg=lambda m, p=path: f"{tag}: {p}: {m}")
+    return {"card": card, "nodes": 2, "local_rows": FL_LOCAL, "logical_nodes": 2 * FL_LOCAL,
+            "rounds": FL_ROUNDS, "experiment_wall_s": wall, "rounds_per_s": FL_ROUNDS / wall,
+            "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+            "wgmma_launches": wgmma, "test_metric": [e["test_metric"] for e in evals],
+            "round_split": split}
+
+
+def fl_restack_and_resume(card: str) -> dict:
+    """18c, the learner: one capacity-tier restack through set_membership
+    (8 live rows, then 2 joins: tier 16, the next fit at N = 16), and one
+    kill-and-resume through CHECKPOINT_DIR (a fit killed after 2 windows
+    leaves its snapshot; a fresh engine resumed from it runs windows 2-3
+    on the learner's data stream and ends on the bytes of an
+    uninterrupted 4-window fit)."""
+    shard = fl_shards()[0]
+    tag = "simulation plane (FederationLearner restack)"
+    with runtime_settings(SHARD_ROUNDS_PER_DISPATCH=1, ENGINE_PREFETCH=True), \
+            conv_node_counts() as by_n:
+        learner = fl_learner(0)
+        learner.set_model(phase_model(FL_SEED))
+        learner.set_data(shard)
+        view = MembershipView([f"r{i}" for i in range(FL_LOCAL)])
+        learner.set_membership(view)
+        learner.fit()
+        fed_before = learner._fed
+        for i in range(FL_LOCAL, FL_LOCAL + 2):
+            view.join(f"r{i}")
+        learner.fit()
+        torch.cuda.synchronize()
+        restack_counts = {k: dict(v) for k, v in by_n.items()}
+    finite = all(torch.isfinite(v).all() for _, v in tree_items(
+        learner.get_model().get_parameters()))
+    if (learner.n_local_nodes != 2 * FL_LOCAL or learner._fed is fed_before
+            or learner._fed.engine.membership is not view or not finite
+            or set(restack_counts["conv_dw"]) != {FL_LOCAL, 2 * FL_LOCAL}):
+        raise AssertionError(f"{tag}: n_local_nodes {learner.n_local_nodes}, capacity "
+                             f"{view.capacity}, launches by node count {restack_counts}, "
+                             f"finite {finite}")
+    tag = "simulation plane (FederationLearner kill-and-resume)"
+    with tempfile.TemporaryDirectory() as tmp:
+        with runtime_settings(SHARD_ROUNDS_PER_DISPATCH=1, ENGINE_PREFETCH=True,
+                              CHECKPOINT_DIR=tmp, CHECKPOINT_EVERY_WINDOWS=2):
+            killed = fl_learner(0)
+            killed.set_model(phase_model(FL_SEED))
+            killed.set_data(shard)
+            killed.local_rounds = 2
+            killed.fit()
+            state, meta = EngineCheckpointer(tmp).restore()
+        if meta["step"] != 2 or state["rounds_done"] != 2:
+            raise AssertionError(f"{tag}: checkpoint at step {meta['step']}")
+        with runtime_settings(SHARD_ROUNDS_PER_DISPATCH=1, ENGINE_PREFETCH=True):
+            whole = fl_learner(0)
+            whole.set_model(phase_model(FL_SEED))
+            whole.set_data(shard)
+            whole.local_rounds = 4
+            final = dict(tree_items(whole.fit().get_parameters()))
+            resumed = VmapFederation(whole.get_model().module, FL_LOCAL, learning_rate=0.1,
+                                     seed=0, device=PHASE_DEVICE)
+            p = resumed.engine.import_state(state)["params"]
+            for widx in (2, 3):
+                xs, ys = whole._window_data(widx, widx, 1)
+                p, _ = resumed.run_rounds(p, xs, ys, n_rounds=1)
+            torch.cuda.synchronize()
+    same = all(torch.equal(v[0], final[path]) for path, v in tree_items(p))
+    if not same:
+        raise AssertionError(f"{tag}: the resumed run's bytes differ from the uninterrupted run's")
+    return {"restack": {"tier": [FL_LOCAL, 2 * FL_LOCAL],
+                        "launches_by_node_count": {k: {str(n): c for n, c in v.items()}
+                                                   for k, v in restack_counts.items()}},
+            "resume": {"byte_identical": True, "checkpoint_step": meta["step"]}}
+
+
+def sim1m(card: str) -> dict:
+    """18d, sim1m (bench.py:946-1017): a census of 1,000,000 clients, K 100
+    sampled a round as the engine's rows (MLP(16) on 8×8 inputs, 10% of
+    the cohort cut as stragglers), 3 timed rounds after a warm-up, each
+    round checkpointed through EngineCheckpointer; the restore gives the
+    population back exactly; RSS growth under 256 MB; no port kernel."""
+    import resource
+
+    eng = FederationEngine(MLP(hidden_sizes=(16,), out_channels=10), POP_K, seed=0,
+                           learning_rate=0.1, device=PHASE_DEVICE)
+    pop = ClientPopulation(registered=POP_CENSUS, sample=POP_K, seed=0)
+    eng.attach_population(pop)
+    glob = tree_map(lambda leaf: leaf[0].clone(), eng.unpad(eng.init_params((8, 8))))
+    bpm = compression.wire_bytes_per_model(glob, *DENSE)
+    rng = np.random.default_rng(0)
+    xs = rng.random((POP_K, 1, 16, 8, 8), np.float32)
+    ys = rng.integers(0, 10, (POP_K, 1, 16)).astype(np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = EngineCheckpointer(tmp)
+
+        def one_round(g):
+            ids = pop.begin_round()
+            w = pop.round_weights(ids, cutoff_frac=0.1)
+            p = eng.broadcast_params(g)
+            dx, dy = eng.shard_data(xs, ys)
+            p, losses = eng.run_rounds(p, dx, dy, weights=w, donate=False)
+            pop.complete_round(ids, w, losses.cpu().numpy()[:POP_K])
+            ckpt.save(eng.export_state(p), step=pop.round)
+            return tree_map(lambda leaf: leaf[0].clone(), eng.unpad(p))
+
+        rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        reset_launches()
+        glob = one_round(glob)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(POP_ROUNDS):
+            glob = one_round(glob)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        state, _ = ckpt.restore()
+    launches = read_launches()
+    eng2 = FederationEngine(MLP(hidden_sizes=(16,), out_channels=10), POP_K, seed=0,
+                            learning_rate=0.1, device=PHASE_DEVICE)
+    eng2.import_state(state)
+    got = eng2.population
+    exact = (got is not None and got.clients == pop.clients and got.round == pop.round
+             and got.state_export() == pop.state_export())
+    delta_mb = max(0.0, (rss1 - rss0) / 1024.0)
+    if not exact or delta_mb >= 256.0 or any(launches.values()):
+        raise AssertionError(f"sim1m: checkpoint exact {exact}, RSS +{delta_mb:.1f} MB, "
+                             f"launches {launches}")
+    if not all(torch.isfinite(v).all() for _, v in tree_items(glob)):
+        raise AssertionError("sim1m: non-finite global model")
+    return {"card": card, "registered": POP_CENSUS, "sampled": POP_K, "rounds": POP_ROUNDS,
+            "rounds_per_s": POP_ROUNDS / wall, "exchange_bytes_per_round": int(POP_K * bpm),
+            "touched": pop.touched, "coverage": pop.coverage, "fairness": pop.fairness,
+            "rss_delta_mb": delta_mb, "ckpt_roundtrip_exact": True}
+
+
+def sim1000(card: str) -> dict:
+    """18d, sim1000 (bench.py:3689-3722): VmapFederation(MLP(64)) over 1,000
+    nodes of one batch of 32 (28×28), about 10% elected a round; rounds/s
+    over S1K_ROUNDS rounds after 2 warm-up rounds; no port kernel."""
+    fed = VmapFederation(MLP(hidden_sizes=(64,), out_channels=10), S1K_NODES,
+                         learning_rate=0.1, seed=0, device=PHASE_DEVICE)
+    p = fed.init_params((28, 28))
+    rng = np.random.default_rng(0)
+    xs, ys = fed.shard_data(rng.random((S1K_NODES, 1, S1K_BATCH, 28, 28), np.float32),
+                            rng.integers(0, 10, (S1K_NODES, 1, S1K_BATCH)).astype(np.int32))
+    w = (rng.random(S1K_NODES) < 0.1).astype(np.float32)
+    reset_launches()
+    for _ in range(2):
+        p, losses = fed.round(p, xs, ys, weights=w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(S1K_ROUNDS):
+        p, losses = fed.round(p, xs, ys, weights=w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    if any(launches.values()) or not torch.isfinite(losses).all():
+        raise AssertionError(f"sim1000: launches {launches}, losses finite "
+                             f"{bool(torch.isfinite(losses).all())}")
+    return {"card": card, "nodes": S1K_NODES, "elected": int(w.sum()), "rounds": S1K_ROUNDS,
+            "rounds_per_s": S1K_ROUNDS / wall}
+
+
+def isolated_card_fit(card: str) -> dict:
+    """One fit of a learner of the cell through the pool's isolation path
+    (SIM_PROCESS_ISOLATION: a spawned worker process that fits on the
+    card), within rtol 1e-6 of the same learner's inline fit in this
+    process; every leaf it returns on the card."""
+    inline = sp_learner(BF_SEED, "sp-iso")
+    iso = sp_learner(BF_SEED, "sp-iso")
+    for ln in (inline, iso):
+        ln.set_epochs(1)
+    inline.fit()
+    SuperLearnerPool.reset()
+    t0 = time.perf_counter()
+    with runtime_settings(DISABLE_SIMULATION=False, SIM_PROCESS_ISOLATION=True):
+        try:
+            VirtualNodeLearner(iso).fit()
+            stats = pool_stats()
+        finally:
+            isolated.shutdown()
+    wall = time.perf_counter() - t0
+    want = dict(tree_items(inline.get_model().get_parameters()))
+    err = 0.0
+    for path, v in tree_items(iso.get_model().get_parameters()):
+        if v.device.type != torch.device(PHASE_DEVICE).type:
+            raise AssertionError(f"isolated fit: {path} on {v.device}")
+        torch.testing.assert_close(v, want[path], rtol=1e-6, atol=1e-7,
+                                   msg=lambda m, p=path: f"isolated fit: {p}: {m}")
+        err = max(err, (v - want[path]).abs().max().item())
+    if stats["singles"] != 1 or stats["batched_dispatches"]:
+        raise AssertionError(f"isolated fit: pool {stats}")
+    return {"card": card, "max_abs_diff": err, "wall_s": wall, "pool": stats}
+
+
+def pooled_experiment() -> None:
+    """A 1-round seeded experiment of ten CNN Nodes with the pool on
+    (phase 14's recipe): the profiled pooled round."""
+    SuperLearnerPool.reset()
+    with runtime_settings(DISABLE_SIMULATION=False, TRAIN_SET_SIZE=SP_NODES, ELECTION="hash"):
+        run_seeded_experiment(BF_SEED, SP_NODES, 1, epochs=BF_EPOCHS, model_fn=phase_model,
+                              data_fn=cifar_data_fn(BF_SAMPLES, SP_NODES, BF_TEST),
+                              samples_per_node=BF_SAMPLES, batch_size=BF_BATCH,
+                              learning_rate=0.1, timeout=300.0, device=PHASE_DEVICE)
+
+
+def simulation_kernel_rows() -> dict:
+    """Both conv kernels at the simulation plane's shapes (both CNN layers,
+    N 16 B 25: the pooled ten-node train set; N 8 B 32: FederationLearner)
+    through :func:`conv_layer_rows`: wgmma, the plain versions, timed."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    return {f"N={n} B={b}": conv_layer_rows(n, b, gen)
+            for n, b in ((SP_BUCKET, BF_BATCH), (FL_LOCAL, FL_BATCH))}
+
+
+def simulation_plane_path(card: str, byzantine_fed: dict, async_fed: dict) -> dict:
+    """Phase 18: 18a-18d, the isolated fit and the kernel rows, each logged
+    as it passes."""
+    out = {}
+    parts = (("kernel_rows", lambda c: simulation_kernel_rows()),
+             ("pooled_byzantine", lambda c: pooled_byzantine(c, byzantine_fed)),
+             ("pooled_async", lambda c: pooled_async(c, async_fed)),
+             ("federation_learner", fl_federation), ("fl_restack_resume", fl_restack_and_resume),
+             ("sim1m", sim1m), ("sim1000", sim1000), ("isolated_fit", isolated_card_fit))
+    for part, run in parts:
+        t0 = time.perf_counter()
+        out[part] = run(card)
+        out[part]["phase_s"] = time.perf_counter() - t0
+        log(f"simulation plane ({part}; every check passed): " + json.dumps(out[part]))
+    return out
+
+
+def simulation_launches(sp: dict, name: str) -> dict:
+    """Phase 18's launches of one conv kernel, by arm."""
+    out = {f"18a {arm}": r["launches"][name] for arm, r in sp["pooled_byzantine"]["arms"].items()}
+    out.update({f"18b {arm}": sp["pooled_async"][arm]["launches"][name]
+                for arm in ("warm", "sync", "async")})
+    out["18c federation"] = sp["federation_learner"]["launches"][name]
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -3607,6 +4192,12 @@ def main() -> int:
         + json.dumps(chaos_fed))
     async_fed = async_federation_path(card)
     variants = engine_variants_path(card)
+    simulation = simulation_plane_path(card, byzantine_fed, async_fed)
+    if "--profile" in sys.argv[1:]:
+        log("profile (one pooled train stage: 10 learners of the cell, 4 epochs × 8 batches "
+            "of 25, one batched dispatch at N = 16): " + json.dumps(profile_call(pooled_round_fn())))
+        log("profile (one pooled round: a 1-round seeded experiment of 10 CNN Nodes, the pool "
+            "on, set-up included): " + json.dumps(profile_call(pooled_experiment)))
     rows += flash_kernel_phase()
     log("flash kernel phase: ok")
     transformer_reference_phase()
@@ -3641,6 +4232,10 @@ def main() -> int:
                 for label in ("fault_free", "chaos")}
             row["async_federation_launches"] = async_launches(async_fed, row["name"])
             row["engine_variant_launches"] = ev_launches(variants, row["name"])
+            row["simulation_plane_launches"] = simulation_launches(simulation, row["name"])
+            row["simulation_plane_layers"] = {
+                shape: per[row["name"]] for shape, per in simulation["kernel_rows"].items()
+                if shape != "phase_s"}
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
         if row["name"] in built:
             row["build"] = built[row["name"]]

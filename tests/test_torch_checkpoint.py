@@ -460,11 +460,32 @@ def test_export_state_keys_and_rows_match_jax():
             assert got[path].dtype == np.asarray(v).dtype and np.array_equal(got[path], v), path
 
 
-def test_population_state_refused_naming_item_5():
-    teng = _port_engine(2)
-    state = teng.export_state(teng.init_params((28, 28)))
-    with pytest.raises(NotImplementedError, match="population.*ROADMAP.md §1 item 5"):
-        teng.import_state({**state, "population": {"registered": 64}})
+def test_jax_checkpoint_with_a_population_resumes(tmp_path):
+    """A JAX engine checkpoint holding a ``ClientPopulation`` (written by
+    the JAX ``EngineCheckpointer``) resumes in the port: the port engine
+    builds and binds a population whose records, round cursor and
+    coverage equal the JAX one's, and draws the same next cohort."""
+    from tpfl.parallel.population import ClientPopulation as JaxPopulation
+
+    jeng, jp, _ = _start(4)
+    jpop = JaxPopulation(registered=10_000, sample=4, seed=3)
+    jeng.attach_population(jpop)
+    for _ in range(3):
+        ids = jpop.begin_round()
+        jpop.complete_round(ids, jpop.round_weights(ids, cutoff_frac=0.25),
+                            np.arange(4, dtype=np.float32))
+    jax_checkpoint.EngineCheckpointer(str(tmp_path)).save(jeng.export_state(jp), step=3)
+    state, _ = EngineCheckpointer(str(tmp_path)).restore()
+    teng = _port_engine(4)
+    out = teng.import_state(state)
+    pop = teng.population
+    assert pop is not None and pop._engine is teng
+    assert pop.clients == jpop.clients and pop.round == jpop.round == 3
+    assert pop.touched == jpop.touched and pop.coverage == jpop.coverage
+    assert pop.fairness == jpop.fairness
+    assert np.array_equal(pop.begin_round(), jpop.begin_round())
+    assert pop.state_export() == jpop.state_export()
+    _assert_close(out["params"], jp)
 
 
 # --- STATE_CONTRACTS ----------------------------------------------------------------
@@ -502,14 +523,18 @@ def test_state_contracts_save_blocks_publication(tmp_path, monkeypatch):
 
 def test_state_contracts_kill_and_resume_full_attach(tmp_path):
     """With STATE_CONTRACTS on, kill-and-resume through the checkpointer
-    carries controller, membership and quarantine; the checkpointed seed
-    wins, and the resumed engine trains on."""
+    carries controller, membership, population and quarantine; the
+    checkpointed seed wins, and the resumed engine trains on."""
+    from tpfl_torch.parallel import ClientPopulation
+
     n = 2
     xs, ys = _data(n)
     eng = _port_engine(n)
     eng.controller = AsyncController("nodeA")
     eng.controller.state_import(CONTROLLER)
     eng.attach_membership(MembershipView([f"n{i}" for i in range(n)]))
+    eng.attach_population(ClientPopulation(registered=64, sample=2, seed=3))
+    eng.population.complete_round(eng.population.begin_round())
     q = QuarantineEngine("nodeA")
     q.state_import(QUARANTINE)
     params, _ = eng.run_rounds(eng.init_params((28, 28)), xs, ys, n_rounds=1)
@@ -519,11 +544,13 @@ def test_state_contracts_kill_and_resume_full_attach(tmp_path):
     eng2 = _port_engine(n, seed=9)
     eng2.controller = AsyncController("nodeB")
     eng2.attach_membership(MembershipView())
+    eng2.attach_population(ClientPopulation(registered=64, sample=2, seed=99))
     q2 = QuarantineEngine("nodeB")
     out = eng2.import_state(state, quarantine=q2)
     assert _bytes(eng2.unpad(out["params"])) == _bytes(eng.unpad(params))
     assert eng2.seed == eng.seed
     assert eng2.controller.state_export()["k"] == eng.controller.state_export()["k"]
     assert eng2.membership.state_export() == eng.membership.state_export()
+    assert eng2.population.state_export() == eng.population.state_export()
     assert q2.quarantined() == {"peerX"}
     eng2.run_rounds(out["params"], xs, ys, n_rounds=1)

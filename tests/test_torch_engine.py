@@ -273,15 +273,13 @@ def test_init_params_are_the_same_under_every_torch():
 
 
 def test_unported_options_raise():
-    """Meshes, client populations and the XLA donation report are not
-    ported yet (FedProx, SCAFFOLD and aux state are:
-    tests/test_torch_engine_kinds.py; attack scales:
+    """Meshes and the XLA donation report are not ported yet (client
+    populations are: tests/test_torch_population.py; FedProx, SCAFFOLD
+    and aux state: tests/test_torch_engine_kinds.py; attack scales:
     tests/test_torch_engine_attack.py; FedBuff schedules:
     tests/test_torch_engine_async.py)."""
     with pytest.raises(NotImplementedError, match="mesh"):
         FederationEngine(_torch_cnn(), 2, mesh="auto", device="cpu")
     eng = FederationEngine(_torch_cnn(), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="population.*item 5"):
-        eng.attach_population(object())
     with pytest.raises(NotImplementedError, match="donation_report.*item 8"):
         eng.donation_report()

@@ -15,8 +15,10 @@ paths beyond the plain synchronous round, on the CPU:
   ring, a node starting and stopping with it on, a stop dump), the
   fault names of ``tpfl_torch.communication``;
 - the planes node runtime C opened (``ASYNC_ROUNDS``, ``WIRE_DELTA``,
-  ``AsyncSchedule``, the speed plan's schedule forks) run where they
-  were refused;
+  ``AsyncSchedule``, the speed plan's schedule forks) and the simulation
+  plane (a pooled Node, a population at the engine, the knobs of the pool,
+  the population and ``FederationLearner`` read) run where they were
+  refused;
 - the refusals: each unported plane raises ``NotImplementedError``
   naming its ``ROADMAP.md`` item; each switch of
   ``settings.UNPORTED_SWITCHES`` is refused where a Node or an engine
@@ -57,7 +59,7 @@ from tpfl_torch.interop import model_state_from_jax
 from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy
 from tpfl_torch.learning.dataset.synthetic import synthetic_mnist
 from tpfl_torch.learning.model import TpflModel
-from tpfl_torch.management import profiling, tracing
+from tpfl_torch.management import fleetobs, profiling, tracing
 from tpfl_torch.management.logger import logger
 from tpfl_torch.management.telemetry import flight
 from tpfl_torch.models import CNN, MLP
@@ -382,8 +384,8 @@ def _starts_with(knob):
     return True
 
 
-def _knobs_read():
-    """The async knobs, once only parity, are read by the port's code."""
+def _read_by_port(knobs):
+    """The knobs, once only parity, are read by the port's code."""
     import ast
     import pathlib
 
@@ -391,10 +393,47 @@ def _knobs_read():
     read = {n.attr for f in root.rglob("*.py") if f.name != "settings.py"
             for n in ast.walk(ast.parse(f.read_text())) if isinstance(n, ast.Attribute)
             and isinstance(n.value, ast.Name) and n.value.id == "Settings"}
-    knobs = {"ASYNC_BUFFER_K", "ASYNC_STALENESS_EXP", "ASYNC_ROUND_DEADLINE",
-             "ASYNC_SERIALIZED", "ASYNC_ADAPTIVE", "ASYNC_K_MIN", "ASYNC_K_MAX",
-             "ASYNC_CTL_EWMA", "ASYNC_CTL_QUANTILE", "ASYNC_UNTAGGED_POLICY"}
-    return knobs <= read and not knobs & set(UNPORTED_KNOBS)
+    return set(knobs) <= read and not set(knobs) & set(UNPORTED_KNOBS)
+
+
+def _knobs_read():
+    return _read_by_port({
+        "ASYNC_BUFFER_K", "ASYNC_STALENESS_EXP", "ASYNC_ROUND_DEADLINE", "ASYNC_SERIALIZED",
+        "ASYNC_ADAPTIVE", "ASYNC_K_MIN", "ASYNC_K_MAX", "ASYNC_CTL_EWMA", "ASYNC_CTL_QUANTILE",
+        "ASYNC_UNTAGGED_POLICY"})
+
+
+def _pooled_node():
+    """With DISABLE_SIMULATION off, a Node's learner is a
+    VirtualNodeLearner and its one-round experiment fits through the
+    process's SuperLearnerPool."""
+    from tpfl_torch.simulation import SuperLearnerPool, VirtualNodeLearner
+
+    SuperLearnerPool.reset()
+    Settings.DISABLE_SIMULATION = False
+    try:
+        history = _one_node_experiment("ported-sim")
+        pool = SuperLearnerPool.instance()
+        return (isinstance(_made[-1].learner, VirtualNodeLearner) and pool.singles == 1
+                and pool.fallbacks == 0 and history == [
+                    "StartLearningStage", "VoteTrainSetStage", "TrainStage",
+                    "GossipModelStage", "RoundFinishedStage"])
+    finally:
+        SuperLearnerPool.reset()
+
+
+def _engine_population():
+    """An attached ClientPopulation is bound and rides export_state."""
+    from tpfl_torch.parallel import ClientPopulation
+
+    eng = _engine()
+    pop = ClientPopulation(registered=64, sample=2, seed=1)
+    eng.attach_population(pop)
+    ids = pop.begin_round()
+    pop.complete_round(ids)
+    state = eng.export_state(eng.init_params((28, 28)))
+    return eng.population is pop and pop._engine is eng and state["population"] == (
+        pop.state_export()) and pop.touched == 2
 
 
 def _speed_plan_forks():
@@ -447,6 +486,17 @@ PORTED = {
     "switch ASYNC_ROUNDS": lambda: _starts_with("ASYNC_ROUNDS"),
     "switch WIRE_DELTA": lambda: _starts_with("WIRE_DELTA"),
     "gate Settings.ASYNC_ROUNDS": _knobs_read,
+    "simulation pool": _pooled_node,
+    "client population at the engine": _engine_population,
+    "gate Settings.DISABLE_SIMULATION": lambda: _read_by_port({
+        "DISABLE_SIMULATION", "SIM_WORKERS", "SIM_BATCH_WINDOW", "SIM_BATCH_MAX_WAIT",
+        "SIM_MAX_BATCH_NODES", "SIM_PROCESS_ISOLATION"}),
+    "gate parallel.federation_learner": lambda: _read_by_port({
+        "CHECKPOINT_DIR", "CHECKPOINT_EVERY_WINDOWS", "CHECKPOINT_ON_SIGTERM"})
+    and importlib.util.find_spec("tpfl_torch.parallel.federation_learner") is not None,
+    "gate parallel.population": lambda: _read_by_port({
+        "POPULATION_CLIENTS", "POPULATION_SAMPLE"})
+    and importlib.util.find_spec("tpfl_torch.parallel.population") is not None,
 }
 
 
@@ -463,10 +513,6 @@ def test_ported_seams_run(seam):
 
 
 REFUSALS = {
-    "simulation pool": ("item 5", lambda: setattr(Settings, "DISABLE_SIMULATION", False),
-                        lambda: _node("ref-sim")),
-    "client population at the engine": ("item 5", lambda: None,
-                                        lambda: _engine().attach_population(object())),
     "harness default data": ("item 8", lambda: None, lambda: run_seeded_experiment(
         1, 2, 1, device="cpu")),
     "engine donation report": ("item 8", lambda: None, lambda: _engine().donation_report()),
@@ -531,20 +577,8 @@ def _raises(call):
     return check
 
 
-def _simulation_refused():
-    snap = Settings.snapshot()
-    Settings.DISABLE_SIMULATION = False
-    try:
-        return _raises(lambda: _node("gate-sim"))()
-    finally:
-        Settings.restore(snap)
-        while _made:
-            _made.pop().stop()
-
-
 # How each entry point of UNPORTED_KNOBS is closed to a caller of the port.
 GATES = {
-    "Settings.DISABLE_SIMULATION": _simulation_refused,
     "communication.GrpcCommunicationProtocol": _raises(
         lambda: communication.GrpcCommunicationProtocol),
     "parallel.FederationEngine(mesh=)": _raises(lambda: FederationEngine(
@@ -552,9 +586,8 @@ GATES = {
     "parallel.FederationEngine.donation_report": _raises(lambda: _engine().donation_report()),
     "management.profiling.CompileObservatory": lambda: not hasattr(profiling,
                                                                    "CompileObservatory"),
-    **{m: _closed_module(m) for m in (
-        "parallel.federation_learner", "management.fleetobs", "parallel.population",
-        "parallel.ranksafe", "management.node_monitor")},
+    "management.fleetobs": _raises(lambda: fleetobs.SLOWatchdog()),
+    **{m: _closed_module(m) for m in ("parallel.ranksafe", "management.node_monitor")},
 }
 
 

@@ -97,8 +97,8 @@ class Learner(ABC):
     def set_fit_group_hint(self, peers: "int | list[str]") -> None:
         """Hint which peers (the round's train set, as addresses) — or
         how many — will call ``fit`` around the same time. Default:
-        ignored (the reference's simulation pool batches such groups;
-        the port has no simulation pool yet)."""
+        ignored; the simulation layer's ``VirtualNodeLearner`` hands it
+        to the pool, which batches such groups."""
 
     # --- callback info transport (reference learner.py:122-135) ---
 

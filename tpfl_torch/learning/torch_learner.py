@@ -109,36 +109,58 @@ def _unstack(tree: Tree) -> Tree:
     return tree_map(lambda v: v[0], tree)
 
 
+def _rows(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A [n] vector shaped to broadcast over a node-stacked leaf."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+def _keep_rows(keep: torch.Tensor, new: Tree, old: Tree) -> Tree:
+    """``new`` on the rows where ``keep``, ``old`` elsewhere."""
+    return tree_map(lambda n, o: torch.where(_rows(keep, n), n, o), new, old)
+
+
 def make_train_step(module: Any, loss_fn: Callable, has_aux: bool, opt: SGDMomentum,
                     with_grads: bool = False) -> Callable:
-    """THE local SGD step (the reference's ``make_train_step``):
-    ``step(state, x, y, correction, anchor, mu) -> (state, loss, acc[,
-    raw grads])``. ``correction`` is the constant per-round gradient
-    offset (SCAFFOLD's ``c - c_i``) or None; ``anchor`` / ``mu`` give
-    the FedProx pull ``mu * (w_t - w_round_start)``, skipped at
-    ``mu == 0``. With ``with_grads`` the step also returns the RAW
-    mini-batch gradient (before correction and proximal terms)."""
+    """THE local SGD step (the reference's ``make_train_step``), over a
+    node axis: ``step(state, x, y, correction, anchor, mu, keep=None) ->
+    (state, loss [n], acc [n][, raw grads])`` on node-stacked trees
+    (``x [n, b, ...]``). Each node's loss is its batch's mean and depends
+    on its own params only, so one backward of the summed losses gives
+    every node its own gradient. ``correction`` is the constant per-round
+    gradient offset (SCAFFOLD's ``c - c_i``) or None; ``anchor`` / ``mu``
+    ([n] f32, or None to skip) give the FedProx pull ``mu * (w_t -
+    w_round_start)``. Rows where ``keep`` ([n] bool, None = all) is False
+    come back unchanged: a padding batch is an exact no-op. With
+    ``with_grads`` the step also returns the RAW mini-batch gradient
+    (before correction and proximal terms). :class:`TorchLearner` runs it
+    at n = 1; the simulation pool's batched fits
+    (``parallel.engine.build_masked_local_fit``) run it over a chunk of
+    learners."""
 
     def step(state: TrainState, x: torch.Tensor, y: torch.Tensor, correction: Optional[Tree],
-             anchor: Tree, mu: float):
+             anchor: Tree, mu: Optional[torch.Tensor], keep: Optional[torch.Tensor] = None):
         leaves = tree_map(lambda v: v.detach().requires_grad_(True), state.params)
-        logits, new_aux = apply(module, _single(leaves), _single(state.aux) if has_aux else {},
-                                x[None], train=True)
-        logits = logits[0]
-        loss = loss_fn(logits, y).mean()
-        flat = torch.autograd.grad(loss, tree_leaves(leaves))
+        logits, new_aux = apply(module, leaves, state.aux if has_aux else {}, x, train=True)
+        per_sample = loss_fn(logits, y)
+        n = per_sample.shape[0]
+        loss = per_sample.reshape(n, -1).mean(1)
+        flat = torch.autograd.grad(loss.sum(), tree_leaves(leaves))
         it = iter(flat)
         grads = tree_map(lambda _v: next(it), leaves)
         with torch.no_grad():
             corrected = grads
             if correction is not None:
                 corrected = tree_map(lambda g, c: g + c.to(g.dtype), corrected, correction)
-            if mu:
-                corrected = tree_map(lambda g, p, a: g + (mu * (p - a)).to(g.dtype),
+            if mu is not None:
+                corrected = tree_map(lambda g, p, a: g + (_rows(mu, p) * (p - a)).to(g.dtype),
                                      corrected, state.params, anchor)
             params, trace = opt.step(state.params, corrected, state.trace)
-            acc = (logits.argmax(-1) == y).to(torch.float32).mean()
-        new = TrainState(params, trace, _unstack(new_aux) if has_aux else state.aux)
+            acc = (logits.argmax(-1) == y).to(torch.float32).reshape(n, -1).mean(1)
+            new = TrainState(params, trace, new_aux if has_aux else state.aux)
+            if keep is not None:
+                new = TrainState(_keep_rows(keep, new.params, state.params),
+                                 _keep_rows(keep, new.trace, state.trace),
+                                 _keep_rows(keep, new.aux, state.aux) if has_aux else state.aux)
         if with_grads:
             return new, loss.detach(), acc, grads
         return new, loss.detach(), acc
@@ -148,25 +170,25 @@ def make_train_step(module: Any, loss_fn: Callable, has_aux: bool, opt: SGDMomen
 
 def make_train_epoch(module: Any, loss_fn: Callable, has_aux: bool, opt: SGDMomentum,
                      track_grads: bool = False) -> Callable:
-    """One epoch over stacked batches ``xs [n, b, ...]``:
-    ``epoch(state, xs, ys, correction, anchor, mu) -> (state, mean loss,
-    mean acc[, summed raw grads])``; the gradient sum is in
+    """One epoch over node-stacked batches ``xs [n, n_batches, b, ...]``:
+    ``epoch(state, xs, ys, correction, anchor, mu) -> (state, mean loss
+    [n], mean acc [n][, summed raw grads])``; the gradient sum is in
     ``promote(p.dtype, f32)``."""
     step = make_train_step(module, loss_fn, has_aux, opt, with_grads=track_grads)
 
     def epoch(state: TrainState, xs: torch.Tensor, ys: torch.Tensor,
-              correction: Optional[Tree], anchor: Tree, mu: float):
+              correction: Optional[Tree], anchor: Tree, mu: Optional[torch.Tensor]):
         gsum = (tree_map(lambda p: torch.zeros(p.shape, device=p.device, dtype=torch.promote_types(
             p.dtype, torch.float32)), state.params) if track_grads else None)
         losses, accs = [], []
-        for i in range(xs.shape[0]):
-            out = step(state, xs[i], ys[i], correction, anchor, mu)
+        for i in range(xs.shape[1]):
+            out = step(state, xs[:, i], ys[:, i], correction, anchor, mu)
             state, loss, acc = out[:3]
             if track_grads:
                 gsum = tree_map(lambda a, g: a.add_(g.to(a.dtype)), gsum, out[3])
             losses.append(loss)
             accs.append(acc)
-        loss, acc = torch.stack(losses).mean(), torch.stack(accs).mean()
+        loss, acc = torch.stack(losses).mean(0), torch.stack(accs).mean(0)
         return (state, loss, acc, gsum) if track_grads else (state, loss, acc)
 
     return epoch
@@ -338,8 +360,13 @@ class TorchLearner(Learner):
 
         model, initial_params, correction, mu, batches = self.prepare_fit()
         aux = tree_map(lambda v: v.to(self.device), model.aux_state or {})
-        # Fresh optimizer state every fit (the reference's TrainState.create).
-        state = TrainState(initial_params, tree_map(torch.zeros_like, initial_params), aux)
+        # Fresh optimizer state every fit (the reference's TrainState.create),
+        # on a node axis of 1.
+        params1 = _single(initial_params)
+        state = TrainState(params1, tree_map(torch.zeros_like, params1), _single(aux))
+        corr1 = None if correction is None else _single(correction)
+        mu1 = (torch.tensor([float(mu)], dtype=torch.float32, device=self.device)
+               if mu else None)
         in_exp = self._in_experiment()
         n_steps = 0
         gsum_total: Any = None
@@ -348,8 +375,8 @@ class TorchLearner(Learner):
                 logger.info(self._addr, f"Training interrupted at epoch {epoch}")
                 break
             xs, ys = batches.stacked(epoch=self._round_counter * 10_000 + epoch)
-            out = self._train_epoch_fn(state, self._tensor(xs), self._tensor(ys), correction,
-                                       initial_params, float(mu))
+            out = self._train_epoch_fn(state, self._tensor(xs)[None], self._tensor(ys)[None],
+                                       corr1, params1, mu1)
             if track:
                 state, loss, acc, gsum = out
                 gsum_total = gsum if gsum_total is None else tree_map(torch.add, gsum_total,
@@ -358,14 +385,14 @@ class TorchLearner(Learner):
                 state, loss, acc = out
             n_steps += xs.shape[0]
             if in_exp:
-                logger.log_metric(self._addr, "train_loss", float(loss), step=epoch)
+                logger.log_metric(self._addr, "train_loss", float(loss[0]), step=epoch)
             # Learning-plane fit seam: one attribute read when off.
             if Settings.LEDGER_ENABLED:
                 ledger.convergence.observe_loss(self._addr, self._round_counter * 10_000 + epoch,
-                                                float(loss))
+                                                float(loss[0]))
             if logger.get_level() <= logging.DEBUG:
-                logger.debug(self._addr, f"epoch {epoch}: loss={float(loss):.4f} "
-                                         f"acc={float(acc):.4f}")
+                logger.debug(self._addr, f"epoch {epoch}: loss={float(loss[0]):.4f} "
+                                         f"acc={float(acc[0]):.4f}")
         self._round_counter += 1
 
         if n_steps == 0:
@@ -374,8 +401,9 @@ class TorchLearner(Learner):
         avg_grad = None
         if gsum_total is not None:
             inv = float(np.float32(1.0 / max(n_steps, 1)))
-            avg_grad = tree_map(lambda g: g * inv, gsum_total)
-        self.finish_fit(model, initial_params, state.params, state.aux, n_steps,
+            avg_grad = tree_map(lambda g: g * inv, _unstack(gsum_total))
+        self.finish_fit(model, initial_params, _unstack(state.params),
+                        _unstack(state.aux) if aux else aux, n_steps,
                         batches.num_samples, avg_grad=avg_grad)
         return model
 

@@ -15,9 +15,10 @@ buffered rounds; free-running (``ASYNC_SERIALIZED`` off) each node also
 runs one trainer thread, which :meth:`Node.stop` interrupts and joins.
 :meth:`Node.save_checkpoint` / :meth:`Node.load_checkpoint` persist and
 restore the node's model (``management/checkpoint.py``, the JAX
-package's format). Refused with ``NotImplementedError`` naming the
-``ROADMAP.md`` §1 item: the pooled simulation learner
-(``Settings.DISABLE_SIMULATION`` off, item 5, at construction). With
+package's format). Unless ``Settings.DISABLE_SIMULATION``, the learner is
+wrapped in the simulation layer's ``VirtualNodeLearner`` and its fits go
+through the process's ``SuperLearnerPool``, which batches the concurrent
+fits of the round's train set, as the reference's nodes do. With
 ``Settings.TELEMETRY_ENABLED`` the node's hops land in the flight
 recorder, and :meth:`Node.stop` dumps its ring (to
 ``Settings.TELEMETRY_DUMP_DIR`` when set).
@@ -112,8 +113,9 @@ class Node:
             )
 
         # Simulation activation hook (reference node wiring via
-        # try_init_learner_with_ray, simulation/__init__.py:16-33): the
-        # pooled learner is refused unless Settings.DISABLE_SIMULATION.
+        # try_init_learner_with_ray, simulation/__init__.py:16-33):
+        # concurrent fits across in-process nodes batch into one
+        # node-stacked program unless Settings.DISABLE_SIMULATION.
         from tpfl_torch.simulation import try_init_learner_with_simulation
 
         self.learner = try_init_learner_with_simulation(self.learner)

@@ -11,7 +11,10 @@ _EXPORTS = {
     "FederationEngine": "engine",
     "FedBuffSchedule": "engine",
     "EngineWindow": "engine",
+    "sample_participants": "engine",
+    "ClientPopulation": "population",
     "VmapFederation": "federation",
+    "FederationLearner": "federation_learner",
     "WindowPipeline": "window_pipeline",
     "MembershipView": "membership",
 }

@@ -49,10 +49,18 @@ window and replays it at ``finalize`` (:mod:`tpfl_torch.management.engine_obs`).
 :meth:`~FederationEngine.export_state` / :meth:`~FederationEngine.import_state`
 checkpoint the run (``management/checkpoint.py``).
 
+The simulation plane's seams live here too, as in the reference:
+:func:`sample_participants` (a seeded per-round cohort, numpy),
+:meth:`~FederationEngine.attach_population` (a
+:class:`~tpfl_torch.parallel.population.ClientPopulation`, whose state
+rides :meth:`~FederationEngine.export_state`) and
+:func:`build_masked_local_fit` / :func:`build_batched_fit_program`, the
+simulation pool's masked node-stacked local fit over the learner's own
+train step. :func:`maybe_nodes_mesh` is None: one device.
+
 Refused, each naming its ``ROADMAP.md`` §1 item: a device mesh (item 7;
-``dcn_bytes``, the hosts axis's carry row, comes with it), a client
-population (``attach_population``, item 5) and the XLA aliasing reports
-``donation_report`` / ``donation_analysis`` (item 8).
+``dcn_bytes``, the hosts axis's carry row, comes with it) and the XLA
+aliasing reports ``donation_report`` / ``donation_analysis`` (item 8).
 """
 
 from __future__ import annotations
@@ -64,12 +72,15 @@ import numpy as np
 import torch
 
 from tpfl_torch import DeviceLike, resolve_device
-from tpfl_torch.exceptions import MULTI_DEVICE_ITEM, REST_ITEM, SIMULATION_ITEM, not_ported
+from tpfl_torch.exceptions import MULTI_DEVICE_ITEM, REST_ITEM, not_ported
 from tpfl_torch.learning import compression, serialization
 from tpfl_torch.learning.torch_learner import (
     OptimizerFactory,
+    SGDMomentum,
+    TrainState,
     cross_entropy_loss,
     default_optimizer,
+    make_train_step,
 )
 from tpfl_torch.management import profiling
 from tpfl_torch.models.zoo import Params, apply, init_state, stack_params
@@ -128,6 +139,23 @@ def _map_tensors(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_tensors(fn, v) for v in tree)
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def maybe_nodes_mesh(width: int) -> None:
+    """The mesh a batched node axis of ``width`` rows would shard over:
+    None, as the reference's on one device (meshes are ``ROADMAP.md`` §1
+    item 7)."""
+    return None
+
+
+def sample_participants(population: int, k: int, seed: int, round: int) -> np.ndarray:
+    """Deterministic per-round participant sample: ``k`` distinct client
+    indices out of ``population`` registered clients, seeded by ``(seed,
+    round)`` — the reference's numpy draw, so the ids are the same."""
+    if k > population:
+        raise ValueError(f"cannot sample {k} of {population} clients")
+    rng = np.random.default_rng(np.random.SeedSequence([seed, round]))
+    return np.sort(rng.choice(population, size=k, replace=False))
 
 
 class FedBuffSchedule:
@@ -411,6 +439,8 @@ class FederationEngine:
         self.controller: Optional[Any] = None
         #: Optional MembershipView whose capacity tier sets the node axis.
         self.membership: Optional[Any] = None
+        #: Optional ClientPopulation whose state rides the checkpoints.
+        self.population: Optional[Any] = None
 
     # --- state / data placement ---
 
@@ -501,9 +531,12 @@ class FederationEngine:
         :meth:`sync_membership`); callers take each window's weights from
         ``view.weights()``. Joins, leaves, crashes and quarantine verdicts
         inside a tier are weight edits: the node-stacked state keeps its
-        shape and is not reallocated. (The reference also registers the
-        view with the fleet observatory, ``ROADMAP.md`` §1 item 5.)"""
+        shape and is not reallocated. The view is registered (weakly) with
+        the fleet observatory's gauges."""
         self.membership = view
+        from tpfl_torch.management import fleetobs
+
+        fleetobs.register_view(view)
         if int(view.capacity) != self.n_nodes:
             self.resize_nodes(int(view.capacity))
 
@@ -522,9 +555,20 @@ class FederationEngine:
         return True
 
     def attach_population(self, population: Any) -> None:
-        """The cross-device client population of the reference."""
-        raise not_ported("FederationEngine.attach_population (parallel/population.py)",
-                         SIMULATION_ITEM)
+        """Drive this engine from a
+        :class:`~tpfl_torch.parallel.population.ClientPopulation`: the
+        engine's node rows serve as the cross-device tier's edge
+        aggregators, each round's cohort comes from
+        ``population.begin_round`` (it must fit the node axis), and the
+        population's O(touched) state rides :meth:`export_state`. The
+        population is registered (weakly) with the fleet observatory's
+        gauges."""
+        self.population = population
+        if population is not None:
+            population.bind(self)
+            from tpfl_torch.management import fleetobs
+
+            fleetobs.register_population(population)
 
     # --- checkpoint state ---
 
@@ -562,6 +606,9 @@ class FederationEngine:
             state["controller"] = self.controller.state_export()
         if self.membership is not None:
             state["membership"] = self.membership.state_export()
+        if self.population is not None:
+            # O(touched): only sampled clients' records, never the census.
+            state["population"] = self.population.state_export()
         if quarantine is not None:
             state["quarantine"] = quarantine.state_export()
         return state
@@ -572,11 +619,10 @@ class FederationEngine:
         checkpoint's count, the rows are padded onto this engine's device,
         the schedule position, window ordinal and seed (the checkpoint's
         wins) come back, and the controller, membership and ``quarantine``
-        state are imported. Returns ``{"params", "aux", "scaffold_state"}``
-        for the next dispatch (absent pieces None)."""
-        if state.get("population"):
-            raise not_ported("an engine state with a client population "
-                             "(parallel/population.py)", SIMULATION_ITEM)
+        state are imported, and so is a population's (a
+        :class:`~tpfl_torch.parallel.population.ClientPopulation` is built
+        and bound when none is attached). Returns ``{"params", "aux",
+        "scaffold_state"}`` for the next dispatch (absent pieces None)."""
         n = int(state["n_nodes"])
         if n != self.n_nodes:
             self.resize_nodes(n)
@@ -603,6 +649,14 @@ class FederationEngine:
                 self.membership = MembershipView.from_state(state["membership"])
             else:
                 self.membership.state_import(state["membership"])
+        if state.get("population"):
+            if self.population is None:
+                from tpfl_torch.parallel.population import ClientPopulation
+
+                self.population = ClientPopulation.from_state(state["population"])
+                self.population.bind(self)
+            else:
+                self.population.state_import(state["population"])
         if quarantine is not None and state.get("quarantine"):
             quarantine.state_import(state["quarantine"])
         return out
@@ -1059,6 +1113,66 @@ def _result(kind: str, has_aux: bool, state: tuple, losses: torch.Tensor) -> tup
     if has_aux:
         return params, aux_out, losses
     return params, losses
+
+
+# --- batched-fit programs (the simulation pool's side of the seam) ---------
+
+
+def build_masked_local_fit(module: Any, opt: SGDMomentum, loss_fn: Callable, has_aux: bool,
+                           track_grads: bool, epochs: int) -> Callable:
+    """A chunk of learners' masked local fits at once (``engine.py:2497-2552``
+    of the reference): epochs × batches of :func:`make_train_step` — THE
+    local SGD step ``TorchLearner.fit`` runs, here over the chunk's node
+    axis — from a fresh optimizer trace, with per-batch 0/1 masks that
+    make padding batches exact no-ops and, under ``track_grads``, the raw
+    gradients summed over the real batches (SCAFFOLD).
+
+    ``local_fit(params, aux, correction, anchor, mu, xs, ys, bmask,
+    full=None) -> (params, aux, last epoch's loss [n], gradient sum or
+    None)``: node-stacked trees, ``correction`` a stacked tree or None,
+    ``mu`` [n] f32 or None, ``xs [n, n_batches, b, ...]``, ``bmask [n,
+    n_batches]`` on the device. ``full`` (host booleans, one a batch)
+    marks the batches that skip the mask's select: those every row trains
+    (the default, read from ``bmask``), or every row whose output the
+    caller keeps. An epoch's loss is each node's mean over its real
+    batches."""
+    step = make_train_step(module, loss_fn, has_aux, opt, with_grads=track_grads)
+
+    def local_fit(params: Params, aux: Params, correction: Optional[Params], anchor: Params,
+                  mu: Optional[torch.Tensor], xs: torch.Tensor, ys: torch.Tensor,
+                  bmask: torch.Tensor, full: Optional[Sequence[bool]] = None) -> tuple:
+        if full is None:
+            full = [bool(c) for c in (bmask > 0).all(0).tolist()]
+        state = TrainState(params, opt.init(params), aux)
+        gsum = (tree_map(lambda p: torch.zeros(p.shape, device=p.device, dtype=torch.promote_types(
+            p.dtype, torch.float32)), params) if track_grads else None)
+        keep = bmask > 0
+        count = torch.clamp(bmask.sum(1), min=1.0)
+        loss = torch.zeros((bmask.shape[0],), dtype=torch.float32, device=bmask.device)
+        for _ in range(epochs):
+            total = torch.zeros_like(loss)
+            for bi in range(xs.shape[1]):
+                m = bmask[:, bi]
+                out = step(state, xs[:, bi], ys[:, bi], correction, anchor, mu,
+                           None if full[bi] else keep[:, bi])
+                state, batch_loss = out[0], out[1]
+                with torch.no_grad():
+                    if track_grads:
+                        if full[bi]:
+                            gsum = tree_map(lambda a, g: a.add_(g.to(a.dtype)), gsum, out[3])
+                        else:
+                            gsum = tree_map(lambda a, g: a.add_((g * _rows(m, g)).to(a.dtype)),
+                                            gsum, out[3])
+                    total = total + batch_loss * m
+            loss = total / count
+        return state.params, state.aux, loss, gsum
+
+    return local_fit
+
+
+#: The pool's program over the stacked node axis. The reference jits
+#: ``vmap(local_fit)``; here the masked fit already runs every row in each launch.
+build_batched_fit_program = build_masked_local_fit
 
 
 def donation_analysis(*args: Any, **kwargs: Any) -> dict:

@@ -124,29 +124,31 @@ class Settings:
 
     # --- simulation ---
     DISABLE_SIMULATION: bool = False
-    """When True, a node's learner runs inline. That is the port's only
-    path: a ``Node`` refuses False (the reference's pooled simulation
-    learner, ``ROADMAP.md`` §1 item 5)."""
+    """When True, a node's learner runs inline. False (the default, as in
+    the reference) wraps it in ``simulation.VirtualNodeLearner``: the
+    process's ``SuperLearnerPool`` batches the concurrent fits of the
+    round's train set into one node-stacked program."""
 
     SIM_WORKERS: int = 0
-    """Fallback threads of the reference's simulation pool. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Threads (and isolated worker processes) of the simulation pool's
+    fits that do not batch; 0 = the CPU count (4 isolated workers)."""
 
     SIM_BATCH_WINDOW: float = 0.2
-    """Seconds the reference's simulation pool gathers a train set's fits.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Seconds the simulation pool gathers fits submitted without a group
+    hint before it dispatches them."""
 
     SIM_BATCH_MAX_WAIT: float = 5.0
-    """Cap (s) on the reference's pool holding a fit group open. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Cap (s) on the simulation pool holding a hinted fit group open
+    until it is full."""
 
     SIM_MAX_BATCH_NODES: int = 128
-    """Chunk size of the reference's batched fit. Carried for parity; the port
-    does not read it (``UNPORTED_KNOBS``)."""
+    """Most fits of one batched program (the chunk size of
+    ``simulation.batched_fit.run_batched_fits``)."""
 
     SIM_PROCESS_ISOLATION: bool = False
-    """Process isolation of the reference's pool fallback fits. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Run the simulation pool's unbatched plain ``TorchLearner`` fits in
+    spawned worker processes (``simulation.isolated``): a crashing
+    worker fails only its own job."""
 
     # --- heartbeat ---
     HEARTBEAT_PERIOD: float = 2.0
@@ -558,13 +560,12 @@ class Settings:
     parity; the port does not read it (``UNPORTED_KNOBS``)."""
 
     POPULATION_CLIENTS: int = 0
-    """Registered clients of the reference's cross-device population tier.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``,
-    ``ROADMAP.md`` §1 item 5)."""
+    """Registered clients of ``parallel.ClientPopulation`` when none are
+    passed (0 refuses: the census must be set)."""
 
     POPULATION_SAMPLE: int = 100
-    """Clients sampled per round from the reference's population tier. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Clients ``parallel.ClientPopulation`` samples per round when no
+    ``sample`` is passed."""
 
     SHARD_ROUNDS_PER_DISPATCH: int = 1
     """Rounds per dispatch: ``WindowPipeline.run``'s default window."""
@@ -605,16 +606,15 @@ class Settings:
     (``UNPORTED_SWITCHES``)."""
 
     CHECKPOINT_DIR: str = ""
-    """Engine-state checkpoints of the reference's ``FederationLearner``.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Where ``parallel.FederationLearner`` writes its engine-state
+    checkpoints (``management.checkpoint.EngineCheckpointer``); "" = none."""
 
     CHECKPOINT_EVERY_WINDOWS: int = 0
-    """Cadence of the reference's engine checkpoints. Carried for parity; the
-    port does not read it (``UNPORTED_KNOBS``)."""
+    """``FederationLearner``'s checkpoint cadence, in windows (0 = off)."""
 
     CHECKPOINT_ON_SIGTERM: bool = False
-    """SIGTERM checkpoint of the reference's ``FederationLearner``. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """With ``CHECKPOINT_DIR``, ``FederationLearner.fit`` on the main
+    thread installs a SIGTERM handler that publishes its latest snapshot."""
 
     # --- concurrency diagnostics ---
     TRACE_CONTRACTS: bool = False
@@ -1013,10 +1013,8 @@ UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
     "COMPILE_CACHE_DIR": (SIMULATION_ITEM, "", ("engine",)),
 }
 
-_SIM = ("Settings.DISABLE_SIMULATION", SIMULATION_ITEM)
 _GRPC = ("communication.GrpcCommunicationProtocol", REST_ITEM)
 _MESH = ("parallel.FederationEngine(mesh=)", MULTI_DEVICE_ITEM)
-_FED_LEARNER = ("parallel.federation_learner", SIMULATION_ITEM)
 _FLEETOBS = ("management.fleetobs", SIMULATION_ITEM)
 
 #: Knobs that only tune a plane the port has not ported: knob -> (the
@@ -1025,19 +1023,13 @@ _FLEETOBS = ("management.fleetobs", SIMULATION_ITEM)
 #: or a module of the reference that ``tpfl_torch`` does not have. None
 #: marks a knob that the reference reads nowhere either.
 UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
-    **dict.fromkeys(("SIM_WORKERS", "SIM_BATCH_WINDOW", "SIM_BATCH_MAX_WAIT",
-                     "SIM_MAX_BATCH_NODES", "SIM_PROCESS_ISOLATION"), _SIM),
     **dict.fromkeys(("GRPC_TIMEOUT", "MAX_MESSAGE_SIZE", "GRPC_SERVER_WORKERS",
                      "WIRE_CHUNK_SIZE", "USE_SSL", "CA_CRT", "SERVER_CRT", "SERVER_KEY",
                      "CLIENT_CRT", "CLIENT_KEY"), _GRPC),
     **dict.fromkeys(("SHARD_NODES", "SHARD_DEVICES", "SHARD_MODEL", "SHARD_LAYOUT",
                      "SHARD_HOSTS"), _MESH),
-    **dict.fromkeys(("CHECKPOINT_DIR", "CHECKPOINT_EVERY_WINDOWS", "CHECKPOINT_ON_SIGTERM"),
-                    _FED_LEARNER),
     **dict.fromkeys(("FLEETOBS_SNAPSHOT_PERIOD", "FLEETOBS_DIR", "SLO_TARGETS", "SLO_EWMA",
                      "SLO_BREACH_WINDOWS"), _FLEETOBS),
-    "POPULATION_CLIENTS": ("parallel.population", SIMULATION_ITEM),
-    "POPULATION_SAMPLE": ("parallel.population", SIMULATION_ITEM),
     "ENGINE_DONATE": ("parallel.FederationEngine.donation_report", REST_ITEM),
     "RANK_CONTRACTS": ("parallel.ranksafe", MULTI_DEVICE_ITEM),
     "RESOURCE_MONITOR_PERIOD": ("management.node_monitor", SIMULATION_ITEM),

@@ -1,31 +1,27 @@
-"""The simulation layer's activation hook — the port of
-:func:`tpfl.simulation.try_init_learner_with_simulation`.
+"""Scale-out simulation layer — the port of :mod:`tpfl.simulation`.
 
-The reference wraps every node's learner in a ``VirtualNodeLearner`` that
-batches concurrent fits of in-process nodes into one vmapped program
-unless ``Settings.DISABLE_SIMULATION``. The pooled learner is not ported
-(``ROADMAP.md`` §1 item 5): with the knob off the hook raises, and a
-federation of the port's nodes runs with ``DISABLE_SIMULATION = True``,
-each node fitting on its own, as the reference's unpooled path does.
+When several protocol nodes of one process (the round's train set) call
+``fit()`` within the batching window, :class:`SuperLearnerPool` stacks
+their parameters, corrections and data on a leading node axis and
+trains them with one node-stacked program: the CNN's conv backward runs
+its kernels once for the chunk, not once a node. Heterogeneous jobs, and
+the jobs of a batched chunk that failed, fit on their own on a thread
+pool (``SIM_PROCESS_ISOLATION`` runs those in spawned worker processes).
+
+Activation: :func:`try_init_learner_with_simulation` wraps a learner in
+:class:`VirtualNodeLearner` unless ``Settings.DISABLE_SIMULATION`` —
+every ``Node`` does, so a port ``Node`` fits through the pool by
+default, as the reference's does.
 """
 
-from __future__ import annotations
+from tpfl_torch.simulation.pool import SuperLearnerPool
+from tpfl_torch.simulation.virtual_learner import (
+    VirtualNodeLearner,
+    try_init_learner_with_simulation,
+)
 
-from typing import Any
-
-from tpfl_torch.exceptions import SIMULATION_ITEM, not_ported
-from tpfl_torch.settings import Settings
-
-
-def try_init_learner_with_simulation(learner: Any) -> Any:
-    """``learner`` unchanged under ``Settings.DISABLE_SIMULATION``; the
-    pooled simulation learner otherwise, which is not ported."""
-    if Settings.DISABLE_SIMULATION:
-        return learner
-    raise not_ported(
-        "the pooled simulation learner (VirtualNodeLearner; set "
-        "Settings.DISABLE_SIMULATION = True to run each node's learner on its own)",
-        SIMULATION_ITEM)
-
-
-__all__ = ["try_init_learner_with_simulation"]
+__all__ = [
+    "SuperLearnerPool",
+    "VirtualNodeLearner",
+    "try_init_learner_with_simulation",
+]
