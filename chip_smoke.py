@@ -242,6 +242,23 @@
    elected) on the MLP; one isolated fit (``SIM_PROCESS_ISOLATION``) on
    the card within rtol 1e-6 of the inline fit; ``conv_dw`` / ``conv_dx``
    at N 16 B 25 and N 8 B 32 against their plain versions, timed.
+19. Observatory phase (phase 19, the bench's ``profiling`` and
+   ``fleetobs`` tiers): (a) the compile probe on the card — 8, 8, 16,
+   32, 64 elements at a storm threshold of 3: 4 signatures, one hit, a
+   ``recompile_storm`` event; (b) the tier's 4-Node MLP federation
+   (seed 2626, hash election) with profiling off and on after a warm-up,
+   run last: every round attributed, coverage at least 0.95; (c) CNN and
+   LM windows (a warm one and the best of 2, as the reference's bench
+   times its live MFU) through ``CostModel.record_round``: the live MFU gauge
+   within 5% of the analytic column (the path's rounds/s × the same
+   FLOPs over the card's peak), every launch on wgmma; (d) the HBM
+   tracker's peak over a CNN window equal to
+   ``torch.cuda.max_memory_allocated()``; (e) the fleet folds of two
+   launches of two ranks (``--fleet-rank``, subprocesses on the card)
+   byte-identical, the SLO watchdog flagging a 20% regression within 2
+   windows and silent without it, the fleet plane's overhead, the
+   census sweep's bitsets; (f) ``MetricsHTTPServer`` on loopback (200,
+   then 503 once the watchdog breaches) and one ``NodeMonitor`` period.
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
@@ -283,7 +300,8 @@ from tpfl_torch.learning.async_control import AsyncController
 from tpfl_torch.learning.aggregators import (FedAvg, FedProx, Krum, MultiKrum, Scaffold,
                                              TrimmedMean)
 from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, TpflDataset
-from tpfl_torch.learning.dataset.synthetic import synthetic_cifar10, synthetic_classification
+from tpfl_torch.learning.dataset.synthetic import (synthetic_cifar10, synthetic_classification,
+                                                   synthetic_mnist)
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.learning.torch_learner import TorchLearner
 from tpfl_torch.management import engine_obs, ledger, profiling, quarantine, telemetry, tracing
@@ -4049,6 +4067,419 @@ def simulation_launches(sp: dict, name: str) -> dict:
     return out
 
 
+# ---- the observatory (phase 19) ----------------------------------------------
+
+# The profiling tier's federation (bench.py:1291-1349): 4 Nodes of the
+# digits MLP (hidden 32) on synthetic_mnist, 5 rounds, hash election, seed
+# 2626, the pool on as in the reference's test profile.
+OBS_NODES, OBS_ROUNDS, OBS_SEED = 4, 5, 2626
+# The fleetobs tier's overhead loop (bench.py:1094-1155): K 64 of a 100k
+# census, MLP (256, 256) on 8×8, 10 rounds a median; its census sweep.
+OBS_K, OBS_CENSUS, OBS_R = 64, 100_000, 10
+OBS_SWEEP = (100_000, 1_000_000)
+# bench.py's watchdog drive: a healthy run at 2.5 rounds/s and a 20%
+# regression after four windows, against rate >= 2.4.
+WD_TARGET = "rate(tpfl_engine_rounds_total) >= 2.4"
+WD_HEALTHY, WD_INJECTED = [2.5] * 8, [2.5] * 4 + [2.0] * 6
+# Live against analytic MFU, and the HBM peak, must agree within this.
+MFU_RTOL = 0.05
+
+
+def compile_probe() -> dict:
+    """19a: the profiling tier's shape-churn probe on the card (8, 8, 16,
+    32, 64 elements at a storm threshold of 3): 4 signatures, one
+    signature hit, a ``recompile_storm`` event in ``_profiling``'s ring."""
+    profiling.observatory.reset()
+    telemetry.flight.clear(profiling.PROFILING_RING)
+    with setting("PROFILING_ENABLED", True), setting("PROFILING_RECOMPILE_WARN", 3):
+        probe = profiling.observatory.wrap(lambda x: (x * 2.0).sum(), "chip_probe")
+        for n in (8, 8, 16, 32, 64):
+            probe(torch.zeros((n,), dtype=torch.float32, device="cuda")).item()
+    sigs = profiling.observatory.signature_counts().get("chip_probe", 0)
+    storms = [e for e in telemetry.flight.snapshot(profiling.PROFILING_RING)
+              if e.get("name") == "recompile_storm" and e.get("fn") == "chip_probe"]
+    hits = telemetry.metrics.value("tpfl_compile_signature_hits_total", {"fn": "chip_probe"})
+    profiling.observatory.reset()
+    if sigs != 4 or len(storms) != 1 or storms[0]["signatures"] != 3 or hits != 1.0:
+        raise AssertionError(f"compile probe: {sigs} signatures, storms {storms}, {hits} hits")
+    return {"probe_signatures": sigs, "storm_detected": True, "signature_hits": hits}
+
+
+def obs_federation(profiled: bool, tag: str) -> dict:
+    """One run of 19b's federation; the round records when profiled."""
+    Settings.PROFILING_ENABLED = profiled
+    profiling.rounds.reset()
+    ds = synthetic_mnist(n_train=150 * OBS_NODES, n_test=30, seed=0, noise=0.6)
+    parts = ds.generate_partitions(OBS_NODES, RandomIIDPartitionStrategy, seed=1)
+    module = MLP(hidden_sizes=(32,), out_channels=10)
+    nodes = [Node(TpflModel(module, init_params(module, (28, 28), seed=7)), parts[i],
+                  addr=f"{tag}-{i}-{uuid.uuid4().hex[:6]}", learning_rate=0.05, batch_size=32)
+             for i in range(OBS_NODES)]
+    try:
+        start_federation(nodes, "STAR")
+        t0 = time.monotonic()
+        nodes[0].set_start_learning(rounds=OBS_ROUNDS, epochs=1)
+        wait_to_finish(nodes, timeout=240)
+        elapsed = time.monotonic() - t0
+        check_history(tag, nodes, OBS_ROUNDS)
+    finally:
+        for nd in nodes:
+            nd.stop()
+    out = {"rounds": OBS_ROUNDS, "elapsed_s": elapsed, "rounds_per_s": OBS_ROUNDS / elapsed}
+    if profiled:
+        out["attribution"] = profiling.rounds.attribution()
+    return out
+
+
+def profiling_ab() -> dict:
+    """19b: the profiling tier's A/B — one discarded warm-up run, then the
+    federation with ``PROFILING_ENABLED`` off and on. Gated: every round
+    attributed, each round's coverage at least 0.95. Reported: the
+    profiled run's cost and the component fractions."""
+    SuperLearnerPool.reset()
+    try:
+        with runtime_settings(DISABLE_SIMULATION=False, ELECTION="hash", SEED=OBS_SEED):
+            obs_federation(False, "prof-warm")
+            off = obs_federation(False, "prof-off")
+            on = obs_federation(True, "prof-on")
+    finally:
+        SuperLearnerPool.reset()
+        profiling.rounds.reset()
+    recs = on.pop("attribution")
+    if len(recs) != OBS_NODES * OBS_ROUNDS:
+        raise AssertionError(f"profiling A/B: {len(recs)} round records, expected "
+                             f"{OBS_NODES * OBS_ROUNDS}")
+    wall = sum(r["wall"] for r in recs)
+    comps = sorted({c for r in recs for c in r["parts"]})
+    coverage_min = min(r["coverage"] for r in recs)
+    if coverage_min < 0.95:
+        raise AssertionError(f"profiling A/B: a round's coverage is {coverage_min}")
+    return {"seed": OBS_SEED, "unprofiled": off, "profiled": on,
+            "overhead_frac": 1.0 - on["rounds_per_s"] / off["rounds_per_s"],
+            "rounds_attributed": len(recs), "coverage_min": coverage_min,
+            "component_fracs": {c: sum(r["parts"].get(c, 0.0) for r in recs) / wall
+                                for c in comps}}
+
+
+def live_mfu(label: str, fed_args: tuple, analytic_rounds_s: float, input_shape: tuple,
+             samples: int, kernels: dict) -> dict:
+    """19c: more 3-round windows of a main path, timed as the reference's
+    bench times its live MFU (``profiling.best_of_wall_donated``: a warm
+    window, then the best of 2, each training from the last one's fold),
+    with every launch count set to 0 just before them; the best per-round
+    seconds and the analytic FLOPs go through ``CostModel.record_round``.
+    Gated: the ``tpfl_mfu`` gauge within ``MFU_RTOL`` of the analytic
+    column (the path's measured rounds/s × the same FLOPs over the
+    card's peak), and the windows' launches, each on its wgmma kernel."""
+    fed, params, xs, ys, state = fed_args
+    flops = profiling.cost_model.analytic_train_flops(fed.module, input_shape, samples)
+    peak = profiling.peak_flops(torch.device("cuda"))
+    if flops is None or peak is None:
+        raise AssertionError(f"live MFU ({label}): no analytic FLOPs or no peak for "
+                             f"{torch.cuda.get_device_name(0)}")
+
+    def window(p: dict) -> tuple:
+        return fed.run_rounds(p, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, **state)
+
+    torch.cuda.synchronize()
+    reset_launches()
+    wall, out = profiling.best_of_wall_donated(window, (params,),
+                                               rebind=lambda o, a: (carry(o)[0],), n=2)
+    torch.cuda.synchronize()
+    launches, wgmma = read_launches(), read_wgmma_launches(kernels)
+    check_main_path(carry(out)[0], carry(out)[2], launches,
+                    {**dict.fromkeys(WRAPPERS, 0), **{k: 3 * v for k, v in kernels.items()}})
+    check_all_wgmma(f"live MFU ({label})", launches, wgmma)
+    live = profiling.cost_model.record_round(label, flops, wall / N_ROUNDS)
+    gauge = telemetry.metrics.value("tpfl_mfu", {"program": label})
+    analytic = analytic_rounds_s * flops / peak
+    rel = abs(gauge - analytic) / analytic
+    if live is None or gauge != live or rel > MFU_RTOL:
+        raise AssertionError(f"live MFU ({label}): gauge {gauge}, analytic {analytic}, "
+                             f"rel {rel}")
+    return {"round_tflop": flops / 1e12, "peak_tflops": peak / 1e12,
+            "analytic_rounds_per_s": analytic_rounds_s, "live_rounds_per_s": N_ROUNDS / wall,
+            "analytic_mfu": analytic, "live_mfu": gauge, "rel_diff": rel,
+            "launches": launches, "wgmma_launches": wgmma}
+
+
+def hbm_peak(fed_args: tuple) -> dict:
+    """19d: the tracker and the allocator's peak reset, one CNN window,
+    then a sample. Gated: the tracker's peak equals
+    ``torch.cuda.max_memory_allocated()`` and its gauges are in the
+    registry."""
+    fed, params, xs, ys, state = fed_args
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiling.hbm.reset()
+    reset_launches()
+    fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, **state)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    samples = profiling.hbm.sample()
+    want = torch.cuda.max_memory_allocated()
+    dev = str(torch.cuda.current_device())
+    peak = profiling.hbm.peaks().get(dev)
+    gauges = telemetry.metrics.fold()["gauges"]
+    keys = [(name, (("device", dev),)) for name in ("tpfl_hbm_bytes_in_use",
+                                                    "tpfl_hbm_peak_bytes")]
+    if peak != float(want) or not all(k in gauges for k in keys):
+        raise AssertionError(f"HBM tracker: peak {peak} against max_memory_allocated {want}, "
+                             f"gauges {[k in gauges for k in keys]}")
+    return {"peak_mb": peak / 1e6, "in_use_mb": dict((d, u / 1e6) for d, u, _ in samples),
+            "max_memory_allocated_mb": want / 1e6, "launches": launches}
+
+
+def fleet_rank(rank: int) -> None:
+    """19e's worker (``chip_smoke.py --fleet-rank R``): a seeded 2-round
+    engine window of 8 MLP nodes on the card with the telemetry carry on;
+    prints its receipt, the deterministic series of its registry as a
+    fleet snapshot, as its last line."""
+    from tpfl_torch.management import fleetobs
+
+    with setting("ENGINE_TELEMETRY", True):
+        rng = np.random.default_rng(rank)
+        xs = rng.random((8, 1, 8, 8, 8), np.float32)
+        ys = rng.integers(0, 10, (8, 1, 8)).astype(np.int32)
+        w = np.ones((8,), np.float32)
+        w[::4] = 0.0
+        eng = FederationEngine(MLP(hidden_sizes=(8,), out_channels=10), 8, seed=rank)
+        p = eng.init_params((8, 8))
+        dx, dy = eng.shard_data(xs, ys)
+        eng.run_rounds(p, dx, dy, weights=w, n_rounds=2)
+        torch.cuda.synchronize()
+    snap = fleetobs.snapshot(origin=str(rank), prefixes=fleetobs.DETERMINISTIC_PREFIXES)
+    print(json.dumps({"metrics_snapshot": snap}))
+
+
+def fleet_launch() -> str:
+    """Two ranks at once, each a subprocess on the card; the Prometheus
+    text of their receipts' fold."""
+    from tpfl_torch.management import fleetobs
+
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--fleet-rank",
+                               str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in (0, 1)]
+    receipts = []
+    for r, proc in enumerate(procs):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"fleet rank {r} exited {proc.returncode}: {err[-2000:]}")
+        receipts.append(json.loads(out.strip().splitlines()[-1]))
+    return fleetobs.fold_receipts(receipts).render_prometheus()
+
+
+def watchdog_drive(rates: list) -> "int | None":
+    """bench.py's drive: windows after the first below the target until
+    the watchdog breaches, None when it never does."""
+    from tpfl_torch.management import fleetobs
+
+    reg = telemetry.MetricsRegistry()
+    wd = fleetobs.SLOWatchdog(WD_TARGET, registry=reg, node="chip-watchdog")
+    wd.evaluate(now=0.0)
+    t, after = 0.0, None
+    for rate in rates:
+        t += 1.0
+        reg.counter("tpfl_engine_rounds_total", rate)
+        wd.evaluate(now=t)
+        if rate < 2.4 and after is None:
+            after = 0
+        if after is not None:
+            after += 1
+            if not wd.healthy():
+                return after
+    return None
+
+
+def fleet_overhead() -> dict:
+    """The observatory's cost in a sampled-population round loop on the
+    card (the fleet plane: population fan-out, fleet gauges, a watchdog
+    window, a snapshot every 10 rounds), as median round seconds without
+    and with it; reported against the reference's 5% budget."""
+    from tpfl_torch.management import fleetobs
+
+    eng = FederationEngine(MLP(hidden_sizes=(256, 256), out_channels=10), OBS_K, seed=0)
+    pop = ClientPopulation(registered=OBS_CENSUS, sample=OBS_K, seed=0)
+    eng.attach_population(pop)
+    rng = np.random.default_rng(0)
+    xs = rng.random((OBS_K, 1, 64, 8, 8), np.float32)
+    ys = rng.integers(0, 10, (OBS_K, 1, 64)).astype(np.int32)
+    state = {"p": eng.init_params((8, 8))}
+    dx, dy = eng.shard_data(xs, ys)
+    with tempfile.TemporaryDirectory() as d:
+        pub = fleetobs.FleetPublisher("chip", directory=d)
+        wd = fleetobs.SLOWatchdog("rate(tpfl_pop_folded_total) >= 0.0", node="chip-overhead")
+
+        def one_round(fleet_plane: bool, r: int) -> None:
+            ids = pop.begin_round()
+            w = pop.round_weights(ids, cutoff_frac=0.1)
+            state["p"], _ = eng.run_rounds(state["p"], dx, dy, weights=w)
+            torch.cuda.synchronize()
+            pop.complete_round(ids, w)
+            if fleet_plane:
+                fleetobs.emit_fleet_gauges("chip")
+                wd.evaluate()
+                if r % 10 == 0:
+                    pub.publish_once()
+
+        def median_round_s(fleet_plane: bool) -> float:
+            times = []
+            for r in range(OBS_R):
+                t0 = time.monotonic()
+                one_round(fleet_plane, r + 1)
+                times.append(time.monotonic() - t0)
+            return sorted(times)[len(times) // 2]
+
+        one_round(True, 0)
+        base_s = median_round_s(False)
+        fleet_s = median_round_s(True)
+    overhead = max(0.0, fleet_s - base_s) / base_s
+    # What a watchdog window folds: every series of the process registry.
+    folded = telemetry.metrics.fold()
+    return {"base_round_s": base_s, "fleet_round_s": fleet_s, "rounds_per_s": 1.0 / fleet_s,
+            "overhead_frac": overhead, "within_5pct_budget": overhead <= 0.05,
+            "registry_series": sum(len(folded[k]) for k in ("counters", "gauges", "histograms"))}
+
+
+def population_sketch() -> dict:
+    """The census sweep at K 100, three rounds each. Gated: the coverage
+    bitset holds exactly ``(census + 7) // 8`` bytes. Reported: the
+    peak-RSS growth."""
+    import resource
+
+    def sweep(census: int) -> ClientPopulation:
+        pop = ClientPopulation(registered=census, sample=100, seed=5)
+        for _ in range(3):
+            ids = pop.begin_round()
+            pop.complete_round(ids, pop.round_weights(ids, 0.1))
+        return pop
+
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    pops = [sweep(c) for c in OBS_SWEEP]
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    sizes = [p._coverage.nbytes for p in pops]
+    if sizes != [(c + 7) // 8 for c in OBS_SWEEP]:
+        raise AssertionError(f"population sketch: bitsets of {sizes} bytes for {OBS_SWEEP}")
+    return {"census_sweep": list(OBS_SWEEP), "bitset_bytes": sizes,
+            "rss_delta_mb": max(0.0, (rss1 - rss0) / 1024.0),
+            "coverage_1m": pops[-1].coverage, "fairness_1m": pops[-1].fairness}
+
+
+def fleet_observatory() -> dict:
+    """19e: fleet folds byte-identical across two launches of two ranks
+    (with both origin labels and engine series), the watchdog flagging a
+    20% rounds/s regression within 2 windows and silent without it, the
+    overhead, the population sketch."""
+    texts = [fleet_launch() for _ in range(2)]
+    if texts[0] != texts[1]:
+        raise AssertionError("fleet fold: the two launches' Prometheus texts differ")
+    if not ('origin="0"' in texts[0] and 'origin="1"' in texts[0]
+            and "tpfl_engine_rounds_total" in texts[0]):
+        raise AssertionError("fleet fold: origin labels or engine series missing")
+    silent, caught = watchdog_drive(WD_HEALTHY), watchdog_drive(WD_INJECTED)
+    if silent is not None or caught is None or caught > 2:
+        raise AssertionError(f"watchdog: uninjected {silent}, injected {caught}")
+    return {"merged_byte_identical": True, "fold_bytes": len(texts[0].encode()),
+            "fold_series": sum(1 for ln in texts[0].splitlines() if not ln.startswith("#")),
+            "uninjected_silent": True, "windows_to_breach": caught,
+            "overhead": fleet_overhead(), "pop_sketch": population_sketch()}
+
+
+def web_and_monitor() -> dict:
+    """19f: ``MetricsHTTPServer`` on loopback — ``/metrics``,
+    ``/metrics.json``, ``/fleet.json`` (a published snapshot folded) and
+    ``/healthz``, 200 and then 503 once the watchdog breaches — and one
+    ``NodeMonitor`` period emitting the CPU, RAM, network and
+    device-memory metrics."""
+    import urllib.error
+    import urllib.request
+
+    from tpfl_torch.management import fleetobs
+    from tpfl_torch.management.node_monitor import NodeMonitor
+    from tpfl_torch.management.web_services import MetricsHTTPServer
+
+    def get(url: str) -> tuple[int, bytes]:
+        try:
+            with urllib.request.urlopen(url, timeout=5) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    reg = telemetry.MetricsRegistry()
+    reg.gauge("tpfl_engine_idle_gap_seconds", 2.0)
+    wd = fleetobs.SLOWatchdog("gauge(tpfl_engine_idle_gap_seconds) <= 0.5", registry=reg)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        fleetobs.FleetPublisher("chip", directory=d).publish_once()
+        srv = MetricsHTTPServer(registry=reg, watchdog=wd, fleet_dir=d)
+        base = f"http://127.0.0.1:{srv.start()}"
+        try:
+            for path in ("/metrics", "/metrics.json", "/fleet.json", "/healthz"):
+                status, body = get(base + path)
+                out[path] = {"status": status, "bytes": len(body)}
+            for t in range(int(Settings.SLO_BREACH_WINDOWS) + 1):
+                wd.evaluate(now=float(t))
+            status, body = get(base + "/healthz")
+            out["/healthz after breach"] = {"status": status, "bytes": len(body)}
+        finally:
+            srv.stop()
+    if [v["status"] for v in out.values()] != [200, 200, 200, 200, 503]:
+        raise AssertionError(f"metrics server: {out}")
+    node = f"chip-monitor-{uuid.uuid4().hex[:6]}"
+    dev = torch.cuda.current_device()
+    want = {f"tpfl_system_{m}" for m in ("cpu_percent", "ram_percent", "net_in_bytes_per_s",
+                                         "net_out_bytes_per_s", f"hbm_bytes_in_use_dev{dev}",
+                                         f"hbm_peak_bytes_dev{dev}")}
+    with setting("RESOURCE_MONITOR_PERIOD", 0.2):
+        mon = NodeMonitor(node)
+        mon.start()
+        try:
+            deadline = time.monotonic() + 10
+            while True:
+                got = {k[0]: v for k, v in telemetry.metrics.fold()["gauges"].items()
+                       if k[1] == (("node", node),)}
+                if want <= set(got) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+        finally:
+            mon.stop()
+            mon.join(timeout=5)
+    if not want <= set(got) or not 0.0 <= got["tpfl_system_cpu_percent"] <= 100.0:
+        raise AssertionError(f"node monitor: {sorted(got)}")
+    out["node_monitor"] = {k.removeprefix("tpfl_system_"): v for k, v in sorted(got.items())}
+    return out
+
+
+def observatory_path(card: str, cnn: dict, cnn_args: tuple, lm: dict, lm_args: tuple) -> dict:
+    """Phase 19: 19a-19f, each logged as it passes."""
+    out = {}
+    samples = N_NODES * N_BATCHES * BATCH * EPOCHS
+    sequences = T_NODES * T_BATCHES * T_BATCH * EPOCHS
+    steps = N_BATCHES * EPOCHS * N_ROUNDS
+    # The profiled federation (19b) runs last: the LM window, nearly
+    # host-bound, once read 22% slow when timed right after it.
+    parts = (
+        ("compile", compile_probe),
+        ("mfu_cnn", lambda: live_mfu("cnn_main_path", cnn_args, cnn["rounds_per_s"],
+                                     (32, 32, 3), samples,
+                                     {"conv_dw": 2 * steps, "conv_dx": steps})),
+        ("mfu_lm", lambda: live_mfu("transformer_main_path", lm_args, lm["rounds_per_s"],
+                                    (T_SEQ,), sequences,
+                                    dict.fromkeys(FLASH_KERNELS, LM_KW["n_layers"] * T_BATCHES
+                                                  * EPOCHS * N_ROUNDS))),
+        ("hbm", lambda: hbm_peak(cnn_args)),
+        ("fleet", fleet_observatory),
+        ("web_and_monitor", web_and_monitor),
+        ("profiling_ab", profiling_ab),
+    )
+    for part, run in parts:
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[part]["phase_s"] = time.perf_counter() - t0
+        log(f"observatory ({part}; every check passed): {card}: " + json.dumps(out[part]))
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -4120,6 +4551,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if "--fleet-rank" in sys.argv[1:]:
+        fleet_rank(int(sys.argv[sys.argv.index("--fleet-rank") + 1]))
+        return 0
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch.cuda.get_device_name: {kind} | torch {torch.__version__} "
@@ -4207,6 +4641,7 @@ def main() -> int:
     resnet, rn_args = resnet_path(card)
     for algorithm, result in resnet.items():
         log(f"ResNet-18 config 3 ({algorithm}): " + json.dumps(result))
+    observatory = observatory_path(card, cnn, cnn_args, lm, lm_args)
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -4237,6 +4672,8 @@ def main() -> int:
                 shape: per[row["name"]] for shape, per in simulation["kernel_rows"].items()
                 if shape != "phase_s"}
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
+        row["observatory_launches"] = observatory[
+            "mfu_cnn" if row["name"] in ("conv_dw", "conv_dx") else "mfu_lm"]["launches"][row["name"]]
         if row["name"] in built:
             row["build"] = built[row["name"]]
     log(json.dumps({"kernels": rows}))

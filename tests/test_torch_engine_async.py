@@ -80,6 +80,10 @@ def _settings():
         lg.convergence.reset()
     flight.clear()
     jax_flight.clear()
+    # No engine series stays behind for a later file on the same worker
+    # (tests/test_engine_async.py reads the first tpfl_engine_staleness).
+    metrics.reset()
+    jax_metrics.reset()
 
 
 def _set_both(**knobs):

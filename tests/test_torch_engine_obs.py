@@ -35,6 +35,8 @@ from tpfl.attacks.plan import AttackSpec as JaxSpec
 from tpfl.management import engine_obs as jax_engine_obs
 from tpfl.management import ledger as jax_ledger
 from tpfl.management import quarantine as jax_quarantine
+from tpfl.management.telemetry import flight as jax_flight
+from tpfl.management.telemetry import metrics as jax_metrics
 from tpfl.models import CNN as JaxCNN
 from tpfl.models import MLP as JaxMLP
 from tpfl.parallel import FederationEngine as JaxEngine
@@ -80,6 +82,16 @@ def _settings():
         lg.contrib.reset()
         lg.convergence.reset()
     profiling.rounds.reset()
+    # No engine series or engine:<tag> ring stays behind for a later file
+    # on the same worker (tests/test_engine_async.py reads the first
+    # tpfl_engine_staleness series; tests/test_engine_obs.py the first
+    # engine ring).
+    for reg in (metrics, jax_metrics):
+        reg.reset()
+    for ring in (flight, jax_flight):
+        for node in ring.nodes():
+            if node.startswith("engine:"):
+                ring.clear(node)
 
 
 def _set_both(**knobs):

@@ -10,10 +10,10 @@ the population and view scenarios of ``tests/test_fleetobs.py``.
 - ``emit_fleet_gauges`` over fake and real membership views and
   populations, the same gauges as the JAX package's;
 - the engine's ``attach_membership`` / ``attach_population`` register
-  their view and population;
-- the observatory remainder (snapshots, folds, the publisher, the SLO
-  watchdog) raises ``NotImplementedError`` naming ``ROADMAP.md`` §1
-  item 5.
+  their view and population.
+
+The cross-process federation, the publisher and the SLO watchdog are
+held to the JAX package in ``tests/test_torch_fleetobs_remainder.py``.
 """
 
 import pytest
@@ -159,12 +159,3 @@ def test_engine_attach_registers_with_fleetobs():
     eng.attach_population(pop)
     with fleetobs._meta_lock:
         assert view in fleetobs._views and pop in fleetobs._populations
-
-
-@pytest.mark.parametrize("name", ["snapshot", "registry_from_snapshot", "fold", "fold_receipts",
-                                  "load_fleet_dir", "fleet_from_dir", "parse_targets",
-                                  "FleetPublisher", "SLOTarget", "SLOWatchdog"])
-def test_observatory_remainder_names_item_5(name):
-    assert hasattr(jax_fleetobs, name)
-    with pytest.raises(NotImplementedError, match=f"{name}.*ROADMAP.md §1 item 5"):
-        getattr(fleetobs, name)()

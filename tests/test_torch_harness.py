@@ -139,7 +139,11 @@ def port_data_fn(seed):
 
 
 def both_runs(seed, n, rounds, **kw):
-    """The same seeded experiment on both packages: (JAX name, port name)."""
+    """The same seeded experiment on both packages: (JAX name, port name).
+    Both run at a 30 s ``HEARTBEAT_TIMEOUT``: no node of these runs is
+    lost, and on a loaded host a heartbeat held up past the test
+    profile's 2 s evicted a live peer from one package's train set."""
+    _both(HEARTBEAT_TIMEOUT=30.0)
     port_kw = {k: v for k, v in kw.items() if k != "jax_attack_plan"}
     jax_kw = {k: v for k, v in kw.items() if k != "jax_attack_plan"}
     if "jax_attack_plan" in kw:

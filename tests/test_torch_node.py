@@ -19,7 +19,9 @@ reference pattern), every port node's final params allclose to the same
 node's in the JAX federation (rtol 1e-4, atol 1e-5: f32 compute; the
 test profile folds in canonical order, ``AGG_STREAM_EAGER`` off), the
 port's nodes agreeing among themselves within atol 1e-5 (tighter than
-``check_equal_models``'s 0.1), and test accuracy above 0.5.
+``check_equal_models``'s 0.1), and test accuracy above 0.5. Both packages
+run at a ``HEARTBEAT_TIMEOUT`` of 30 s, so that a heartbeat delayed by a
+loaded host evicts no live peer.
 """
 
 import jax.numpy as jnp
@@ -57,6 +59,7 @@ from tpfl_torch.utils import (
 from tpfl_torch.utils.tree import tree_items
 
 RTOL, ATOL = 1e-4, 1e-5
+HEARTBEAT_TIMEOUT = 30.0
 
 
 @pytest.fixture(autouse=True)
@@ -64,6 +67,11 @@ def _runtime_settings():
     snaps = (Settings.snapshot(), JaxSettings.snapshot())
     Settings.set_test_settings()
     Settings.DISABLE_SIMULATION = JaxSettings.DISABLE_SIMULATION = True
+    # No federation here loses a node, so no eviction is wanted: a JAX
+    # node's first fit (its interpret-mode Pallas kernels compiling)
+    # starves its heartbeater on a loaded host, and past the test
+    # profile's 2 s the peers evicted each other and trained alone.
+    Settings.HEARTBEAT_TIMEOUT = JaxSettings.HEARTBEAT_TIMEOUT = HEARTBEAT_TIMEOUT
     clear_registry()
     jax_clear_registry()
     threads = torch.get_num_threads()

@@ -466,6 +466,21 @@ def _dump_dir_engine():
     return _engine().n_nodes == 2
 
 
+def _compile_cache_engine():
+    """COMPILE_CACHE_DIR points the kernel build at its directory."""
+    import os
+
+    from tpfl_torch.parallel import _build
+
+    default = _build.BUILD_DIR
+    Settings.COMPILE_CACHE_DIR = "armed-dir"
+    try:
+        return _engine().n_nodes == 2 and _build.BUILD_DIR == _build.Path(
+            os.path.abspath("armed-dir"))
+    finally:
+        _build.use_build_dir(default)
+
+
 # Each replaces the refusal case of the same name: the ported plane runs.
 PORTED = {
     "save checkpoint": lambda: _node_checkpoint_round_trip("save"),
@@ -494,6 +509,14 @@ PORTED = {
     "gate parallel.federation_learner": lambda: _read_by_port({
         "CHECKPOINT_DIR", "CHECKPOINT_EVERY_WINDOWS", "CHECKPOINT_ON_SIGTERM"})
     and importlib.util.find_spec("tpfl_torch.parallel.federation_learner") is not None,
+    "switch COMPILE_CACHE_DIR": _compile_cache_engine,
+    "gate management.fleetobs": lambda: _read_by_port({
+        "FLEETOBS_SNAPSHOT_PERIOD", "FLEETOBS_DIR", "SLO_TARGETS", "SLO_EWMA",
+        "SLO_BREACH_WINDOWS"}) and fleetobs.SLOWatchdog("gauge(tpfl_x) <= 1").healthy(),
+    "gate management.node_monitor": lambda: _read_by_port({"RESOURCE_MONITOR_PERIOD"})
+    and importlib.util.find_spec("tpfl_torch.management.node_monitor") is not None,
+    "gate management.profiling.CompileObservatory": lambda: _read_by_port({
+        "PROFILING_RECOMPILE_WARN"}) and hasattr(profiling, "CompileObservatory"),
     "gate parallel.population": lambda: _read_by_port({
         "POPULATION_CLIENTS", "POPULATION_SAMPLE"})
     and importlib.util.find_spec("tpfl_torch.parallel.population") is not None,
@@ -584,10 +607,7 @@ GATES = {
     "parallel.FederationEngine(mesh=)": _raises(lambda: FederationEngine(
         MLP(hidden_sizes=(8,), out_channels=10), 2, mesh="auto", device="cpu")),
     "parallel.FederationEngine.donation_report": _raises(lambda: _engine().donation_report()),
-    "management.profiling.CompileObservatory": lambda: not hasattr(profiling,
-                                                                   "CompileObservatory"),
-    "management.fleetobs": _raises(lambda: fleetobs.SLOWatchdog()),
-    **{m: _closed_module(m) for m in ("parallel.ranksafe", "management.node_monitor")},
+    "parallel.ranksafe": _closed_module("parallel.ranksafe"),
 }
 
 

@@ -25,9 +25,9 @@ import chip_smoke
 banned = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
-             "ml_dtypes")
+             "ml_dtypes", "psutil", "click")
     or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "tpfl.", "msgpack.", "datasets.",
-                     "zstandard.", "ml_dtypes."))
+                     "zstandard.", "ml_dtypes.", "psutil.", "click."))
 )
 print(json.dumps({"modules": mods, "banned": banned}))
 """
@@ -60,7 +60,9 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "communication.neighbors", "communication.protocol",
                 "communication.resilience", "stages", "stages.stage", "stages.base_node",
                 "utils.topologies", "utils.utils", "management.metric_storage",
-                "management.profiling", "management.tracing", "simulation"):
+                "management.profiling", "management.tracing", "simulation",
+                "management.fleetobs", "management.node_monitor",
+                "management.web_services"):
         assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -68,9 +70,10 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
 def test_sources_name_no_jax_package():
     """Belt and braces over the import probe: no source line of the
     port imports jax, flax, optax or the tpfl package, nor a package the
-    card's machine lacks (msgpack, datasets, zstandard, ml_dtypes)."""
+    card's machine lacks (msgpack, datasets, zstandard, ml_dtypes) or
+    the port stands without (psutil, click)."""
     banned = {"jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
-              "ml_dtypes"}
+              "ml_dtypes", "psutil", "click"}
     files = list((REPO / "tpfl_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for f in files:
         for line in f.read_text().splitlines():
@@ -84,7 +87,8 @@ def test_sources_name_no_jax_package():
                                    "transformer_lm", "resnet18_state", "scaffold",
                                    "tpfl_model", "torch_learner", "fedavg", "scaffold_agg",
                                    "fedmedian", "fedprox", "krum", "multikrum",
-                                   "trimmedmean", "random_bits", "node"])
+                                   "trimmedmean", "random_bits", "node", "dispatch_rtt",
+                                   "timed_loop", "mfu"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tpfl_torch.interop import params_from_flax
@@ -93,6 +97,7 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     from tpfl_torch.learning.dataset import TpflDataset
     from tpfl_torch.learning.model import TpflModel
     from tpfl_torch.learning.torch_learner import TorchLearner
+    from tpfl_torch.management import profiling
     from tpfl_torch.node import Node
     from tpfl_torch.models import CNN, ResNet18, TransformerLM, create_model, init_state
     from tpfl_torch.parallel import FederationEngine, VmapFederation
@@ -121,6 +126,9 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
         "node": lambda: Node(TpflModel(CNN(), {}, device="cpu"), TpflDataset.from_arrays(
             np.zeros((2, 8, 8, 3), np.float32), np.zeros(2, np.int32),
             np.zeros((1, 8, 8, 3), np.float32), np.zeros(1, np.int32)), addr="no-card"),
+        "dispatch_rtt": lambda: profiling.measure_dispatch_rtt(),
+        "timed_loop": lambda: profiling.timed_loop(lambda c: c, torch.zeros(1), (), 1),
+        "mfu": lambda: profiling.cost_model.record_round("no-card", 1.0, 1.0),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -59,7 +59,6 @@ class ConnectionTimeoutError(CommunicationError):
 # --- planes the port has not ported yet --------------------------------
 # Each seam the reference enters raises ``not_ported(what, ITEM)``, naming
 # the ROADMAP.md §1 queue item that ports it.
-SIMULATION_ITEM = "ROADMAP.md §1 item 5, simulation and observatories"
 MULTI_DEVICE_ITEM = "ROADMAP.md §1 item 7, multi-GPU and multi-host"
 REST_ITEM = "ROADMAP.md §1 item 8, the rest"
 

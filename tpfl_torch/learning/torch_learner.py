@@ -17,7 +17,10 @@ threading, and the raw gradients summed when a callback
 ``wants_avg_grad``. The optimizer state is created again on every fit;
 batches come from ``Batches.stacked(epoch=round·10 000 + epoch)`` with
 the seed ``(Settings.SEED or 0) + crc32(addr)``. Evaluation is the
-reference's masked confusion-matrix pass over every test sample. Under
+reference's masked confusion-matrix pass over every test sample. The
+train-epoch and evaluation functions are shared by every learner of one
+configuration (``_SHARED_PROGRAMS``, as the reference shares its jitted
+programs), behind the compile observatory. Under
 ``Settings.LEDGER_ENABLED`` each epoch's loss feeds the ledger's
 convergence monitor (``ledger.convergence.observe_loss``).
 """
@@ -82,6 +85,40 @@ def default_optimizer(lr: float) -> SGDMomentum:
 
 
 OptimizerFactory = Callable[[float], SGDMomentum]
+
+
+def module_key(module: Any) -> tuple:
+    """A hashable description of a zoo module: its class and its public
+    configuration (a zoo module holds no parameters)."""
+    config = tuple(sorted((k, repr(v)) for k, v in vars(module).items()
+                          if not k.startswith("_") and k != "training"))
+    return (type(module).__qualname__, config, repr(module))
+
+
+#: Train-epoch and evaluation functions shared by every learner of one
+#: configuration (the reference's compiled-program cache).
+_SHARED_PROGRAMS: dict[tuple, Callable] = {}
+
+
+def _shared_program(key: tuple, build: Callable[[], Callable]) -> Callable:
+    fn = _SHARED_PROGRAMS.get(key)
+    profiling.observatory.cache_event("shared_programs", hit=fn is not None)
+    if fn is None:
+        fn = _SHARED_PROGRAMS[key] = build()
+    return fn
+
+
+def clear_compiled_caches() -> None:
+    """Drop the process program caches: the shared learner programs and
+    the pool's batched programs (``SuperLearnerPool.reset``); counted in
+    ``tpfl_compiled_cache_clears_total``."""
+    dropped = len(_SHARED_PROGRAMS)
+    _SHARED_PROGRAMS.clear()
+    from tpfl_torch.simulation import batched_fit
+
+    dropped += len(batched_fit._programs)
+    batched_fit.clear_programs()
+    profiling.observatory.cache_cleared(dropped)
 
 
 def _addr_seed(addr: str) -> int:
@@ -194,6 +231,37 @@ def make_train_epoch(module: Any, loss_fn: Callable, has_aux: bool, opt: SGDMome
     return epoch
 
 
+def make_eval(module: Any, loss_fn: Callable) -> Callable:
+    """The reference's eval program: ``eval_batches(params, aux, xs, ys,
+    ms) -> (mean loss over the masked samples, confusion matrix [C,
+    C])`` over padded batches ``xs [n_batches, b, ...]`` with a 0/1
+    sample mask ``ms``."""
+
+    @torch.no_grad()
+    def eval_batches(params: Tree, aux: Tree, xs: torch.Tensor, ys: torch.Tensor,
+                     ms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        p1, a1 = _single(params), (_single(aux) if aux else {})
+        loss_sum = torch.zeros((), dtype=torch.float32, device=xs.device)
+        count = torch.zeros((), dtype=torch.int32, device=xs.device)
+        cm = None
+        for i in range(xs.shape[0]):
+            logits = apply(module, p1, a1, xs[i][None], train=False)[0][0]
+            y, m = ys[i], ms[i]
+            losses = loss_fn(logits, y)
+            preds = logits.argmax(-1)
+            mm = m.reshape(m.shape + (1,) * (losses.dim() - 1)).expand(losses.shape)
+            if cm is None:
+                n_classes = logits.shape[-1]
+                cm = torch.zeros((n_classes, n_classes), dtype=torch.int32, device=xs.device)
+            cm.index_put_((y.reshape(-1).long(), preds.reshape(-1)), mm.reshape(-1),
+                          accumulate=True)
+            loss_sum = loss_sum + (losses * mm).sum()
+            count = count + mm.sum(dtype=torch.int32)
+        return loss_sum / torch.clamp(count, min=1), cm
+
+    return eval_batches
+
+
 class TorchLearner(Learner):
     """Learner for the port's zoo modules on one device.
 
@@ -258,9 +326,13 @@ class TorchLearner(Learner):
         return any(getattr(cb, "wants_avg_grad", False) for cb in self.callbacks)
 
     def _build_train_epoch(self) -> Callable:
-        return make_train_epoch(self._module(), self._loss_fn, self._has_aux(),
-                                self._optimizer_factory(self.learning_rate),
-                                self._track_grads())
+        module, loss_fn, has_aux, track = (self._module(), self._loss_fn, self._has_aux(),
+                                           self._track_grads())
+        opt_factory, lr = self._optimizer_factory, self.learning_rate
+        key = ("train_epoch", module_key(module), loss_fn, has_aux, track, opt_factory, lr)
+        return _shared_program(key, lambda: profiling.observatory.wrap(
+            make_train_epoch(module, loss_fn, has_aux, opt_factory(lr), track),
+            f"train_epoch:{profiling.module_tag(module)}"))
 
     # --- data ---
 
@@ -438,31 +510,6 @@ class TorchLearner(Learner):
             )
         return self._eval_arrays
 
-    @torch.no_grad()
-    def _confusion(self, params: Tree, aux: Tree, xs: torch.Tensor, ys: torch.Tensor,
-                   ms: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """(mean loss over the masked samples, confusion matrix [C, C])
-        — the reference's eval program."""
-        module = self._module()
-        p1, a1 = _single(params), (_single(aux) if aux else {})
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        count = torch.zeros((), dtype=torch.int32, device=self.device)
-        cm = None
-        for i in range(xs.shape[0]):
-            logits = apply(module, p1, a1, xs[i][None], train=False)[0][0]
-            y, m = ys[i], ms[i]
-            losses = self._loss_fn(logits, y)
-            preds = logits.argmax(-1)
-            mm = m.reshape(m.shape + (1,) * (losses.dim() - 1)).expand(losses.shape)
-            if cm is None:
-                n_classes = logits.shape[-1]
-                cm = torch.zeros((n_classes, n_classes), dtype=torch.int32, device=self.device)
-            cm.index_put_((y.reshape(-1).long(), preds.reshape(-1)), mm.reshape(-1),
-                          accumulate=True)
-            loss_sum = loss_sum + (losses * mm).sum()
-            count = count + mm.sum(dtype=torch.int32)
-        return loss_sum / torch.clamp(count, min=1), cm
-
     def evaluate(self) -> dict[str, float]:
         """Loss + accuracy + macro precision/recall/F1 from one
         confusion-matrix pass over every test sample."""
@@ -472,7 +519,11 @@ class TorchLearner(Learner):
         xs, ys, ms = self._eval_batches()
         params = tree_map(lambda v: v.to(self.device), model.get_parameters())
         aux = tree_map(lambda v: v.to(self.device), model.aux_state or {})
-        loss, cm = self._confusion(params, aux, xs, ys, ms)
+        module = self._module()
+        key = ("eval", module_key(module), self._loss_fn)
+        eval_fn = _shared_program(key, lambda: profiling.observatory.wrap(
+            make_eval(module, self._loss_fn), f"eval:{profiling.module_tag(module)}"))
+        loss, cm = eval_fn(params, aux, xs, ys, ms)
         cm = cm.cpu().numpy().astype(np.float64)
         tp = np.diag(cm)
         support = cm.sum(axis=1)  # true counts per class
@@ -496,5 +547,6 @@ class TorchLearner(Learner):
         return metrics
 
 
-__all__ = ["SGDMomentum", "TorchLearner", "TrainState", "cross_entropy_loss",
-           "default_optimizer", "make_train_epoch", "make_train_step"]
+__all__ = ["SGDMomentum", "TorchLearner", "TrainState", "clear_compiled_caches",
+           "cross_entropy_loss", "default_optimizer", "make_eval", "make_train_epoch",
+           "make_train_step", "module_key"]

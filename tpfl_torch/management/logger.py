@@ -4,13 +4,18 @@ from ``Settings.LOG_LEVEL`` when the logger is built), the node registry
 (``get_nodes``) and experiment lifecycle hooks, metric routing
 (``log_metric``) into the two-tier stores of
 :mod:`tpfl_torch.management.metric_storage`, the per-link send-health
-store (``transport_metrics``), and the process metrics registry
-``logger.metrics`` (:data:`tpfl_torch.management.telemetry.metrics`).
+store (``transport_metrics``), the process metrics registry
+``logger.metrics`` (:data:`tpfl_torch.management.telemetry.metrics`),
+and the reference's ``WebLogger`` push path: after :meth:`TpflLogger.connect_web`,
+logs and metrics also go to a web dashboard
+(:class:`~tpfl_torch.management.web_services.TpflWebServices`) and every
+registered node gets a :class:`~tpfl_torch.management.node_monitor.NodeMonitor`
+that pushes its system metrics. Until then nothing is sent and no
+monitor runs.
 
 Routing rule (the reference's): a metric logged with a ``step`` goes to
 the *local* (per-step) store; one logged without goes to the *global*
-(per-round) store. The web dashboard and the HTTP metrics server of the
-reference's management plane are not ported (``ROADMAP.md`` §1 item 5).
+(per-round) store.
 """
 
 from __future__ import annotations
@@ -126,6 +131,11 @@ class TpflLogger:
         self._lock = make_lock("TpflLogger._lock")
         # guarded-by: _lock — addr -> {"simulation": bool, "experiment": ...}
         self._nodes: dict[str, dict[str, Any]] = {}
+        # The web dashboard client (connect_web) and one NodeMonitor per
+        # registered node while it is connected. unguarded: written on the
+        # node-lifecycle thread (start / stop), one key per node.
+        self._web: Any = None
+        self._monitors: dict[str, Any] = {}
 
     # --- levels / log methods ---
 
@@ -137,6 +147,9 @@ class TpflLogger:
 
     def log(self, level: int, node: str, message: str) -> None:
         self._logger.log(level, message, extra={"node": node})
+        if self._web is not None:
+            self._web.send_log(str(datetime.datetime.now()), node,
+                               logging.getLevelName(level), message)
 
     def debug(self, node: str, message: str) -> None:
         self.log(logging.DEBUG, node, message)
@@ -163,10 +176,36 @@ class TpflLogger:
             if node in self._nodes:
                 raise Exception(f"Node {node} already registered.")
             self._nodes[node] = {"simulation": simulation, "experiment": None}
+        if self._web is not None:
+            self._web.register_node(node, simulation)
+            from tpfl_torch.management.node_monitor import NodeMonitor
+
+            mon = NodeMonitor(node, self.log_system_metric)
+            mon.start()
+            self._monitors[node] = mon
 
     def unregister_node(self, node: str) -> None:
         with self._lock:
             self._nodes.pop(node, None)
+        mon = self._monitors.pop(node, None)
+        if mon is not None:
+            mon.stop()
+        if self._web is not None:
+            self._web.unregister_node(node)
+
+    # --- web dashboard ---
+
+    def connect_web(self, url: str, key: str) -> None:
+        """Push logs, metrics and the system metrics of nodes registered
+        from now on to the dashboard at ``url`` (``x-api-key: key``)."""
+        from tpfl_torch.management.web_services import TpflWebServices
+
+        self._web = TpflWebServices(url, key)
+
+    def log_system_metric(self, node: str, metric: str, value: float) -> None:
+        """A :class:`NodeMonitor` reading, pushed to the dashboard."""
+        if self._web is not None:
+            self._web.send_system_metric(node, metric, value, str(datetime.datetime.now()))
 
     def get_nodes(self) -> dict[str, dict[str, Any]]:
         """Snapshot copy of the registry."""
@@ -210,6 +249,11 @@ class TpflLogger:
             self.global_metrics.add_log(exp_name, round, metric, addr, value)
         else:
             self.local_metrics.add_log(exp_name, round, metric, addr, value, step)
+        if self._web is not None:
+            if step is None:
+                self._web.send_global_metric(addr, metric, value, round)
+            else:
+                self._web.send_local_metric(addr, metric, value, step, round)
 
     def get_local_logs(self) -> dict:
         """exp -> round -> node -> metric -> [(step, value)], a copy."""

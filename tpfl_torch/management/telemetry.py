@@ -12,10 +12,10 @@ node two always-available sinks:
   hot path is a plain dict update with no lock), folded on read.
   Holds the circuit breaker's transport counters, buffer-pool stats,
   payload bytes, aggregator fold timings, the ledger's and the
-  quarantine's series. Exportable as Prometheus text
-  (:meth:`MetricsRegistry.render_prometheus`) and dumpable as JSON
-  (the HTTP server of the reference's ``web_services.py`` is not
-  ported: ``ROADMAP.md`` §1 item 5). :meth:`MetricsRegistry.value`
+  quarantine's series, and ``NodeMonitor``'s system gauges. Exportable
+  as Prometheus text (:meth:`MetricsRegistry.render_prometheus`, served
+  over HTTP by ``web_services.MetricsHTTPServer``) and dumpable as
+  JSON. :meth:`MetricsRegistry.value`
   reads one counter or gauge back through :meth:`~MetricsRegistry.fold`.
 
 - :class:`FlightRecorder` — a bounded ring of the last

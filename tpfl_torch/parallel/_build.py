@@ -6,7 +6,10 @@ where an extension that includes PyTorch's headers takes minutes. The
 libraries go to ``build/kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
-and an unchanged one is loaded as it is.
+and an unchanged one is loaded as it is. ``Settings.COMPILE_CACHE_DIR``
+moves the directory (:func:`use_build_dir`), so that processes share
+their builds; a library found already built counts
+``tpfl_compile_cache_warm_total``.
 
 Nothing here runs at import: the CPU tests import every module, and
 this machine class has no ``nvcc``. A failed build raises with the
@@ -62,6 +65,12 @@ def nvcc_path() -> str:
     )
 
 
+def use_build_dir(directory: "str | Path") -> None:
+    """Build into and load from ``directory`` from now on."""
+    global BUILD_DIR
+    BUILD_DIR = Path(directory)
+
+
 def _target(name: str) -> Path:
     """The library's path, named by a hash of the source, every shared
     header (``csrc/*.cuh``, which any source may include) and the flags."""
@@ -76,6 +85,9 @@ def _start(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:
     """Start nvcc for ``csrc/<name>.cu`` unless its library exists."""
     out = _target(name)
     if out.exists():
+        from tpfl_torch.management.telemetry import metrics
+
+        metrics.counter("tpfl_compile_cache_warm_total")
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")

@@ -441,6 +441,11 @@ class FederationEngine:
         self.membership: Optional[Any] = None
         #: Optional ClientPopulation whose state rides the checkpoints.
         self.population: Optional[Any] = None
+        # The window callable per dispatch key behind the compile
+        # observatory (the reference's compiled round programs).
+        self._programs: dict[tuple, Callable] = {}
+        if Settings.COMPILE_CACHE_DIR:
+            profiling.ensure_compile_cache(str(Settings.COMPILE_CACHE_DIR))
 
     # --- state / data placement ---
 
@@ -1044,10 +1049,13 @@ class FederationEngine:
         if prof:
             self._windows += 1
             profiling.rounds.begin_round(node_tag, self._windows)
+        run = self._program(kind, epochs, n_rounds, w.dim(), donate is not False, tele_on,
+                            0 if scales is None else scales.dim(), codec, sched is not None,
+                            stale_exp)
         t0 = time.monotonic() if (prof or tele_on) else 0.0
         try:
-            state, losses, tele = self._run_window(kind, state, xs, ys, w, scales, sched,
-                                                   epochs, n_rounds, codec, tele_on, stale_exp)
+            state, losses, tele = run(kind, state, xs, ys, w, scales, sched, epochs, n_rounds,
+                                      codec, tele_on, stale_exp)
         except Exception as e:
             self._dump_flight(e, kind, n_rounds)
             raise
@@ -1062,6 +1070,33 @@ class FederationEngine:
         return EngineWindow(self, kind, aux is not None,
                             (params, c_locals, c_global, aux_out, losses), copy, n_rounds,
                             window_start, self._windows, prof, node_tag, t0, t1, event)
+
+    def _program(self, kind: str, epochs: int, n_rounds: int, w_ndim: int, donate: bool,
+                 telemetry: bool, a_ndim: int, codec: tuple[int, float], fedbuff: bool,
+                 stale_exp: float) -> Callable:
+        """The window callable of one dispatch key, behind the compile
+        observatory: the reference's program cache key (with its
+        one-device mesh axes and the padded capacity tier; ``donate``
+        None counts as the reference's default True) and program names,
+        so a tier promotion reads as one new program with one signature
+        and a variant never as a recompile of the base program."""
+        pop = 0 if self.population is None else int(self.population.registered)
+        key = (kind, int(epochs), int(n_rounds), int(w_ndim), bool(donate), bool(telemetry),
+               int(a_ndim), int(codec[0]), float(codec[1]), 1, "replicated", bool(fedbuff),
+               float(stale_exp), int(self.padded_nodes), 1, 1, pop)
+        fn = self._programs.get(key)
+        if fn is None:
+            # The reference's program cache sees a lookup only when its
+            # wrapper cache misses: one miss per new key.
+            profiling.observatory.cache_event("engine_programs", hit=False)
+            suffix = ((":obs" if telemetry else "") + (":atk" if a_ndim else "")
+                      + (f":{compression.codec_name(codec[0])}" if codec[0] else "")
+                      + (":fb" if fedbuff else "") + f":c{self.padded_nodes}"
+                      + (f":pop{pop}" if pop else ""))
+            fn = self._programs[key] = profiling.observatory.wrap(
+                self._run_window,
+                f"engine_round:{kind}x{n_rounds}{suffix}:{profiling.module_tag(self.module)}")
+        return fn
 
     def donation_report(self, *args: Any, **kwargs: Any) -> dict:
         """The reference's compiled-HLO buffer-donation report."""

@@ -14,6 +14,7 @@ import torch
 
 from tpfl_torch import DeviceLike
 from tpfl_torch.learning.torch_learner import OptimizerFactory, cross_entropy_loss
+from tpfl_torch.management import profiling
 from tpfl_torch.models.zoo import Params
 from tpfl_torch.parallel.engine import DENSE, FederationEngine
 
@@ -67,6 +68,9 @@ class VmapFederation:
         self.aux_mode = aux_mode
         self.algorithm = algorithm
         self.prox_mu = float(prox_mu)
+        # The round function per variant ("", "_aux", "_scaffold") behind
+        # the compile observatory, as the reference wraps its jitted ones.
+        self._round_fns: dict[str, Callable] = {}
 
     def init_state(self, input_shape: tuple[int, ...]) -> tuple[Params, Params]:
         """(stacked params, stacked aux) — aux is ``{}`` for modules
@@ -96,8 +100,13 @@ class VmapFederation:
         aux, losses)``; with algorithm="scaffold" ``(params, aux,
         (c_locals, c_global), losses)`` (``aux`` is ``{}`` for aux-free
         modules)."""
-        return self.engine._window(params, xs, ys, weights, epochs, 1, aux, scaffold_state,
-                                   DENSE)
+        variant = ("_scaffold" if self.algorithm == "scaffold"
+                   else "_aux" if aux is not None else "")
+        fn = self._round_fns.get(variant)
+        if fn is None:
+            fn = self._round_fns[variant] = profiling.observatory.wrap(
+                self.engine._window, f"vmap_round{variant}:{profiling.module_tag(self.module)}")
+        return fn(params, xs, ys, weights, epochs, 1, aux, scaffold_state, DENSE)
 
     def run_rounds(self, params: Params, xs: Any, ys: Any, weights: Optional[Any] = None,
                    epochs: int = 1, n_rounds: int = 1, aux: Optional[Any] = None,

@@ -25,12 +25,7 @@ from __future__ import annotations
 import os
 from typing import Any
 
-from tpfl_torch.exceptions import (
-    MULTI_DEVICE_ITEM,
-    REST_ITEM,
-    SIMULATION_ITEM,
-    not_ported,
-)
+from tpfl_torch.exceptions import MULTI_DEVICE_ITEM, REST_ITEM, not_ported
 
 
 class Settings:
@@ -383,8 +378,8 @@ class Settings:
 
     # --- observability ---
     RESOURCE_MONITOR_PERIOD: float = 1.0
-    """Period (s) of the reference's per-node resource monitor. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Period (s) of ``management.node_monitor.NodeMonitor``'s samples
+    (CPU, RAM, network, device memory, ledger, fleet gauges)."""
 
     TELEMETRY_ENABLED: bool = False
     """Master gate for hop-level tracing (``tpfl_torch.management.tracing``):
@@ -416,24 +411,22 @@ class Settings:
     recent N points, evicting oldest-first."""
 
     FLEETOBS_SNAPSHOT_PERIOD: float = 0.0
-    """Cadence (s) of the reference's fleet snapshot publisher. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Cadence (s) of ``management.fleetobs.FleetPublisher``; 0 publishes
+    once."""
 
     FLEETOBS_DIR: str = ""
-    """Directory of the reference's fleet snapshots. Carried for parity; the
-    port does not read it (``UNPORTED_KNOBS``)."""
+    """Where ``FleetPublisher`` writes ``fleetsnap-<origin>.json`` and
+    ``fleetobs.fleet_from_dir`` folds them from; "" = off."""
 
     SLO_TARGETS: str = ""
-    """Service-level objectives of the reference's SLO watchdog. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """``fleetobs.SLOWatchdog``'s targets: ``;``-separated ``rate(counter) |
+    gauge(name) | ratio(a, b)`` clauses against a threshold."""
 
     SLO_EWMA: float = 0.3
-    """EWMA factor of the reference's SLO watchdog. Carried for parity; the
-    port does not read it (``UNPORTED_KNOBS``)."""
+    """EWMA factor of the SLO watchdog's signals."""
 
     SLO_BREACH_WINDOWS: int = 2
-    """Violating evaluations before the reference's SLO watchdog fires.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Consecutive violating evaluations before the SLO watchdog fires."""
 
     GOSSIP_METRICS: bool = True
     """Broadcast eval metrics to the federation after each round
@@ -461,15 +454,15 @@ class Settings:
     # --- device-plane profiling ---
     PROFILING_ENABLED: bool = False
     """Master gate for the round profiler
-    (``tpfl_torch.management.profiling.rounds``): per-round wall-clock
-    attribution into vote / train / fold / gossip / host_other. Off, a
-    span is one attribute read and nothing is recorded. Read at use
-    time."""
+    (``tpfl_torch.management.profiling.rounds``: per-round wall-clock
+    attribution into vote / train / fold / gossip / host_other) and the
+    compile observatory's signature probes. Off, a span or a probe is one
+    attribute read and nothing is recorded. Read at use time."""
 
     PROFILING_RECOMPILE_WARN: int = 8
-    """Signatures per jit program before the reference's compile observatory
-    warns. Carried for parity; the port does not read it
-    (``UNPORTED_KNOBS``)."""
+    """Distinct argument signatures of one program before the compile
+    observatory records a ``recompile_storm`` (read when
+    ``PROFILING_ENABLED``)."""
 
     PROFILING_TRACE_DIR: str = ""
     """When set, a node's experiment (StartLearning through finish) runs
@@ -601,9 +594,11 @@ class Settings:
     """Floor of ``MembershipView``'s capacity tiers."""
 
     COMPILE_CACHE_DIR: str = ""
-    """JAX's persistent compilation cache directory. The port compiles
-    no programs: ``FederationEngine`` refuses a non-empty value
-    (``UNPORTED_SWITCHES``)."""
+    """The reference's persistent compilation cache directory. In the
+    port, the directory the CUDA kernels are built into and loaded from
+    (``parallel._build``; default ``build/kernels/`` of the checkout):
+    ``FederationEngine`` points the build there when set, so processes
+    share their ``nvcc`` outputs; "" = the default."""
 
     CHECKPOINT_DIR: str = ""
     """Where ``parallel.FederationLearner`` writes its engine-state
@@ -1010,12 +1005,10 @@ class Settings:
 #: :meth:`Settings.refuse_unported` checks it).
 UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
     "TRACE_CONTRACTS": (REST_ITEM, False, ("node", "engine")),
-    "COMPILE_CACHE_DIR": (SIMULATION_ITEM, "", ("engine",)),
 }
 
 _GRPC = ("communication.GrpcCommunicationProtocol", REST_ITEM)
 _MESH = ("parallel.FederationEngine(mesh=)", MULTI_DEVICE_ITEM)
-_FLEETOBS = ("management.fleetobs", SIMULATION_ITEM)
 
 #: Knobs that only tune a plane the port has not ported: knob -> (the
 #: reference's entry point into that plane, ``ROADMAP.md`` item). The
@@ -1028,12 +1021,8 @@ UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
                      "CLIENT_CRT", "CLIENT_KEY"), _GRPC),
     **dict.fromkeys(("SHARD_NODES", "SHARD_DEVICES", "SHARD_MODEL", "SHARD_LAYOUT",
                      "SHARD_HOSTS"), _MESH),
-    **dict.fromkeys(("FLEETOBS_SNAPSHOT_PERIOD", "FLEETOBS_DIR", "SLO_TARGETS", "SLO_EWMA",
-                     "SLO_BREACH_WINDOWS"), _FLEETOBS),
     "ENGINE_DONATE": ("parallel.FederationEngine.donation_report", REST_ITEM),
     "RANK_CONTRACTS": ("parallel.ranksafe", MULTI_DEVICE_ITEM),
-    "RESOURCE_MONITOR_PERIOD": ("management.node_monitor", SIMULATION_ITEM),
-    "PROFILING_RECOMPILE_WARN": ("management.profiling.CompileObservatory", SIMULATION_ITEM),
     "DEFAULT_DTYPE": None,
     "EXACT_AGGREGATION": None,
 }

@@ -33,6 +33,7 @@ import torch
 from tpfl_torch.management import ledger, profiling
 from tpfl_torch.management.logger import logger
 from tpfl_torch.management.telemetry import metrics
+from tpfl_torch.learning.torch_learner import module_key
 from tpfl_torch.parallel.engine import build_batched_fit_program
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import tree_items, tree_map
@@ -40,14 +41,6 @@ from tpfl_torch.utils.tree import tree_items, tree_map
 #: Host→device copies of stacked chunks since the process started (one a
 #: chunk on the card).
 h2d_copies = 0
-
-
-def _module_key(module: Any) -> tuple:
-    """A hashable description of a zoo module: its class and its public
-    configuration (a zoo module holds no parameters)."""
-    config = tuple(sorted((k, repr(v)) for k, v in vars(module).items()
-                          if not k.startswith("_") and k != "training"))
-    return (type(module).__qualname__, config, repr(module))
 
 
 def job_signature(learner: Any) -> tuple:
@@ -63,7 +56,7 @@ def job_signature(learner: Any) -> tuple:
     aux = tuple(sorted((path, tuple(v.shape), str(v.dtype))
                        for path, v in tree_items(model.aux_state or {})))
     return (
-        _module_key(model.module),
+        module_key(model.module),
         shapes,
         aux,
         str(learner.device),
@@ -76,9 +69,20 @@ def job_signature(learner: Any) -> tuple:
     )
 
 
+class _Hints:
+    """Host facts of a chunk that pick the fit's eager code path and are
+    no part of its program signature (the reference's jitted fit takes
+    neither): whether any row pulls towards its anchor, and which
+    batches every row trains."""
+
+    def __init__(self, prox: bool, full: Optional[list]) -> None:
+        self.prox, self.full = prox, full
+
+
 class BatchedFitProgram:
     """The batched local fit of one job signature
-    (:func:`~tpfl_torch.parallel.engine.build_batched_fit_program`)."""
+    (:func:`~tpfl_torch.parallel.engine.build_batched_fit_program`), one
+    fit per (batches per node, epochs) behind the compile observatory."""
 
     def __init__(self, learner: Any) -> None:
         self._module = learner._module()
@@ -89,13 +93,28 @@ class BatchedFitProgram:
         # also sum the raw per-step gradients; job_signature holds the
         # callback names, so tracking and plain jobs never share one.
         self._track = any(getattr(cb, "wants_avg_grad", False) for cb in learner.callbacks)
+        self._fns: dict[tuple[int, int], Callable] = {}
 
-    def run(self, params: Any, aux: Any, corr: Any, anchor: Any, mus: Optional[torch.Tensor],
+    def run(self, params: Any, aux: Any, corr: Any, anchor: Any, mus: torch.Tensor,
             xs: torch.Tensor, ys: torch.Tensor, bmask: torch.Tensor, epochs: int,
-            full: Optional[list] = None) -> tuple:
-        fit = build_batched_fit_program(self._module, self._opt, self._loss_fn, self._has_aux,
-                                        self._track, int(epochs))
-        return fit(params, aux, corr, anchor, mus, xs, ys, bmask, full)
+            full: Optional[list] = None, prox: bool = True) -> tuple:
+        """The chunk's fit; ``mus`` applies only when ``prox``."""
+        key = (int(xs.shape[1]), int(epochs))
+        fn = self._fns.get(key)
+        profiling.observatory.cache_event("batched_shape_fns", hit=fn is not None)
+        if fn is None:
+            fit = build_batched_fit_program(self._module, self._opt, self._loss_fn,
+                                            self._has_aux, self._track, int(epochs))
+
+            def program(params: Any, aux: Any, corr: Any, anchor: Any, mus: torch.Tensor,
+                        xs: torch.Tensor, ys: torch.Tensor, bmask: torch.Tensor,
+                        hints: _Hints) -> tuple:
+                return fit(params, aux, corr, anchor, mus if hints.prox else None, xs, ys,
+                           bmask, hints.full)
+
+            fn = self._fns[key] = profiling.observatory.wrap(
+                program, f"batched_fit:{profiling.module_tag(self._module)}")
+        return fn(params, aux, corr, anchor, mus, xs, ys, bmask, _Hints(prox, full))
 
 
 _programs: dict[tuple, BatchedFitProgram] = {}
@@ -148,6 +167,7 @@ def run_batched_fits(signature: tuple, learners: list,
     not fit them again). A CUDA error is not a chunk failure: it
     propagates."""
     prog = _programs.get(signature)
+    profiling.observatory.cache_event("batched_programs", hit=prog is not None)
     if prog is None:
         prog = _programs[signature] = BatchedFitProgram(learners[0])
     chunk = max(int(Settings.SIM_MAX_BATCH_NODES), 1)
@@ -260,8 +280,8 @@ def _run_chunk(prog: BatchedFitProgram, learners: list) -> int:
     # The pull anchors are the round-start rows themselves: the fit never
     # writes its inputs.
     new_params, new_aux, losses, gsums = prog.run(
-        stacked_params, stacked_aux, stacked_corr, stacked_params,
-        mus_d if mus.any() else None, xs_d, ys_d, mask_d, epochs, full)
+        stacked_params, stacked_aux, stacked_corr, stacked_params, mus_d, xs_d, ys_d, mask_d,
+        epochs, full, prox=bool(mus.any()))
     if prof:
         t1 = time.monotonic()
         if losses.device.type == "cuda":

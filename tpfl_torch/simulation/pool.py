@@ -29,11 +29,10 @@ from typing import Any, Optional
 
 from tpfl_torch.learning.learner import Learner
 from tpfl_torch.learning.model import TpflModel
-from tpfl_torch.learning.torch_learner import TorchLearner
+from tpfl_torch.learning.torch_learner import TorchLearner, clear_compiled_caches
 from tpfl_torch.management.logger import logger
 from tpfl_torch.management.telemetry import metrics
 from tpfl_torch.settings import Settings
-from tpfl_torch.simulation import batched_fit
 from tpfl_torch.simulation.batched_fit import is_device_error, job_signature, run_batched_fits
 
 
@@ -83,7 +82,8 @@ class SuperLearnerPool:
     @classmethod
     def reset(cls, clear_compiled: bool = True) -> None:
         """Tear down the singleton (tests / reconfiguration).
-        ``clear_compiled`` also drops the per-signature batched programs."""
+        ``clear_compiled`` also drops the process program caches
+        (``torch_learner.clear_compiled_caches``)."""
         with cls._instance_lock:
             inst, cls._instance = cls._instance, None
         if inst is not None:
@@ -94,7 +94,7 @@ class SuperLearnerPool:
                 inst._dispatcher.join(timeout=5)
             inst._fallback.shutdown(wait=False)
         if clear_compiled:
-            batched_fit.clear_programs()
+            clear_compiled_caches()
 
     # --- submission (each node's learning thread) ---
 
