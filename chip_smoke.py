@@ -32,7 +32,8 @@
    convolutions, no kernel of the port) gives the round's yardstick.
 5. Flash kernel phase: ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at
    the transformer main path's shape (B·H = 64·8, S = 2048, D = 64,
-   causal, bf16) and at the long-context one (B·H = 1·8, S = 32768), each
+   causal, bf16), at the long-context one (B·H = 1·8, S = 32768) and at
+   the attention tier's two (B·H = 1·8, D = 128, S = 8192 and 32768), each
    held against its plain version (bf16 outputs as the main path uses
    them, and f32 outputs of the same kernels, which show that P and dS
    are rounded as the reference rounds them), bf16 cases at the edges of
@@ -259,6 +260,34 @@
    windows and silent without it, the fleet plane's overhead, the
    census sweep's bitsets; (f) ``MetricsHTTPServer`` on loopback (200,
    then 503 once the watchdog breaches) and one ``NodeMonitor`` period.
+20. SPMD planes phase (phase 20: sequence, pipeline and expert
+   parallelism, on one-rank meshes over an NCCL group in an in-process
+   store): (a) the flash ring's arithmetic on one card — an 8k sequence
+   (B 1, H 8, D 128, bf16) split into 4 emulated ranks, each rank's
+   forward steps through ``flash_block_fwd`` and ``_ring_merge`` and its
+   backward steps through ``flash_block_bwd`` with the rank's global lse /
+   delta, causal and not, against ``flash_attention`` over the whole
+   sequence at the kernel phase's bf16 tolerance, and one off-diagonal
+   (non-causal, f32 out) step against the plain versions; (b)
+   ``make_ring_attention`` on a one-rank ``sp`` mesh at S 8k and 32k, its
+   output and gradients against ``flash_attention`` (max abs difference
+   reported), ``impl="auto"`` taking the flash inner; (c) the bench's
+   ``attention`` tier (``bench.py:3554-3640``): causal fwd + bwd steps timed
+   by ``profiling.timed_loop`` at its iteration counts —
+   ``flash_fwdbwd_{8,32}k``, ``blockwise_fwdbwd_8k``,
+   ``ring_sp_flash_fwdbwd_{8,32}k``, ``ring_sp_xla_fwdbwd_8k`` tokens/s and
+   the flash SDPA backend's beside them; (d) the ``transformer`` tier
+   (``bench.py:3642-3685``): ``TransformerLM(vocab 256, dim 512, heads 8,
+   n_layers 4, max_len 32768)`` at one node, B 1, S 32,768, through
+   ``flash_attention``, 5 SGD steps (lr 1e-2, momentum 0.9) a timed loop,
+   ``transformer_32k_train_toks_per_sec``; its first step's loss and
+   gradient norm against the same step through the plain versions, 4
+   launches of each flash kernel a step; (e) a 1-stage
+   ``make_pipeline_trainer`` over the tier's 4 ``TransformerBlock``s (4
+   microbatches of [1, 2048, 512], 2 steps) against the blocks in sequence,
+   and one ``make_moe_train_layer`` step of the LM's FFN width (512 -> 2048
+   -> 512) against its plain single expert. Every flash launch of the
+   phase takes the kernel the dispatch rule names.
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
@@ -277,6 +306,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import re
 import shutil
 import statistics
@@ -303,12 +333,13 @@ from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, TpflDataset
 from tpfl_torch.learning.dataset.synthetic import (synthetic_cifar10, synthetic_classification,
                                                    synthetic_mnist)
 from tpfl_torch.learning.model import TpflModel
-from tpfl_torch.learning.torch_learner import TorchLearner
+from tpfl_torch.learning.torch_learner import SGDMomentum, TorchLearner
 from tpfl_torch.management import engine_obs, ledger, profiling, quarantine, telemetry, tracing
 from tpfl_torch.management.checkpoint import EngineCheckpointer
 from tpfl_torch.management.quarantine import QuarantineEngine
 from tpfl_torch.management.logger import logger
-from tpfl_torch.models import CNN, MLP, ResNet18, TransformerLM, init_params
+from tpfl_torch.models import CNN, MLP, ResNet18, TransformerBlock, TransformerLM, init_params
+from tpfl_torch.models.zoo import stack_params
 from tpfl_torch.node import Node
 from tpfl_torch.parallel import (ClientPopulation, FedBuffSchedule, FederationEngine,
                                  FederationLearner, MembershipView, VmapFederation,
@@ -320,13 +351,17 @@ from tpfl_torch.parallel.ring_attention import blockwise_attention
 from tpfl_torch.settings import Settings
 from tpfl_torch.simulation import SuperLearnerPool, VirtualNodeLearner, batched_fit, isolated
 from tpfl_torch.utils import TopologyFactory, TopologyType, wait_convergence, wait_to_finish
-from tpfl_torch.utils.tree import tree_items, tree_map
+from tpfl_torch.utils.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 
 N_NODES, N_BATCHES, BATCH, EPOCHS, N_ROUNDS = 100, 4, 128, 1, 3
+# The CNN and transformer main paths are timed as the best of this many
+# windows: phase 19c holds their rounds/s against a best-of-2 timing, and
+# one window alone once read 39% slow on the card.
+MAIN_WINDOWS = 2
 # (name, H, W, Cin, Cout, input needs grad) of the CNN's convs at 32×32×3.
 LAYERS = [("Conv_0", 32, 32, 3, 32, False), ("Conv_1", 16, 16, 32, 64, True)]
 SOURCE = "tpfl_torch/parallel/csrc/conv_bwd.cu"
@@ -344,9 +379,11 @@ FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 LM_KW = dict(vocab=256, dim=512, heads=8, n_layers=4, max_len=4096)
 T_NODES, T_BATCHES, T_BATCH, T_SEQ, T_LR = 8, 1, 8, 2048, 0.05
 # (label, B, S, H, D) of the flash kernel phase: the main path's
-# attention (nodes fold into the batch: 8 nodes x 8 sequences) and the
-# transformer tier's long context (bench.py:3651-3655).
-FLASH_SHAPES = [("main", T_NODES * T_BATCH, T_SEQ, 8, 64), ("long", 1, 32768, 8, 64)]
+# attention (nodes fold into the batch: 8 nodes x 8 sequences), the
+# transformer tier's long context (bench.py:3651-3655) and the attention
+# tier's two shapes (bench.py:3566-3610: B 1, H 8, D 128, causal).
+FLASH_SHAPES = [("main", T_NODES * T_BATCH, T_SEQ, 8, 64), ("long", 1, 32768, 8, 64),
+                ("attention 8k", 1, 8192, 8, 128), ("attention 32k", 1, 32768, 8, 128)]
 
 
 def log(msg: str) -> None:
@@ -754,22 +791,25 @@ def carry(out: tuple) -> tuple[dict, dict, torch.Tensor]:
     return out[0], {"aux": out[1], "scaffold_state": out[2]}, out[3]
 
 
-def timed_window(fed, params: dict, state: dict, xs, ys) -> tuple:
-    """One warm-up round, then a timed N_ROUNDS window with every launch
-    count set to 0 just before it. Returns (window wall seconds, params,
-    state, losses, launches, wgmma launches, (fed, params, xs, ys, state)
-    for a profiled round)."""
+def timed_window(fed, params: dict, state: dict, xs, ys, windows: int = 1) -> tuple:
+    """One warm-up round, then ``windows`` timed N_ROUNDS windows, each
+    training from the last one's fold, with every launch count set to 0
+    just before the first. Returns (the best window's wall seconds, params,
+    state, the last window's losses, launches, wgmma launches, (fed, params,
+    xs, ys, state) for a profiled round)."""
     params, state, _ = carry(fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1,
                                             **state))  # warm-up
     torch.cuda.synchronize()
 
     reset_launches()
-    t0 = time.perf_counter()
-    out = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, **state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = float("inf")
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        out = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, **state)
+        torch.cuda.synchronize()
+        wall = min(wall, time.perf_counter() - t0)
+        params, state, losses = carry(out)
     launches, wgmma = read_launches(), read_wgmma_launches(WRAPPERS)
-    params, state, losses = carry(out)
     return wall, params, state, losses, launches, wgmma, (fed, params, xs, ys, state)
 
 
@@ -782,11 +822,12 @@ def cnn_data(fed) -> tuple[torch.Tensor, torch.Tensor]:
     return fed.shard_data(xs, y.reshape(N_NODES, N_BATCHES, BATCH))
 
 
-def cnn_rounds(conv_impl: str, algorithm: str = "fedavg", lr: float = 0.1) -> tuple:
+def cnn_rounds(conv_impl: str, algorithm: str = "fedavg", lr: float = 0.1,
+               windows: int = 1) -> tuple:
     """The 100-node CNN round with ``conv_impl``, ``algorithm`` and
     learning rate ``lr`` (the wire codec as ``Settings.ENGINE_WIRE_CODEC``
     says): a
-    :func:`timed_window`. Returns (window wall seconds, params, losses,
+    :func:`timed_window` of ``windows`` windows. Returns (window wall seconds, params, losses,
     launches, wgmma launches of the conv kernels, profile arguments)."""
     fed = VmapFederation(CNN(out_channels=10, conv_impl=conv_impl), n_nodes=N_NODES,
                          learning_rate=lr, seed=0, algorithm=algorithm)
@@ -795,7 +836,7 @@ def cnn_rounds(conv_impl: str, algorithm: str = "fedavg", lr: float = 0.1) -> tu
     state = ({"scaffold_state": fed.init_scaffold_state(params)}
              if algorithm == "scaffold" else {})
     wall, params, state, losses, launches, wgmma, fed_args = timed_window(
-        fed, params, state, xs, ys)
+        fed, params, state, xs, ys, windows)
     for tree in state.get("scaffold_state", ()):
         for path, v in tree_items(tree):
             if not torch.isfinite(v).all():
@@ -814,9 +855,12 @@ def cnn_result(card: str, conv_impl: str, wall: float, losses: torch.Tensor) -> 
 
 def main_path(card: str) -> tuple[dict, tuple]:
     """The round through the kernels (``conv_impl="pallas"``): 8 conv_dw
-    and 4 conv_dx launches a round, every one on its wgmma kernel."""
-    wall, params, losses, launches, wgmma, fed_args = cnn_rounds("pallas")
-    steps = N_BATCHES * EPOCHS * N_ROUNDS
+    and 4 conv_dx launches a round, every one on its wgmma kernel. Its
+    rounds/s is the best of ``MAIN_WINDOWS`` windows, as phase 19c times
+    the windows it is held against."""
+    wall, params, losses, launches, wgmma, fed_args = cnn_rounds("pallas",
+                                                                 windows=MAIN_WINDOWS)
+    steps = N_BATCHES * EPOCHS * N_ROUNDS * MAIN_WINDOWS
     check_main_path(params, losses, launches, {
         **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
     check_all_wgmma("CNN round", launches, wgmma)
@@ -985,6 +1029,7 @@ def flash_shape_phase(label: str, b: int, s: int, h: int, d: int) -> dict:
         kernel, plain = timed[name]
         rows[name] = {
             **bound(nbytes, flops), "shape": label, "B": b, "S": s, "H": h, "D": d,
+            "wgmma": flash_takes_wgmma(bf16, d),  # check_flash held every launch to it
             "max_abs_err": errs[name], "f32_out_rel_rms_err": rms[name],
             "ms": time_ms(kernel), "plain_ms": time_ms(plain, 3),
             "library_ms": library[name],
@@ -1131,23 +1176,19 @@ def transformer_reference_phase() -> None:
 
 
 def transformer_main_path(card: str) -> tuple[dict, tuple]:
+    """The 8-node TransformerLM round through the flash kernels: a
+    :func:`timed_window` of ``MAIN_WINDOWS`` windows, 4 launches of each
+    flash kernel a round, every one on its wgmma kernel."""
     fed = VmapFederation(TransformerLM(**LM_KW, attention_fn=fk.flash_attention),
                          n_nodes=T_NODES, learning_rate=T_LR, seed=0)
     xs, ys = lm_tokens(T_NODES, T_BATCHES, T_BATCH, T_SEQ, LM_KW["vocab"], seed=5)
     xs, ys = fed.shard_data(xs, ys)
     params = fed.init_params((T_SEQ,))
-    params, _ = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1)  # warm-up
-    torch.cuda.synchronize()
-
-    reset_launches()
-    t0 = time.perf_counter()
-    params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_launches()
+    wall, params, _, losses, launches, _, _ = timed_window(fed, params, {}, xs, ys,
+                                                           MAIN_WINDOWS)
     wgmma = read_wgmma_launches(FLASH_KERNELS)
 
-    per_window = LM_KW["n_layers"] * T_BATCHES * EPOCHS * N_ROUNDS
+    per_window = LM_KW["n_layers"] * T_BATCHES * EPOCHS * N_ROUNDS * MAIN_WINDOWS
     check_main_path(params, losses, launches, {
         **dict.fromkeys(WRAPPERS, 0), **dict.fromkeys(FLASH_KERNELS, per_window)})
     check_all_wgmma("transformer round", launches, wgmma)
@@ -4480,6 +4521,412 @@ def observatory_path(card: str, cnn: dict, cnn_args: tuple, lm: dict, lm_args: t
     return out
 
 
+# ---- phase 20: sequence, pipeline and expert parallelism ---------------------------
+
+# The bench's attention and transformer tiers (bench.py:3554-3685): B 1,
+# H 8, D 128 attention at S 8,192 and 32,768, causal, fwd + bwd; the
+# reference's iteration counts (8k: 192, 32k: 16).
+AT_B, AT_H, AT_D = 1, 8, 128
+AT_ITERS = {8192: 192, 32768: 16}
+AT_SHORT, AT_LONG = AT_ITERS
+RING_BLOCKS = 4  # 20a: emulated ranks of the 8k sequence
+LM32_KW = dict(vocab=256, dim=512, heads=8, n_layers=4, max_len=32768)
+LM32_SEQ, LM32_STEPS, LM32_LR, LM32_MOMENTUM = 32768, 5, 1e-2, 0.9
+PIPE_MICRO, PIPE_SEQ = 4, 2048  # 20e: microbatches of [1, 2048, 512]
+MOE_TOKENS, MOE_HIDDEN = 4096, 2048
+BF16_TOL = 2.0 ** -7  # the flash kernel phase's bf16 tolerance (rtol and of max |ref|)
+
+
+def attention_inputs(s: int, seed: int) -> tuple:
+    """q, k, v and a cotangent [B, S, H, D] bf16 from a seeded generator."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(AT_B, s, AT_H, AT_D, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for _ in range(4))
+
+
+def flash_grads(attn, q, k, v, do) -> tuple:
+    """attn(q, k, v) and the gradients of <attn(q, k, v), do>."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attn(*leaves)
+    out.backward(do)
+    return (out.detach(), *(t.grad for t in leaves))
+
+
+def ring_arithmetic(causal: bool) -> dict:
+    """20a: the flash ring's steps over RING_BLOCKS emulated ranks of an
+    8k sequence on one card — each rank's forward steps through
+    ``flash_block_fwd`` and ``_ring_merge``, then its backward steps
+    through ``flash_block_bwd`` with the rank's global lse / delta, dK / dV
+    summed into the block they belong to — against ``flash_attention`` over
+    the whole sequence at the kernel phase's bf16 tolerance. One
+    off-diagonal (non-causal, f32 out) step is held to the plain versions
+    too (``check_rms``, 2^-12)."""
+    from tpfl_torch.parallel.ring_attention import _ring_merge, _ring_steps
+
+    s, n = AT_SHORT, RING_BLOCKS
+    q, k, v, do = attention_inputs(s, 20)
+    size = s // n
+    blk = [lambda t, r=r: t[:, r * size:(r + 1) * size].contiguous() for r in range(n)]
+    qb, kb, vb, dob = ([b(t) for b in blk] for t in (q, k, v, do))
+    outs, lses = [], []
+    for my in range(n):
+        o = torch.zeros((AT_B, size, AT_H, AT_D), dtype=torch.float32, device="cuda")
+        lse = torch.full((AT_B, AT_H, size), float("-inf"), device="cuda")
+        for t, diag in _ring_steps(n, my, causal):
+            src = (my - t) % n
+            o, lse = _ring_merge(o, lse, *fk.flash_block_fwd(qb[my], kb[src], vb[src], diag))
+        outs.append(o.to(torch.bfloat16))
+        lses.append(lse)
+    dq = [torch.zeros_like(b, dtype=torch.float32) for b in qb]
+    dk = [torch.zeros_like(b, dtype=torch.float32) for b in kb]
+    dv = [torch.zeros_like(b, dtype=torch.float32) for b in vb]
+    for my in range(n):
+        delta = (dob[my].float() * outs[my].float()).sum(-1).transpose(1, 2)
+        for t, diag in _ring_steps(n, my, causal):
+            src = (my - t) % n
+            dq_c, dk_c, dv_c = fk.flash_block_bwd(qb[my], kb[src], vb[src], dob[my], lses[my],
+                                                  delta, diag)
+            dq[my] += dq_c
+            dk[src] += dk_c
+            dv[src] += dv_c
+    want = flash_grads(lambda a, b, c: fk.flash_attention(a, b, c, causal=causal), q, k, v, do)
+    got = [torch.cat(parts, dim=1).to(torch.bfloat16) for parts in (outs, dq, dk, dv)]
+    errs = {name: check_close(f"ring arithmetic (causal={causal}) {name}", g, w, BF16_TOL,
+                              BF16_TOL)
+            for name, g, w in zip(("out", "dq", "dk", "dv"), got, want)}
+    # One off-diagonal step (rank 3 attending block 1 fully), f32 outputs,
+    # against the plain versions with the rank's global lse / delta.
+    my, src = n - 1, 1
+    fold = [fk._fold_heads(t) for t in (qb[my], kb[src], vb[src], dob[my])]
+    rows = (lses[my].reshape(AT_B * AT_H, size),
+            (dob[my].float() * outs[my].float()).sum(-1).transpose(1, 2)
+            .reshape(AT_B * AT_H, size).contiguous())
+    o32, _ = fk.flash_fwd(*fold[:3], False, out_dtype=torch.float32)
+    o32_ref, _ = fk.flash_fwd_plain(*fold[:3], False, out_dtype=torch.float32)
+    args = (*fold, *rows, False)
+    step = {"flash_fwd": check_rms("ring step flash_fwd (f32 out)", o32, o32_ref, 2.0 ** -12),
+            "flash_dq": check_rms("ring step flash_dq (f32 out)",
+                                  fk.flash_dq(*args, out_dtype=torch.float32),
+                                  fk.flash_dq_plain(*args, out_dtype=torch.float32), 2.0 ** -12)}
+    step["flash_dkv"] = max(check_rms(f"ring step flash_dkv {name} (f32 out)", g, w, 2.0 ** -12)
+                            for name, g, w in zip(
+                                ("dk", "dv"), fk.flash_dkv(*args, out_dtype=torch.float32),
+                                fk.flash_dkv_plain(*args, out_dtype=torch.float32)))
+    return {"max_abs_err": errs, "off_diagonal_step_f32_rel_rms_err": step}
+
+
+def ring_on_mesh(mesh) -> dict:
+    """20b: ``make_ring_attention`` on the one-rank ``sp`` mesh, as the
+    bench builds it, at S 8k and 32k: output and gradients against
+    ``flash_attention`` (expected equal: the one-rank ring is its forward
+    and backward through the ring's f32 merge); ``impl="auto"`` on CUDA
+    tensors takes the flash inner."""
+    from tpfl_torch.parallel.ring_attention import make_ring_attention
+
+    out = {}
+    for s in AT_ITERS:
+        q, k, v, do = attention_inputs(s, 21)
+        ring = make_ring_attention(mesh, causal=True, impl="flash")
+        got = flash_grads(ring, q, k, v, do)
+        want = flash_grads(lambda a, b, c: fk.flash_attention(a, b, c, causal=True),
+                           q, k, v, do)
+        out[f"{s // 1024}k_max_abs_diff"] = {
+            name: check_close(f"ring on the sp mesh S={s} {name}", g, w, BF16_TOL, BF16_TOL)
+            for name, g, w in zip(("out", "dq", "dk", "dv"), got, want)}
+        del q, k, v, do, got, want
+    before = fk.flash_fwd.launches
+    q, k, v, _ = attention_inputs(512, 22)
+    make_ring_attention(mesh, causal=True)(q, k, v)
+    if fk.flash_fwd.launches != before + 1:
+        raise AssertionError("impl='auto' on CUDA tensors did not take the flash inner")
+    torch.cuda.empty_cache()
+    return out
+
+
+def attention_tier(mesh) -> dict:
+    """20c: the bench's attention tier — causal fwd + bwd steps (each
+    step's gradients fed back at 1e-6, bench.py:3566-3592) timed by
+    ``profiling.timed_loop`` at the reference's iteration counts: the
+    flash kernels, the plain blockwise attention (8k only: its autograd
+    residuals at 32k would fill the card), the ring on the one-rank ``sp``
+    mesh with the flash inner (8k, 32k) and the einsum inner (8k), and
+    the flash-backend SDPA as the yardstick (the port never calls it)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tpfl_torch.parallel.ring_attention import make_ring_attention
+
+    def sdpa(q, k, v, causal):
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=causal).transpose(1, 2)
+
+    def step_of(fn):
+        def step(c):
+            leaves = [t.detach().requires_grad_(True) for t in c]
+            loss = fn(*leaves, causal=True).float().pow(2).sum()
+            grads = torch.autograd.grad(loss, leaves)
+            return tuple((t - 1e-6 * g.to(t.dtype)).detach() for t, g in zip(c, grads))
+        return step
+
+    rings = {impl: make_ring_attention(mesh, causal=True, impl=impl) for impl in ("flash", "xla")}
+    # (name, fn, sequence lengths, best of): the plain arms' 192-step
+    # loops take seconds each, so they run once after the warm-up.
+    arms = [("flash", fk.flash_attention, (AT_SHORT, AT_LONG), 3),
+            ("blockwise", blockwise_attention, (AT_SHORT,), 1),
+            ("ring_sp_flash", rings["flash"], (AT_SHORT, AT_LONG), 3),
+            ("ring_sp_xla", rings["xla"], (AT_SHORT,), 1),
+            ("library_sdpa", sdpa, (AT_SHORT, AT_LONG), 3)]
+    rtt = profiling.measure_dispatch_rtt()
+    out, launches = {}, {}
+    for name, fn, seqs, best_of in arms:
+        for s in seqs:
+            carry_in = attention_inputs(s, 23)[:3]
+            before = read_launches()
+            per_iter, scalar = profiling.timed_loop(step_of(fn), carry_in, (), AT_ITERS[s],
+                                                    rtt=rtt, best_of=best_of)
+            if not math.isfinite(float(scalar)):
+                raise AssertionError(f"attention tier {name} {s}: non-finite carry")
+            key = f"{name}_fwdbwd_{s // 1024}k"
+            out[f"{key}_toks_per_sec"] = AT_B * s / per_iter
+            out[f"{key}_ms_per_step"] = per_iter * 1e3
+            launches[key] = {k: read_launches()[k] - before[k] for k in FLASH_KERNELS}
+            del carry_in
+            torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
+class PlainFlashAttention(torch.autograd.Function):
+    """``FlashAttention`` with the kernels' plain versions in their place,
+    on the card: the yardstick that 20d holds the transformer tier's first
+    step to."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        b, _, h, _ = q.shape
+        qp, kp, vp = fk._fold_heads(q), fk._fold_heads(k), fk._fold_heads(v)
+        o, lse = fk.flash_fwd_plain(qp, kp, vp, causal)
+        ctx.save_for_backward(qp, kp, vp, o, lse)
+        ctx.causal, ctx.bh = causal, (b, h)
+        return fk._unfold_heads(o, b, h)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qp, kp, vp, o, lse = ctx.saved_tensors
+        b, h = ctx.bh
+        do = fk._fold_heads(dout.to(qp.dtype))
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fk.flash_dq_plain(qp, kp, vp, do, lse, delta, ctx.causal)
+        dk, dv = fk.flash_dkv_plain(qp, kp, vp, do, lse, delta, ctx.causal)
+        return (fk._unfold_heads(dq, b, h), fk._unfold_heads(dk, b, h),
+                fk._unfold_heads(dv, b, h), None)
+
+
+def lm32_step(module, opt):
+    """One next-token SGD + momentum step of a one-node TransformerLM:
+    ``step((params, trace, loss), tokens) -> (params, trace, loss)``."""
+    def step(c, tokens):
+        params, trace, _ = c
+        live = tree_map(lambda a: a.detach().requires_grad_(True), params)
+        logits = module(live, tokens)
+        loss = torch.nn.functional.cross_entropy(
+            logits[0, :, :-1].reshape(-1, LM32_KW["vocab"]),
+            tokens[0, :, 1:].reshape(-1).long())
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        params, trace = opt.step(params, tree_unflatten(params, grads), trace)
+        return params, trace, loss.detach()
+    return step
+
+
+def transformer_tier(card: str) -> dict:
+    """20d: the bench's transformer tier (bench.py:3642-3685) —
+    ``TransformerLM(vocab 256, dim 512, heads 8, n_layers 4, max_len
+    32768)`` through ``flash_attention`` at one node, B 1, S 32,768, SGD
+    lr 1e-2 momentum 0.9 on next-token cross entropy, 5 steps a timed
+    loop. The first step's loss and gradient norm against the same step
+    through the plain versions (``PlainFlashAttention``); 4 launches of
+    each flash kernel a step, all wgmma."""
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (1, 1, LM32_SEQ)).astype(np.int32)).cuda()
+    params = stack_params(init_params(TransformerLM(**LM32_KW), (LM32_SEQ,), seed=0,
+                                      device="cuda"), 1)
+    opt = SGDMomentum(LM32_LR, LM32_MOMENTUM)
+
+    def first_step(attention):
+        module = TransformerLM(**LM32_KW, attention_fn=attention)
+        live = tree_map(lambda a: a.detach().requires_grad_(True), params)
+        logits = module(live, tokens)
+        loss = torch.nn.functional.cross_entropy(
+            logits[0, :, :-1].reshape(-1, LM32_KW["vocab"]), tokens[0, :, 1:].reshape(-1).long())
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        return loss.item(), torch.sqrt(sum(g.float().pow(2).sum() for g in grads)).item()
+
+    plain_loss, plain_norm = first_step(
+        lambda q, k, v, causal: PlainFlashAttention.apply(q, k, v, causal))
+    before = read_launches()
+    loss, norm = first_step(fk.flash_attention)
+    one = {k: read_launches()[k] - before[k] for k in WRAPPERS}
+    if one != {**dict.fromkeys(WRAPPERS, 0), **dict.fromkeys(FLASH_KERNELS, LM32_KW["n_layers"])}:
+        raise AssertionError(f"transformer tier: one step launched {one}")
+    # bf16 model: one flipped rounding of an attention output moves every
+    # later op, so the kernel and plain steps agree to bf16 resolution.
+    if abs(loss - plain_loss) > 1e-3 * abs(plain_loss) or abs(norm - plain_norm) > (
+            BF16_TOL * abs(plain_norm)):
+        raise AssertionError(f"transformer tier: first step loss / grad norm {loss} / {norm}, "
+                             f"plain versions {plain_loss} / {plain_norm}")
+    module = TransformerLM(**LM32_KW, attention_fn=fk.flash_attention)
+    best_of = 3
+    before = read_launches()
+    per_step, scalar = profiling.timed_loop(
+        lm32_step(module, opt), (params, opt.init(params), torch.zeros((), device="cuda")),
+        (tokens,), LM32_STEPS, best_of=best_of)
+    launches = {k: read_launches()[k] - before[k] for k in WRAPPERS}
+    steps = (best_of + 1) * LM32_STEPS  # timed_loop: a warm-up loop, then best of 3
+    want = {**dict.fromkeys(WRAPPERS, 0),
+            **dict.fromkeys(FLASH_KERNELS, LM32_KW["n_layers"] * steps)}
+    if launches != want:
+        raise AssertionError(f"transformer tier: {launches} over {steps} steps")
+    if not math.isfinite(float(scalar)):
+        raise AssertionError("transformer tier: non-finite carry")
+    return {"card": card, "model": {**LM32_KW, "attention_fn": "flash_attention"},
+            "seq": LM32_SEQ, "steps_per_loop": LM32_STEPS,
+            "transformer_32k_train_toks_per_sec": LM32_SEQ / per_step,
+            "ms_per_step": per_step * 1e3, "first_step": {
+                "loss": loss, "plain_loss": plain_loss, "grad_norm": norm,
+                "plain_grad_norm": plain_norm},
+            "launches": {k: launches[k] for k in FLASH_KERNELS}, "steps": steps,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def pipeline_and_moe(meshes: dict) -> dict:
+    """20e at axis size 1: (a) a 1-stage ``make_pipeline_trainer`` over
+    the LM tier's 4 ``TransformerBlock``s (dim 512, 8 heads, bf16,
+    ``flash_attention``), 4 microbatches of [1, 2048, 512], 2 steps,
+    against the blocks applied in sequence with the same SGD (losses
+    and params at rtol 1e-5, atol 1e-6: gradient sums in another order);
+    (b) one ``make_moe_train_layer`` step (k 1, capacity = the tokens) of
+    the LM's FFN width, 512 -> 2048 -> 512, f32, against its plain
+    single-expert computation (outputs, loss, updated params)."""
+    from tpfl_torch.parallel.moe import make_moe_train_layer
+    from tpfl_torch.parallel.pipeline import make_pipeline_trainer
+
+    gen = torch.Generator(device="cpu").manual_seed(24)
+    block = TransformerBlock(LM32_KW["dim"], LM32_KW["heads"], attention_fn=fk.flash_attention)
+    layers = [block.init_params(gen, torch.device("cuda")) for _ in range(LM32_KW["n_layers"])]
+    stacked = tree_map(lambda *a: torch.stack(a), *layers)
+    dgen = torch.Generator(device="cuda").manual_seed(25)
+    micro = torch.randn(PIPE_MICRO, 1, PIPE_SEQ, LM32_KW["dim"], device="cuda",
+                        generator=dgen).to(torch.bfloat16)
+    targets = torch.randn(micro.shape, device="cuda", generator=dgen)
+
+    def block_fn(p, x):
+        return block(tree_map(lambda a: a[None], p), x[None])[0]
+
+    def loss_fn(o, t):
+        return torch.mean((o.float() - t) ** 2)
+
+    init, step = make_pipeline_trainer(meshes["pp"], block_fn, LM32_KW["n_layers"], loss_fn)
+    lr = 0.01  # the trainer's default SGD
+    p_pipe, opt_state = init(stacked)
+    p_seq, out = stacked, {"pipeline": {"losses": [], "seq_losses": []}}
+    before = read_launches()
+    for _ in range(2):
+        p_pipe, opt_state, loss = step(p_pipe, opt_state, micro, targets)
+        live = tree_map(lambda a: a.detach().requires_grad_(True), p_seq)
+        outs = []
+        for x in micro:
+            for i in range(LM32_KW["n_layers"]):
+                x = block_fn(tree_map(lambda a: a[i], live), x)
+            outs.append(x)
+        seq_loss = loss_fn(torch.stack(outs), targets)
+        grads = tree_unflatten(p_seq, torch.autograd.grad(seq_loss, tree_leaves(live)))
+        p_seq = tree_map(lambda a, g: a + g * -lr, p_seq, grads)
+        out["pipeline"]["losses"].append(loss.item())
+        out["pipeline"]["seq_losses"].append(seq_loss.item())
+    launches = {k: read_launches()[k] - before[k] for k in FLASH_KERNELS}
+    # 2 steps of the pipeline and of its sequential twin, 4 microbatches x 4 blocks each
+    want = dict.fromkeys(FLASH_KERNELS, 2 * 2 * PIPE_MICRO * LM32_KW["n_layers"])
+    if launches != want:
+        raise AssertionError(f"pipeline: flash launches {launches}, expected {want}")
+    torch.testing.assert_close(torch.tensor(out["pipeline"]["losses"]),
+                               torch.tensor(out["pipeline"]["seq_losses"]), rtol=1e-5, atol=0)
+    seq_leaves = dict(tree_items(p_seq))
+    out["pipeline"]["max_abs_param_diff"] = max(
+        (v - seq_leaves[path]).abs().max().item() for path, v in tree_items(p_pipe))
+    for path, v in tree_items(p_pipe):
+        torch.testing.assert_close(v, seq_leaves[path], rtol=1e-5, atol=1e-6, msg=path)
+    out["pipeline"]["launches"] = launches
+    del micro, targets, p_pipe, p_seq, opt_state
+
+    d, hidden = LM32_KW["dim"], MOE_HIDDEN
+    mgen = torch.Generator(device="cuda").manual_seed(26)
+    experts = {"w1": 0.02 * torch.randn(1, d, hidden, device="cuda", generator=mgen),
+               "b1": torch.zeros(1, hidden, device="cuda"),
+               "w2": 0.02 * torch.randn(1, hidden, d, device="cuda", generator=mgen),
+               "b2": torch.zeros(1, d, device="cuda")}
+    router = 0.02 * torch.randn(d, 1, device="cuda", generator=mgen)
+    x = torch.randn(MOE_TOKENS, d, device="cuda", generator=mgen)
+    y_true = torch.randn(MOE_TOKENS, d, device="cuda", generator=mgen)
+
+    def ffn(p, toks):
+        return torch.nn.functional.gelu(toks @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+
+    layer = make_moe_train_layer(meshes["ep"], ffn, capacity=MOE_TOKENS, k=1)
+    live = {"router": router.clone().requires_grad_(True),
+            "experts": tree_map(lambda a: a.clone().requires_grad_(True), experts)}
+    y, aux = layer(live, x)
+    loss = torch.mean((y - y_true) ** 2) + 0.01 * aux
+    grads = dict(zip(("router", *experts), torch.autograd.grad(
+        loss, [live["router"], *live["experts"].values()])))
+    plain = tree_map(lambda a: a[0].clone().requires_grad_(True), experts)
+    y_plain = ffn(plain, x)
+    loss_plain = torch.mean((y_plain - y_true) ** 2) + 0.01 * 1.0
+    plain_grads = dict(zip(plain, torch.autograd.grad(loss_plain, list(plain.values()))))
+    errs = {"y": (y - y_plain).abs().max().item(), "aux": abs(aux.item() - 1.0),
+            "loss": abs(loss.item() - loss_plain.item()),
+            "router_grad": grads["router"].abs().max().item()}
+    for name in experts:  # the SGD update of each expert leaf
+        errs[name] = ((experts[name] - 0.01 * grads[name])[0]
+                      - (experts[name][0] - 0.01 * plain_grads[name])).abs().max().item()
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"moe layer against its plain single expert: {errs}")
+    out["moe"] = {"tokens": MOE_TOKENS, "width": [d, hidden, d], "max_abs_err": errs}
+    return out
+
+
+def spmd_planes(card: str) -> dict:
+    """Phase 20: 20a-20e, each logged as it passes; the one-rank meshes'
+    group (NCCL over an in-process store) is torn down after."""
+    import torch.distributed as dist
+
+    from tpfl_torch.parallel.mesh import create_mesh
+
+    out = {}
+    meshes = {axis: create_mesh({axis: 1}) for axis in ("sp", "pp", "ep")}
+    try:
+        parts = (
+            ("20a ring arithmetic, 4 emulated ranks, S 8k", lambda: {
+                f"causal={c}": ring_arithmetic(c) for c in (False, True)}),
+            ("20b make_ring_attention on a one-rank sp mesh", lambda: ring_on_mesh(meshes["sp"])),
+            ("20c attention tier", lambda: attention_tier(meshes["sp"])),
+            ("20d transformer tier, S 32k", lambda: transformer_tier(card)),
+            ("20e pipeline and MoE at axis size 1", lambda: pipeline_and_moe(meshes)),
+        )
+        for label, run in parts:
+            t0 = time.perf_counter()
+            launched = read_launches()
+            with taking_wgmma(label, True):
+                out[label] = run()
+            out[label]["phase_s"] = time.perf_counter() - t0
+            out[label]["flash_launches"] = {
+                k: read_launches()[k] - launched[k] for k in FLASH_KERNELS}
+            log(f"spmd planes ({label}; every check passed): {card}: " + json.dumps(out[label]))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -4642,6 +5089,7 @@ def main() -> int:
     for algorithm, result in resnet.items():
         log(f"ResNet-18 config 3 ({algorithm}): " + json.dumps(result))
     observatory = observatory_path(card, cnn, cnn_args, lm, lm_args)
+    spmd = spmd_planes(card)
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -4672,6 +5120,13 @@ def main() -> int:
                 shape: per[row["name"]] for shape, per in simulation["kernel_rows"].items()
                 if shape != "phase_s"}
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
+        if row["name"] in FLASH_KERNELS:
+            launched = {label.split()[0]: part["flash_launches"][row["name"]]
+                        for label, part in spmd.items()}
+            row["ring_launches"] = launched["20a"] + launched["20b"]
+            row["attention_tier_launches"] = launched["20c"]
+            row["transformer_tier_launches"] = launched["20d"]
+            row["pipeline_moe_launches"] = launched["20e"]
         row["observatory_launches"] = observatory[
             "mfu_cnn" if row["name"] in ("conv_dw", "conv_dx") else "mfu_lm"]["launches"][row["name"]]
         if row["name"] in built:

@@ -42,7 +42,8 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("parallel.conv_kernel", "parallel.engine", "parallel.flash_kernel",
-                "parallel.ring_attention", "models.zoo", "utils.tree", "interop",
+                "parallel.ring_attention", "parallel.distributed", "parallel.mesh",
+                "parallel.pipeline", "parallel.moe", "models.zoo", "utils.tree", "interop",
                 "learning.compression", "settings", "exceptions", "concurrency",
                 "learning.bufferpool", "learning._msgpack", "learning.serialization",
                 "learning.model", "learning.callbacks", "learning.learner",

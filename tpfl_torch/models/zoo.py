@@ -238,7 +238,9 @@ class TransformerBlock(nn.Module):
     causal)`` on ``[N·B, S, H, D]`` (attention has no params, so nodes
     fold into the batch) defaults to :func:`blockwise_attention`; pass
     :func:`tpfl_torch.parallel.flash_kernel.flash_attention` for the CUDA
-    kernels."""
+    kernels, or a
+    :func:`tpfl_torch.parallel.ring_attention.make_ring_attention` closure
+    for sequence-parallel training over a mesh axis."""
 
     def __init__(self, dim: int, heads: int = 4, mlp_ratio: int = 4, causal: bool = True,
                  compute_dtype: torch.dtype = torch.bfloat16,
@@ -284,6 +286,11 @@ class TransformerLM(nn.Module):
 
     #: Token models take integer ids (the engine keeps them integer).
     input_dtype = torch.int32
+
+    #: Per-leaf model-axis layout for the engine's 2D ``nodes x model``
+    #: mesh (:func:`tpfl_torch.parallel.mesh.layout_for_module`); the
+    #: other zoo models carry none and ride replicated.
+    spec_layout = "transformer"
 
     def __init__(self, vocab: int = 256, dim: int = 128, heads: int = 4, n_layers: int = 2,
                  max_len: int = 8192, compute_dtype: torch.dtype = torch.bfloat16,

@@ -1,4 +1,6 @@
-"""The port's federation engine, its drivers and its CUDA conv kernels.
+"""The port's federation engine, its drivers, its CUDA kernels and its
+SPMD planes over ``torch.distributed`` (meshes, ring attention, the
+pipeline, the experts).
 
 The exports load on first access: the model zoo imports ``conv_kernel``
 from this package, and the engine imports the zoo.
@@ -17,6 +19,26 @@ _EXPORTS = {
     "FederationLearner": "federation_learner",
     "WindowPipeline": "window_pipeline",
     "MembershipView": "membership",
+    "create_mesh": "mesh",
+    "mesh_axis_size": "mesh",
+    "SpecLayout": "mesh",
+    "layout_for_module": "mesh",
+    "transformer_layout": "mesh",
+    "NODE_AXIS": "mesh",
+    "MODEL_AXIS": "mesh",
+    "HOST_AXIS": "mesh",
+    "FSDP_AXIS": "mesh",
+    "TP_AXIS": "mesh",
+    "ensure_distributed": "distributed",
+    "is_multiprocess": "distributed",
+    "ring_attention": "ring_attention",
+    "make_ring_attention": "ring_attention",
+    "blockwise_attention": "ring_attention",
+    "flash_attention": "flash_kernel",
+    "make_pipeline": "pipeline",
+    "pipeline_forward": "pipeline",
+    "make_moe_layer": "moe",
+    "moe_dispatch": "moe",
 }
 
 __all__ = sorted(_EXPORTS)

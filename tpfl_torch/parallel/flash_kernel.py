@@ -16,7 +16,10 @@ to ``[B·H, S, D]``:
 Each wrapper runs its kernel's plain version (:func:`flash_fwd_plain`,
 :func:`flash_dq_plain`, :func:`flash_dkv_plain`) when the tensors lie on
 the CPU, and only then: on a CUDA tensor it launches the kernel or
-raises. ``flash_fwd.launches`` etc. count kernel launches;
+raises. :func:`flash_block_fwd` / :func:`flash_block_bwd` are the ring's
+step (``flash_kernel.py:334-420``): the same kernels on ``[B, S, H, D]``
+blocks with f32 outputs and, backward, the caller's global ``lse`` /
+``delta``. ``flash_fwd.launches`` etc. count kernel launches;
 ``flash_fwd.wgmma_launches`` etc. count those of them that took the
 Hopper (wgmma + TMA) kernel, which the launcher picks by dtype and shape
 and reports after the launch; the counts are exact under launches from
@@ -332,6 +335,56 @@ class FlashAttention(torch.autograd.Function):
                 _unfold_heads(dv, b, h), None)
 
 
+def ring_block_size(s: int, block: int) -> int:
+    """Largest block ≤ ``block`` that tiles ``s`` exactly
+    (``flash_kernel.py:334-345``): a multiple of 8 that divides ``s``, or
+    ``s`` itself. The reference's kernels tile by it; the port's choose
+    their own tiles and mask keys past S, so the ring never needs it. Kept
+    for parity of the reference's API."""
+    if s <= block:
+        return s
+    blk = (min(block, s) // 8) * 8
+    while blk >= 8 and s % blk:
+        blk -= 8
+    return blk if blk >= 8 and s % blk == 0 else s
+
+
+def flash_block_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                    block: int = 1024) -> tuple[torch.Tensor, torch.Tensor]:
+    """One flash forward over a (q block, kv block) pair, the ring's step
+    (``flash_kernel.py:356-379``): q/k/v ``[B, S, H, D]`` ->
+    ``(out [B, S, H, D] f32, lse [B, H, S] f32)``. f32 out, as the
+    reference's: the ring merges its steps at f32, and rounding each step
+    to q's dtype first would round every block before the logsumexp
+    rescale. Not differentiable on its own: the ring defines its own
+    backward. ``block`` is kept for parity; the kernels choose their
+    tiles."""
+    del block
+    b, s, h, _ = q.shape
+    o, lse = flash_fwd(_fold_heads(q), _fold_heads(k), _fold_heads(v), causal,
+                       out_dtype=torch.float32)
+    return _unfold_heads(o, b, h), lse.reshape(b, h, s)
+
+
+def flash_block_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                    lse: torch.Tensor, delta: torch.Tensor, causal: bool,
+                    block: int = 1024) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward for one (q block, kv block) pair with caller-supplied
+    softmax residuals (``flash_kernel.py:382-420``): ``lse`` / ``delta``
+    ``[B, H, S]`` f32 of the WHOLE attention row (every ring step), so the
+    steps' contributions sum to the global gradient. Returns
+    ``(dq, dk, dv) [B, S, H, D]`` in f32: they sum in the ring's f32
+    accumulators. ``do`` takes q's dtype (the kernels read one dtype)."""
+    del block
+    b, s, h, _ = q.shape
+    args = (_fold_heads(q), _fold_heads(k), _fold_heads(v), _fold_heads(do.to(q.dtype)),
+            lse.reshape(b * h, s).to(torch.float32).contiguous(),
+            delta.reshape(b * h, s).to(torch.float32).contiguous(), causal)
+    dq = flash_dq(*args, out_dtype=torch.float32)
+    dk, dv = flash_dkv(*args, out_dtype=torch.float32)
+    return _unfold_heads(dq, b, h), _unfold_heads(dk, b, h), _unfold_heads(dv, b, h)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, block: int = 1024) -> torch.Tensor:
     """Flash attention, differentiable: q/k/v ``[B, S, H, D]`` ->
@@ -345,6 +398,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 __all__ = [
-    "FlashAttention", "flash_attention", "flash_dkv", "flash_dkv_plain", "flash_dq",
-    "flash_dq_plain", "flash_fwd", "flash_fwd_plain",
+    "FlashAttention", "flash_attention", "flash_block_bwd", "flash_block_fwd", "flash_dkv",
+    "flash_dkv_plain", "flash_dq", "flash_dq_plain", "flash_fwd", "flash_fwd_plain",
+    "ring_block_size",
 ]

@@ -50,6 +50,13 @@ def tree_leaves(tree: Any) -> list[Any]:
     return [leaf for _, leaf in tree_items(tree)]
 
 
+def tree_unflatten(like: Any, leaves: Any) -> Any:
+    """``like``'s structure over ``leaves`` given in :func:`tree_leaves`
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _v: next(it), like)
+
+
 def canonical_leaves(tree: Any) -> list[Any]:
     """Leaves in ``jax.tree_util.tree_leaves`` order."""
     if tree is None:
@@ -82,4 +89,4 @@ def canonical_unflatten(like: Any, leaves: list[Any]) -> Any:
 
 
 __all__ = ["Tree", "canonical_leaves", "canonical_map", "canonical_unflatten", "tree_items",
-           "tree_leaves", "tree_map"]
+           "tree_leaves", "tree_map", "tree_unflatten"]
