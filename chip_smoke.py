@@ -288,6 +288,29 @@
    and one ``make_moe_train_layer`` step of the LM's FFN width (512 -> 2048
    -> 512) against its plain single expert. Every flash launch of the
    phase takes the kernel the dispatch rule names.
+21. Mesh phase (phase 21: the engine on a device mesh, every mesh a
+   one-rank ``nccl`` group in an in-process store, as the card's machine
+   has one card): (a) the 100-node CNN window of step 4 under
+   ``mesh=None``, ``create_mesh({"nodes": 1})`` and ``create_mesh({"hosts":
+   1, "nodes": 1, "model": 1})``, each timed as step 4 (best of
+   ``MAIN_WINDOWS``) with ``RANK_CONTRACTS`` on: the final params
+   bit-identical to ``mesh=None``'s (max abs difference reported), 8
+   ``conv_dw`` + 4 ``conv_dx`` launches a round, all wgmma, one receipt a
+   window, no ``dcn_bytes`` row in a telemetry window at ``hosts`` 1;
+   (b) the 8-node TransformerLM of step 7 under ``{"nodes": 1, "model":
+   1}`` with its attention pinned to ``make_ring_attention`` on the
+   ``model`` axis (the engine itself rings only a ``model`` axis over 1),
+   whose steps launch the flash kernels through ``flash_block_fwd``
+   / ``flash_block_bwd`` (all wgmma), bit-identical to step 7's
+   ``flash_attention`` window; the CNN under the same mesh bit-identical
+   to (a)'s; (c) ``ShardedTrainer`` on a one-rank ``dp`` mesh: FSDP on
+   the CNN at B 128 (5 steps, through the conv kernels) and
+   ``train_step_with_aux`` on ResNet-18 at config 3's shape (5 steps),
+   the first two losses against the plain single-device steps (rtol
+   1e-3, atol 1e-4), steps/s over steps 2-5; (d) ``scaling.analyze`` of one (a) window
+   (the collective ledger's bytes: the fold's one-rank legs) and a
+   ``SliceCheckpointer`` round trip of (a)'s placed state, the window
+   after it bit-identical to running on (save and restore seconds).
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
@@ -4927,6 +4950,254 @@ def spmd_planes(card: str) -> dict:
     return out
 
 
+# ---- phase 21: the engine on a device mesh -------------------------------------------
+
+#: Phase 21's meshes (one rank each on the card).
+MESH_AXES = {"1d": {"nodes": 1}, "3d": {"hosts": 1, "nodes": 1, "model": 1},
+             "2d": {"nodes": 1, "model": 1}}
+
+
+def local(tree):
+    """A tree's ``DTensor`` leaves as this rank's local tensors."""
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    b = dict(tree_items(local(b)))
+    return max(float((v.float() - b[p].float()).abs().max()) for p, v in tree_items(local(a)))
+
+
+def bit_equal(label: str, a: dict, b: dict) -> None:
+    b = dict(tree_items(local(b)))
+    for path, v in tree_items(local(a)):
+        if not torch.equal(v, b[path]):
+            raise AssertionError(f"{label}: {path} differs from the reference "
+                                 f"(max abs {float((v.float() - b[path].float()).abs().max())})")
+
+
+def mesh_cnn_window(card: str, mesh, label: str) -> tuple[dict, tuple]:
+    """Step 4's CNN window on ``mesh`` (None: no mesh), ``RANK_CONTRACTS``
+    on: the result row and (fed, params, xs, ys)."""
+    from tpfl_torch.parallel import ranksafe
+
+    fed = VmapFederation(CNN(out_channels=10, conv_impl="pallas"), n_nodes=N_NODES,
+                         learning_rate=0.1, seed=0, mesh=mesh)
+    xs, ys = cnn_data(fed)
+    params = fed.init_params((32, 32, 3))
+    ranksafe.clear()
+    with setting("RANK_CONTRACTS", True):
+        wall, params, _, losses, launches, wgmma, _ = timed_window(fed, params, {}, xs, ys,
+                                                                   MAIN_WINDOWS)
+    receipt = ranksafe.receipt()
+    ranksafe.clear()
+    steps = N_BATCHES * EPOCHS * N_ROUNDS * MAIN_WINDOWS
+    check_main_path(local(params), local(losses), launches, {
+        **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
+    check_all_wgmma(f"CNN window ({label})", launches, {k: wgmma[k] for k in ("conv_dw",
+                                                                             "conv_dx")})
+    if len(receipt) != 1 + MAIN_WINDOWS:  # the warm-up window and the timed ones
+        raise AssertionError(f"{label}: {len(receipt)} RANK_CONTRACTS receipts for "
+                             f"{1 + MAIN_WINDOWS} windows")
+    return ({**cnn_result(card, "pallas", wall, local(losses)), "mesh": label,
+             "launches": launches, "receipts": len(receipt),
+             "receipt_digest": receipt[-1]["digest"]}, (fed, params, xs, ys))
+
+
+def mesh_lm_window(card: str, mesh, attention) -> tuple[dict, dict]:
+    """Step 7's LM window with ``attention`` pinned, counting the ring's
+    calls of the flash block functions."""
+    from tpfl_torch.parallel import ring_attention as ra
+
+    calls = {"flash_block_fwd": 0, "flash_block_bwd": 0}
+    real = {name: getattr(ra, name) for name in calls}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    fed = VmapFederation(TransformerLM(**LM_KW, attention_fn=attention), n_nodes=T_NODES,
+                         learning_rate=T_LR, seed=0, mesh=mesh)
+    xs, ys = lm_tokens(T_NODES, T_BATCHES, T_BATCH, T_SEQ, LM_KW["vocab"], seed=5)
+    xs, ys = fed.shard_data(xs, ys)
+    params = fed.init_params((T_SEQ,))
+    for name in calls:
+        setattr(ra, name, counted(name))
+    try:
+        with taking_wgmma("21b LM window", True):
+            wall, params, _, losses, launches, _, _ = timed_window(fed, params, {}, xs, ys,
+                                                                   MAIN_WINDOWS)
+    finally:
+        for name, fn in real.items():
+            setattr(ra, name, fn)
+    per_window = LM_KW["n_layers"] * T_BATCHES * EPOCHS * N_ROUNDS * MAIN_WINDOWS
+    check_main_path(local(params), local(losses), launches, {
+        **dict.fromkeys(WRAPPERS, 0), **dict.fromkeys(FLASH_KERNELS, per_window)})
+    rounds_s = N_ROUNDS / wall
+    return ({"card": card, "attention": "model ring" if mesh is not None else "flash_attention",
+             "rounds_per_s": rounds_s, "wall_s": wall, "launches": launches,
+             "flash_block_calls": dict(calls), "mean_loss": local(losses).mean().item()},
+            params)
+
+
+def sharded_trainer_path(card: str, mesh) -> dict:
+    """21c: ``ShardedTrainer`` at ``dp`` 1: FSDP on the CNN (B 128, through
+    the conv kernels) and ``train_step_with_aux`` on ResNet-18 at config
+    3's shape, 5 steps each; the first two losses against plain
+    single-device steps (the same SGD + momentum, library convolutions)."""
+    from tpfl_torch.learning.torch_learner import cross_entropy_loss, default_optimizer
+    from tpfl_torch.models import apply, init_state
+    from tpfl_torch.parallel.sharded import ShardedTrainer
+
+    out = {}
+    cases = (("cnn_fsdp", lambda impl: CNN(out_channels=10, conv_impl=impl), True, 10),
+             ("resnet18_aux", lambda impl: ResNet18(out_channels=RN_CLASSES), False,
+              RN_CLASSES))
+    for label, make, fsdp, classes in cases:
+        x, y, _, _ = synthetic_classification((32, 32, 3), n_classes=classes, n_train=128,
+                                              n_test=10, seed=0)
+        tr = ShardedTrainer(make("pallas"), mesh, fsdp=fsdp, learning_rate=0.05)
+        if label == "resnet18_aux":
+            params, aux, opt = tr.init_with_aux((32, 32, 3))
+        else:
+            (params, opt), aux = tr.init((32, 32, 3)), None
+        sx, sy = tr.shard_batch(x, y)
+        plain = make("fwd_bwd")
+        p_ref, a_ref = init_state(plain, (32, 32, 3), seed=0, device="cuda")
+        sgd, xs, ys = default_optimizer(0.05), torch.from_numpy(x).cuda(), torch.from_numpy(
+            y).cuda().long()
+        trace = sgd.init(p_ref)
+        reset_launches()
+        losses, plain_losses = [], []
+        for step in range(5):  # steps/s over steps 2-5: the first is the warm-up
+            if step == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if aux is not None:
+                params, aux, opt, loss = tr.train_step_with_aux(params, aux, opt, sx, sy)
+            else:
+                params, opt, loss = tr.train_step(params, opt, sx, sy)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        for step in range(2):  # the plain single-device steps
+            live = tree_map(lambda v: v.detach().requires_grad_(True), p_ref)
+            stats = tree_map(lambda v: v[None], a_ref) if a_ref else {}
+            logits, new = apply(plain, tree_map(lambda v: v[None], live), stats, xs[None],
+                                train=bool(a_ref))
+            loss = cross_entropy_loss(logits[0], ys).mean()
+            grads = torch.autograd.grad(loss, tree_leaves(live))
+            p_ref, trace = sgd.step(p_ref, tree_unflatten(p_ref, grads), trace)
+            a_ref = tree_map(lambda v: v[0].detach(), new) if a_ref else a_ref
+            plain_losses.append(loss.detach())
+        for got, want in zip(losses[:2], plain_losses):
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4, msg=label)
+        if not all(torch.isfinite(v).all() for v in losses):
+            raise AssertionError(f"{label}: non-finite losses {losses}")
+        out[label] = {"card": card, "fsdp": fsdp, "batch": 128, "steps": 5,
+                      "steps_per_s": 4 / wall, "samples_per_s": 4 * 128 / wall, "losses": [float(v) for v in losses],
+                      "plain_losses": [float(v) for v in plain_losses], "launches": launches}
+    return out
+
+
+def mesh_scaling_and_checkpoint(card: str, fed_args: tuple) -> dict:
+    """21d: ``scaling.analyze`` of one 21a window, and a ``SliceCheckpointer``
+    round trip of its placed state against running on."""
+    from tpfl_torch.management.checkpoint import SliceCheckpointer
+    from tpfl_torch.parallel.scaling import analyze, params_bytes
+
+    fed, params, xs, ys = fed_args
+    rec = analyze(fed.run_rounds, params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
+    one_model = params_bytes(params) // fed.engine.padded_nodes
+    out = {"collectives": rec["collectives"], "collective_bytes": rec["collective_bytes"],
+           "one_model_bytes": one_model, "flops_seen": rec["flops"]}
+    if not 0 < rec["collective_bytes"] <= 4 * N_ROUNDS * one_model:
+        raise AssertionError(f"21d: collective bytes {rec['collective_bytes']} not O(params)")
+    after, _ = rec["result"]
+    with tempfile.TemporaryDirectory() as d:
+        ck = SliceCheckpointer(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, {"params": after, "rounds_done": fed.engine._rounds_done})
+        t1 = time.perf_counter()
+        back = ck.restore(1, abstract_target={"params": after, "rounds_done": 0})
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    resumed, _ = fed.run_rounds(back["params"], xs, ys, epochs=EPOCHS, n_rounds=1)
+    onward, _ = fed.run_rounds(after, xs, ys, epochs=EPOCHS, n_rounds=1)
+    bit_equal("21d resumed window", resumed, onward)
+    out.update({"save_s": t1 - t0, "restore_s": t2 - t1,
+                "state_mb": params_bytes(after) / 1e6, "rounds_done": back["rounds_done"]})
+    return out
+
+
+def mesh_phase(card: str) -> dict:
+    """Phase 21, each part logged as it passes; the one-rank meshes'
+    group is torn down after."""
+    import torch.distributed as dist
+
+    from tpfl_torch.parallel.mesh import MODEL_AXIS, create_mesh
+    from tpfl_torch.parallel.ring_attention import make_ring_attention
+
+    out = {}
+    t0 = time.perf_counter()
+    meshes = {name: create_mesh(axes) for name, axes in MESH_AXES.items()}
+    try:
+        rows, args = {}, {}
+        for name, mesh in (("none", None), ("1d", meshes["1d"]), ("3d", meshes["3d"])):
+            rows[name], args[name] = mesh_cnn_window(card, mesh, name)
+        for name in ("1d", "3d"):
+            bit_equal(f"21a CNN {name}", args[name][1], args["none"][1])
+            rows[name]["max_abs_diff_vs_none"] = max_abs_diff(args[name][1], args["none"][1])
+        fed, params, xs, ys = args["3d"]
+        with setting("ENGINE_TELEMETRY", True):
+            tele = fed.engine.dispatch_window(params, xs, ys, n_rounds=1)
+            carried = tele.telemetry()
+            tele.finalize()
+        if "dcn_bytes" in carried:
+            raise AssertionError("21a: a dcn_bytes row at hosts 1")
+        out["21a"] = {**rows, "carry_rows": sorted(carried)}
+        log(f"mesh phase (21a CNN window on meshes; every check passed): {card}: "
+            + json.dumps(out["21a"]))
+
+        lm_1d, p_1d = mesh_lm_window(card, None, fk.flash_attention)
+        ring = make_ring_attention(meshes["2d"], MODEL_AXIS, causal=True)
+        lm_2d, p_2d = mesh_lm_window(card, meshes["2d"], ring)
+        bit_equal("21b LM on nodes x model", p_2d, p_1d)
+        calls = lm_2d["flash_block_calls"]
+        # Every attention of the warm-up round and the timed windows: one
+        # ring step forward and one backward (a one-rank causal ring).
+        steps = LM_KW["n_layers"] * T_BATCHES * EPOCHS * (1 + N_ROUNDS * MAIN_WINDOWS)
+        if calls != {"flash_block_fwd": steps, "flash_block_bwd": steps}:
+            raise AssertionError(f"21b: the model ring called {calls}; expected {steps} each")
+        cnn_2d, args_2d = mesh_cnn_window(card, meshes["2d"], "2d")
+        bit_equal("21b CNN on nodes x model", args_2d[1], args["none"][1])
+        out["21b"] = {"lm_flash_attention_1d": lm_1d, "lm_model_ring_2d": lm_2d,
+                      "cnn_2d": cnn_2d}
+        log(f"mesh phase (21b the 2D route; every check passed): {card}: "
+            + json.dumps(out["21b"]))
+
+        out["21c"] = sharded_trainer_path(card, create_mesh({"dp": 1}))
+        log(f"mesh phase (21c ShardedTrainer at dp 1; every check passed): {card}: "
+            + json.dumps(out["21c"]))
+        out["21d"] = mesh_scaling_and_checkpoint(card, args["1d"])
+        log(f"mesh phase (21d scaling.analyze and SliceCheckpointer; every check passed): "
+            f"{card}: " + json.dumps(out["21d"]))
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    out["mesh_window_launches"] = {
+        **{k: out["21a"]["1d"]["launches"][k] for k in ("conv_dw", "conv_dx")},
+        **{k: out["21b"]["lm_model_ring_2d"]["launches"][k] for k in FLASH_KERNELS}}
+    out["sharded_trainer_launches"] = {
+        k: sum(r["launches"][k] for r in out["21c"].values()) for k in WRAPPERS}
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -5090,6 +5361,8 @@ def main() -> int:
         log(f"ResNet-18 config 3 ({algorithm}): " + json.dumps(result))
     observatory = observatory_path(card, cnn, cnn_args, lm, lm_args)
     spmd = spmd_planes(card)
+    mesh = mesh_phase(card)
+    log(f"mesh phase: {mesh['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -5127,6 +5400,8 @@ def main() -> int:
             row["attention_tier_launches"] = launched["20c"]
             row["transformer_tier_launches"] = launched["20d"]
             row["pipeline_moe_launches"] = launched["20e"]
+        row["mesh_window_launches"] = mesh["mesh_window_launches"][row["name"]]
+        row["sharded_trainer_launches"] = mesh["sharded_trainer_launches"][row["name"]]
         row["observatory_launches"] = observatory[
             "mfu_cnn" if row["name"] in ("conv_dw", "conv_dx") else "mfu_lm"]["launches"][row["name"]]
         if row["name"] in built:

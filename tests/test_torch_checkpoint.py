@@ -21,8 +21,9 @@ engine's ``export_state`` / ``import_state``, ``Node.save_checkpoint`` /
   hook (and its no-op for a ``None`` state), ``STATE_CONTRACTS``
   blocking publication and naming the field.
 
-The reference's ``SliceCheckpointer`` (orbax) and its cross-mesh restore
-have no counterpart here (``ROADMAP.md`` §1 item 7).
+The reference's ``SliceCheckpointer`` (orbax) has its counterpart over
+``torch.distributed.checkpoint``; its cross-mesh restore is held in
+``tests/test_torch_engine_mesh.py``.
 """
 
 import os

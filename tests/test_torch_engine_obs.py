@@ -117,10 +117,10 @@ def _engines(n=8, model="mlp"):
 
 def _port_carry(teng, tp, xs, ys, n_rounds, weights=None, scales=None):
     """The port's carry of one window, as host numpy."""
-    kind, state, dx, dy, w, sc, sched = teng._prepare_args(tp, xs, ys, weights, n_rounds, None,
-                                                           None, scales, None)
+    kind, state, dx, dy, w, sc, sched, mw = teng._prepare_args(tp, xs, ys, weights, n_rounds,
+                                                               None, None, scales, None)
     _, _, tele = teng._run_window(kind, state, dx, dy, w, sc, sched, 1, n_rounds, (0, 0.05),
-                                  True, 0.0)
+                                  True, 0.0, mw)
     return {k: v.numpy() for k, v in tele.items()}
 
 

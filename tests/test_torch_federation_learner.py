@@ -15,7 +15,7 @@ from the same params and data (f32 MLP, dense engine exchange; rtol
   (restack), against the JAX learner;
 - ``interrupt_for`` mid-fit: the skip keeps the pre-fit model;
 - ``CHECKPOINT_DIR`` cadence snapshots, resumed byte-identical;
-- ``evaluate`` against JAX's, and a mesh refused naming item 7.
+- ``evaluate`` against JAX's, and a one-rank mesh's fit equal to no mesh's.
 """
 
 import threading
@@ -249,6 +249,26 @@ def test_evaluate_matches_jax():
 
 
 def test_mesh_is_refused_naming_item_7():
-    with pytest.raises(NotImplementedError, match="mesh.*ROADMAP.md §1 item 7"):
-        FederationLearner(model=_port_model(), mesh=object(), device="cpu")
+    """No longer refused (item 7's mesh is ported; the pool's sharded fits
+    keep the refusal: tests/test_torch_simulation.py): a learner on a
+    one-rank ``nodes`` mesh fits the bytes of the learner without one,
+    its model the JAX learner's, and ``"auto"`` resolves to no mesh in a
+    lone process."""
+    import torch.distributed as dist
+
+    from tpfl_torch.parallel import create_mesh
+
     assert FederationLearner(model=_port_model(), mesh="auto", device="cpu").mesh == "auto"
+    jl, plain = _pair(n_local=4)
+    mesh = create_mesh({"nodes": 1}, device="cpu")
+    try:
+        _, meshed = _pair(n_local=4, mesh=None)
+        meshed.mesh = mesh
+        got, base, want = meshed.fit(), plain.fit(), jl.fit()
+        assert meshed._fed.engine.mesh is mesh and plain._fed.engine.mesh is None
+    finally:
+        dist.destroy_process_group()
+    got = {p: v.numpy() for p, v in tree_items(got.get_parameters())}
+    _close(got, {p: v.numpy() for p, v in tree_items(base.get_parameters())},
+           dict(rtol=0, atol=0))
+    _close(got, {p: np.asarray(v) for p, v in tree_items(want.get_parameters())}, TOL)

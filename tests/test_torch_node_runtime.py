@@ -520,6 +520,12 @@ PORTED = {
     "gate parallel.population": lambda: _read_by_port({
         "POPULATION_CLIENTS", "POPULATION_SAMPLE"})
     and importlib.util.find_spec("tpfl_torch.parallel.population") is not None,
+    "gate parallel.FederationEngine(mesh=)": lambda: _read_by_port({
+        "SHARD_NODES", "SHARD_DEVICES", "SHARD_MODEL", "SHARD_LAYOUT", "SHARD_HOSTS"})
+    and FederationEngine(MLP(hidden_sizes=(8,), out_channels=10), 2, mesh="auto",
+                         device="cpu").mesh is None,
+    "gate parallel.ranksafe": lambda: _read_by_port({"RANK_CONTRACTS"})
+    and importlib.util.find_spec("tpfl_torch.parallel.ranksafe") is not None,
 }
 
 
@@ -588,10 +594,6 @@ def test_unported_switch_refused_where_its_plane_starts(knob):
             _made.pop().stop()
 
 
-def _closed_module(name):
-    return lambda: importlib.util.find_spec(f"tpfl_torch.{name}") is None
-
-
 def _raises(call):
     def check():
         with pytest.raises(NotImplementedError):
@@ -604,10 +606,7 @@ def _raises(call):
 GATES = {
     "communication.GrpcCommunicationProtocol": _raises(
         lambda: communication.GrpcCommunicationProtocol),
-    "parallel.FederationEngine(mesh=)": _raises(lambda: FederationEngine(
-        MLP(hidden_sizes=(8,), out_channels=10), 2, mesh="auto", device="cpu")),
     "parallel.FederationEngine.donation_report": _raises(lambda: _engine().donation_report()),
-    "parallel.ranksafe": _closed_module("parallel.ranksafe"),
 }
 
 

@@ -63,7 +63,8 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "utils.topologies", "utils.utils", "management.metric_storage",
                 "management.profiling", "management.tracing", "simulation",
                 "management.fleetobs", "management.node_monitor",
-                "management.web_services"):
+                "management.web_services", "parallel.crosshost", "parallel.ranksafe",
+                "parallel.sharded", "parallel.scaling"):
         assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -89,7 +90,7 @@ def test_sources_name_no_jax_package():
                                    "tpfl_model", "torch_learner", "fedavg", "scaffold_agg",
                                    "fedmedian", "fedprox", "krum", "multikrum",
                                    "trimmedmean", "random_bits", "node", "dispatch_rtt",
-                                   "timed_loop", "mfu"])
+                                   "timed_loop", "mfu", "crosshost_launch"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from tpfl_torch.interop import params_from_flax
@@ -101,7 +102,7 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     from tpfl_torch.management import profiling
     from tpfl_torch.node import Node
     from tpfl_torch.models import CNN, ResNet18, TransformerLM, create_model, init_state
-    from tpfl_torch.parallel import FederationEngine, VmapFederation
+    from tpfl_torch.parallel import FederationEngine, VmapFederation, crosshost
     from tpfl_torch.parallel.flash_kernel import flash_attention
     from tpfl_torch.utils import threefry
 
@@ -130,6 +131,7 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
         "dispatch_rtt": lambda: profiling.measure_dispatch_rtt(),
         "timed_loop": lambda: profiling.timed_loop(lambda c: c, torch.zeros(1), (), 1),
         "mfu": lambda: profiling.cost_model.record_round("no-card", 1.0, 1.0),
+        "crosshost_launch": lambda: crosshost.launch(2),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -3,7 +3,8 @@
 :func:`run_world` spawns ``world`` processes (``torch.multiprocessing``,
 ``spawn`` start method), each of which joins the world through
 ``tpfl_torch.parallel.distributed.ensure_distributed(device="cpu")``,
-computes the results of one function of this module and saves them; the
+computes the results of one function of this module (or of a sibling
+worker module such as ``torch_mesh_worker.py``) and saves them; the
 parent reads every rank's results back. A child imports this module, so
 it imports torch, numpy and ``tpfl_torch`` only: the tests import JAX
 inside their functions.
@@ -39,22 +40,30 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry(rank: int, world: int, port: int, fn_name: str, out_dir: str) -> None:
+def _entry(rank: int, world: int, port: int, module: str, fn_name: str, out_dir: str,
+           workdir: "str | None") -> None:
+    import importlib
+
     torch.set_num_threads(1)
     spmd.ensure_distributed(f"127.0.0.1:{port}", world, rank, device="cpu", timeout=TIMEOUT)
     try:
-        torch.save(globals()[fn_name](), Path(out_dir) / f"rank{rank}.pt")
+        fn = getattr(importlib.import_module(module), fn_name)
+        result = fn() if workdir is None else fn(workdir)
+        torch.save(result, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def run_world(fn: Callable[[], dict], world: int = WORLD) -> list[dict]:
-    """``fn()`` (a function of this module) on every rank of a fresh
-    ``gloo`` world of ``world`` processes: the ranks' results in rank
-    order. Every child has exited when it returns."""
+def run_world(fn: Callable[..., dict], world: int = WORLD,
+              workdir: "str | None" = None) -> list[dict]:
+    """``fn()`` (a module-level function of this module or of a sibling
+    worker module that imports no JAX) on every rank of a fresh ``gloo``
+    world of ``world`` processes: the ranks' results in rank order.
+    ``workdir`` (a directory that outlives the world) is passed to
+    ``fn`` when given. Every child has exited when it returns."""
     with tempfile.TemporaryDirectory() as out_dir:
-        mp.spawn(_entry, args=(world, _free_port(), fn.__name__, out_dir), nprocs=world,
-                 join=True)
+        mp.spawn(_entry, args=(world, _free_port(), fn.__module__, fn.__name__, out_dir,
+                               workdir), nprocs=world, join=True)
         return [torch.load(Path(out_dir) / f"rank{r}.pt", weights_only=False)
                 for r in range(world)]
 

@@ -20,9 +20,13 @@ Two tiers:
 
 Every save writes a fresh ``ckpt_*`` subdir and publishes it with one
 ``os.replace`` of the ``LATEST`` pointer: a crash at any point leaves the
-previous complete checkpoint readable. The reference's
-``SliceCheckpointer`` (orbax over mesh-sharded trees) is not ported
-(``ROADMAP.md`` §1 item 7).
+previous complete checkpoint readable.
+
+:class:`SliceCheckpointer` (the reference's orbax checkpointer of
+mesh-sharded trees) saves a tree of placed tensors — the engine's
+node-sharded state, ``ShardedTrainer``'s FSDP params and optimizer state
+— through ``torch.distributed.checkpoint``: every rank writes its own
+shards, and a restore onto another mesh (or none) reshards from them.
 """
 
 from __future__ import annotations
@@ -259,3 +263,108 @@ def install_sigterm_checkpoint(checkpointer: EngineCheckpointer, state_fn: Any,
 
 __all__ = ["EngineCheckpointer", "StateContractError", "install_sigterm_checkpoint",
            "load_node_checkpoint", "save_node_checkpoint"]
+
+
+class SliceCheckpointer:
+    """Checkpoints of mesh-placed trees (``tpfl/management/checkpoint.py:
+    354-395``) over ``torch.distributed.checkpoint``, in ``step_<n>``
+    directories.
+
+    A tree is nested dicts (lists and tuples too) whose leaves are
+    tensors — ``DTensor`` s keep their placement: each rank writes its
+    own shards — or JSON values (ints, floats, strings, None), kept in
+    ``tree.json``. :meth:`restore` with ``abstract_target`` (a tree of the
+    same paths whose tensors carry the wanted placement, dtype and
+    device, e.g. a freshly initialised state on another mesh) loads into
+    copies of them: a state saved at one world size restores onto
+    another. Without a target every tensor comes back whole, on the
+    CPU. Every rank of the saving (restoring) world must call
+    :meth:`save` (:meth:`restore`) together."""
+
+    _TREE = "tree.json"
+
+    def __init__(self, directory: str) -> None:
+        self._dir = os.path.abspath(directory)
+        os.makedirs(self._dir, exist_ok=True)
+
+    def _path(self, step: int) -> str:
+        return os.path.join(self._dir, f"step_{int(step)}")
+
+    @staticmethod
+    def _flatten(tree: Any, prefix: str = "") -> tuple[dict, Any]:
+        """({path: tensor}, the tree's skeleton for ``tree.json``: every
+        tensor leaf replaced by ``{"__tensor__": path}``)."""
+        import torch
+
+        tensors: dict = {}
+
+        def walk(node: Any, path: str) -> Any:
+            if isinstance(node, dict):
+                return {"__dict__": {k: walk(v, f"{path}{k}/") for k, v in node.items()}}
+            if isinstance(node, (list, tuple)):
+                return {"__list__": [walk(v, f"{path}{i}/") for i, v in enumerate(node)],
+                        "tuple": isinstance(node, tuple)}
+            if isinstance(node, torch.Tensor):
+                key = path.rstrip("/") or "_"
+                tensors[key] = node
+                return {"__tensor__": key}
+            return {"__value__": node}
+
+        return tensors, walk(tree, prefix)
+
+    @staticmethod
+    def _build(skeleton: Any, tensors: dict) -> Any:
+        if "__dict__" in skeleton:
+            return {k: SliceCheckpointer._build(v, tensors) for k, v in skeleton["__dict__"].items()}
+        if "__list__" in skeleton:
+            items = [SliceCheckpointer._build(v, tensors) for v in skeleton["__list__"]]
+            return tuple(items) if skeleton.get("tuple") else items
+        if "__tensor__" in skeleton:
+            return tensors[skeleton["__tensor__"]]
+        return skeleton["__value__"]
+
+    def save(self, step: int, tree: Any) -> None:
+        import torch.distributed as dist
+        import torch.distributed.checkpoint as dcp
+
+        path = self._path(step)
+        tensors, skeleton = self._flatten(tree)
+        if os.path.isdir(path) and (not dist.is_initialized() or dist.get_rank() == 0):
+            shutil.rmtree(path)  # force=True, as the reference saves
+        if dist.is_initialized():
+            dist.barrier()
+        dcp.save(tensors, checkpoint_id=path)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            tmp = os.path.join(path, self._TREE + ".tmp")
+            with open(tmp, "w") as f:
+                json.dump(skeleton, f)
+            os.replace(tmp, os.path.join(path, self._TREE))
+        if dist.is_initialized():
+            dist.barrier()
+
+    def restore(self, step: int, abstract_target: Optional[Any] = None) -> Any:
+        import torch
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.tensor import DTensor
+
+        path = self._path(step)
+        with open(os.path.join(path, self._TREE)) as f:
+            skeleton = json.load(f)
+        if abstract_target is not None:
+            target, _ = self._flatten(abstract_target)
+            dest = {k: (DTensor.from_local(torch.empty_like(t.to_local()), t.device_mesh,
+                                           t.placements, run_check=False, shape=t.shape,
+                                           stride=t.stride())
+                        if isinstance(t, DTensor) else torch.empty_like(t))
+                    for k, t in target.items()}
+        else:
+            meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+            dest = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+                    for k, m in meta.items()}
+        dcp.load(dest, checkpoint_id=path)
+        return self._build(skeleton, dest)
+
+    def latest_step(self) -> Optional[int]:
+        steps = [int(d.split("_", 1)[1]) for d in os.listdir(self._dir)
+                 if d.startswith("step_") and d.split("_", 1)[1].isdigit()]
+        return max(steps) if steps else None

@@ -28,8 +28,10 @@
   :func:`timed_loop`, over CUDA synchronisation.
 - :class:`CostModel` — analytic model FLOPs of the zoo architectures,
   peak FLOP/s per card (:data:`PEAK_FLOPS`) and the live MFU gauges.
-  XLA's cost analysis has no counterpart: :meth:`CostModel.xla_flops`
-  refuses (``ROADMAP.md`` §1 item 8).
+  :meth:`CostModel.cost_analysis` / :meth:`CostModel.xla_flops`, the
+  reference's reading of a compiled program's cost, count the FLOPs of
+  one run of a callable (``torch.utils.flop_counter``): the one path
+  ``parallel.scaling`` reads.
 - :class:`HbmTracker` — per-card memory gauges with a high-water mark,
   read from ``torch.cuda.memory_stats``.
 - the regression gate :func:`compare_to_baseline`, and
@@ -55,10 +57,10 @@ from collections import deque
 from typing import Any, Callable, Iterator
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpfl_torch import resolve_device
 from tpfl_torch.concurrency import make_lock
-from tpfl_torch.exceptions import REST_ITEM, not_ported
 from tpfl_torch.management.logger import logger
 from tpfl_torch.management.telemetry import flight, metrics
 from tpfl_torch.settings import Settings
@@ -578,24 +580,58 @@ def timed_loop(step: Callable, carry: Any, data: tuple, n_iters: int,
 # --- cost model ----------------------------------------------------------------
 
 
+class _FlopCount(TorchDispatchMode):
+    """Sums ``torch.utils.flop_counter.flop_registry``'s count of every
+    aten op dispatched while it is active (matmuls, convolutions,
+    attention; elementwise ops count none, as XLA's cost analysis barely
+    weighs them)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func: Any, types: Any, args: tuple = (),
+                           kwargs: Any = None) -> Any:
+        from torch.utils.flop_counter import flop_registry
+
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            self.total += int(count(*args, **kwargs, out_val=out))
+        return out
+
+
 class CostModel:
     """FLOPs and MFU accounting: analytic model FLOPs of the zoo
     architectures, the card's peak, and the live per-round MFU gauges
     that the benchmark's analytic MFU column is held against."""
 
     @staticmethod
-    def cost_analysis(compiled: Any) -> dict:
-        """XLA's cost analysis of a compiled executable: the port
-        compiles no XLA program, so there is none to read."""
-        raise not_ported("management.profiling.CostModel.cost_analysis "
-                         "(XLA's cost analysis)", REST_ITEM)
+    def cost_analysis(compiled: Callable[[], Any]) -> dict:
+        """The cost of one run of ``compiled``, a zero-argument callable
+        (the port compiles no XLA executable; the program is the call):
+        ``{"flops": ...}``, the aten ops the call dispatches counted by
+        ``torch.utils.flop_counter``'s formulas (its ``flop_registry``,
+        under a dispatch mode of our own: ``FlopCounterMode``'s module
+        tracker refuses the engine's ``autograd.grad``). A kernel launched
+        through ``ctypes`` is invisible to it: on CUDA tensors the conv
+        and flash kernels' work is not counted, on CPU tensors their
+        plain versions run and are."""
+        if not callable(compiled):
+            raise TypeError(f"cost_analysis takes a zero-argument callable, got "
+                            f"{type(compiled).__name__}: the port has no compiled executable")
+        counter = _FlopCount()
+        with counter:
+            compiled()
+        return {"flops": float(counter.total)}
 
     @classmethod
-    def xla_flops(cls, compiled: Any) -> "float | None":
-        """XLA's FLOP count of a compiled executable: refused, as
-        :meth:`cost_analysis` (use :meth:`analytic_train_flops`)."""
-        raise not_ported("management.profiling.CostModel.xla_flops "
-                         "(XLA's cost analysis)", REST_ITEM)
+    def xla_flops(cls, compiled: Callable[[], Any]) -> "float | None":
+        """The FLOPs of one run of ``compiled`` (:meth:`cost_analysis`),
+        None when it counted none — the reference's contract."""
+        flops = cls.cost_analysis(compiled)["flops"]
+        return flops if flops > 0 else None
 
     @staticmethod
     def analytic_fwd_mults(module: Any, input_shape: tuple[int, ...]) -> "int | None":

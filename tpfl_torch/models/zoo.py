@@ -383,7 +383,9 @@ class BatchNorm(nn.Module):
       then cast to ``cd``.
 
     Not ``F.batch_norm``, whose running variance is unbiased and whose
-    momentum weighs the batch."""
+    momentum weighs the batch. ``reduce`` (flax's ``axis_name``) maps the
+    training moments of this call's batch to those of a batch split over
+    several ranks (sync BatchNorm)."""
 
     momentum, epsilon = 0.9, 1e-5
 
@@ -401,14 +403,16 @@ class BatchNorm(nn.Module):
         return {"mean": torch.zeros((features,), dtype=torch.float32, device=device),
                 "var": torch.ones((features,), dtype=torch.float32, device=device)}
 
-    def forward(self, params: Params, stats: Params, x: torch.Tensor,
-                train: bool) -> tuple[torch.Tensor, Params]:
+    def forward(self, params: Params, stats: Params, x: torch.Tensor, train: bool,
+                reduce: Optional[Callable] = None) -> tuple[torch.Tensor, Params]:
         """(normalised x in ``compute_dtype``, new stats [N, C])."""
         n = params["scale"].shape[0]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))  # f64 stays f64
         if train:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            mean, sq = xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+            if reduce is not None:  # the moments of the global batch
+                mean, sq = reduce(mean), reduce(sq)
+            var = torch.clamp(sq - mean * mean, min=0.0)
             m = self.momentum
             stats = {"mean": m * stats["mean"] + (1 - m) * mean.detach().reshape(n, -1),
                      "var": m * stats["var"] + (1 - m) * var.detach().reshape(n, -1)}
@@ -452,18 +456,20 @@ class ResidualBlock(nn.Module):
         return {f"BatchNorm_{i}": BatchNorm.init_stats(self.channels, device)
                 for i in range(self._norms(cin))}
 
-    def forward(self, params: Params, stats: Params, x: torch.Tensor,
-                train: bool) -> tuple[torch.Tensor, Params]:
+    def forward(self, params: Params, stats: Params, x: torch.Tensor, train: bool,
+                reduce: Optional[Callable] = None) -> tuple[torch.Tensor, Params]:
         cd, new = self.compute_dtype, {}
-        y = _group_conv(x, params["Conv_0"]["kernel"], self.stride, cd)
-        y, new["BatchNorm_0"] = self.norm(params["BatchNorm_0"], stats["BatchNorm_0"], y, train)
-        y = _group_conv(F.relu(y), params["Conv_1"]["kernel"], 1, cd)
-        y, new["BatchNorm_1"] = self.norm(params["BatchNorm_1"], stats["BatchNorm_1"], y, train)
+
+        def norm(name: str, y: torch.Tensor) -> torch.Tensor:
+            y, new[name] = self.norm(params[name], stats[name], y, train, reduce)
+            return y
+
+        y = norm("BatchNorm_0", _group_conv(x, params["Conv_0"]["kernel"], self.stride, cd))
+        y = norm("BatchNorm_1", _group_conv(F.relu(y), params["Conv_1"]["kernel"], 1, cd))
         residual = x
         if "Conv_2" in params:
-            residual = _group_conv(x, params["Conv_2"]["kernel"], self.stride, cd)
-            residual, new["BatchNorm_2"] = self.norm(params["BatchNorm_2"],
-                                                     stats["BatchNorm_2"], residual, train)
+            residual = norm("BatchNorm_2",
+                            _group_conv(x, params["Conv_2"]["kernel"], self.stride, cd))
         return F.relu(residual + y), new
 
 
@@ -476,9 +482,10 @@ class ResNet18(nn.Module):
     ``forward(params, x [N, B, H, W, C], aux, train=False) -> (f32
     logits [N, B, out_channels], new aux)``: ``aux`` is
     ``{"batch_stats": ...}`` from :func:`init_state`; with
-    ``train=True`` the BatchNorms use the batch's statistics and the new
-    running stats come back, else the running stats are used and ``aux``
-    comes back as it was."""
+    ``train=True`` the BatchNorms use the batch's statistics (mapped by
+    ``reduce``, see :class:`BatchNorm`) and the new running stats come
+    back, else the running stats are used and ``aux`` comes back as it
+    was."""
 
     def __init__(self, out_channels: int = 100, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  compute_dtype: torch.dtype = torch.bfloat16) -> None:
@@ -515,8 +522,8 @@ class ResNet18(nn.Module):
             stats[f"ResidualBlock_{i}"] = block.init_stats(c, device)
         return {"batch_stats": stats}
 
-    def forward(self, params: Params, x: torch.Tensor, aux: Params,
-                train: bool = False) -> tuple[torch.Tensor, Params]:
+    def forward(self, params: Params, x: torch.Tensor, aux: Params, train: bool = False,
+                reduce: Optional[Callable] = None) -> tuple[torch.Tensor, Params]:
         cd = self.compute_dtype
         if x.dim() == 4:
             x = x[..., None]
@@ -526,11 +533,12 @@ class ResNet18(nn.Module):
         # [N, B, H, W, C] -> the grouped [B, N·C, H, W], channels-last.
         x = x.to(cd).permute(1, 2, 3, 0, 4).reshape(b, h, w, n * c).permute(0, 3, 1, 2)
         x = _group_conv(x, params["Conv_0"]["kernel"], 1, cd)
-        x, new["BatchNorm_0"] = self.norm(params["BatchNorm_0"], stats["BatchNorm_0"], x, train)
+        x, new["BatchNorm_0"] = self.norm(params["BatchNorm_0"], stats["BatchNorm_0"], x, train,
+                                          reduce)
         x = F.relu(x)
         for i, block in enumerate(self.blocks):
             name = f"ResidualBlock_{i}"
-            x, new[name] = block(params[name], stats[name], x, train)
+            x, new[name] = block(params[name], stats[name], x, train, reduce)
         x = x.to(torch.promote_types(cd, torch.float32)).mean(dim=(2, 3)).to(cd)  # [B, N·C]
         x = x.reshape(b, n, -1).transpose(0, 1)
         logits = _dense(x, params["Dense_0"], cd).to(torch.float32)
@@ -541,12 +549,14 @@ Module = Union[MLP, CNN, ResNet18, TransformerLM]
 
 
 def apply(module: Module, params: Params, aux: Params, x: torch.Tensor,
-          train: bool = False) -> tuple[torch.Tensor, Params]:
+          train: bool = False, reduce: Optional[Callable] = None) -> tuple[torch.Tensor, Params]:
     """``module.apply({"params": params, **aux}, x, train=train,
     mutable=list(aux))`` of flax: (logits, new aux). A module without
-    mutable collections takes ``aux == {}`` and gives it back."""
+    mutable collections takes ``aux == {}`` and gives it back.
+    ``reduce`` is flax's BatchNorm ``axis_name``: it maps each BatchNorm's
+    training moments to those of a batch split over ranks."""
     if aux:
-        return module(params, x, aux, train=train)
+        return module(params, x, aux, train=train, reduce=reduce)
     return module(params, x), aux
 
 

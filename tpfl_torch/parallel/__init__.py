@@ -1,9 +1,11 @@
 """The port's federation engine, its drivers, its CUDA kernels and its
-SPMD planes over ``torch.distributed`` (meshes, ring attention, the
-pipeline, the experts).
+SPMD planes over ``torch.distributed`` (meshes and placements, the
+engine's mesh windows, ring attention, the pipeline, the experts, the
+FSDP trainer, the cross-host harness and the static scaling analysis).
 
 The exports load on first access: the model zoo imports ``conv_kernel``
-from this package, and the engine imports the zoo.
+from this package, and the engine imports the zoo. ``crosshost``,
+``ranksafe`` and ``scaling`` are exported as modules.
 """
 
 import importlib
@@ -14,6 +16,16 @@ _EXPORTS = {
     "FedBuffSchedule": "engine",
     "EngineWindow": "engine",
     "sample_participants": "engine",
+    "auto_mesh": "engine",
+    "ShardedTrainer": "sharded",
+    "fsdp_spec": "sharded",
+    "shard_stacked": "mesh",
+    "federation_sharding": "mesh",
+    "global_put": "distributed",
+    "local_data": "distributed",
+    "crosshost": "crosshost",
+    "ranksafe": "ranksafe",
+    "scaling": "scaling",
     "ClientPopulation": "population",
     "VmapFederation": "federation",
     "FederationLearner": "federation_learner",
@@ -48,4 +60,5 @@ def __getattr__(name: str) -> Any:
     module = _EXPORTS.get(name)
     if module is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    return getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    mod = importlib.import_module(f"{__name__}.{module}")
+    return mod if module == name else getattr(mod, name)

@@ -132,6 +132,14 @@ def all_sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def loaded_libraries() -> list[str]:
+    """The file names of the kernel libraries this process has loaded,
+    sorted: each names its source and a hash of the source, headers and
+    flags (``RANK_CONTRACTS`` fingerprints programs with them)."""
+    with _lock:
+        return sorted(Path(lib._name).name for lib in _libs.values())
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _libs.get(name)

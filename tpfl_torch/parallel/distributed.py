@@ -39,15 +39,36 @@ reference's collectives over a one-device axis move nothing: the card's
 machine runs every plane at axis size 1, and the multi-rank exchange is
 held to the reference on the CPU over ``gloo``.
 
-``global_put`` / ``local_data`` place and read arrays through shardings:
-they wait for DTensor placements (``ROADMAP.md`` §1 item 7).
+The engine's fold and the FSDP trainer use plain (non-autograd) helpers
+of the same module: :func:`all_reduce`, :func:`all_gather`,
+:func:`reduce_scatter`, and :func:`fsdp_gather`, whose backward
+reduce-scatters the gradients.
+
+**The collective ledger.** Every collective of the port is issued by a
+helper of this module, and each helper records ``(kind, bytes)`` while a
+:func:`record_collectives` context is open: the reference's kinds
+(``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``collective-permute``, ``all-to-all``) and the bytes of the tensor the
+collective delivers, as ``tpfl/parallel/scaling.py`` counts result
+shapes in HLO. A helper records at every group size, a one-rank group
+included (where it then makes no call): what the program would ship, not
+what the wire happened to carry. :mod:`tpfl_torch.parallel.scaling`
+reads it.
+
+:func:`global_put` places a host tree on a mesh as ``DTensor`` s, each
+rank keeping only its own slice (every rank holds the same host copy:
+the single-controller contract of ``crosshost``); :func:`local_data`
+reads a rank's shard back as numpy; :func:`full_tensor` gathers a
+``DTensor`` through the ledger's helpers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
-from typing import Optional, Sequence
+import threading
+from typing import Any, Iterator, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -55,9 +76,63 @@ import torch.distributed as dist
 from tpfl_torch import DeviceLike, resolve_device
 
 __all__ = [
-    "all_to_all", "ensure_distributed", "gather",
-    "is_multiprocess", "pmean", "replicate", "send_recv", "shard", "shift",
+    "COLLECTIVE_KINDS", "CollectiveLedger", "all_gather", "all_reduce", "all_to_all",
+    "ensure_distributed", "fsdp_gather", "full_tensor", "gather", "global_put",
+    "is_multiprocess", "local_data", "local_slice", "place_like", "pmean",
+    "record_collectives", "reduce_scatter",
+    "replicate", "send_recv", "shard", "shift", "sync_mean",
 ]
+
+#: The reference's collective kinds (``tpfl/parallel/scaling.py:31-37``).
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "collective-permute",
+                    "all-to-all")
+
+
+class CollectiveLedger:
+    """The collectives recorded while one :func:`record_collectives`
+    context was open: ``events`` is the ordered ``(kind, bytes)`` list."""
+
+    def __init__(self) -> None:
+        self.events: list[tuple[str, int]] = []
+
+    def by_kind(self) -> dict[str, int]:
+        """Bytes per kind, as ``scaling.collective_bytes`` returns them."""
+        out: dict[str, int] = {}
+        for kind, nbytes in self.events:
+            out[kind] = out.get(kind, 0) + nbytes
+        return out
+
+    def total(self) -> int:
+        return sum(n for _, n in self.events)
+
+
+# The open ledgers of this process; a stack, so contexts nest (each
+# records every collective issued while it is open).
+_ledgers: list[CollectiveLedger] = []
+_ledger_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[CollectiveLedger]:
+    """Record every collective this process issues inside the block."""
+    ledger = CollectiveLedger()
+    with _ledger_lock:
+        _ledgers.append(ledger)
+    try:
+        yield ledger
+    finally:
+        with _ledger_lock:
+            _ledgers.remove(ledger)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _record(kind: str, nbytes: int) -> None:
+    if _ledgers:
+        for ledger in list(_ledgers):
+            ledger.events.append((kind, int(nbytes)))
 
 #: ``torch.distributed``'s default: a hung peer fails the collective after it.
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
@@ -115,6 +190,7 @@ def send_recv(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup, offset:
     zeros, as ``ppermute`` leaves a device no pair names. One rank: the
     tensors as they are."""
     n = dist.get_world_size(group)
+    _record("collective-permute", sum(_nbytes(t) for t in tensors))
     if n == 1:
         return list(tensors)
     my = dist.get_rank(group)
@@ -160,9 +236,48 @@ def shift(xs: Sequence[torch.Tensor], group: dist.ProcessGroup, offset: int = 1,
 
 
 def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    n = dist.get_world_size(group)
+    _record("all-gather", n * _nbytes(x))
+    if n == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def all_gather(x: torch.Tensor, dim: int, group: dist.ProcessGroup) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` on every rank, without
+    autograd (``x`` itself on a one-rank group)."""
+    return _all_gather(x, dim, group)
+
+
+def all_reduce(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The sum of ``x`` over the ranks, on every rank, without autograd
+    (``lax.psum``): a new tensor; ``x`` itself on a one-rank group."""
+    _record("all-reduce", _nbytes(x))
+    if dist.get_world_size(group) == 1:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group: dist.ProcessGroup) -> torch.Tensor:
+    """This rank's slice along ``dim`` of the sum of ``x`` over the ranks
+    (``lax.psum_scatter(..., tiled=True)``), without autograd."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of size {x.shape[dim]} does not split over {n} ranks")
+    _record("reduce-scatter", _nbytes(x) // n)
+    if n == 1:
+        return x
+    moved = x.detach().movedim(dim, 0).contiguous()
+    out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
+    _reduce_scatter_single(out, moved, group=group)
+    return out.movedim(0, dim)
 
 
 def _local_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -226,9 +341,7 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return all_reduce(g, ctx.group), None
 
 
 def replicate(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
@@ -244,13 +357,32 @@ class _PMean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
         ctx.n = dist.get_world_size(group)
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out / ctx.n
+        return all_reduce(x, group) / ctx.n
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         return g / ctx.n, None
+
+
+class _SyncMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group, ctx.n = group, dist.get_world_size(group)
+        return all_reduce(x, group) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return all_reduce(g, ctx.group) / ctx.n, None
+
+
+def sync_mean(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The mean of ``x`` over the ranks, when each rank's loss is its own
+    (data parallelism: the global loss is the ranks' mean): backward
+    all-reduces the ranks' cotangents and divides by n, so the rank-local
+    gradients average to the global ones (sync BatchNorm's moments)."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _SyncMean.apply(x, group)
 
 
 def pmean(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
@@ -262,6 +394,7 @@ def pmean(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    _record("all-to-all", _nbytes(x))
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=group)
     return out
@@ -289,3 +422,151 @@ def all_to_all(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     if n == 1:
         return x
     return _AllToAll.apply(x, group)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int, group) -> torch.Tensor:
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        n = dist.get_world_size(ctx.group)
+        return reduce_scatter(g, ctx.dim, ctx.group) / n, None, None
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, group: dist.ProcessGroup) -> torch.Tensor:
+    """ZeRO-3's gather-for-compute: the ranks' slices of a parameter
+    all-gathered along ``dim``; backward reduce-scatters the gradient and
+    divides by the group size, so each rank's slice gets the mean of the
+    ranks' gradients (each rank's loss the mean over its own batch shard,
+    the global loss their mean). One rank: ``x``, the identity."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _FsdpGather.apply(x, dim, group)
+
+
+# ---- placement over a DeviceMesh ---------------------------------------------------
+
+
+def _placement_of(sharding: Any) -> tuple[Any, tuple]:
+    """``(DeviceMesh, placements)`` from a ``(mesh, placements)`` pair or
+    an object carrying ``mesh`` and ``placements``."""
+    if isinstance(sharding, tuple) and len(sharding) == 2:
+        return sharding[0], tuple(sharding[1])
+    return sharding.mesh, tuple(sharding.placements)
+
+
+def _is_sharding(x: Any) -> bool:
+    return (isinstance(x, tuple) and len(x) == 2 and hasattr(x[0], "mesh_dim_names")) or (
+        hasattr(x, "mesh") and hasattr(x, "placements"))
+
+
+def local_slice(x: torch.Tensor, mesh: Any, placements: Sequence[Any]) -> torch.Tensor:
+    """This rank's block of a global tensor under ``placements``: each
+    ``Shard(d)`` mesh dim, in mesh-dim order, splits dim ``d`` evenly and
+    keeps this rank's coordinate (two ``Shard(0)`` dims give contiguous
+    runs, the outer dim outermost, as ``DTensor`` lays them out). No
+    communication: every rank holds the host copy."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh {mesh}")
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            size = int(mesh.size(i))
+            if x.shape[p.dim] % size:
+                raise ValueError(f"dimension {p.dim} of size {x.shape[p.dim]} does not split "
+                                 f"over mesh dim {mesh.mesh_dim_names[i]!r} of size {size}")
+            step = x.shape[p.dim] // size
+            x = x.narrow(p.dim, coord[i] * step, step)
+    return x
+
+
+def global_put(tree: Any, shardings: Any) -> Any:
+    """Place a host tree on a mesh: every tensor (or array) leaf becomes a
+    ``DTensor`` built from this rank's slice of it
+    (``tpfl/parallel/distributed.py:91-124``). ``shardings`` is one
+    placement for every leaf, or a matching tree of them; a placement is
+    a ``(DeviceMesh, [Shard | Replicate, ...])`` pair or an object with
+    ``mesh`` and ``placements``. A leaf that is already a ``DTensor`` with
+    those placements (a chained window's output) passes through
+    untouched. The local slices land on the mesh's device type
+    (``cuda`` for an ``nccl`` mesh: this rank's current card)."""
+    from torch.distributed.tensor import DTensor
+
+    def put(leaf: Any, sharding: Any) -> Any:
+        mesh, placements = _placement_of(sharding)
+        if isinstance(leaf, DTensor):
+            if leaf.device_mesh == mesh and tuple(leaf.placements) == placements:
+                return leaf
+            leaf = full_tensor(leaf)
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(leaf)
+        device = torch.device(mesh.device_type) if mesh.device_type == "cpu" else torch.device(
+            "cuda", torch.cuda.current_device())
+        local = local_slice(t, mesh, placements).to(device).contiguous()
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=t.shape, stride=_contiguous_stride(t.shape))
+
+    if _is_sharding(shardings):
+        return _map_leaves(lambda leaf: put(leaf, shardings), tree)
+    return _map_leaves(put, tree, shardings)
+
+
+def _contiguous_stride(shape: Sequence[int]) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for d in reversed(list(shape)):
+        stride.append(acc)
+        acc *= int(d)
+    return tuple(reversed(stride))
+
+
+def _map_leaves(fn: Any, tree: Any, *rest: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_sharding(tree):
+        return type(tree)(_map_leaves(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def place_like(local: torch.Tensor, like: Any) -> Any:
+    """``local`` as a ``DTensor`` placed like the ``DTensor`` ``like``
+    (same mesh, placements and global shape): an output of a computation
+    on ``like``'s local block."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def full_tensor(x: Any) -> torch.Tensor:
+    """The whole global tensor of a ``DTensor`` on every rank, gathered
+    through :func:`all_gather` (innermost mesh dim first, so two
+    ``Shard(0)`` dims reassemble their contiguous runs); a plain tensor
+    as it is. Every rank of the mesh must call it."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    mesh, out = x.device_mesh, x.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p = x.placements[i]
+        if p.is_shard():
+            out = all_gather(out, p.dim, mesh.get_group(i))
+    return out
+
+
+def local_data(x: Any) -> "Any":
+    """This rank's local shard of ``x`` as numpy (a ``DTensor``'s local
+    block; any other tensor or array whole; bf16 as f32, which numpy
+    lacks): the multi-process-safe way to digest a global array without a
+    collective."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.to_local()
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return x.to(torch.float32).numpy() if x.dtype == torch.bfloat16 else x.numpy()
+    return np.asarray(x)

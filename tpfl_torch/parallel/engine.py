@@ -49,6 +49,47 @@ window and replays it at ``finalize`` (:mod:`tpfl_torch.management.engine_obs`).
 :meth:`~FederationEngine.export_state` / :meth:`~FederationEngine.import_state`
 checkpoint the run (``management/checkpoint.py``).
 
+**On a device mesh** (``mesh=`` a ``DeviceMesh`` from
+:func:`~tpfl_torch.parallel.mesh.create_mesh`, or ``"auto"``:
+:func:`auto_mesh` over the ``SHARD_*`` knobs) the engine is one SPMD
+program over the world's ranks, one device a rank, as the reference's
+``shard_map`` program is one over its devices (``engine.py:1191-1710``).
+Every rank builds the same host inputs; :meth:`~FederationEngine.shard_data`
+and the state placement keep each rank's block as a ``DTensor``
+(:func:`~tpfl_torch.parallel.distributed.global_put`). Inside a window
+the rounds run on the local blocks — the kernels see plain tensors —
+and every byte that crosses ranks goes through the helpers of
+:mod:`~tpfl_torch.parallel.distributed`:
+
+- **1D** (``nodes``): each rank trains its ``padded / nodes`` rows; the
+  fold is each rank's weighted partial sum ``all_reduce``-d over the
+  ``nodes`` group, and so are the global sums (the weights' total, the
+  uniform fallback's valid count, SCAFFOLD's elected count; pad rows
+  never enter the fallback).
+- **3D** (``hosts x nodes``): the node axis shards over both, hosts
+  outer; the fold runs in two legs, ``nodes`` then ``hosts``. Under
+  ``ENGINE_WIRE_CODEC`` each host's params partial makes the wire round
+  trip between the legs (variates and aux cross dense), and the
+  telemetry carry grows the ``dcn_bytes`` row, ``hosts x`` one model's
+  wire bytes.
+- **2D** (``nodes x model``): at rest each node's leaves are stored as
+  their :class:`~tpfl_torch.parallel.mesh.SpecLayout` shards over
+  ``model``; the local step all-gathers them over the ``model`` group and
+  the gradients come back to each shard through the gather's transpose
+  (FSDP). The fold reduces over ``nodes`` only: each model shard folds
+  its own slice. A ``TransformerLM`` whose attention is not pinned
+  attends through ``ring_attention`` on the ``model`` group (sequence
+  parallelism; a sequence that does not divide the axis takes
+  ``blockwise_attention``). A ``model`` axis of 1 runs the 1D window.
+
+The outputs come back as ``DTensor`` s with the inputs' placements.
+Every rank must issue the same collectives in the same order, so every
+host-side branch of the window is on a global value. Sums taken in
+another order make a 4-rank run allclose to a 1-rank run; one topology
+and one seed give the same bytes, and a one-rank mesh gives the bytes of
+``mesh=None``. Under ``Settings.RANK_CONTRACTS`` every dispatch appends
+its receipt (:mod:`~tpfl_torch.parallel.ranksafe`).
+
 The simulation plane's seams live here too, as in the reference:
 :func:`sample_participants` (a seeded per-round cohort, numpy),
 :meth:`~FederationEngine.attach_population` (a
@@ -56,11 +97,12 @@ The simulation plane's seams live here too, as in the reference:
 rides :meth:`~FederationEngine.export_state`) and
 :func:`build_masked_local_fit` / :func:`build_batched_fit_program`, the
 simulation pool's masked node-stacked local fit over the learner's own
-train step. :func:`maybe_nodes_mesh` is None: one device.
+train step. :func:`nodes_mesh_axes` says whether the pool's chunk would
+shard (:func:`maybe_nodes_mesh` builds that mesh); the pool's fits
+across ranks are refused (``ROADMAP.md`` §1 item 7).
 
-Refused, each naming its ``ROADMAP.md`` §1 item: a device mesh (item 7;
-``dcn_bytes``, the hosts axis's carry row, comes with it) and the XLA
-aliasing reports ``donation_report`` / ``donation_analysis`` (item 8).
+Refused, naming ``ROADMAP.md`` §1 item 8: the XLA aliasing reports
+``donation_report`` / ``donation_analysis``.
 """
 
 from __future__ import annotations
@@ -70,9 +112,12 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from tpfl_torch import DeviceLike, resolve_device
-from tpfl_torch.exceptions import MULTI_DEVICE_ITEM, REST_ITEM, not_ported
+from tpfl_torch.exceptions import REST_ITEM, not_ported
 from tpfl_torch.learning import compression, serialization
 from tpfl_torch.learning.torch_learner import (
     OptimizerFactory,
@@ -84,10 +129,26 @@ from tpfl_torch.learning.torch_learner import (
 )
 from tpfl_torch.management import profiling
 from tpfl_torch.models.zoo import Params, apply, init_state, stack_params
+from tpfl_torch.parallel import distributed as spmd
+from tpfl_torch.parallel import ranksafe
 from tpfl_torch.parallel.mesh import (
+    HOST_AXIS,
+    MODEL_AXIS,
+    NODE_AXIS,
+    SpecLayout,
+    create_mesh,
+    federation_sharding,
+    global_model_shardings,
+    layout_for_module,
+    mesh_axis_size,
+    node_shard_dims,
+    node_shard_size,
     pad_node_axis,
     pad_node_weights,
     padded_node_count,
+    replicated,
+    round_node_sharding,
+    stacked_model_shardings,
     valid_node_mask,
 )
 from tpfl_torch.settings import Settings
@@ -132,6 +193,11 @@ def _to_device(x: Any, device: torch.device, dtype: Optional[torch.dtype] = None
     return t.to(device)
 
 
+def _on(tree: Any, device: torch.device) -> Any:
+    """Each host leaf of a tree on ``device`` (placed leaves untouched)."""
+    return tree_map(lambda t: t if isinstance(t, DTensor) else _to_device(t, device), tree)
+
+
 def _map_tensors(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     """``fn`` over the tensors of a tree of dicts, lists and tuples."""
     if isinstance(tree, dict):
@@ -141,11 +207,210 @@ def _map_tensors(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
     return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
-def maybe_nodes_mesh(width: int) -> None:
-    """The mesh a batched node axis of ``width`` rows would shard over:
-    None, as the reference's on one device (meshes are ``ROADMAP.md`` §1
-    item 7)."""
-    return None
+# --- auto mesh resolution (Settings.SHARD_* knobs) ---------------------------
+
+# (ranks, model, hosts, device type) -> (the world's default group, mesh):
+# a mesh is kept while the world that built it lives.
+_auto_meshes: dict[tuple, tuple[Any, DeviceMesh]] = {}
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def shard_device_count() -> int:
+    """Ranks (one device each) the ``SHARD_*`` knobs allow the engine to
+    spread over: 0 (the default) = the whole ``torch.distributed`` world,
+    else ``min(SHARD_DEVICES, world)`` (``engine.py:168-174``)."""
+    n = _world()
+    cap = int(Settings.SHARD_DEVICES)
+    return n if cap <= 0 else min(cap, n)
+
+
+def resolve_shard_hosts() -> int:
+    """The ``hosts`` axis size ``SHARD_HOSTS`` selects: 1 = off, 0 = one
+    slot per process (the world size: 1 for a lone process), H > 1 =
+    forced, valid at any world it divides (``engine.py:177-187``)."""
+    h = int(Settings.SHARD_HOSTS)
+    if h == 0:
+        h = _world()
+    return max(1, h)
+
+
+def auto_mesh_axes() -> Optional[dict[str, int]]:
+    """The axes of the mesh the ``SHARD_NODES`` knobs select
+    (``engine.py:190-223``): the allowed ranks on one ``nodes`` axis
+    (``SHARD_MODEL`` 1), the 2D ``nodes x model`` mesh when
+    ``SHARD_MODEL`` = M > 1 (M must divide), and the 3D ``hosts x nodes
+    [x model]`` mesh, hosts first, when ``SHARD_HOSTS`` resolves above 1.
+    None when sharding is off or there is one rank. Builds no group."""
+    if not Settings.SHARD_NODES:
+        return None
+    d = shard_device_count()
+    if d <= 1:
+        return None
+    m = max(1, int(Settings.SHARD_MODEL))
+    h = resolve_shard_hosts()
+    if d % (m * h) != 0:
+        raise ValueError(
+            f"SHARD_MODEL={m} x SHARD_HOSTS={h} does not divide the {d} allowed devices")
+    axes = {}
+    if h > 1:
+        axes[HOST_AXIS] = h
+    axes[NODE_AXIS] = d // (m * h)
+    if m > 1:
+        axes[MODEL_AXIS] = m
+    return axes
+
+
+def auto_mesh(device: DeviceLike = None) -> Optional[DeviceMesh]:
+    """The mesh of :func:`auto_mesh_axes` over the first ranks of the
+    world, or None. Every rank of the world must call it together (a new
+    mesh creates its groups)."""
+    axes = auto_mesh_axes()
+    if axes is None:
+        return None
+    dev = resolve_device(device)
+    key = (tuple(axes.items()), dev.type)
+    world_group = dist.group.WORLD
+    hit = _auto_meshes.get(key)
+    if hit is not None and hit[0] is world_group:
+        return hit[1]
+    mesh = create_mesh(axes, device=dev, ranks=int(np.prod(list(axes.values()))))
+    _auto_meshes[key] = (world_group, mesh)
+    return mesh
+
+
+def nodes_mesh_axes(width: int) -> Optional[dict[str, int]]:
+    """The axes of the mesh a batched node axis of ``width`` rows would
+    shard over (the simulation pool's chunk): :func:`auto_mesh_axes` when
+    ``width`` divides its node shards, else None (``engine.py:226-237``).
+    Builds no group, so one rank may ask alone."""
+    axes = auto_mesh_axes()
+    if axes is None or width % (axes.get(HOST_AXIS, 1) * axes[NODE_AXIS]) != 0:
+        return None
+    return axes
+
+
+def maybe_nodes_mesh(width: int, device: DeviceLike = None) -> Optional[DeviceMesh]:
+    """The mesh of :func:`nodes_mesh_axes`, or None."""
+    return None if nodes_mesh_axes(width) is None else auto_mesh(device)
+
+
+def _with_attention(module: Any, attention_fn: Callable) -> Any:
+    """A shallow copy of a ``TransformerLM`` whose blocks attend through
+    ``attention_fn`` (flax's ``module.clone(attention_fn=...)``)."""
+    import copy
+
+    clone = copy.copy(module)
+    clone.attention_fn = attention_fn
+    blocks = []
+    for block in module.blocks:
+        b = copy.copy(block)
+        b.attention_fn = attention_fn
+        blocks.append(b)
+    clone.blocks = blocks
+    return clone
+
+
+def _sequence_parallel_module(module: Any, mesh: DeviceMesh) -> Any:
+    """``module`` attending through ring attention over the mesh's
+    ``model`` axis (``engine.py:551-586``): each model rank holds one
+    sequence block and K/V rotate the ring
+    (:func:`~tpfl_torch.parallel.ring_attention.ring_attention`; the
+    kernels' ``flash_block_fwd`` / ``flash_block_bwd`` on CUDA tensors,
+    the einsum inner on CPU tensors). Modules without an unset
+    ``attention_fn`` seam (MLP, CNN, ResNet, or a transformer whose
+    attention is pinned) pass through. A sequence length that does not
+    divide the axis takes ``blockwise_attention``, the reference's own
+    branch."""
+    if getattr(module, "attention_fn", False) is not None or not hasattr(module, "blocks"):
+        return module
+    from tpfl_torch.parallel.ring_attention import blockwise_attention, ring_attention
+
+    group = mesh.get_group(MODEL_AXIS)
+    msize = mesh_axis_size(mesh, MODEL_AXIS)
+
+    def model_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True) -> torch.Tensor:
+        if q.shape[1] % msize != 0:
+            return blockwise_attention(q, k, v, causal=causal)
+        local = spmd.shard([q, k, v], 1, group)
+        return spmd.gather(ring_attention(*local, group, causal=causal), 1, group)
+
+    return _with_attention(module, model_ring_attention)
+
+
+class _MeshWindow:
+    """One window's view of the mesh: the fold's legs (the ``nodes``
+    group, then ``hosts``), the DCN codec between them, the ``model``
+    group and which dim of each state leaf it splits, this rank's valid
+    rows, and the placed inputs whose placements the outputs take."""
+
+    __slots__ = ("legs", "hosts", "host_leg", "model_group", "split", "like", "valid",
+                 "dcn_codec")
+
+    def __init__(self, engine: "FederationEngine", placed: tuple) -> None:
+        mesh = engine.mesh
+        dims = node_shard_dims(mesh)
+        self.legs = [mesh.get_group(a) for a in reversed(dims)]
+        self.hosts = mesh_axis_size(mesh, HOST_AXIS)
+        # The reference lowers the hosts leg (codec, dcn_bytes) on 1D /
+        # 3D meshes only; its 2D program is GSPMD's.
+        self.host_leg = self.hosts > 1 and engine.model_axes <= 1
+        self.dcn_codec: Optional[Callable] = None
+        self.model_group = mesh.get_group(MODEL_AXIS) if engine.model_axes > 1 else None
+        self.like = placed
+        model_dim = (mesh.mesh_dim_names.index(MODEL_AXIS)
+                     if MODEL_AXIS in mesh.mesh_dim_names else None)
+
+        def split_dim(t: Any) -> Optional[int]:
+            if model_dim is None or self.model_group is None:
+                return None
+            p = t.placements[model_dim]
+            return p.dim if p.is_shard() else None
+
+        # Per state tree (params, c_locals, c_global, aux): the leaf's
+        # model-split dim, or None when no leaf is split.
+        self.split = tuple(_tree_or_none(tree_map(split_dim, tree)) for tree in placed)
+        self.valid = spmd.local_slice(engine.valid, mesh, federation_sharding(mesh).placements)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the node shards."""
+        for g in self.legs:
+            x = spmd.all_reduce(x, g)
+        return x
+
+    def gather(self, tree: Any, split: Any, grad: bool = False) -> Any:
+        """Each split leaf whole (all-gathered over ``model``); with
+        ``grad``, differentiable: the gradient returns to this rank's
+        shard (the slice of the replicated cotangent)."""
+        if split is None:
+            return tree
+        g = self.model_group
+        op = spmd.gather if grad else spmd.all_gather
+        return tree_map(lambda t, d: t if d is None else op(t, d, g), tree, split)
+
+    def slice(self, tree: Any, split: Any) -> Any:
+        """This rank's shard of each split leaf of a whole tree."""
+        if split is None:
+            return tree
+        g = self.model_group
+        return tree_map(lambda t, d: t if d is None else spmd.shard([t], d, g)[0], tree, split)
+
+
+def _psum(mw: Optional[_MeshWindow], x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the node shards (``x`` without a mesh)."""
+    return x if mw is None else mw.psum(x)
+
+
+def _tree_or_none(tree: Any) -> Any:
+    """``tree`` if any leaf is not None, else None."""
+    return tree if any(d is not None for d in tree_leaves(tree)) else None
+
+
+def _is_dtensor_tree(tree: Any) -> bool:
+    return any(isinstance(t, DTensor) for t in tree_leaves(tree))
 
 
 def sample_participants(population: int, k: int, seed: int, round: int) -> np.ndarray:
@@ -360,7 +625,11 @@ class EngineWindow:
                                  round=self._ordinal)
             profiling.rounds.add(self._node_tag, "train", t2 - self._t1, round=self._ordinal)
             profiling.rounds.end_round(self._node_tag, self._ordinal)
-        if self._tele is not None:
+        mesh = self._engine.mesh
+        if self._tele is not None and (mesh is None or mesh.size() == 1):
+            # A window over several ranks holds only this rank's node rows:
+            # the observatory fan-out is a single-process plane, as the
+            # reference's (each rank still reads its carry, telemetry()).
             from tpfl_torch.management import engine_obs
 
             eng = self._engine
@@ -387,18 +656,25 @@ class EngineWindow:
 
 
 class FederationEngine:
-    """N-node federated training on one device.
+    """N-node federated training on one device or over a device mesh.
 
     Args mirror the reference. ``device=None`` means the card; pass
-    ``device="cpu"`` for the plain PyTorch path. Node-stacked state
-    rides the padded node axis (``padded_nodes == n_nodes`` on one
-    device)."""
+    ``device="cpu"`` for the plain PyTorch path. ``mesh`` is None (one
+    device), a ``DeviceMesh`` with a ``nodes`` axis (and optionally
+    ``hosts`` and ``model``) of the mesh's device type, or ``"auto"``
+    (:func:`auto_mesh`). Node-stacked state rides the padded node axis:
+    ``padded_nodes`` rounds ``n_nodes`` up to the node shards
+    (``n_nodes`` without a mesh). ``layout`` (a :class:`SpecLayout`, a
+    layout name, or None for ``Settings.SHARD_LAYOUT``) splits each
+    node's leaves over a ``model`` axis; ``sequence_parallel`` puts an
+    unpinned transformer's attention on the ``model`` ring when that axis
+    is over 1."""
 
     def __init__(
         self,
         module: Any,
         n_nodes: int,
-        mesh: Any = None,
+        mesh: "DeviceMesh | str | None" = None,
         learning_rate: float = 0.1,
         optimizer_factory: Optional[OptimizerFactory] = None,
         loss_fn: Callable = cross_entropy_loss,
@@ -406,6 +682,8 @@ class FederationEngine:
         aux_mode: str = "mean",
         algorithm: str = "fedavg",
         prox_mu: float = 0.01,
+        layout: "SpecLayout | str | None" = None,
+        sequence_parallel: bool = True,
         device: DeviceLike = None,
     ) -> None:
         if aux_mode not in ("mean", "local"):
@@ -414,10 +692,25 @@ class FederationEngine:
             raise ValueError(
                 f"algorithm must be one of {_ALGORITHMS}, got {algorithm!r}"
             )
-        if mesh is not None:
-            raise not_ported("FederationEngine(mesh=), a device mesh", MULTI_DEVICE_ITEM)
         Settings.refuse_unported("engine")
         self.device = resolve_device(device)
+        self.mesh = auto_mesh(self.device) if isinstance(mesh, str) and mesh == "auto" else mesh
+        if self.mesh is not None:
+            names = self.mesh.mesh_dim_names or ()
+            if NODE_AXIS not in names:
+                raise ValueError(f"the engine's mesh needs a {NODE_AXIS!r} axis, has {names}")
+            if self.mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"a {self.mesh.device_type} mesh for an engine on {self.device}: the "
+                    f"mesh's groups must be of the engine's device ('nccl' for the card)")
+            if self.mesh.get_coordinate() is None:
+                raise ValueError(f"rank {dist.get_rank()} is not in the engine's mesh")
+        #: Model-parallel axis size (1 without a ``model`` axis).
+        self.model_axes = mesh_axis_size(self.mesh, MODEL_AXIS)
+        self.layout = layout if isinstance(layout, SpecLayout) else layout_for_module(
+            module, layout or str(Settings.SHARD_LAYOUT))
+        if self.model_axes > 1 and sequence_parallel:
+            module = _sequence_parallel_module(module, self.mesh)
         self.module = module
         self.n_nodes = int(n_nodes)
         self.learning_rate = float(learning_rate)
@@ -427,7 +720,7 @@ class FederationEngine:
         self.aux_mode = aux_mode
         self.algorithm = algorithm
         self.prox_mu = float(prox_mu)
-        self.padded_nodes = padded_node_count(self.n_nodes)
+        self.padded_nodes = padded_node_count(self.n_nodes, self.mesh)
         self.valid = valid_node_mask(self.n_nodes, self.padded_nodes, self.device)
         # Window ordinal of the profiler's rows (counts profiled windows,
         # as the reference does) and the cumulative round ordinal: a
@@ -449,13 +742,41 @@ class FederationEngine:
 
     # --- state / data placement ---
 
+    def _shard(self, tree: Any) -> Any:
+        """Node-stacked DATA on the mesh: the node axis split over the
+        node shards, replicated over ``model`` (every model rank sees its
+        node's whole batch)."""
+        if self.mesh is None:
+            return tree
+        return spmd.global_put(tree, federation_sharding(self.mesh))
+
+    def _shard_state(self, tree: Any) -> Any:
+        """Node-stacked MODEL STATE (params, variates, aux) on the mesh:
+        the node axis over the node shards and, on a 2D mesh, each leaf's
+        layout dims over ``model``."""
+        if self.mesh is None:
+            return tree
+        if self.model_axes > 1:
+            return spmd.global_put(tree, stacked_model_shardings(self.mesh, tree, self.layout))
+        return spmd.global_put(tree, federation_sharding(self.mesh))
+
+    def _shard_global(self, tree: Any) -> Any:
+        """An UNSTACKED node-replicated tree (SCAFFOLD's ``c_global``):
+        replicated over the node shards, layout-split over ``model``."""
+        if self.mesh is None:
+            return tree
+        if self.model_axes > 1:
+            return spmd.global_put(tree, global_model_shardings(self.mesh, tree, self.layout))
+        return spmd.global_put(tree, replicated(self.mesh))
+
     def init_state(self, input_shape: tuple[int, ...]) -> tuple[Params, Params]:
         """(stacked params, stacked aux), identical across nodes — aux is
         ``{}`` for modules without mutable collections. ``input_shape``
         is one sample's: ``(H, W, C)`` for images, ``(S,)`` for a token
-        model."""
+        model. On a mesh both come placed (``DTensor`` s)."""
         params, aux = init_state(self.module, input_shape, self.seed, self.device)
-        return self.broadcast_params(params), self.broadcast_params(aux)
+        return (self._shard_state(self.broadcast_params(params)),
+                self._shard_state(self.broadcast_params(aux)))
 
     def init_params(self, input_shape: tuple[int, ...]) -> Params:
         """Stacked [padded_nodes, ...] params (aux-free modules)."""
@@ -469,24 +790,63 @@ class FederationEngine:
 
     def init_scaffold_state(self, params: Params) -> tuple[Params, Params]:
         """(c_locals [padded, ...], c_global [...]): zero control
-        variates; ``c_global`` is one unstacked tree."""
+        variates; ``c_global`` is one unstacked tree (on a mesh placed
+        like the state: replicated over the node shards)."""
+        if self.mesh is not None and _is_dtensor_tree(params):
+            c_locals = tree_map(lambda p: spmd.place_like(torch.zeros_like(p.to_local()), p), params)
+            return c_locals, self._shard_global(tree_map(
+                lambda p: torch.zeros(p.shape[1:], dtype=p.dtype, device=self.device), params))
         c_locals = tree_map(torch.zeros_like, params)
         c_global = tree_map(lambda p: torch.zeros(p.shape[1:], dtype=p.dtype, device=p.device),
                             params)
-        return c_locals, c_global
+        return self._shard_state(c_locals), self._shard_global(c_global)
 
     def broadcast_params(self, tree: Params) -> Params:
         """One model's tree broadcast onto the padded node axis."""
         return stack_params(tree, self.padded_nodes, self.device)
 
     def pad_stacked(self, tree: Any) -> Any:
-        return pad_node_axis(tree, self.padded_nodes)
+        """Pad a node-stacked tree's leading axis to ``padded_nodes`` (clone
+        rows; a no-op when already there). A placed leaf of another length
+        (a tier move on a mesh) is gathered first."""
+        def pad(t: Any) -> Any:
+            if isinstance(t, DTensor):
+                if t.shape[0] == self.padded_nodes:
+                    return t
+                t = spmd.full_tensor(t)
+            return pad_node_axis(t, self.padded_nodes)
+
+        return tree_map(pad, tree)
 
     def unpad(self, tree: Any) -> Any:
-        """Strip pad rows from a node-stacked tree."""
+        """Strip pad rows from a node-stacked tree. On a mesh every leaf is
+        gathered whole first (every rank must call it) and comes back as
+        a plain tensor."""
+        if self.mesh is not None:
+            tree = tree_map(spmd.full_tensor, tree)
         if self.padded_nodes == self.n_nodes:
             return tree
         return tree_map(lambda x: x[: self.n_nodes], tree)
+
+    def first_row(self, tree: Any) -> Any:
+        """Row 0 of a node-stacked tree as one model's plain tensors — the
+        aggregate after a sync fold. On a mesh this rank's first local row,
+        gathered over ``model`` where the leaf is split (every rank of the
+        model group must call it): every rank holds the aggregate."""
+        if self.mesh is None:
+            return tree_map(lambda t: t[0], tree)
+
+        def row(t: Any) -> torch.Tensor:
+            if not isinstance(t, DTensor):
+                return t[0]
+            local = t.to_local()[:1]
+            names = t.device_mesh.mesh_dim_names
+            for i, p in enumerate(t.placements):
+                if p.is_shard() and names[i] == MODEL_AXIS:
+                    local = spmd.all_gather(local, p.dim, t.device_mesh.get_group(i))
+            return local[0]
+
+        return tree_map(row, tree)
 
     def pad_weights(self, weights: Optional[Any]) -> torch.Tensor:
         """[n] (or per-round [R, n]) weights -> padded f32 on the device;
@@ -514,10 +874,13 @@ class FederationEngine:
     def shard_data(self, xs: Any, ys: Any) -> tuple[torch.Tensor, torch.Tensor]:
         """Node-stacked data [N, n_batches, b, ...] on the device (the
         dtype of ``xs`` is kept: feed bf16 to halve its reads; integer
-        tokens stay integer)."""
-        xs = _to_device(xs, self.device)
-        ys = _to_device(ys, self.device).to(torch.long)
-        return self.pad_stacked(xs), self.pad_stacked(ys)
+        tokens stay integer), padded and, on a mesh, placed: each rank
+        keeps its node rows. Placed data passes through."""
+        if not isinstance(xs, DTensor):
+            xs = _to_device(xs, self.device)
+        if not isinstance(ys, DTensor):
+            ys = _to_device(ys, self.device).to(torch.long)
+        return self._shard(self.pad_stacked(xs)), self._shard(self.pad_stacked(ys))
 
     # --- elastic membership ---
 
@@ -526,7 +889,7 @@ class FederationEngine:
         padded axis and the validity mask follow. The caller re-pads its
         state and data (:meth:`pad_stacked`, :meth:`shard_data`)."""
         self.n_nodes = int(n_nodes)
-        self.padded_nodes = padded_node_count(self.n_nodes)
+        self.padded_nodes = padded_node_count(self.n_nodes, self.mesh)
         self.valid = valid_node_mask(self.n_nodes, self.padded_nodes, self.device)
 
     def attach_membership(self, view: Any) -> None:
@@ -585,10 +948,14 @@ class FederationEngine:
         tensor for bf16 leaves), owning their bytes, with ``n_nodes``,
         ``rounds_done``, ``windows``, ``seed`` and the attached
         controller's, membership's and ``quarantine``'s exported state.
-        A consumption boundary: it waits for the tensors it reads."""
+        A consumption boundary: it waits for the tensors it reads. On a
+        mesh every leaf is gathered whole first, so every rank holds the
+        logical rows and the snapshot is mesh-agnostic: it imports onto
+        any mesh, or none (every rank must call it)."""
         n = self.n_nodes
 
         def host(tree: Any, rows: bool = True) -> Any:
+            tree = tree_map(spmd.full_tensor, tree)
             if rows:
                 tree = tree_map(lambda x: x[:n], tree)
             return tree_map(lambda v: v.clone() if isinstance(v, torch.Tensor) else np.array(v),
@@ -621,7 +988,8 @@ class FederationEngine:
     def import_state(self, state: dict, quarantine: Optional[Any] = None) -> dict:
         """Restore an :meth:`export_state` snapshot (the reference's, too,
         through ``EngineCheckpointer``): the node axis resizes to the
-        checkpoint's count, the rows are padded onto this engine's device,
+        checkpoint's count, the rows are padded and placed for this
+        engine's device and mesh,
         the schedule position, window ordinal and seed (the checkpoint's
         wins) come back, and the controller, membership and ``quarantine``
         state are imported, and so is a population's (a
@@ -638,13 +1006,15 @@ class FederationEngine:
         def on_device(tree: Any) -> Any:
             return tree_map(lambda a: _to_device(a, self.device).clone(), tree)
 
-        out: dict = {"params": self.pad_stacked(on_device(state["params"])), "aux": None,
-                     "scaffold_state": None}
+        def place(tree: Any) -> Any:
+            return self._shard_state(self.pad_stacked(on_device(tree)))
+
+        out: dict = {"params": place(state["params"]), "aux": None, "scaffold_state": None}
         if "aux" in state:
-            out["aux"] = self.pad_stacked(on_device(state["aux"]))
+            out["aux"] = place(state["aux"])
         if "c_locals" in state:
-            out["scaffold_state"] = (self.pad_stacked(on_device(state["c_locals"])),
-                                     on_device(state["c_global"]))
+            out["scaffold_state"] = (place(state["c_locals"]),
+                                     self._shard_global(on_device(state["c_global"])))
         if self.controller is not None and state.get("controller"):
             self.controller.state_import(state["controller"])
         if state.get("membership"):
@@ -681,20 +1051,35 @@ class FederationEngine:
         return 0.5 * self.prox_mu * sq
 
     def _local_train(self, kind: str, params: Params, c_i: Params, c_g: Params, aux: Params,
-                     xs: torch.Tensor, ys: torch.Tensor,
-                     epochs: int) -> tuple[Params, Params, Params, torch.Tensor]:
+                     xs: torch.Tensor, ys: torch.Tensor, epochs: int,
+                     mw: Optional[_MeshWindow] = None) -> tuple[Params, Params, Params, torch.Tensor]:
         """Every node's local fit (``engine.py:1103-1189``): returns
         (trained params, new c_i, new aux, last epoch's mean batch loss
         [n]). ``c_i`` / ``c_g`` / ``aux`` are ``{}`` for kinds that do
-        not thread them."""
+        not thread them. On a 2D mesh (``mw``, the window's mesh view) the
+        leaves are this rank's model shards: each step gathers them whole
+        for the forward, and the gradients, the optimizer and the variates
+        stay on the shards."""
         module, loss_fn = self.module, self._loss_fn
+        split, split_aux = (None, None) if mw is None else (mw.split[0], mw.split[3])
+
+        def whole(tree: Params, grad: bool = False) -> Params:
+            return tree if mw is None else mw.gather(tree, split, grad)
+
+        def run(leaves: Params, a: Params, x: torch.Tensor, train: bool) -> tuple:
+            if mw is None or split_aux is None:
+                return apply(module, leaves, a, x, train=train)
+            logits, new_a = apply(module, leaves, mw.gather(a, split_aux), x, train=train)
+            return logits, mw.slice(new_a, split_aux)
+
         if epochs <= 0:  # aggregation-only round
             with torch.no_grad():
-                logits, _ = apply(module, params, aux, xs[:, 0], train=False)
+                logits, _ = run(whole(params), aux, xs[:, 0], False)
                 return params, c_i, aux, _per_node_mean(loss_fn(logits, ys[:, 0]))
         p0 = params  # round-start weights (FedProx anchor, SCAFFOLD's x)
         train = kind != "plain"
         prox = self.algorithm == "fedprox"
+        p0_whole = whole(p0) if prox else None
         corr = {}
         if kind == "scaffold":  # fixed for the round
             corr = tree_map(lambda c, ci: (c - ci).to(c.dtype), c_g, c_i)
@@ -705,10 +1090,11 @@ class FederationEngine:
             losses = []
             for bi in range(xs.shape[1]):
                 leaves = tree_map(lambda v: v.detach().requires_grad_(True), params)
-                logits, new_aux = apply(module, leaves, aux, xs[:, bi], train=train)
+                full = whole(leaves, grad=True)
+                logits, new_aux = run(full, aux, xs[:, bi], train)
                 per_node = _per_node_mean(loss_fn(logits, ys[:, bi]))
                 if prox:
-                    per_node = per_node + self._prox(leaves, p0)
+                    per_node = per_node + self._prox(full, p0_whole)
                 grads_flat = torch.autograd.grad(per_node.sum(), tree_leaves(leaves))
                 it = iter(grads_flat)
                 grads = tree_map(lambda _v: next(it), leaves)
@@ -730,28 +1116,44 @@ class FederationEngine:
         return params, c_i, aux, loss
 
     @staticmethod
-    def _fold_weights(weights: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def _fold_weights(weights: torch.Tensor, valid: torch.Tensor,
+                      psum: Optional[Callable] = None) -> torch.Tensor:
         """``weights / Σweights``, uniform over real nodes when all-zero
-        (``engine.py:1192-1211``)."""
-        total = weights.sum()
-        fallback = valid / torch.clamp(valid.sum(), min=1.0)
+        (``engine.py:1192-1211``). On a mesh ``psum`` makes both sums
+        global (this rank's partial, all-reduced over the node shards)."""
+        total, valid_total = weights.sum(), valid.sum()
+        if psum is not None:
+            total, valid_total = psum(total), psum(valid_total)
+        fallback = valid / torch.clamp(valid_total, min=1.0)
         return torch.where(total > 0, weights / torch.clamp(total, min=1e-9), fallback)
 
     @staticmethod
-    def _leaf_mean(wnorm: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    def _leaf_mean(wnorm: torch.Tensor, p: torch.Tensor, mw: Optional[_MeshWindow] = None,
+                   on_wire: bool = False) -> torch.Tensor:
         """Σ_n wnorm[n]·p[n] in f32, cast back to p's dtype; w=0 rows are
-        zeroed BEFORE the sum: 0 · inf would be NaN."""
+        zeroed BEFORE the sum: 0 · inf would be NaN. On a mesh (``mw``)
+        this rank's partial sum is all-reduced over ``nodes``, then over ``hosts``;
+        ``on_wire`` (the params) passes the host's partial through the
+        DCN codec between the two legs (``engine.py:1214-1258``)."""
         w = wnorm.to(torch.float32)
         clean = torch.where(_rows(w > 0, p), p.to(torch.float32),
                             torch.zeros((), device=p.device))
-        return torch.tensordot(w, clean, dims=1).to(p.dtype)
+        agg = torch.tensordot(w, clean, dims=1)
+        if mw is not None:
+            agg = spmd.all_reduce(agg, mw.legs[0])
+            if len(mw.legs) > 1:
+                if on_wire and mw.dcn_codec is not None:
+                    agg = mw.dcn_codec(agg)
+                agg = spmd.all_reduce(agg, mw.legs[1])
+        return agg.to(p.dtype)
 
-    def _diffuse(self, tree: Params, wnorm: torch.Tensor) -> Params:
+    def _diffuse(self, tree: Params, wnorm: torch.Tensor, mw: Optional[_MeshWindow] = None,
+                 on_wire: bool = False) -> Params:
         """The weighted mean of every leaf, broadcast back to every node."""
         n = wnorm.shape[0]
 
         def leaf(p: torch.Tensor) -> torch.Tensor:
-            agg = self._leaf_mean(wnorm, p)
+            agg = self._leaf_mean(wnorm, p, mw, on_wire)
             return agg[None].expand(n, *agg.shape).clone()
 
         return tree_map(leaf, tree)
@@ -759,12 +1161,15 @@ class FederationEngine:
     @torch.no_grad()
     def _fold(self, kind: str, trained: Params, new_c: Params, new_aux: Params,
               c_locals: Params, c_global: Params, aux: Params,
-              weights: torch.Tensor) -> tuple[Params, Params, Params, Params]:
+              weights: torch.Tensor, valid: torch.Tensor,
+              mw: Optional[_MeshWindow] = None) -> tuple[Params, Params, Params, Params]:
         """Masked FedAvg fold + broadcast, the SCAFFOLD server update and
         the aux aggregation (``engine.py:1237-1319``): (params, c_locals,
-        c_global, aux)."""
-        wnorm = self._fold_weights(weights, self.valid)
-        out_params = self._diffuse(trained, wnorm)
+        c_global, aux). On a mesh (``mw``) ``weights`` / ``valid`` are this
+        rank's rows."""
+        psum = None if mw is None else mw.psum
+        wnorm = self._fold_weights(weights, valid, psum)
+        out_params = self._diffuse(trained, wnorm, mw, on_wire=True)
         sel = weights > 0
 
         def keep_elected(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
@@ -776,12 +1181,12 @@ class FederationEngine:
             # c += (|S|/N) · uniform mean over ELECTED of delta_c, N the
             # LOGICAL federation size (pad rows are never elected).
             mask = sel.to(torch.float32)
-            um = self._fold_weights(mask, self.valid)
-            frac = mask.sum() / self.n_nodes
+            um = self._fold_weights(mask, valid, psum)
+            frac = _psum(mw, mask.sum()) / self.n_nodes
             f32 = torch.float32
             out_cg = tree_map(
                 lambda cg, n, o: (cg.to(f32) + frac * self._leaf_mean(
-                    um, n.to(f32) - o.to(f32))).to(cg.dtype),
+                    um, n.to(f32) - o.to(f32), mw)).to(cg.dtype),
                 c_global, new_c, c_locals)
         if kind == "plain":
             out_aux = aux
@@ -790,7 +1195,7 @@ class FederationEngine:
             # so its private stats do not advance.
             out_aux = tree_map(keep_elected, new_aux, aux)
         else:
-            out_aux = self._diffuse(new_aux, wnorm)
+            out_aux = self._diffuse(new_aux, wnorm, mw)
         return out_params, out_c, out_cg, out_aux
 
     @staticmethod
@@ -811,17 +1216,20 @@ class FederationEngine:
         return total
 
     def _round(self, kind: str, state: tuple, xs: torch.Tensor, ys: torch.Tensor,
-               w: torch.Tensor, epochs: int, codec: Callable,
+               w: torch.Tensor, valid: torch.Tensor, epochs: int, codec: Callable,
                scale: Optional[torch.Tensor] = None,
                sched: Optional[tuple[torch.Tensor, torch.Tensor, float]] = None,
-               wire_bpm: Optional[float] = None) -> tuple[tuple, torch.Tensor, Optional[tuple]]:
+               wire_bpm: Optional[float] = None,
+               mw: Optional[_MeshWindow] = None) -> tuple[tuple, torch.Tensor, Optional[tuple]]:
         """One round (``round_body``, ``engine.py:1452-1584``): (state,
         losses, telemetry stats or None). ``sched`` is a fedbuff round's
         (arrivals, taus, staleness exponent); ``wire_bpm``, one model's
-        wire bytes, turns the telemetry stats on."""
+        wire bytes, turns the telemetry stats on. On a mesh (``mw``) ``w`` /
+        ``valid`` and every tensor are this rank's rows."""
         params, c_locals, c_global, aux = state
+        split = None if mw is None else mw.split[0]
         trained, new_c, new_aux, losses = self._local_train(
-            kind, params, c_locals, c_global, aux, xs, ys, epochs)
+            kind, params, c_locals, c_global, aux, xs, ys, epochs, mw)
         with torch.no_grad():
             if sched is not None:
                 arrive, tau, stale_exp = sched
@@ -829,20 +1237,25 @@ class FederationEngine:
                 w = w * arrive * (1.0 + tau) ** (-stale_exp)
             if scale is not None:  # the seeded adversary (engine.py:1467-1475)
                 trained = tree_map(lambda t: _rows(scale, t).to(t.dtype) * t, trained)
-            trained = tree_map(codec, trained)
+            if split is None:
+                trained = tree_map(codec, trained)
+            else:  # the codec's scale and top-k see each node's whole leaf
+                trained = mw.slice(tree_map(codec, mw.gather(trained, split)), split)
             node_stats = None
             if wire_bpm is not None:
                 f32 = torch.float32
-                upd = tree_map(lambda t, p: t.to(f32) - p.to(f32), trained, params)
-                t_sq, s_sq = self._per_node_sq(trained), self._per_node_sq(params)
+                t_whole = trained if split is None else mw.gather(trained, split)
+                p_whole = params if split is None else mw.gather(params, split)
+                upd = tree_map(lambda t, p: t.to(f32) - p.to(f32), t_whole, p_whole)
+                t_sq, s_sq = self._per_node_sq(t_whole), self._per_node_sq(p_whole)
                 node_stats = {
                     "update_norm": self._per_node_sq(upd).sqrt(),
-                    "cos_ref": self._per_node_dot(trained, params)
+                    "cos_ref": self._per_node_dot(t_whole, p_whole)
                     / torch.clamp(t_sq * s_sq, min=1e-12).sqrt(),
                 }
                 if sched is not None:
                     node_stats["staleness"] = tau * arrive - (1.0 - arrive)
-        out = self._fold(kind, trained, new_c, new_aux, c_locals, c_global, aux, w)
+        out = self._fold(kind, trained, new_c, new_aux, c_locals, c_global, aux, w, valid, mw)
         if sched is not None:
             # Only arrivals take the broadcast; stragglers keep their
             # local training (params, variates, aux).
@@ -861,21 +1274,35 @@ class FederationEngine:
         if wire_bpm is not None:
             with torch.no_grad():
                 # The fold broadcasts one aggregate, so row 0 carries the
-                # global model's stats (engine.py:1526-1573).
+                # global model's stats (engine.py:1526-1573); on a mesh,
+                # each rank's first row, mean-reduced over the valid ones.
+                o_whole = out[0] if split is None else mw.gather(out[0], split)
                 moved_sq = torch.zeros((), dtype=torch.float32)
                 out_sq = torch.zeros((), dtype=torch.float32)
-                for o, p in zip(canonical_leaves(out[0]), canonical_leaves(params)):
+                for o, p in zip(canonical_leaves(o_whole), canonical_leaves(p_whole)):
                     o0, p0 = o[0].to(torch.float32), p[0].to(torch.float32)
                     moved_sq = moved_sq + (o0 - p0).pow(2).sum()
                     out_sq = out_sq + (o0 * o0).sum()
-                participation = (w > 0).to(torch.float32).sum()
+                delta_norm, model_norm = moved_sq.sqrt(), out_sq.sqrt()
+                if mw is not None:
+                    first = valid[0].to(torch.float32)
+                    den = torch.clamp(_psum(mw, first), min=1.0)
+                    delta_norm = _psum(mw, delta_norm.to(valid.device) * first) / den
+                    model_norm = _psum(mw, model_norm.to(valid.device) * first) / den
+                participation = _psum(mw, (w > 0).to(torch.float32).sum())
                 round_stats = {
-                    "delta_norm": moved_sq.sqrt(),
-                    "model_norm": out_sq.sqrt(),
+                    "delta_norm": delta_norm,
+                    "model_norm": model_norm,
                     "participation": participation,
-                    "weight_mass": w.to(torch.float32).sum(),
+                    "weight_mass": _psum(mw, w.to(torch.float32).sum()),
                     "wire_bytes": participation * wire_bpm,
                 }
+                if mw is not None and mw.host_leg:
+                    # The DCN leg ships one model-shaped partial per host
+                    # and round, codec'd like the node exchange.
+                    round_stats["dcn_bytes"] = torch.tensor(
+                        float(mw.hosts), dtype=torch.float32) * torch.tensor(
+                        float(wire_bpm), dtype=torch.float32)
             return out, losses, (node_stats, round_stats)
         return out, losses, None
 
@@ -931,7 +1358,11 @@ class FederationEngine:
                       scaffold_state: Optional[tuple[Any, Any]], attack_scales: Optional[Any],
                       schedule: Optional[FedBuffSchedule]) -> tuple:
         """Pad, validate and place one window's inputs: (kind, state, xs,
-        ys, weights, attack scales or None, (arrivals, taus) or None)."""
+        ys, weights, attack scales or None, (arrivals, taus) or None, the
+        window's :class:`_MeshWindow` or None). On a mesh the state and
+        data are placed (the mesh view keeps the ``DTensor`` s for the
+        outputs' placements) and every returned tensor is this rank's
+        block."""
         kind = self._kind(aux)
         if kind == "scaffold" and scaffold_state is None:
             raise ValueError(
@@ -968,35 +1399,59 @@ class FederationEngine:
         state = (self.pad_stacked(params), c_locals, c_global,
                  {} if aux is None else self.pad_stacked(aux))
         xs, ys = self.shard_data(xs, ys)
-        return kind, state, xs, ys, w, scales, sched
+        if self.mesh is None:
+            return kind, state, xs, ys, w, scales, sched, None
+        placed = (self._shard_state(state[0]), self._shard_state(state[1]),
+                  self._shard_global(_on(c_global, self.device)), self._shard_state(state[3]))
+        mesh = self.mesh
+
+        def rows(t: torch.Tensor) -> torch.Tensor:
+            sh = federation_sharding(mesh) if t.dim() == 1 else round_node_sharding(mesh)
+            return spmd.local_slice(t, mesh, sh.placements)
+
+        state = tuple(tree_map(lambda t: t.to_local(), tree) for tree in placed)
+        return (kind, state, xs.to_local(), ys.to_local(), rows(w),
+                None if scales is None else rows(scales),
+                None if sched is None else tuple(rows(a) for a in sched),
+                _MeshWindow(self, placed))
 
     def _run_window(self, kind: str, state: tuple, xs: torch.Tensor, ys: torch.Tensor,
                     w: torch.Tensor, scales: Optional[torch.Tensor], sched: Optional[tuple],
                     epochs: int, n_rounds: int, codec: tuple[int, float], telemetry: bool,
-                    stale_exp: float) -> tuple[tuple, torch.Tensor, Optional[dict]]:
+                    stale_exp: float,
+                    mw: Optional[_MeshWindow] = None) -> tuple[tuple, torch.Tensor, Optional[dict]]:
         """Enqueue a window's rounds: (state, last losses, telemetry carry
-        or None)."""
+        or None), this rank's blocks on a mesh (``mw``)."""
         roundtrip = compression.engine_codec_roundtrip_nodes(*codec)
+        valid = self.valid if mw is None else mw.valid
+        if mw is not None and mw.host_leg and codec[0]:
+            mw.dcn_codec = compression.engine_codec_roundtrip(*codec)
+        n_local = valid.shape[0]
         tele = bpm = None
         if telemetry:
-            f32, pn = torch.float32, self.padded_nodes
-            tele = {k: torch.zeros((n_rounds, pn), dtype=f32, device=self.device)
+            f32 = torch.float32
+            tele = {k: torch.zeros((n_rounds, n_local), dtype=f32, device=self.device)
                     for k in TELEMETRY_NODE_FIELDS}
             if sched is not None:
-                tele[TELEMETRY_STALENESS_FIELD] = torch.zeros((n_rounds, pn), dtype=f32,
+                tele[TELEMETRY_STALENESS_FIELD] = torch.zeros((n_rounds, n_local), dtype=f32,
                                                               device=self.device)
             tele.update({k: torch.zeros((n_rounds,), dtype=f32, device=self.device)
                          for k in TELEMETRY_ROUND_FIELDS})
-            # Per-node payload bytes under the codec: a constant of the shapes.
+            if mw is not None and mw.host_leg:
+                tele["dcn_bytes"] = torch.zeros((n_rounds,), dtype=f32, device=self.device)
+            # Per-node payload bytes under the codec: a constant of the
+            # (whole) leaf shapes.
+            like = state[0] if mw is None else mw.like[0]
             bpm = float(compression.wire_bytes_per_model(
-                tree_map(lambda t: t[0], state[0]), *codec))
-        losses = torch.zeros((self.padded_nodes,), dtype=torch.float32, device=self.device)
+                tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype, device="meta"), like),
+                *codec))
+        losses = torch.zeros((n_local,), dtype=torch.float32, device=self.device)
         for r in range(n_rounds):
             scale = None if scales is None else scales if scales.dim() == 1 else scales[r]
             sched_r = None if sched is None else (sched[0][r], sched[1][r], stale_exp)
             state, losses, stats = self._round(
-                kind, state, xs, ys, w if w.dim() == 1 else w[r], epochs, roundtrip, scale,
-                sched_r, bpm)
+                kind, state, xs, ys, w if w.dim() == 1 else w[r], valid, epochs, roundtrip,
+                scale, sched_r, bpm, mw)
             if stats is not None:
                 with torch.no_grad():
                     tele["loss"][r] = losses.to(torch.float32)
@@ -1004,15 +1459,29 @@ class FederationEngine:
                         tele[k][r] = v
         return state, losses, tele
 
+    def _placed(self, state: tuple, losses: torch.Tensor,
+                mw: Optional[_MeshWindow]) -> tuple[tuple, torch.Tensor]:
+        """A mesh window's local outputs as ``DTensor`` s placed like its
+        inputs (the losses like the node axis)."""
+        if mw is None:
+            return state, losses
+        state = tuple(tree_map(spmd.place_like, local, like)
+                      for local, like in zip(state, mw.like))
+        sh = federation_sharding(self.mesh)
+        losses = DTensor.from_local(losses, self.mesh, sh.placements, run_check=False,
+                                    shape=torch.Size((self.padded_nodes,)), stride=(1,))
+        return state, losses
+
     def _window(self, params: Params, xs: Any, ys: Any, weights: Optional[Any], epochs: int,
                 n_rounds: int, aux: Optional[Any], scaffold_state: Optional[tuple[Any, Any]],
                 codec: tuple[int, float]) -> tuple:
         """A window with the codec given as (bits, top-k fraction), no
         telemetry carry and no host leg (``VmapFederation.round``)."""
-        kind, state, xs, ys, w, _, _ = self._prepare_args(
+        kind, state, xs, ys, w, _, _, mw = self._prepare_args(
             params, xs, ys, weights, n_rounds, aux, scaffold_state, None, None)
         state, losses, _ = self._run_window(kind, state, xs, ys, w, None, None, epochs,
-                                            n_rounds, codec, False, 0.0)
+                                            n_rounds, codec, False, 0.0, mw)
+        state, losses = self._placed(state, losses, mw)
         return _result(kind, aux is not None, state, losses)
 
     def dispatch_window(
@@ -1032,11 +1501,13 @@ class FederationEngine:
         """Enqueue one window and return its :class:`EngineWindow` without
         a host sync (arguments as :meth:`run_rounds`; ``donate`` changes
         nothing). The window's outputs chain into the next dispatch as
-        device tensors; its host leg runs at ``finalize``. A failure while
-        enqueueing records ``engine_failure`` in the ``engine`` flight
-        ring, dumps it under ``Settings.TELEMETRY_DUMP_DIR`` and
-        re-raises."""
-        kind, state, xs, ys, w, scales, sched = self._prepare_args(
+        device tensors (``DTensor`` s on a mesh); its host leg runs at
+        ``finalize``. A failure while enqueueing records ``engine_failure``
+        in the ``engine`` flight ring, dumps it under
+        ``Settings.TELEMETRY_DUMP_DIR`` and re-raises. Under
+        ``Settings.RANK_CONTRACTS`` the dispatch appends its receipt to
+        :mod:`~tpfl_torch.parallel.ranksafe`'s log."""
+        kind, state, xs, ys, w, scales, sched, mw = self._prepare_args(
             params, xs, ys, weights, n_rounds, aux, scaffold_state, attack_scales, schedule)
         tele_on = bool(Settings.ENGINE_TELEMETRY)
         codec = (compression.resolve_engine_codec(Settings.ENGINE_WIRE_CODEC),
@@ -1049,13 +1520,16 @@ class FederationEngine:
         if prof:
             self._windows += 1
             profiling.rounds.begin_round(node_tag, self._windows)
-        run = self._program(kind, epochs, n_rounds, w.dim(), donate is not False, tele_on,
-                            0 if scales is None else scales.dim(), codec, sched is not None,
-                            stale_exp)
+        key = self._program_key(kind, epochs, n_rounds, w.dim(), donate is not False, tele_on,
+                                0 if scales is None else scales.dim(), codec, sched is not None,
+                                stale_exp)
+        run = self._program(key)
+        if Settings.RANK_CONTRACTS:
+            ranksafe.record_dispatch(key, self._program_fingerprint(key))
         t0 = time.monotonic() if (prof or tele_on) else 0.0
         try:
             state, losses, tele = run(kind, state, xs, ys, w, scales, sched, epochs, n_rounds,
-                                      codec, tele_on, stale_exp)
+                                      codec, tele_on, stale_exp, mw)
         except Exception as e:
             self._dump_flight(e, kind, n_rounds)
             raise
@@ -1066,37 +1540,61 @@ class FederationEngine:
         copy = None if tele is None else start_host_copy((tele, w))
         self._rounds_done += n_rounds
         t1 = time.monotonic() if (prof or tele_on) else 0.0
-        params, c_locals, c_global, aux_out = state
+        (params, c_locals, c_global, aux_out), losses = self._placed(state, losses, mw)
         return EngineWindow(self, kind, aux is not None,
                             (params, c_locals, c_global, aux_out, losses), copy, n_rounds,
                             window_start, self._windows, prof, node_tag, t0, t1, event)
 
-    def _program(self, kind: str, epochs: int, n_rounds: int, w_ndim: int, donate: bool,
-                 telemetry: bool, a_ndim: int, codec: tuple[int, float], fedbuff: bool,
-                 stale_exp: float) -> Callable:
-        """The window callable of one dispatch key, behind the compile
-        observatory: the reference's program cache key (with its
-        one-device mesh axes and the padded capacity tier; ``donate``
-        None counts as the reference's default True) and program names,
-        so a tier promotion reads as one new program with one signature
-        and a variant never as a recompile of the base program."""
+    def _program_key(self, kind: str, epochs: int, n_rounds: int, w_ndim: int, donate: bool,
+                     telemetry: bool, a_ndim: int, codec: tuple[int, float], fedbuff: bool,
+                     stale_exp: float) -> tuple:
+        """The reference's program cache key (``engine.py:1790-1935``):
+        the variant axes, the model axis and layout, the padded capacity
+        tier, the mesh's ``nodes`` and ``hosts`` sizes and the population
+        census (``donate`` None counts as the reference's default True).
+        Without a mesh the model axis is 1 and the layout "replicated"."""
         pop = 0 if self.population is None else int(self.population.registered)
-        key = (kind, int(epochs), int(n_rounds), int(w_ndim), bool(donate), bool(telemetry),
-               int(a_ndim), int(codec[0]), float(codec[1]), 1, "replicated", bool(fedbuff),
-               float(stale_exp), int(self.padded_nodes), 1, 1, pop)
+        mesh_layout = "replicated" if self.mesh is None else self.layout.name
+        return (kind, int(epochs), int(n_rounds), int(w_ndim), bool(donate), bool(telemetry),
+                int(a_ndim), int(codec[0]), float(codec[1]), int(self.model_axes), mesh_layout,
+                bool(fedbuff), float(stale_exp), int(self.padded_nodes),
+                mesh_axis_size(self.mesh), mesh_axis_size(self.mesh, HOST_AXIS), pop)
+
+    def _program(self, key: tuple) -> Callable:
+        """The window callable of one dispatch key, behind the compile
+        observatory, with the reference's program names, so a tier
+        promotion reads as one new program with one signature and a
+        variant never as a recompile of the base program."""
         fn = self._programs.get(key)
         if fn is None:
             # The reference's program cache sees a lookup only when its
             # wrapper cache misses: one miss per new key.
             profiling.observatory.cache_event("engine_programs", hit=False)
+            (kind, _, n_rounds, _, _, telemetry, a_ndim, bits, _, model_axes, _, fedbuff,
+             _, capacity, _, hosts, pop) = key
             suffix = ((":obs" if telemetry else "") + (":atk" if a_ndim else "")
-                      + (f":{compression.codec_name(codec[0])}" if codec[0] else "")
-                      + (":fb" if fedbuff else "") + f":c{self.padded_nodes}"
+                      + (f":{compression.codec_name(bits)}" if bits else "")
+                      + (f":m{model_axes}" if model_axes > 1 else "")
+                      + (":fb" if fedbuff else "") + f":c{capacity}"
+                      + (f":h{hosts}" if hosts > 1 else "")
                       + (f":pop{pop}" if pop else ""))
             fn = self._programs[key] = profiling.observatory.wrap(
                 self._run_window,
                 f"engine_round:{kind}x{n_rounds}{suffix}:{profiling.module_tag(self.module)}")
         return fn
+
+    def _program_fingerprint(self, key: tuple) -> str:
+        """The ``RANK_CONTRACTS`` fingerprint of the program behind
+        ``key``: the port has no lowered HLO, so it digests the program's
+        description, the key's fields, the module, the mesh's shape and
+        the kernel libraries this process loaded."""
+        from tpfl_torch.parallel import _build
+
+        mesh = None if self.mesh is None else tuple(
+            zip(self.mesh.mesh_dim_names, self.mesh.mesh.shape))
+        text = "|".join([repr(key), profiling.module_tag(self.module), repr(mesh),
+                         *_build.loaded_libraries()])
+        return ranksafe.hlo_fingerprint(text)
 
     def donation_report(self, *args: Any, **kwargs: Any) -> dict:
         """The reference's compiled-HLO buffer-donation report."""
@@ -1128,16 +1626,31 @@ class FederationEngine:
         """Per-node (loss, accuracy) over node-stacked eval data
         [n, n_batches, b, ...]: means over batches of each batch's mean
         over samples (and tokens: a token model's accuracy is per
-        token). With ``aux``, BatchNorm uses the running averages."""
+        token). With ``aux``, BatchNorm uses the running averages. On a
+        mesh each rank evaluates its node rows (the leaves gathered whole
+        over ``model``) and both results come back placed like the node
+        axis."""
         params = self.pad_stacked(params)
         aux = {} if aux is None else self.pad_stacked(aux)
         xs, ys = self.shard_data(xs, ys)
+        if self.mesh is not None:
+            params, aux = self._shard_state(params), self._shard_state(aux)
+            mw = _MeshWindow(self, (params, {}, {}, aux))
+            params = mw.gather(tree_map(lambda t: t.to_local(), params), mw.split[0])
+            aux = mw.gather(tree_map(lambda t: t.to_local(), aux), mw.split[3])
+            xs, ys = xs.to_local(), ys.to_local()
         losses, accs = [], []
         for bi in range(xs.shape[1]):
             logits, _ = apply(self.module, params, aux, xs[:, bi], train=False)
             losses.append(_per_node_mean(self._loss_fn(logits, ys[:, bi])))
             accs.append(_per_node_mean((logits.argmax(-1) == ys[:, bi]).to(torch.float32)))
-        return torch.stack(losses).mean(0), torch.stack(accs).mean(0)
+        loss, acc = torch.stack(losses).mean(0), torch.stack(accs).mean(0)
+        if self.mesh is None:
+            return loss, acc
+        sh = federation_sharding(self.mesh)
+        return tuple(DTensor.from_local(t, self.mesh, sh.placements, run_check=False,
+                                        shape=torch.Size((self.padded_nodes,)), stride=(1,))
+                     for t in (loss, acc))
 
 
 def _result(kind: str, has_aux: bool, state: tuple, losses: torch.Tensor) -> tuple:

@@ -25,6 +25,8 @@ class VmapFederation:
     Args:
         module: the model (same architecture on every node).
         n_nodes: federation size N.
+        mesh: None (one device), a ``DeviceMesh`` or ``"auto"``: the
+            engine's (:class:`~tpfl_torch.parallel.engine.FederationEngine`).
         learning_rate / optimizer_factory: local optimizer (default
             SGD + momentum 0.9).
         loss_fn: (logits, labels) -> per-sample losses.

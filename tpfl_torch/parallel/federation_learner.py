@@ -20,8 +20,16 @@ the two drivers give the same bytes. An attached
 weights; a change of its capacity tier restacks the local federation.
 ``Settings.CHECKPOINT_DIR`` / ``CHECKPOINT_EVERY_WINDOWS`` /
 ``CHECKPOINT_ON_SIGTERM`` save the engine's state through
-:class:`~tpfl_torch.management.checkpoint.EngineCheckpointer`. A mesh
-other than None or "auto" is ``ROADMAP.md`` §1 item 7.
+:class:`~tpfl_torch.management.checkpoint.EngineCheckpointer`.
+
+``mesh`` (a ``DeviceMesh`` with a ``nodes`` axis, or ``"auto"``, the
+default when None: :func:`~tpfl_torch.parallel.engine.auto_mesh`, which
+is no mesh for a lone process) spreads the local node axis over the
+ranks of a ``torch.distributed`` world. Every rank of the mesh then
+drives this learner in step — the same data, the same calls in the same
+order, the SPMD contract that :mod:`~tpfl_torch.parallel.crosshost` sets
+out — and each fit's model, the fold's aggregate, is the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -33,11 +41,11 @@ import numpy as np
 import torch
 
 from tpfl_torch import DeviceLike, resolve_device
-from tpfl_torch.exceptions import MULTI_DEVICE_ITEM, not_ported
 from tpfl_torch.learning.dataset.partition_strategies import RandomIIDPartitionStrategy
 from tpfl_torch.learning.dataset.tpfl_dataset import TpflDataset
 from tpfl_torch.learning.learner import Learner
 from tpfl_torch.learning.model import TpflModel
+from tpfl_torch.parallel.distributed import full_tensor
 from tpfl_torch.parallel.federation import VmapFederation
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import tree_map
@@ -53,7 +61,8 @@ class FederationLearner(Learner):
         n_local_nodes: rows of the local federation.
         local_rounds: sub-federation rounds per ``fit`` (each of
             ``self.epochs`` local epochs).
-        mesh: None or "auto" (one device); a mesh is refused.
+        mesh: a ``DeviceMesh`` over the ranks that drive this learner in
+            step, ``"auto"``, or None (``"auto"``).
         partition_strategy: how ``data`` splits across the local nodes.
         device: ``None`` = the card; ``"cpu"`` asks for the CPU.
     """
@@ -73,8 +82,6 @@ class FederationLearner(Learner):
         seed: int = 0,
         device: DeviceLike = None,
     ) -> None:
-        if mesh not in (None, "auto"):
-            raise not_ported("FederationLearner(mesh=), a device mesh", MULTI_DEVICE_ITEM)
         self.device = resolve_device(device)
         super().__init__(model, data, addr, aggregator)
         self.n_local_nodes = int(n_local_nodes)
@@ -124,7 +131,10 @@ class FederationLearner(Learner):
 
     def _ensure_fed(self) -> VmapFederation:
         if self._fed is None:
+            # No pinned mesh -> "auto": the SHARD_* knobs spread the local
+            # node axis over the world's ranks (no mesh for a lone process).
             self._fed = VmapFederation(self.get_model().module, self.n_local_nodes,
+                                       mesh=self.mesh if self.mesh is not None else "auto",
                                        learning_rate=self.learning_rate, seed=self.seed,
                                        device=self.device)
         return self._fed
@@ -275,10 +285,11 @@ class FederationLearner(Learner):
         if rounds_run == 0:
             return self.skip_fit(model)
 
-        # After the fold every row holds the local aggregate: take row 0.
-        model.set_parameters(tree_map(lambda p: p[0].clone(), params))
+        # After the fold every row holds the local aggregate: take row 0
+        # (on a mesh, every rank's first row).
+        model.set_parameters(tree_map(lambda p: p.clone(), fed.engine.first_row(params)))
         if aux is not None:
-            model.aux_state = tree_map(lambda a: a[0].clone(), aux)
+            model.aux_state = tree_map(lambda a: a.clone(), fed.engine.first_row(aux))
         # The shard's raw sample count, as TorchLearner's finish_fit, so
         # hosts with different local_rounds / epochs weigh fairly.
         model.set_contribution([self._addr], self.get_data().num_samples(True))
@@ -301,6 +312,7 @@ class FederationLearner(Learner):
         xs, ys = self._eval_data()
         aux = self._stack(model.aux_state) if model.aux_state else None
         losses, accs = fed.evaluate(self._stack(model.get_parameters()), xs, ys, aux=aux)
+        losses, accs = full_tensor(losses), full_tensor(accs)
         # Evaluation's consumption boundary: one fetch each.
         return {"test_loss": float(losses.mean()), "test_metric": float(accs.mean())}
 

@@ -11,19 +11,23 @@ lone process asking for a one-rank mesh gets a one-rank group over an
 in-process ``HashStore`` (no socket); any larger mesh needs a world that
 :func:`~tpfl_torch.parallel.distributed.ensure_distributed` started.
 
-:class:`SpecLayout` is the reference's per-leaf model-axis policy for
-the 2D ``nodes x model`` mesh: the dims it names, over the port's
-nested-dict param paths. Turning them into placements
-(``leaf_spec``, ``stacked_model_shardings``, ``global_model_shardings``)
-waits for the engine's mesh (``ROADMAP.md`` §1 item 7).
+**Placements.** A :class:`Sharding` is a ``DeviceMesh`` and one
+``Shard`` / ``Replicate`` per mesh dim, the counterpart of the
+reference's ``NamedSharding``; its :meth:`~Sharding.spec` reads back as
+the reference's ``PartitionSpec`` entries. The stacked node axis is
+``Shard(0)`` over :func:`node_shard_dims` (``hosts`` and ``nodes``
+together, hosts outer: each host's ranks hold a contiguous run of
+logical nodes); on the 2D ``nodes x model`` mesh each node's leaf is
+also split over ``model`` per a :class:`SpecLayout`
+(:func:`stacked_model_shardings`, :func:`global_model_shardings`).
+:func:`shard_stacked` pads and places a node-stacked tree through
+:func:`~tpfl_torch.parallel.distributed.global_put`.
 
-The node-axis padding helpers are the single-device subset
-(``padded_node_count``, ``capacity_tier``, ``pad_node_axis``,
-``pad_node_weights``, ``valid_node_mask``). Without a mesh the stacked
-node axis needs no padding, so ``padded_node_count`` is the identity;
-the other helpers keep the reference's semantics for a caller that pads
-all the same: pad rows clone row 0 (valid rows, trained like any other)
-and carry zero fold weight, and the ``valid`` mask keeps them out of the
+Node counts that do not divide the node shards are padded, as the
+reference's: :func:`padded_node_count` rounds up to
+:func:`node_shard_size` (never the model axis; the identity without a
+mesh), pad rows clone row 0 (valid rows, trained like any other) and
+carry zero fold weight, and the ``valid`` mask keeps them out of the
 uniform-fallback denominator.
 """
 
@@ -37,9 +41,10 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
 
 from tpfl_torch import DeviceLike, resolve_device
-from tpfl_torch.utils.tree import tree_map
+from tpfl_torch.utils.tree import tree_items, tree_map, tree_unflatten
 
 #: Canonical name of the federation axis.
 NODE_AXIS = "nodes"
@@ -56,17 +61,25 @@ FSDP_AXIS = "fsdp"
 TP_AXIS = "tp"
 
 
-def create_mesh(axes: Optional[dict[str, int]] = None, device: DeviceLike = None) -> DeviceMesh:
+def create_mesh(axes: Optional[dict[str, int]] = None, device: DeviceLike = None,
+                ranks: Optional[int] = None) -> DeviceMesh:
     """A ``DeviceMesh`` from an axis-name -> size dict over the world's
     ranks (one device a rank; ``device=None`` means ``cuda``).
 
     Defaults to one ``nodes`` axis over every rank. Sizes must multiply to
-    the world size; a single -1 size is inferred. A process that is in no
-    world asking for sizes that multiply to 1 starts a one-rank group over
-    an in-process ``HashStore`` (``nccl`` on the card, ``gloo`` on the
-    CPU)."""
+    the world size, or to ``ranks`` (the mesh then spans the first
+    ``ranks`` ranks; every rank of the world must still call this); a
+    single -1 size is inferred. A process that is in no world asking for
+    sizes that multiply to 1 starts a one-rank group over an in-process
+    ``HashStore`` (``nccl`` on the card, ``gloo`` on the CPU)."""
     dev = resolve_device(device)
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if ranks is not None:
+        if not 1 <= int(ranks) <= world:
+            raise ValueError(f"a mesh over {ranks} ranks in a world of {world}")
+        world, full = int(ranks), world
+    else:
+        full = world
     axes = dict(axes or {NODE_AXIS: world})
     sizes = list(axes.values())
     if sizes.count(-1) == 1:
@@ -81,7 +94,10 @@ def create_mesh(axes: Optional[dict[str, int]] = None, device: DeviceLike = None
             torch.cuda.set_device(dev.index or 0)
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 store=dist.HashStore(), rank=0, world_size=1)
-    return init_device_mesh(dev.type, tuple(axes.values()), mesh_dim_names=tuple(axes))
+    if world == full:
+        return init_device_mesh(dev.type, tuple(axes.values()), mesh_dim_names=tuple(axes))
+    return DeviceMesh(dev.type, torch.arange(world).reshape(tuple(axes.values())),
+                      mesh_dim_names=tuple(axes))
 
 
 def mesh_axis_size(mesh: Optional[DeviceMesh], axis: str = NODE_AXIS) -> int:
@@ -91,10 +107,76 @@ def mesh_axis_size(mesh: Optional[DeviceMesh], axis: str = NODE_AXIS) -> int:
     return int(mesh.size(mesh.mesh_dim_names.index(axis)))
 
 
-def padded_node_count(n_nodes: int) -> int:
-    """Stacked node-axis length for ``n_nodes`` on one device: no pad
-    rows (the reference rounds up to the mesh's node shards)."""
-    return int(n_nodes)
+def node_shard_dims(mesh: Optional[DeviceMesh], axis: str = NODE_AXIS) -> tuple[str, ...]:
+    """The mesh dims the stacked node axis shards over: ``(hosts,
+    nodes)`` on a mesh whose ``hosts`` axis is larger than 1, ``(nodes,)``
+    otherwise (``tpfl/parallel/mesh.py:82-89``)."""
+    if mesh is not None and mesh_axis_size(mesh, HOST_AXIS) > 1:
+        return (HOST_AXIS, axis)
+    return (axis,)
+
+
+def node_shard_size(mesh: Optional[DeviceMesh], axis: str = NODE_AXIS) -> int:
+    """Combined size of the node-sharding dims (``hosts x nodes`` on a 3D
+    mesh): the multiple stacked node counts pad up to."""
+    return math.prod(mesh_axis_size(mesh, a) for a in node_shard_dims(mesh, axis))
+
+
+def padded_node_count(n_nodes: int, mesh: Optional[DeviceMesh] = None,
+                      axis: str = NODE_AXIS) -> int:
+    """``n_nodes`` rounded up to a multiple of :func:`node_shard_size`:
+    the stacked leading dimension that shards evenly. Only the node dims
+    enter (a ``nodes 4 x model 2`` mesh pads to multiples of 4); without a
+    mesh it is ``n_nodes``."""
+    d = node_shard_size(mesh, axis)
+    return ((int(n_nodes) + d - 1) // d) * d
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """A placement: a ``DeviceMesh`` and one ``Shard(d)`` / ``Replicate()``
+    per mesh dim (the reference's ``NamedSharding``)."""
+
+    mesh: DeviceMesh
+    placements: tuple
+
+    def spec(self, ndim: int) -> tuple:
+        """The reference's ``PartitionSpec`` entries for a tensor of
+        ``ndim`` dims: per dim None, one mesh-dim name, or a tuple of names
+        (outer first) when several mesh dims split it."""
+        names = self.mesh.mesh_dim_names
+        by_dim: dict[int, list[str]] = {}
+        for i, p in enumerate(self.placements):
+            if p.is_shard():
+                by_dim.setdefault(p.dim, []).append(names[i])
+        return tuple(None if d not in by_dim else by_dim[d][0] if len(by_dim[d]) == 1
+                     else tuple(by_dim[d]) for d in range(ndim))
+
+
+def _sharding(mesh: DeviceMesh, shard_dims: dict[str, int]) -> Sharding:
+    """``Shard(shard_dims[name])`` on the named mesh dims, ``Replicate``
+    elsewhere."""
+    return Sharding(mesh, tuple(Shard(shard_dims[n]) if n in shard_dims else Replicate()
+                                for n in mesh.mesh_dim_names))
+
+
+def federation_sharding(mesh: DeviceMesh, axis: str = NODE_AXIS) -> Sharding:
+    """Node-stacked trees: the leading axis over :func:`node_shard_dims`,
+    every other mesh dim replicated (``tpfl/parallel/mesh.py:101-112``).
+    The leading dimension must divide :func:`node_shard_size` (pad with
+    :func:`padded_node_count` + :func:`pad_node_axis` first)."""
+    return _sharding(mesh, dict.fromkeys(node_shard_dims(mesh, axis), 0))
+
+
+def round_node_sharding(mesh: DeviceMesh, axis: str = NODE_AXIS) -> Sharding:
+    """Per-round per-node ``[n_rounds, nodes]`` arrays (weights, attack
+    scales, fedbuff masks, the carry's node rows): rounds replicated, the
+    node axis placed like the stacked state."""
+    return _sharding(mesh, dict.fromkeys(node_shard_dims(mesh, axis), 1))
+
+
+def replicated(mesh: DeviceMesh) -> Sharding:
+    return _sharding(mesh, {})
 
 
 def capacity_tier(n_live: int, floor: int = 1) -> int:
@@ -138,6 +220,27 @@ def valid_node_mask(
     return (torch.arange(n_padded, device=device) < n_nodes).to(torch.float32)
 
 
+def shard_stacked(mesh: Optional[DeviceMesh], tree: Any, n_nodes: Optional[int] = None,
+                  axis: str = NODE_AXIS) -> Any:
+    """Place a node-stacked tree on the mesh, padding the leading axis to
+    :func:`padded_node_count` first (``n_nodes`` defaults to the first
+    leaf's leading size; ``tpfl/parallel/mesh.py:195-219``). No mesh: the
+    tree unchanged. On a 2D mesh only the node axis is padded and split;
+    leaves ride replicated over ``model`` (:func:`stacked_model_shardings`
+    gives the per-leaf layout)."""
+    from tpfl_torch.parallel.distributed import global_put
+
+    if mesh is None:
+        return tree
+    leaves = [leaf for _, leaf in tree_items(tree)]
+    if not leaves:
+        return tree
+    n = int(n_nodes if n_nodes is not None else leaves[0].shape[0])
+    tree = tree_map(torch.as_tensor, tree)
+    return global_put(pad_node_axis(tree, padded_node_count(n, mesh, axis)),
+                      federation_sharding(mesh, axis))
+
+
 # --- per-leaf model-axis policy (SpecLayout) ----------------------------------
 
 
@@ -167,6 +270,11 @@ class SpecLayout:
                 if all(d is None or shape[i] % axis_size == 0 for i, d in enumerate(dims)):
                     return tuple(dims)
         return (None,) * ndim
+
+    def leaf_spec(self, path: str, shape: Sequence[int], axis_size: int) -> tuple:
+        """The unstacked leaf's ``PartitionSpec`` entries (model-axis dims
+        only): :meth:`leaf_dims`."""
+        return self.leaf_dims(path, shape, axis_size)
 
 
 def transformer_layout() -> SpecLayout:
@@ -215,3 +323,36 @@ def _path_str(path: Sequence[Any]) -> str:
     path of :func:`tpfl_torch.utils.tree.tree_items` is that string
     already)."""
     return path if isinstance(path, str) else "/".join(str(k) for k in path)
+
+
+def _layout_sharding(mesh: DeviceMesh, lead: tuple, dims: tuple, offset: int,
+                     model_axis: str) -> Sharding:
+    shard = dict.fromkeys(lead, 0)
+    if model_axis in dims and model_axis in mesh.mesh_dim_names:
+        shard[model_axis] = offset + dims.index(model_axis)
+    return _sharding(mesh, shard)
+
+
+def stacked_model_shardings(mesh: DeviceMesh, tree: Any, layout: SpecLayout) -> Any:
+    """Per-leaf :class:`Sharding` of a node-stacked state tree: the node
+    axis over :func:`node_shard_dims`, each node's leaf over ``model`` per
+    ``layout`` (``tpfl/parallel/mesh.py:332-348``)."""
+    axis_size = mesh_axis_size(mesh, layout.model_axis)
+    lead = node_shard_dims(mesh)
+    items = [(path, leaf) for path, leaf in tree_items(tree)]
+    return tree_unflatten(tree, [
+        _layout_sharding(mesh, lead, layout.leaf_dims(_path_str(path), tuple(leaf.shape)[1:],
+                                                      axis_size), 1, layout.model_axis)
+        for path, leaf in items])
+
+
+def global_model_shardings(mesh: DeviceMesh, tree: Any, layout: SpecLayout) -> Any:
+    """Per-leaf :class:`Sharding` of an unstacked, node-replicated model
+    tree (SCAFFOLD's ``c_global``): replicated over the node dims, split
+    over ``model`` per ``layout`` (``tpfl/parallel/mesh.py:351-363``)."""
+    axis_size = mesh_axis_size(mesh, layout.model_axis)
+    items = [(path, leaf) for path, leaf in tree_items(tree)]
+    return tree_unflatten(tree, [
+        _layout_sharding(mesh, (), layout.leaf_dims(_path_str(path), tuple(leaf.shape),
+                                                    axis_size), 0, layout.model_axis)
+        for path, leaf in items])

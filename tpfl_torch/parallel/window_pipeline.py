@@ -47,7 +47,9 @@ from tpfl_torch.parallel.engine import (
     _map_tensors,
     start_host_copy,
 )
+from tpfl_torch.parallel.distributed import full_tensor
 from tpfl_torch.settings import Settings
+from tpfl_torch.utils.tree import tree_map
 
 # data_for(window_index, start_round, n_rounds) -> (xs, ys) or None
 # (None = reuse the current window's arrays).
@@ -304,9 +306,12 @@ class WindowPipeline:
                 widx += 1
                 self.windows_run += 1
                 if snap_every and widx % snap_every == 0:
+                    # unpad gathers a mesh window's leaves whole (on this,
+                    # the dispatching thread: every rank in the same order).
                     snap_pending = (done, start_host_copy(
                         (eng.unpad(params), None if aux is None else eng.unpad(aux),
-                         scaffold_state if scaffold else None)))
+                         (eng.unpad(scaffold_state[0]),
+                          tree_map(full_tensor, scaffold_state[1])) if scaffold else None)))
         finally:
             if owner is not None:
                 with _ACTIVE_LOCK:

@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 from typing import Any
 
-from tpfl_torch.exceptions import MULTI_DEVICE_ITEM, REST_ITEM, not_ported
+from tpfl_torch.exceptions import REST_ITEM, not_ported
 
 
 class Settings:
@@ -533,24 +533,24 @@ class Settings:
 
     # --- pod-scale federation engine (node-axis sharding) ---
     SHARD_NODES: bool = False
-    """Node-axis sharding of the reference engine's auto mesh. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """``mesh="auto"`` (``parallel.engine.auto_mesh``) spreads the engine's
+    node axis over the ranks of the ``torch.distributed`` world."""
 
     SHARD_DEVICES: int = 0
-    """Device cap of the reference engine's auto mesh. Carried for parity; the
-    port does not read it (``UNPORTED_KNOBS``)."""
+    """Ranks (one device each) the auto mesh may span: 0 = the whole world,
+    else ``min(SHARD_DEVICES, world)``."""
 
     SHARD_MODEL: int = 1
-    """Model-axis size of the reference engine's auto mesh. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Model-axis size of the auto mesh: M > 1 gives the 2D ``nodes x
+    model`` mesh (M must divide the ranks)."""
 
     SHARD_LAYOUT: str = "auto"
-    """Per-leaf model-axis layout of the reference engine's 2D mesh. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Per-leaf model-axis layout of the engine on a 2D mesh
+    (``parallel.mesh.LAYOUTS`` name, or "auto": the module's own)."""
 
     SHARD_HOSTS: int = 1
-    """Cross-host axis of the reference engine's auto mesh. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """``hosts`` axis of the auto mesh: 1 = off, 0 = one slot per process,
+    H > 1 = forced (it must divide the ranks)."""
 
     POPULATION_CLIENTS: int = 0
     """Registered clients of ``parallel.ClientPopulation`` when none are
@@ -622,8 +622,8 @@ class Settings:
     publish a snapshot whose fields do not survive the round trip."""
 
     RANK_CONTRACTS: bool = False
-    """Cross-rank dispatch receipts of the reference's multi-host engine.
-    Carried for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Every engine window dispatch appends its receipt to
+    ``parallel.ranksafe``'s log; ``crosshost.launch`` compares the ranks'."""
 
     LOCK_TRACING: bool = False
     """Opt-in runtime lock-order tracing (tpfl_torch.concurrency): every
@@ -1008,7 +1008,6 @@ UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
 }
 
 _GRPC = ("communication.GrpcCommunicationProtocol", REST_ITEM)
-_MESH = ("parallel.FederationEngine(mesh=)", MULTI_DEVICE_ITEM)
 
 #: Knobs that only tune a plane the port has not ported: knob -> (the
 #: reference's entry point into that plane, ``ROADMAP.md`` item). The
@@ -1019,10 +1018,7 @@ UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
     **dict.fromkeys(("GRPC_TIMEOUT", "MAX_MESSAGE_SIZE", "GRPC_SERVER_WORKERS",
                      "WIRE_CHUNK_SIZE", "USE_SSL", "CA_CRT", "SERVER_CRT", "SERVER_KEY",
                      "CLIENT_CRT", "CLIENT_KEY"), _GRPC),
-    **dict.fromkeys(("SHARD_NODES", "SHARD_DEVICES", "SHARD_MODEL", "SHARD_LAYOUT",
-                     "SHARD_HOSTS"), _MESH),
     "ENGINE_DONATE": ("parallel.FederationEngine.donation_report", REST_ITEM),
-    "RANK_CONTRACTS": ("parallel.ranksafe", MULTI_DEVICE_ITEM),
     "DEFAULT_DTYPE": None,
     "EXACT_AGGREGATION": None,
 }

@@ -19,7 +19,11 @@ size batch together exactly.
 
 On the card the chunk's data, masks and proximal coefficients go to the
 device as one pinned host→device copy; the chunk's losses come back in
-one host sync.
+one host sync. A chunk that ``Settings.SHARD_NODES`` would spread over
+the ranks of a ``torch.distributed`` world
+(:func:`~tpfl_torch.parallel.engine.nodes_mesh_axes`) is refused (``ROADMAP.md`` §1
+item 7): the reference shards it over one process's devices, and a
+pool's chunk lives in one rank.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ from tpfl_torch.management import ledger, profiling
 from tpfl_torch.management.logger import logger
 from tpfl_torch.management.telemetry import metrics
 from tpfl_torch.learning.torch_learner import module_key
-from tpfl_torch.parallel.engine import build_batched_fit_program
+from tpfl_torch.exceptions import MULTI_DEVICE_ITEM, not_ported
+from tpfl_torch.parallel.engine import build_batched_fit_program, nodes_mesh_axes
 from tpfl_torch.settings import Settings
 from tpfl_torch.utils.tree import tree_items, tree_map
 
@@ -164,8 +169,8 @@ def run_batched_fits(signature: tuple, learners: list,
     (``prepare_fit`` / ``finish_fit``). ``on_dispatch(n)`` is called for
     each chunk dispatched with its ``n`` fits. Returns the learners of
     FAILED chunks only (already-trained chunks are final: the caller must
-    not fit them again). A CUDA error is not a chunk failure: it
-    propagates."""
+    not fit them again). A CUDA error or a refusal is not a chunk failure:
+    it propagates (:func:`must_propagate`)."""
     prog = _programs.get(signature)
     profiling.observatory.cache_event("batched_programs", hit=prog is not None)
     if prog is None:
@@ -177,7 +182,7 @@ def run_batched_fits(signature: tuple, learners: list,
         try:
             n = _run_chunk(prog, part)
         except Exception as e:
-            if is_device_error(e):
+            if must_propagate(e):
                 raise
             logger.info("simulation", f"Batched chunk of {len(part)} nodes failed ({e}); "
                                       "those nodes fall back to inline fits")
@@ -199,6 +204,12 @@ def is_device_error(e: BaseException) -> bool:
     if isinstance(e, torch.cuda.OutOfMemoryError):
         return True
     return "CUDA" in str(e) or "cuda" in type(e).__name__.lower()
+
+
+def must_propagate(e: BaseException) -> bool:
+    """True for an error no fallback fit may hide: a CUDA error, or a
+    plane the port refuses (``NotImplementedError`` naming its item)."""
+    return is_device_error(e) or isinstance(e, NotImplementedError)
 
 
 def _run_chunk(prog: BatchedFitProgram, learners: list) -> int:
@@ -260,6 +271,12 @@ def _run_chunk(prog: BatchedFitProgram, learners: list) -> int:
     mus = np.asarray([j["mu"] for j in jobs] + [0.0] * (bucket - len(jobs)), np.float32)
     masks = np.stack(mask_l)
     full = [bool(c) for c in (masks[:len(jobs)] > 0).all(0)]
+    # The reference spreads a chunk over the local devices of its one
+    # process (Settings.SHARD_NODES). The port runs one rank a device, and
+    # a pool's chunk lives in one process.
+    if nodes_mesh_axes(bucket) is not None:
+        raise not_ported("the simulation pool's fits sharded over ranks "
+                         "(Settings.SHARD_NODES in a multi-rank world)", MULTI_DEVICE_ITEM)
     xs_d, ys_d, mask_d, mus_d = _to_device([np.stack(xs_l), np.stack(ys_l), masks, mus], device)
 
     stacked_params = _stack(rows)
@@ -319,4 +336,5 @@ def _run_chunk(prog: BatchedFitProgram, learners: list) -> int:
 
 
 __all__ = ["BatchedFitProgram", "clear_programs", "is_device_error", "job_signature",
+           "must_propagate",
            "run_batched_fits"]

@@ -33,7 +33,7 @@ from tpfl_torch.learning.torch_learner import TorchLearner, clear_compiled_cache
 from tpfl_torch.management.logger import logger
 from tpfl_torch.management.telemetry import metrics
 from tpfl_torch.settings import Settings
-from tpfl_torch.simulation.batched_fit import is_device_error, job_signature, run_batched_fits
+from tpfl_torch.simulation.batched_fit import job_signature, must_propagate, run_batched_fits
 
 
 class _FitJob:
@@ -206,7 +206,7 @@ class SuperLearnerPool:
             try:
                 failed = run_batched_fits(sig, [j.learner for j in jobs], self._dispatched)
             except Exception as e:
-                if is_device_error(e):
+                if must_propagate(e):
                     for j in jobs:
                         j.error = e
                         j.done.set()
