@@ -312,6 +312,37 @@
    ``SliceCheckpointer`` round trip of (a)'s placed state, the window
    after it bit-identical to running on (save and restore seconds).
 
+22. Network phase (phase 22: the TCP transport, the entry points and the
+   converters). (a) Four Nodes of the CNN cell's model (bf16, the kernels
+   at N = 1, 512 seeded samples each in batches of 128) on a LINE of
+   loopback addresses, train set 2 by hash election, 3 rounds, over the
+   in-memory transport and over ``TcpCommunicationProtocol`` with the
+   same addresses, seeds, data and experiment id (chosen so that every
+   round elects one node of each of (b)'s processes), after an untimed
+   1-round warm-up federation, each transport twice, alternating: every
+   run's final params bit-identical, one digest across the nodes,
+   exactly ``2 × 3 × 4`` steps' launches (48 ``conv_dw`` + 24
+   ``conv_dx``) a run, all wgmma, ``tpfl_wire_bytes_total`` positive
+   over TCP only; rounds/s of each run (the best of two reported per
+   transport) and the round profiler's split. (b) The same federation with nodes 2 and 3 in a child
+   process on the card (``chip_smoke.py --net-child SPEC``) that first
+   runs the warm-up federation of its own: each process's exact
+   launches, all wgmma, every node's final digest equal to (a)'s. (c)
+   The ResNet-18 state (config 3's model, 44.9 MB) as one SendStream at
+   ``WIRE_CHUNK_SIZE``, reassembled byte-equal, MB/s, and the CNN cell's
+   payload (one of (a)'s pushes) the same way; a fault-injected
+   corrupted stream rejected by the chunk CRC and the retry delivered;
+   with ``openssl`` present, mTLS from ``generate_certificates`` (the
+   stream again, and a TLS client without a certificate refused). (d)
+   ``python -m tpfl_torch.cli experiment list``, ``run node1`` beside
+   ``run node2``, ``run --profile DIR digits -- --nodes 2 --rounds 1
+   --protocol tcp`` (a ``torch.profiler`` trace in ``DIR/trace.json``)
+   and the multislice slice-mode pair, as subprocesses on the card, each
+   exiting 0 (the passive halves on SIGTERM). (e) A torch ``state_dict``
+   on the card through ``from_torch_state_dict`` / ``to_torch_state_dict``
+   exactly, and the ``nn.Sequential`` MLP's logits against the port's MLP
+   with the imported params (f32, TF32 off, atol 1e-4).
+
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
 one defended FedAvg round of the Byzantine phase, one 3-round
@@ -328,10 +359,15 @@ result line, when there is no card or any phase fails.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
+import os
+import queue
 import re
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -347,8 +383,10 @@ import torch
 from tpfl_torch.attacks import (AttackPlan, AttackSpec, adversary_map, apply_attack_plan,
                                 final_model_digests, harness, metric_table,
                                 run_seeded_experiment)
-from tpfl_torch.communication import FaultInjector, FaultPlan, TrainerSpeedPlan
-from tpfl_torch.learning import compression
+from tpfl_torch.communication import (FaultInjector, FaultPlan, InMemoryCommunicationProtocol,
+                                      TcpCommunicationProtocol, TrainerSpeedPlan)
+from tpfl_torch.interop import from_torch_state_dict, to_torch_state_dict
+from tpfl_torch.learning import _msgpack, compression
 from tpfl_torch.learning.async_control import AsyncController
 from tpfl_torch.learning.aggregators import (FedAvg, FedProx, Krum, MultiKrum, Scaffold,
                                              TrimmedMean)
@@ -361,7 +399,8 @@ from tpfl_torch.management import engine_obs, ledger, profiling, quarantine, tel
 from tpfl_torch.management.checkpoint import EngineCheckpointer
 from tpfl_torch.management.quarantine import QuarantineEngine
 from tpfl_torch.management.logger import logger
-from tpfl_torch.models import CNN, MLP, ResNet18, TransformerBlock, TransformerLM, init_params
+from tpfl_torch.models import (CNN, MLP, ResNet18, TransformerBlock, TransformerLM, init_params,
+                               init_state)
 from tpfl_torch.models.zoo import stack_params
 from tpfl_torch.node import Node
 from tpfl_torch.parallel import (ClientPopulation, FedBuffSchedule, FederationEngine,
@@ -373,7 +412,9 @@ from tpfl_torch.parallel.engine import DENSE
 from tpfl_torch.parallel.ring_attention import blockwise_attention
 from tpfl_torch.settings import Settings
 from tpfl_torch.simulation import SuperLearnerPool, VirtualNodeLearner, batched_fit, isolated
+from tpfl_torch.stages.base_node import election_rank
 from tpfl_torch.utils import TopologyFactory, TopologyType, wait_convergence, wait_to_finish
+from tpfl_torch.utils.certificates import enable_mtls
 from tpfl_torch.utils.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor-core FLOP/s.
@@ -5198,6 +5239,512 @@ def mesh_phase(card: str) -> dict:
     return out
 
 
+# --- phase 22: the network path ------------------------------------------
+#
+# Four Nodes of the CNN cell's model (PHASE_CNN: bf16, the conv kernels at
+# N = 1) on a LINE of loopback addresses, F_TRAIN seeded synthetic
+# CIFAR-shaped samples each in batches of F_BATCH, 1 epoch a round,
+# NET_ROUNDS rounds, a train set of NET_TRAIN_SET by hash election. With
+# two trainers each round's aggregate folds two single models in canonical
+# order, whatever order they arrived in, so two runs of the same
+# experiment id end on the same bits: the in-memory and the TCP federation
+# (22a) and the federation split over two processes (22b) are held bit for
+# bit. The experiment id is chosen so that every round elects one node of
+# each process of 22b.
+NET_NODES, NET_ROUNDS, NET_TRAIN_SET, NET_SEED = 4, 3, 2, 2222
+NET_CHILD = (2, 3)  # the nodes 22b's child process hosts
+NET_STEPS_PER_FIT = F_TRAIN // F_BATCH
+# Standalone-profile waits the entry points of 22d may shorten through
+# the TPFL_* environment (timing only).
+NET_FAST_ENV = {"TPFL_WAIT_HEARTBEATS_CONVERGENCE": "0.5",
+                "TPFL_GOSSIP_EXIT_ON_X_EQUAL_ROUNDS": "3", "TPFL_GOSSIP_MODELS_PERIOD": "0.2"}
+
+
+def free_ports(n: int) -> list[int]:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def net_nodes(protocol, addrs: list, which) -> list:
+    x, y, xt, yt = synthetic_cifar10(n_train=NET_NODES * F_TRAIN, n_test=NET_NODES * F_TEST,
+                                     seed=NET_SEED)
+    parts = TpflDataset.from_arrays(x, y, xt, yt).generate_partitions(
+        NET_NODES, RandomIIDPartitionStrategy, seed=1)
+    return [TimedNode(phase_model(0), parts[i], addr=addrs[i], protocol=protocol,
+                      device=PHASE_DEVICE, learning_rate=0.1, batch_size=F_BATCH)
+            for i in which]
+
+
+def net_experiment(initiator, addrs: list) -> tuple[uuid.UUID, list]:
+    """An experiment id (what ``uuid.uuid4`` gives the initiator) whose
+    hash elections put one node of each of 22b's processes into every
+    round's train set, and those train sets (node indices)."""
+    beacon = hashlib.sha256(initiator.learner.get_model().encode_parameters()).hexdigest()
+    for k in range(1, 1 << 16):
+        exp_id = uuid.UUID(int=(0x5EED0000 + k) << 96)
+        name = f"experiment_{exp_id.hex[:8]}"
+        sets = [sorted(range(NET_NODES), key=lambda i: election_rank(name, beacon, r, addrs[i]))
+                [:NET_TRAIN_SET] for r in range(NET_ROUNDS)]
+        if all(len({i in NET_CHILD for i in s}) == 2 for s in sets):
+            return exp_id, sets
+    raise AssertionError("network path: no experiment id splits every train set")
+
+
+def net_expected(sets: list, hosted) -> dict:
+    """Exact conv launches of the fits ``hosted`` nodes make."""
+    fits = sum(i in hosted for s in sets for i in s)
+    return {**dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * fits * NET_STEPS_PER_FIT,
+            "conv_dx": fits * NET_STEPS_PER_FIT}
+
+
+def params_digest(node) -> str:
+    h = hashlib.sha256()
+    for path, v in sorted(tree_items(node.learner.get_model().get_parameters())):
+        h.update(path.encode())
+        h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def wire_bytes(addrs) -> float:
+    return sum(logger.metrics.value("tpfl_wire_bytes_total", {"node": a}) for a in addrs)
+
+
+def net_federation(card: str, label: str, protocol, addrs: list,
+                   rounds: int = NET_ROUNDS) -> dict:
+    """22a: the four Nodes in this process over ``protocol``."""
+    with runtime_settings(TRAIN_SET_SIZE=NET_TRAIN_SET, ELECTION="hash"):
+        nodes = net_nodes(protocol, addrs, range(NET_NODES))
+        try:
+            start_federation(nodes, "LINE")
+            exp_id, sets = net_experiment(nodes[0], addrs)
+            sets = sets[:rounds]
+            wire0 = wire_bytes(addrs)
+            profiling.rounds.reset()
+            reset_launches()
+            saved, uuid.uuid4 = uuid.uuid4, lambda: exp_id
+            try:
+                with setting("PROFILING_ENABLED", True):
+                    exp, wall = run_experiment(nodes, rounds)
+            finally:
+                uuid.uuid4 = saved
+            launches = read_launches()
+            wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+            check_history(label, nodes, rounds)
+            want = net_expected(sets, range(NET_NODES))
+            if launches != want:
+                raise AssertionError(f"network {label}: launches {launches}, expected {want}")
+            check_all_wgmma(f"network {label}", launches, wgmma)
+            digests = {nd.addr: params_digest(nd) for nd in nodes}
+            if len(set(digests.values())) != 1:
+                raise AssertionError(f"network {label}: the nodes end on different params")
+            split = round_split(nodes)
+            accs = [nd.learner.evaluate()["test_metric"] for nd in nodes]
+        finally:
+            for nd in nodes:
+                nd.stop()
+    return {"card": card, "nodes": NET_NODES, "topology": "LINE", "rounds": rounds,
+            "train_sets": [[addrs[i] for i in s] for s in sets], "experiment": exp,
+            "experiment_wall_s": wall, "rounds_per_s": rounds / wall,
+            "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+            "wgmma_launches": wgmma, "wire_bytes": wire_bytes(addrs) - wire0,
+            "round_split": split, "digest": next(iter(digests.values())),
+            "mean_test_acc": float(np.mean(accs))}
+
+
+def net_child(spec: dict) -> None:
+    """22b's child (``chip_smoke.py --net-child SPEC``): hosts nodes
+    ``NET_CHILD`` over TCP, prints ``listening`` and then ``converged``
+    lines, runs the parent's experiment, and prints its launches and
+    final digests as its last line."""
+    _build.build(_build.all_sources())
+    addrs = spec["addrs"]
+    # The parent's warm-up, in this process too (untimed).
+    net_federation("", "child warm-up", InMemoryCommunicationProtocol,
+                   [f"net-child-warm-{i}" for i in range(NET_NODES)], rounds=1)
+    with runtime_settings(TRAIN_SET_SIZE=NET_TRAIN_SET, ELECTION="hash"):
+        nodes = net_nodes(TcpCommunicationProtocol, addrs, NET_CHILD)
+        try:
+            for nd in nodes:
+                nd.start()
+            nodes[0].connect(nodes[1].addr)
+            reset_launches()
+            print(json.dumps({"listening": [nd.addr for nd in nodes]}), flush=True)
+            wait_convergence(nodes, NET_NODES - 1, only_direct=False, wait=60)
+            print(json.dumps({"converged": True}), flush=True)
+            deadline = time.monotonic() + 300
+            while not all(len(nd.learning_workflow.history) == 1 + 4 * NET_ROUNDS
+                          and nd.learning_finished() for nd in nodes):
+                if time.monotonic() > deadline:
+                    raise AssertionError("network child: the experiment did not finish")
+                time.sleep(0.05)
+            torch.cuda.synchronize()
+            check_history("two processes, child", nodes, NET_ROUNDS)
+            out = {"launches": read_launches(),
+                   "wgmma": read_wgmma_launches(("conv_dw", "conv_dx")),
+                   "digests": {nd.addr: params_digest(nd) for nd in nodes},
+                   "wire_bytes": wire_bytes(nd.addr for nd in nodes)}
+        finally:
+            for nd in nodes:
+                nd.stop()
+    print(json.dumps({"net_child": out}), flush=True)
+
+
+def net_two_processes(card: str, addrs: list, want_digest: str) -> dict:
+    """22b: nodes 0 and 1 here, ``NET_CHILD`` in a child process on the
+    card, one federation over TCP."""
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--net-child",
+                             json.dumps({"addrs": addrs})], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout],
+                              name="net-child-stdout", daemon=True)
+    reader.start()
+
+    def expect(key: str, timeout: float) -> dict:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                line = lines.get(timeout=0.2)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            if line.startswith("{") and key in (obj := json.loads(line)):
+                return obj
+        proc.kill()
+        raise AssertionError(f"network child: no {key!r} line (rc {proc.poll()}): "
+                             f"{proc.stderr.read()[-2000:]}")
+
+    try:
+        with runtime_settings(TRAIN_SET_SIZE=NET_TRAIN_SET, ELECTION="hash"):
+            expect("listening", 120)
+            nodes = net_nodes(TcpCommunicationProtocol, addrs, (0, 1))
+            try:
+                for nd in nodes:
+                    nd.start()
+                nodes[0].connect(nodes[1].addr)
+                nodes[1].connect(addrs[2])
+                wait_convergence(nodes, NET_NODES - 1, only_direct=False, wait=60)
+                expect("converged", 60)
+                exp_id, sets = net_experiment(nodes[0], addrs)
+                reset_launches()
+                saved, uuid.uuid4 = uuid.uuid4, lambda: exp_id
+                try:
+                    exp, wall = run_experiment(nodes, NET_ROUNDS)
+                finally:
+                    uuid.uuid4 = saved
+                launches = read_launches()
+                wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+                check_history("two processes", nodes, NET_ROUNDS)
+                digests = {nd.addr: params_digest(nd) for nd in nodes}
+            finally:
+                for nd in nodes:
+                    nd.stop()
+        child = expect("net_child", 300)["net_child"]
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    if proc.returncode != 0:
+        raise AssertionError(f"network child exited {proc.returncode}")
+    for who, got, hosted in (("parent", (launches, wgmma), (0, 1)),
+                             ("child", (child["launches"], child["wgmma"]), NET_CHILD)):
+        want = net_expected(sets, hosted)
+        if got[0] != want or not want["conv_dw"]:
+            raise AssertionError(f"network two processes ({who}): launches {got[0]}, "
+                                 f"expected {want}")
+        check_all_wgmma(f"network two processes ({who})", got[0], got[1])
+    digests.update(child["digests"])
+    if set(digests.values()) != {want_digest}:
+        raise AssertionError(f"network two processes: final digests {digests}, expected "
+                             f"{want_digest} (22a's) on every node")
+    return {"card": card, "rounds": NET_ROUNDS, "experiment_wall_s": wall,
+            "rounds_per_s": NET_ROUNDS / wall,
+            "train_sets": [[addrs[i] for i in s] for s in sets],
+            "launches": {"parent": {k: launches[k] for k in ("conv_dw", "conv_dx")},
+                         "child": {k: child["launches"][k] for k in ("conv_dw", "conv_dx")}},
+            "wgmma_launches": {"parent": wgmma, "child": child["wgmma"]},
+            "child_wire_bytes": child["wire_bytes"], "digest": want_digest,
+            "digests_equal_22a": True}
+
+
+def stream_pair(payload: bytes, sends: int = 3) -> dict:
+    """One SendStream of ``payload`` as a weights message between two TCP
+    endpoints (under the current TLS settings), ``sends`` times: each
+    reassembled byte-equal; the best send's MB/s."""
+    a, b = TcpCommunicationProtocol(), TcpCommunicationProtocol()
+    got: list = []
+    b.add_command("stream_probe", lambda source, round, weights, **kw: got.append(weights))
+    a.start()
+    b.start()
+    try:
+        if not a.connect(b.get_address()):
+            raise AssertionError("network stream: connect refused")
+        msg = a.build_weights("stream_probe", 0, payload, [a.get_address()], 1)
+        wire = len(msg.to_bytes())
+        times = []
+        for _ in range(sends):
+            t0 = time.perf_counter()
+            a.send(b.get_address(), msg, raise_error=True)
+            times.append(time.perf_counter() - t0)
+        if len(got) != sends or any(g != payload for g in got):
+            raise AssertionError("network stream: a reassembled payload differs")
+    finally:
+        a.stop()
+        b.stop()
+    return {"payload_bytes": len(payload), "wire_bytes": wire,
+            "chunks": -(-wire // Settings.WIRE_CHUNK_SIZE),
+            "chunk_size": Settings.WIRE_CHUNK_SIZE, "send_s": times,
+            "mb_per_s": wire / min(times) / 1e6}
+
+
+def corrupted_stream() -> dict:
+    """A fault-injected corrupted stream rejected by the receiver's chunk
+    CRC, then the retry delivers the payload intact, once."""
+    a, b = TcpCommunicationProtocol(), TcpCommunicationProtocol()
+    got: list = []
+    b.add_command("crc_probe", lambda source, round, weights, **kw: got.append(weights))
+    a.start()
+    b.start()
+    try:
+        a.connect(b.get_address())
+        fi = FaultInjector(FaultPlan.from_dict({"links": {"*->*": {"corrupt": 1.0,
+                                                                   "corrupt_limit": 1}}}),
+                           seed=5)
+        fi.attach(a)
+        payload = bytes(range(256)) * 4096
+        a.send(b.get_address(), a.build_weights("crc_probe", 1, payload, ["a"], 1),
+               raise_error=True)
+        stats = fi.stats()[f"{a.get_address()}->{b.get_address()}"]
+    finally:
+        a.stop()
+        b.stop()
+    if got != [payload] or stats.get("corrupt_rejected") != 1 or "corrupt_accepted" in stats:
+        raise AssertionError(f"network corrupted stream: {len(got)} deliveries, {stats}")
+    return {"corrupted": stats["corrupted"], "corrupt_rejected": stats["corrupt_rejected"],
+            "delivered": stats["delivered"]}
+
+
+def mtls_checks(cert_dir: str, payload: bytes) -> dict:
+    """mTLS with certificates from ``generate_certificates``: two Nodes'
+    transports handshake and carry the stream; a TLS client that trusts
+    the CA but shows no certificate gets no reply and does not register."""
+    import ssl
+
+    t0 = time.perf_counter()
+    enable_mtls(cert_dir)
+    certs_s = time.perf_counter() - t0
+    stream = stream_pair(payload)
+    (server,) = [TcpCommunicationProtocol()]
+    server.start()
+    try:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        ctx.load_verify_locations(Settings.CA_CRT)
+        host, port = server.get_address().rsplit(":", 1)
+        refused = ""
+        try:
+            with socket.create_connection((host, int(port)), timeout=5) as raw:
+                with ctx.wrap_socket(raw, server_hostname=host) as s:
+                    body = _msgpack.packb({"addr": "mallory"})
+                    s.sendall(b"H" + len(body).to_bytes(8, "big") + body)
+                    if len(s.recv(8)) == 8:
+                        raise AssertionError("network mTLS: a client without a certificate "
+                                             "got a reply")
+                    refused = "closed without a reply"
+        except (ssl.SSLError, ConnectionError) as e:
+            refused = type(e).__name__ + ": " + str(e)[:120]
+        if "mallory" in server.get_neighbors():
+            raise AssertionError("network mTLS: an unauthenticated client registered")
+    finally:
+        server.stop()
+    return {"certificates_s": certs_s, "stream": stream, "unauthenticated_refused": refused}
+
+
+def net_streams(card: str) -> dict:
+    """22c: the 44 MB ResNet-18 state as one SendStream (plain TCP and
+    mTLS) and the CNN cell's payload (one 22a push), a corrupted stream,
+    mTLS refusing a client without a certificate."""
+    module = ResNet18(out_channels=100)
+    params, aux = init_state(module, (32, 32, 3), seed=0, device=PHASE_DEVICE)
+    payload = TpflModel(module, params, aux_state=aux, device=PHASE_DEVICE).encode_parameters()
+    out = {"card": card}
+    with runtime_settings():
+        out["resnet18_stream"] = stream_pair(payload)
+        out["cnn_stream"] = stream_pair(phase_model(0).encode_parameters(), sends=7)
+        out["corrupted_stream"] = corrupted_stream()
+        openssl = shutil.which("openssl")
+        out["openssl"] = openssl
+        if openssl is None:
+            log(f"network path (22c): {card}: no openssl on this machine, so the mTLS half "
+                "is held on the CPU only (tests/test_torch_tcp_transport.py)")
+        else:
+            with tempfile.TemporaryDirectory() as d:
+                out["mtls"] = mtls_checks(d, payload)
+    return out
+
+
+def wait_for_line(path: Path, text: str, proc, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and proc.poll() is None:
+        if text in path.read_text():
+            return
+        time.sleep(0.2)
+    raise AssertionError(f"entry point: no {text!r} within {timeout} s: "
+                         f"{path.read_text()[-2000:]}")
+
+
+def net_entry_points(card: str) -> dict:
+    """22d: the CLI and the examples as subprocesses on the card: ``list``;
+    ``run node1`` beside ``run node2``; ``run digits`` over TCP; the
+    multislice slice-mode pair. Each exits 0 (the passive halves on
+    SIGTERM)."""
+    cli = [sys.executable, "-m", "tpfl_torch.cli", "experiment"]
+    env = {**os.environ, **NET_FAST_ENV}
+    p1, p2, p3, p4 = free_ports(4)
+    logs = Path(tempfile.mkdtemp(prefix="tpfl-entry-"))
+    procs: dict = {}
+    started: dict = {}
+
+    def start(name: str, args: list) -> None:
+        with open(logs / f"{name}.log", "w") as f:
+            started[name] = time.perf_counter()
+            procs[name] = (subprocess.Popen(cli + [*args], stdout=f, stderr=subprocess.STDOUT,
+                                            env=env), logs / f"{name}.log")
+
+    t0 = time.perf_counter()
+    try:
+        start("list", ["list"])
+        start("node1", ["run", "node1", "--", "--port", str(p1), "--samples", "200"])
+        start("multislice passive", ["run", "multislice", "--", "--port", str(p3),
+                                     "--local-nodes", "4", "--samples", "400"])
+        start("digits", ["run", "--profile", str(logs / "trace"), "digits", "--", "--nodes", "2",
+                         "--rounds", "1", "--protocol", "tcp"])
+        wait_for_line(procs["node1"][1], "listening", procs["node1"][0], 120)
+        start("node2", ["run", "node2", "--", "--port", str(p2), "--connect-to",
+                        f"127.0.0.1:{p1}", "--rounds", "1", "--samples", "200"])
+        wait_for_line(procs["multislice passive"][1], "listening",
+                      procs["multislice passive"][0], 120)
+        start("multislice driving", ["run", "multislice", "--", "--port", str(p4),
+                                     "--connect-to", f"127.0.0.1:{p3}", "--local-nodes", "4",
+                                     "--rounds", "1", "--samples", "400"])
+        rcs, elapsed = {}, {}
+        for name, passive in (("list", None), ("node2", "node1"),
+                              ("multislice driving", "multislice passive"), ("digits", None)):
+            rcs[name] = procs[name][0].wait(timeout=300)
+            elapsed[name] = time.perf_counter() - started[name]
+            if passive is not None:
+                procs[passive][0].send_signal(signal.SIGTERM)
+        for name in ("node1", "multislice passive"):
+            rcs[name] = procs[name][0].wait(timeout=60)
+            elapsed[name] = time.perf_counter() - started[name]
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    wall = time.perf_counter() - t0
+    texts = {name: path.read_text() for name, (_, path) in procs.items()}
+    names = texts["list"].split()
+    if names != ["digits", "multislice", "node1", "node2", "scale"]:
+        raise AssertionError(f"cli list: {names}")
+    trace = logs / "trace" / "trace.json"
+    trace_bytes = trace.stat().st_size if trace.exists() else 0
+    shutil.rmtree(logs, ignore_errors=True)
+    bad = {n: rc for n, rc in rcs.items() if rc != 0}
+    if bad:
+        raise AssertionError(f"entry points exited non-zero: {bad}: "
+                             + json.dumps({n: texts[n][-1500:] for n in bad}))
+    for name, text in (("node2", "Final metrics"), ("digits", "Final test accuracy per node"),
+                       ("multislice driving", "Slice-level metrics")):
+        if text not in texts[name]:
+            raise AssertionError(f"entry point {name}: no {text!r} line")
+    if not trace_bytes:
+        raise AssertionError("entry point digits: run --profile wrote no trace.json")
+    return {"card": card, "cli_list": names, "exit_codes": rcs, "elapsed_s": elapsed,
+            "wall_s": wall, "digits_profile_trace_bytes": trace_bytes}
+
+
+def net_interop(card: str) -> dict:
+    """22e: a torch ``state_dict`` on the card through
+    ``from_torch_state_dict`` / ``to_torch_state_dict`` (exact), and the
+    ``nn.Sequential`` MLP's logits against the port's MLP with the
+    imported params (f32, TF32 off; atol 1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    tm = torch.nn.Sequential(torch.nn.Linear(784, 256), torch.nn.ReLU(),
+                             torch.nn.Linear(256, 128), torch.nn.ReLU(),
+                             torch.nn.Linear(128, 10)).to(PHASE_DEVICE)
+    sd = tm.state_dict()
+    module = MLP(hidden_sizes=(256, 128), out_channels=10, compute_dtype=torch.float32)
+    params = from_torch_state_dict(init_params(module, (28, 28), seed=0, device=PHASE_DEVICE),
+                                   sd, device=PHASE_DEVICE)
+    back = to_torch_state_dict(params, sd)
+    if list(back) != list(sd) or not all(
+            torch.equal(back[k], sd[k]) and back[k].device == sd[k].device for k in sd):
+        raise AssertionError("interop: the state_dict round trip is not exact on the card")
+    x = torch.randn(64, 784, device=PHASE_DEVICE, generator=torch.Generator(
+        PHASE_DEVICE).manual_seed(1))
+    with torch.no_grad():
+        want = tm(x)
+        got = module(stack_params(params, 1), x.reshape(1, 64, 28, 28))[0]
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4,
+                               msg=lambda m: f"interop logits: {m}")
+    return {"card": card, "round_trip_exact": True,
+            "logits_max_abs_diff": (got - want).abs().max().item()}
+
+
+def network_path(card: str) -> dict:
+    """Phase 22: (a) the four CNN Nodes over the in-memory transport and
+    over TCP on loopback, the same addresses, seeds, data and experiment
+    id: the final params bit-identical, exact launch counts, wire bytes
+    only over TCP; (b) the same federation split over two processes; (c)
+    streams and mTLS; (d) the entry points as subprocesses; (e) interop.
+    Returns the results and, per conv kernel, the launches of each run."""
+    t0 = time.perf_counter()
+    # A 1-round warm-up federation of its own (the first federation of a
+    # process pays its threads' first card calls), untimed.
+    net_federation(card, "warm-up", InMemoryCommunicationProtocol,
+                   [f"net-warm-{i}" for i in range(NET_NODES)], rounds=1)
+    addrs = [f"127.0.0.1:{p}" for p in free_ports(NET_NODES)]
+    # Each transport twice, alternating (one experiment a run reads
+    # ±40% between calls): every run's final params bit-identical.
+    transports = (("in-memory", InMemoryCommunicationProtocol), ("tcp", TcpCommunicationProtocol))
+    runs = [(label, net_federation(card, label, protocol, addrs))
+            for _ in range(2) for label, protocol in transports]
+    digests = {r["digest"] for _, r in runs}
+    if len(digests) != 1:
+        raise AssertionError(f"network path: the four runs end on {len(digests)} different "
+                             "final params (TCP against in-memory)")
+    for label, r in runs:
+        if (r["wire_bytes"] > 0) != (label == "tcp"):
+            raise AssertionError(f"network path: {r['wire_bytes']} wire bytes in {label}")
+    out: dict = {}
+    for key, label in (("22a memory", "in-memory"), ("22a tcp", "tcp")):
+        mine = [r for lb, r in runs if lb == label]
+        out[key] = {**max(mine, key=lambda r: r["rounds_per_s"]),
+                    "rounds_per_s_runs": [r["rounds_per_s"] for r in mine],
+                    "wire_bytes_runs": [r["wire_bytes"] for r in mine]}
+    mem, tcp = out["22a memory"], out["22a tcp"]
+    tcp["bit_identical_to_memory"] = True
+    tcp["rounds_per_s_over_memory"] = tcp["rounds_per_s"] / mem["rounds_per_s"]
+    out["22b"] = net_two_processes(card, addrs, tcp["digest"])
+    out["22c"] = net_streams(card)
+    out["22d"] = net_entry_points(card)
+    out["22e"] = net_interop(card)
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = {k: {"22a memory": mem["launches"][k], "22a tcp": tcp["launches"][k],
+                           **{f"22b {who}": out["22b"]["launches"][who][k]
+                              for who in ("parent", "child")}}
+                       for k in ("conv_dw", "conv_dx")}
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -5271,6 +5818,9 @@ def main() -> int:
         return 2
     if "--fleet-rank" in sys.argv[1:]:
         fleet_rank(int(sys.argv[sys.argv.index("--fleet-rank") + 1]))
+        return 0
+    if "--net-child" in sys.argv[1:]:
+        net_child(json.loads(sys.argv[sys.argv.index("--net-child") + 1]))
         return 0
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5363,6 +5913,11 @@ def main() -> int:
     spmd = spmd_planes(card)
     mesh = mesh_phase(card)
     log(f"mesh phase: {mesh['phase_s']:.1f} s")
+    network = network_path(card)
+    for label, result in network.items():
+        if label not in ("launches", "phase_s"):
+            log(f"network path ({label}): " + json.dumps(result))
+    log(f"network path: {network['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -5393,6 +5948,7 @@ def main() -> int:
                 shape: per[row["name"]] for shape, per in simulation["kernel_rows"].items()
                 if shape != "phase_s"}
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
+            row["network_launches"] = network["launches"][row["name"]]
         if row["name"] in FLASH_KERNELS:
             launched = {label.split()[0]: part["flash_launches"][row["name"]]
                         for label, part in spmd.items()}

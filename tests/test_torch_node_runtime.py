@@ -20,7 +20,9 @@ paths beyond the plain synchronous round, on the CPU:
   the population and ``FederationLearner`` read) run where they were
   refused;
 - the refusals: each unported plane raises ``NotImplementedError``
-  naming its ``ROADMAP.md`` item; each switch of
+  naming its ``ROADMAP.md`` item (the reference's gRPC transport names
+  its counterpart, ``TcpCommunicationProtocol``, whose knobs the port now
+  reads); each switch of
   ``settings.UNPORTED_SWITCHES`` is refused where a Node or an engine
   starts, and each entry point of ``settings.UNPORTED_KNOBS`` is closed.
 """
@@ -526,6 +528,11 @@ PORTED = {
                          device="cpu").mesh is None,
     "gate parallel.ranksafe": lambda: _read_by_port({"RANK_CONTRACTS"})
     and importlib.util.find_spec("tpfl_torch.parallel.ranksafe") is not None,
+    # The reference's gRPC knobs tune the port's TCP transport.
+    "gate communication.TcpCommunicationProtocol": lambda: _read_by_port({
+        "GRPC_TIMEOUT", "MAX_MESSAGE_SIZE", "GRPC_SERVER_WORKERS", "WIRE_CHUNK_SIZE", "USE_SSL",
+        "CA_CRT", "SERVER_CRT", "SERVER_KEY", "CLIENT_CRT", "CLIENT_KEY"})
+    and communication.TcpCommunicationProtocol().get_address().startswith("127.0.0.1:"),
 }
 
 
@@ -541,21 +548,25 @@ def test_ported_seams_run(seam):
         assert not [a for a in logger.get_nodes() if a.startswith(("ported-", "sw-"))]
 
 
+# Each refused seam's message names its ROADMAP.md item; the reference's
+# gRPC transport, whose counterpart the port has, names that counterpart.
 REFUSALS = {
-    "harness default data": ("item 8", lambda: None, lambda: run_seeded_experiment(
-        1, 2, 1, device="cpu")),
-    "engine donation report": ("item 8", lambda: None, lambda: _engine().donation_report()),
-    "grpc": ("item 8", lambda: None, lambda: communication.GrpcCommunicationProtocol),
+    "harness default data": ("ROADMAP.md §1 item 8", lambda: None,
+                             lambda: run_seeded_experiment(1, 2, 1, device="cpu")),
+    "engine donation report": ("ROADMAP.md §1 item 8", lambda: None,
+                               lambda: _engine().donation_report()),
+    "grpc": ("counterpart is tpfl_torch.communication.TcpCommunicationProtocol", lambda: None,
+             lambda: communication.GrpcCommunicationProtocol),
 }
 
 
 @pytest.mark.parametrize("seam", sorted(REFUSALS))
 def test_unported_seams_raise_naming_their_item(seam):
-    item, arm, call = REFUSALS[seam]
+    names, arm, call = REFUSALS[seam]
     snap = Settings.snapshot()
     arm()
     try:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+        with pytest.raises(NotImplementedError, match=names):
             call()
     finally:
         Settings.restore(snap)
@@ -604,8 +615,6 @@ def _raises(call):
 
 # How each entry point of UNPORTED_KNOBS is closed to a caller of the port.
 GATES = {
-    "communication.GrpcCommunicationProtocol": _raises(
-        lambda: communication.GrpcCommunicationProtocol),
     "parallel.FederationEngine.donation_report": _raises(lambda: _engine().donation_report()),
 }
 

@@ -25,9 +25,10 @@ import chip_smoke
 banned = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
-             "ml_dtypes", "psutil", "click")
+             "ml_dtypes", "psutil", "click", "grpc", "PIL", "matplotlib", "cryptography")
     or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "tpfl.", "msgpack.", "datasets.",
-                     "zstandard.", "ml_dtypes.", "psutil.", "click."))
+                     "zstandard.", "ml_dtypes.", "psutil.", "click.", "grpc.", "PIL.",
+                     "matplotlib.", "cryptography."))
 )
 print(json.dumps({"modules": mods, "banned": banned}))
 """
@@ -64,7 +65,9 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "management.profiling", "management.tracing", "simulation",
                 "management.fleetobs", "management.node_monitor",
                 "management.web_services", "parallel.crosshost", "parallel.ranksafe",
-                "parallel.sharded", "parallel.scaling"):
+                "parallel.sharded", "parallel.scaling", "communication.tcp_transport",
+                "utils.certificates", "cli", "examples", "examples.digits",
+                "examples.multislice", "examples.node1", "examples.node2", "examples.scale"):
         assert f"tpfl_torch.{mod}" in report["modules"]
     assert report["banned"] == []
 
@@ -73,9 +76,10 @@ def test_sources_name_no_jax_package():
     """Belt and braces over the import probe: no source line of the
     port imports jax, flax, optax or the tpfl package, nor a package the
     card's machine lacks (msgpack, datasets, zstandard, ml_dtypes) or
-    the port stands without (psutil, click)."""
+    the port stands without (psutil, click, grpc, PIL, matplotlib,
+    cryptography)."""
     banned = {"jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
-              "ml_dtypes", "psutil", "click"}
+              "ml_dtypes", "psutil", "click", "grpc", "PIL", "matplotlib", "cryptography"}
     files = list((REPO / "tpfl_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for f in files:
         for line in f.read_text().splitlines():
@@ -90,10 +94,13 @@ def test_sources_name_no_jax_package():
                                    "tpfl_model", "torch_learner", "fedavg", "scaffold_agg",
                                    "fedmedian", "fedprox", "krum", "multikrum",
                                    "trimmedmean", "random_bits", "node", "dispatch_rtt",
-                                   "timed_loop", "mfu", "crosshost_launch"])
+                                   "timed_loop", "mfu", "crosshost_launch",
+                                   "from_torch_state_dict", "from_keras_weights",
+                                   "example_model"])
 def test_entry_points_require_a_card_by_default(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from tpfl_torch.interop import params_from_flax
+    from tpfl_torch.examples._common import make_model
+    from tpfl_torch.interop import from_keras_weights, from_torch_state_dict, params_from_flax
     from tpfl_torch.learning.aggregators import (FedAvg, FedMedian, FedProx, Krum, MultiKrum,
                                                  Scaffold, TrimmedMean)
     from tpfl_torch.learning.dataset import TpflDataset
@@ -132,6 +139,9 @@ def test_entry_points_require_a_card_by_default(entry, monkeypatch):
         "timed_loop": lambda: profiling.timed_loop(lambda c: c, torch.zeros(1), (), 1),
         "mfu": lambda: profiling.cost_model.record_round("no-card", 1.0, 1.0),
         "crosshost_launch": lambda: crosshost.launch(2),
+        "from_torch_state_dict": lambda: from_torch_state_dict({}, {}),
+        "from_keras_weights": lambda: from_keras_weights({}, []),
+        "example_model": lambda: make_model("mlp", 0, None),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

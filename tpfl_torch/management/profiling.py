@@ -51,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 import time
 import zlib
 from collections import deque
@@ -427,53 +428,82 @@ class RoundProfiler:
 # --- torch.profiler trace wrap (any run) -------------------------------------
 
 _trace_lock = make_lock("profiling._trace_lock")
-# guarded-by: _trace_lock — 0 or 1 (directory, profiler) pairs
-_trace: "list[tuple[str, Any]]" = []
+# guarded-by: _trace_lock — 0 or 1 (directory, stop event, owner thread,
+# outcome) entries
+_trace: "list[tuple[str, threading.Event, threading.Thread, dict]]" = []
+
+
+def _own_trace(directory: str, started: threading.Event, halt: threading.Event,
+               outcome: dict) -> None:
+    """The trace's owner thread: starts ``torch.profiler`` (every thread's
+    ops, and the card's kernels when there is one), waits for
+    :func:`stop_trace`, then stops it and writes ``trace.json``. The
+    profiler is started and stopped on this one thread: stopped from
+    another thread than the one that started it, torch's profiler
+    crashes the process."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities,
+                       experimental_config=_ExperimentalConfig(profile_all_threads=True))
+        prof.start()
+    except Exception as e:
+        outcome["error"] = e
+        started.set()
+        return
+    started.set()
+    halt.wait()
+    try:
+        prof.stop()
+        os.makedirs(directory, exist_ok=True)
+        outcome["path"] = os.path.join(directory, "trace.json")
+        prof.export_chrome_trace(outcome["path"])
+    except Exception as e:
+        outcome["error"] = e
 
 
 def start_trace(directory: str) -> bool:
-    """Start a process-wide ``torch.profiler`` trace (CPU, and CUDA when
-    a card is present) that :func:`stop_trace` writes into
-    ``directory`` (idempotent: a second start while one is active is a
-    no-op — in-process nodes share one profiler). Returns True when
-    this call started it."""
+    """Start a process-wide ``torch.profiler`` trace (CPU ops of every
+    thread, and CUDA when a card is present) that :func:`stop_trace`
+    writes into ``directory`` (idempotent: a second start while one is
+    active is a no-op — in-process nodes share one profiler). Returns
+    True when this call started it."""
     if not directory:
         return False
     with _trace_lock:
         if _trace:
             return False
-        try:
-            import torch
-            from torch.profiler import ProfilerActivity, profile
-
-            activities = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                activities.append(ProfilerActivity.CUDA)
-            prof = profile(activities=activities)
-            prof.start()
-        except Exception as e:
-            logger.warning(PROFILING_RING, f"torch.profiler trace failed: {e}")
+        started, halt, outcome = threading.Event(), threading.Event(), {}
+        owner = threading.Thread(target=_own_trace, args=(directory, started, halt, outcome),
+                                 name="tpfl-profiler-trace", daemon=True)
+        owner.start()
+        started.wait()
+        if "error" in outcome:
+            owner.join()
+            logger.warning(PROFILING_RING, f"torch.profiler trace failed: {outcome['error']}")
             return False
-        _trace.append((directory, prof))
+        _trace.append((directory, halt, owner, outcome))
     return True
 
 
 def stop_trace() -> bool:
     """Stop the active trace, if any, and write it as
-    ``<directory>/trace.json`` (Chrome trace format; idempotent)."""
+    ``<directory>/trace.json`` (Chrome trace format; idempotent; any
+    thread may call it)."""
     with _trace_lock:
         if not _trace:
             return False
-        directory, prof = _trace.pop()
-    try:
-        prof.stop()
-        os.makedirs(directory, exist_ok=True)
-        path = os.path.join(directory, "trace.json")
-        prof.export_chrome_trace(path)
-    except Exception as e:
-        logger.warning(PROFILING_RING, f"torch.profiler trace failed: {e}")
+        _, halt, owner, outcome = _trace.pop()
+    halt.set()
+    owner.join()
+    if "error" in outcome:
+        logger.warning(PROFILING_RING, f"torch.profiler trace failed: {outcome['error']}")
         return False
-    logger.info(PROFILING_RING, f"torch.profiler trace written to {path}")
+    logger.info(PROFILING_RING, f"torch.profiler trace written to {outcome['path']}")
     return True
 
 

@@ -212,6 +212,13 @@ class Node:
         if trainer is not None and trainer.is_alive():
             self.learner.interrupt_fit()
             trainer.join(timeout=5.0)
+        # The same for the stage workflow (its final evaluation, a push):
+        # a process that exits on SIGTERM right after stop() must not
+        # leave it inside a torch op.
+        workflow = self._learning_thread
+        if (workflow is not None and workflow.is_alive()
+                and workflow is not threading.current_thread()):
+            workflow.join(timeout=5.0)
         # An engine window pipeline running for this node retires its
         # in-flight window and joins its prefetch thread first.
         from tpfl_torch.parallel import window_pipeline

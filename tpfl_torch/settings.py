@@ -31,14 +31,14 @@ from tpfl_torch.exceptions import REST_ITEM, not_ported
 class Settings:
     """Class-level configuration constants, mutable before node start."""
 
-    # --- gRPC / transport ---
+    # --- transport (the TCP transport; the reference's gRPC knobs) ---
     GRPC_TIMEOUT: float = 10.0
-    """Timeout (s) of the reference's gRPC unary calls. Carried for parity;
-    the port does not read it (``UNPORTED_KNOBS``)."""
+    """Deadline (s) of a TCP transport request (the reference's gRPC unary
+    calls); ×4 for a dial, ×(1 + 0.25·chunks) for a SendStream."""
 
     MAX_MESSAGE_SIZE: int = 1024 * 1024 * 1024
-    """Largest gRPC message (1 GiB) of the reference's transport. Carried for
-    parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Largest message (1 GiB) the TCP transport sends or accepts (the
+    reference's gRPC cap); a longer body is refused from its length."""
 
     ELECTION: str = "vote"
     """Train-set election mode. "vote" (default): the reference's
@@ -66,8 +66,8 @@ class Settings:
     StartLearning flood itself takes tens of seconds to spread."""
 
     GRPC_SERVER_WORKERS: int = 16
-    """Handler threads of the reference's gRPC server. Carried for parity; the
-    port does not read it (``UNPORTED_KNOBS``)."""
+    """Handler threads of the TCP transport's server (the reference's gRPC
+    server workers)."""
 
     # --- transport resilience (retry / circuit breaker) ---
     RETRY_MAX_ATTEMPTS: int = 3
@@ -198,8 +198,8 @@ class Settings:
     (``codec_nack``) and gets the dense payload."""
 
     WIRE_CHUNK_SIZE: int = 256 * 1024
-    """Chunk size (bytes) of the reference's gRPC payload streaming. Carried
-    for parity; the port does not read it (``UNPORTED_KNOBS``)."""
+    """Chunk size (bytes) of the TCP transport's SendStream: a larger wire
+    message goes as CRC-tagged chunk frames (0: always unary)."""
 
     # --- zero-copy model plane ---
     WIRE_FORMAT: int = 3
@@ -233,23 +233,17 @@ class Settings:
 
     # --- SSL / mTLS ---
     USE_SSL: bool = False
-    """mTLS of the reference's gRPC transport. Carried for parity; the port
-    does not read it (``UNPORTED_KNOBS``)."""
+    """Mutual TLS on the TCP transport (``utils.certificates.enable_mtls``)."""
     CA_CRT: str = ""
-    """CA certificate of the reference's gRPC mTLS. Carried for parity; the
-    port does not read it (``UNPORTED_KNOBS``)."""
+    """CA certificate (PEM path) both sides of mTLS verify against."""
     SERVER_CRT: str = ""
-    """Server certificate of the reference's gRPC mTLS. Carried for parity;
-    the port does not read it (``UNPORTED_KNOBS``)."""
+    """Server certificate (PEM path) of mTLS."""
     SERVER_KEY: str = ""
-    """Server key of the reference's gRPC mTLS. Carried for parity; the port
-    does not read it (``UNPORTED_KNOBS``)."""
+    """Server key (PEM path) of mTLS."""
     CLIENT_CRT: str = ""
-    """Client certificate of the reference's gRPC mTLS. Carried for parity;
-    the port does not read it (``UNPORTED_KNOBS``)."""
+    """Client certificate (PEM path) of mTLS."""
     CLIENT_KEY: str = ""
-    """Client key of the reference's gRPC mTLS. Carried for parity; the port
-    does not read it (``UNPORTED_KNOBS``)."""
+    """Client key (PEM path) of mTLS."""
 
     # --- FL round protocol ---
     TRAIN_SET_SIZE: int = 4
@@ -1007,17 +1001,12 @@ UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
     "TRACE_CONTRACTS": (REST_ITEM, False, ("node", "engine")),
 }
 
-_GRPC = ("communication.GrpcCommunicationProtocol", REST_ITEM)
-
 #: Knobs that only tune a plane the port has not ported: knob -> (the
 #: reference's entry point into that plane, ``ROADMAP.md`` item). The
 #: entry point is a refused switch (``Settings.<NAME>``), a refused call,
 #: or a module of the reference that ``tpfl_torch`` does not have. None
 #: marks a knob that the reference reads nowhere either.
 UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
-    **dict.fromkeys(("GRPC_TIMEOUT", "MAX_MESSAGE_SIZE", "GRPC_SERVER_WORKERS",
-                     "WIRE_CHUNK_SIZE", "USE_SSL", "CA_CRT", "SERVER_CRT", "SERVER_KEY",
-                     "CLIENT_CRT", "CLIENT_KEY"), _GRPC),
     "ENGINE_DONATE": ("parallel.FederationEngine.donation_report", REST_ITEM),
     "DEFAULT_DTYPE": None,
     "EXACT_AGGREGATION": None,

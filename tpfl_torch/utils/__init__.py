@@ -1,7 +1,7 @@
 """User-facing utilities — the port of :mod:`tpfl.utils`: topologies,
 convergence waits, model checks, and the tree and threefry helpers the
-port's modules share. The reference's mTLS certificate helpers serve its
-gRPC transport, which is not ported (``ROADMAP.md`` §1 item 8)."""
+port's modules share, and the mTLS certificate helpers of the TCP
+transport (:mod:`tpfl_torch.utils.certificates`)."""
 
 from tpfl_torch.utils.topologies import TopologyFactory, TopologyType
 from tpfl_torch.utils.utils import (
