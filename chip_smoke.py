@@ -342,6 +342,27 @@
    on the card through ``from_torch_state_dict`` / ``to_torch_state_dict``
    exactly, and the ``nn.Sequential`` MLP's logits against the port's MLP
    with the imported params (f32, TF32 off, atol 1e-4).
+23. Rendered data phase (phase 23: the reference's digit images without
+   PIL). (a) The ``primary`` tier's ``rendered_color_digits(n_train=51,200,
+   n_test=10, seed=0)`` and ``rendered_digits(2,000, 400, seed=0)``
+   rendered on the host from the glyph atlas, each one's four arrays held
+   to a sha256 pinned from the JAX package's renderer; seconds and
+   images/s of the host CPU. (b) The primary tier's window on that data:
+   ``VmapFederation(CNN(out_channels=10, conv_impl="pallas"), 100 nodes,
+   lr 0.1, seed 0)``, bf16 images, 4 × 128 samples a node, a first round,
+   then ``MAIN_WINDOWS`` 3-round windows (best reported): exactly 8
+   ``conv_dw`` + 4 ``conv_dx`` launches a round, all wgmma, one finite
+   aggregate on every node, the last round's mean loss below the first
+   round's; rounds/s, samples/s, the window's mean loss (the bench's
+   ``steady_loss``) and node 0's accuracy on ``rendered_color_digits(
+   n_train=10, n_test=2,000, seed=1)``'s test split (reported only). (c)
+   The reference's accuracy contract on the card: three MLP Nodes, FULL,
+   2 rounds × 2 epochs on ``rendered_digits(3,000, 450, seed=5)``: equal
+   models and test accuracy > 0.5 on every node. (d) ``TRACE_CONTRACTS``
+   on: a fresh engine of (b)'s seed, every cached program stamped, its
+   first window bit-identical to (b)'s, rounds/s on against off; a
+   donate=True cache slot re-pointed at the donate=False program raises
+   ``TraceContractError`` naming ``ENGINE_DONATE`` before any launch.
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
@@ -385,12 +406,14 @@ from tpfl_torch.attacks import (AttackPlan, AttackSpec, adversary_map, apply_att
                                 run_seeded_experiment)
 from tpfl_torch.communication import (FaultInjector, FaultPlan, InMemoryCommunicationProtocol,
                                       TcpCommunicationProtocol, TrainerSpeedPlan)
+from tpfl_torch.concurrency import ContractedProgram, TraceContractError
 from tpfl_torch.interop import from_torch_state_dict, to_torch_state_dict
 from tpfl_torch.learning import _msgpack, compression
 from tpfl_torch.learning.async_control import AsyncController
 from tpfl_torch.learning.aggregators import (FedAvg, FedProx, Krum, MultiKrum, Scaffold,
                                              TrimmedMean)
-from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, TpflDataset
+from tpfl_torch.learning.dataset import (RandomIIDPartitionStrategy, TpflDataset,
+                                         rendered_color_digits, rendered_digits)
 from tpfl_torch.learning.dataset.synthetic import (synthetic_cifar10, synthetic_classification,
                                                    synthetic_mnist)
 from tpfl_torch.learning.model import TpflModel
@@ -399,8 +422,8 @@ from tpfl_torch.management import engine_obs, ledger, profiling, quarantine, tel
 from tpfl_torch.management.checkpoint import EngineCheckpointer
 from tpfl_torch.management.quarantine import QuarantineEngine
 from tpfl_torch.management.logger import logger
-from tpfl_torch.models import (CNN, MLP, ResNet18, TransformerBlock, TransformerLM, init_params,
-                               init_state)
+from tpfl_torch.models import (CNN, MLP, ResNet18, TransformerBlock, TransformerLM,
+                               create_model, init_params, init_state)
 from tpfl_torch.models.zoo import stack_params
 from tpfl_torch.node import Node
 from tpfl_torch.parallel import (ClientPopulation, FedBuffSchedule, FederationEngine,
@@ -413,7 +436,8 @@ from tpfl_torch.parallel.ring_attention import blockwise_attention
 from tpfl_torch.settings import Settings
 from tpfl_torch.simulation import SuperLearnerPool, VirtualNodeLearner, batched_fit, isolated
 from tpfl_torch.stages.base_node import election_rank
-from tpfl_torch.utils import TopologyFactory, TopologyType, wait_convergence, wait_to_finish
+from tpfl_torch.utils import (TopologyFactory, TopologyType, check_equal_models,
+                              wait_convergence, wait_to_finish)
 from tpfl_torch.utils.certificates import enable_mtls
 from tpfl_torch.utils.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
@@ -5745,6 +5769,224 @@ def network_path(card: str) -> dict:
     return out
 
 
+# --- phase 23: the rendered digit data ----------------------------------------
+
+# sha256 (:func:`rendered_digest`) of the four arrays of the ``primary``
+# tier's call, ``rendered_color_digits(n_train=51,200, n_test=10, seed=0)``,
+# and of ``rendered_digits(n_train=2,000, n_test=400, seed=0)``, computed
+# from the JAX package's renderer (PIL: Pillow 12.1.0, FreeType 2.14.1,
+# matplotlib 3.10.8's DejaVu fonts; other versions may rasterise otherwise).
+RENDERED_PRIMARY_SHA256 = "6d254bda40494927a38b2105210b7943f18257858e24c70f511a7fdfdf01136f"
+RENDERED_DIGITS_SHA256 = "72811adad964efdbf25f3c47454fb93d3530ae2a974d2319f897b3f83ee6efd0"
+RD_EVAL = 2000  # test images of rendered_color_digits(seed 1) the aggregate is scored on
+RD_ACC_NODES, RD_ACC_ROUNDS = 3, 2  # the accuracy contract (tests/test_node.py:544-577)
+
+
+def rendered_digest(arrays) -> str:
+    """sha256 over each array's dtype, shape and bytes, in order."""
+    h = hashlib.sha256()
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def split_arrays(ds: TpflDataset) -> tuple:
+    """(x_train, y_train, x_test, y_test) of a port dataset."""
+    return tuple(ds.get_split(train)[name] for train in (True, False)
+                 for name in ("image", "label"))
+
+
+def rendered_data() -> tuple[dict, tuple]:
+    """23a: the primary tier's 51,200 colour images and 2,000 + 400 digits
+    rendered on the host, each held to its pinned digest (the JAX
+    package's bytes). Returns the timings (host CPU seconds, not a card
+    number) and the primary tier's arrays."""
+    n = N_NODES * N_BATCHES * BATCH
+    t0 = time.perf_counter()
+    primary = split_arrays(rendered_color_digits(n_train=n, n_test=10, seed=0))
+    t1 = time.perf_counter()
+    digits = split_arrays(rendered_digits(n_train=2000, n_test=400, seed=0))
+    t2 = time.perf_counter()
+    for label, arrays, pin in (("primary", primary, RENDERED_PRIMARY_SHA256),
+                               ("digits", digits, RENDERED_DIGITS_SHA256)):
+        got = rendered_digest(arrays)
+        if got != pin:
+            raise AssertionError(f"rendered {label} data: sha256 {got}, pinned {pin} (the "
+                                 "JAX package's renderer)")
+    return ({"primary_images": n + 10, "primary_host_s": t1 - t0,
+             "primary_images_per_s": (n + 10) / (t1 - t0), "digits_images": 2400,
+             "digits_host_s": t2 - t1, "digits_images_per_s": 2400 / (t2 - t1),
+             "digests_equal_pins": True, "clock": "host CPU of the card's machine"}, primary)
+
+
+def rendered_fed() -> VmapFederation:
+    return VmapFederation(CNN(out_channels=10, conv_impl="pallas"), n_nodes=N_NODES,
+                          learning_rate=0.1, seed=0)
+
+
+def rendered_windows(fed: VmapFederation, xs, ys) -> dict:
+    """A first (warm-up) round from the seed's params, then
+    ``MAIN_WINDOWS`` timed windows of N_ROUNDS rounds, the launch counts
+    set to 0 just before the first. Returns the best wall, each window's
+    (params cloned, losses), the first round's mean loss and the launches."""
+    params, first = fed.run_rounds(fed.init_params((32, 32, 3)), xs, ys, epochs=EPOCHS,
+                                   n_rounds=1)
+    torch.cuda.synchronize()
+    reset_launches()
+    wall, windows = float("inf"), []
+    for _ in range(MAIN_WINDOWS):
+        t0 = time.perf_counter()
+        params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
+        torch.cuda.synchronize()
+        wall = min(wall, time.perf_counter() - t0)
+        windows.append((tree_map(torch.clone, params), losses))
+    return {"wall": wall, "windows": windows, "first_loss": first.mean().item(),
+            "launches": read_launches(), "wgmma": read_wgmma_launches(("conv_dw", "conv_dx"))}
+
+
+def rendered_accuracy(params: dict) -> float:
+    """Node 0's aggregate scored on ``rendered_color_digits(n_train=10,
+    n_test=RD_EVAL, seed=1)``'s test split (forward only: no conv kernel
+    of the port launches)."""
+    _, _, xt, yt = split_arrays(rendered_color_digits(n_train=10, n_test=RD_EVAL, seed=1))
+    ev = FederationEngine(CNN(out_channels=10, conv_impl="pallas"), 1, seed=0)
+    _, acc = ev.evaluate(tree_map(lambda v: v[:1], params),
+                         torch.from_numpy(xt.reshape(1, RD_EVAL // 100, 100, 32, 32, 3)).to(
+                             "cuda", torch.bfloat16), yt.reshape(1, RD_EVAL // 100, 100))
+    return acc.item()
+
+
+def rendered_window(card: str, cnn: dict, primary: tuple) -> tuple[dict, dict]:
+    """23b: the primary tier's window on its own data, through the
+    kernels: exactly 8 ``conv_dw`` + 4 ``conv_dx`` launches a round, all
+    wgmma; finite params, one aggregate on every node; the last round's
+    mean loss below the first's. Returns the results and what 23d needs."""
+    x, y = primary[0], primary[1]
+    fed = rendered_fed()
+    xs, ys = fed.shard_data(torch.from_numpy(x.reshape(N_NODES, N_BATCHES, BATCH, 32, 32, 3)).to(
+        "cuda", torch.bfloat16), y.reshape(N_NODES, N_BATCHES, BATCH))
+    run = rendered_windows(fed, xs, ys)
+    params, losses = run["windows"][-1]
+    steps = N_BATCHES * EPOCHS * N_ROUNDS * MAIN_WINDOWS
+    check_main_path(params, losses, run["launches"], {
+        **dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps})
+    check_all_wgmma("rendered CNN window", run["launches"], run["wgmma"])
+    last = losses[-1].item()
+    if not last < run["first_loss"]:
+        raise AssertionError(f"rendered CNN window: last round's mean loss {last} not below "
+                             f"the first's {run['first_loss']}")
+    rounds_s = N_ROUNDS / run["wall"]
+    return ({"card": card, "n_nodes": N_NODES, "batches": N_BATCHES, "batch": BATCH,
+             "rounds": N_ROUNDS, "wall_s": run["wall"], "rounds_per_s": rounds_s,
+             "samples_per_s": rounds_s * N_NODES * N_BATCHES * BATCH,
+             "steady_loss": losses.mean().item(), "first_round_loss": run["first_loss"],
+             "last_round_loss": last, "rounds_per_s_over_phase_1": rounds_s / cnn["rounds_per_s"],
+             "accuracy_rendered_seed1_test": rendered_accuracy(params),
+             "launches": run["launches"], "wgmma_launches": run["wgmma"]},
+            {"xs": xs, "ys": ys, "first_window": run["windows"][0][0]})
+
+
+def rendered_accuracy_contract(card: str) -> dict:
+    """23c: the reference's accuracy contract (``tests/test_node.py:544-577``)
+    on the card: three MLP Nodes (64 hidden, seed 7) on
+    ``rendered_digits(3,000, 450, seed 5)`` split IID with seed 2, FULL,
+    2 rounds × 2 epochs, lr 0.1, batch 50, the reference's test profile
+    (the pool on): equal models, accuracy > 0.5 on every node."""
+    parts = rendered_digits(n_train=1000 * RD_ACC_NODES, n_test=150 * RD_ACC_NODES,
+                            seed=5).generate_partitions(RD_ACC_NODES, RandomIIDPartitionStrategy,
+                                                        seed=2)
+    SuperLearnerPool.reset()
+    with runtime_settings(DISABLE_SIMULATION=False):
+        nodes = [Node(TpflModel(*create_model("mlp", (28, 28), seed=7, hidden_sizes=(64,),
+                                              device="cuda"), device="cuda"),
+                      parts[i], addr=f"rendered-e2e-{i}", learning_rate=0.1, batch_size=50,
+                      device="cuda") for i in range(RD_ACC_NODES)]
+        try:
+            start_federation(nodes, "FULL")
+            t0 = time.perf_counter()
+            nodes[0].set_start_learning(rounds=RD_ACC_ROUNDS, epochs=2)
+            wait_to_finish(nodes, timeout=240)
+            wall = time.perf_counter() - t0
+            check_history("rendered accuracy contract", nodes, RD_ACC_ROUNDS)
+            check_equal_models(nodes)
+            accs = [nd.learner.evaluate()["test_metric"] for nd in nodes]
+        finally:
+            for nd in nodes:
+                nd.stop()
+            SuperLearnerPool.reset()
+    if not all(a > 0.5 for a in accs):
+        raise AssertionError(f"rendered accuracy contract: test accuracies {accs}, expected "
+                             "> 0.5 on every node")
+    return {"card": card, "nodes": RD_ACC_NODES, "rounds": RD_ACC_ROUNDS, "epochs": 2,
+            "experiment_s": wall, "test_accuracy": accs, "models_equal": True}
+
+
+def rendered_contracts(card: str, window: dict, handles: dict) -> dict:
+    """23d: a fresh engine of 23b's seed under ``TRACE_CONTRACTS``: every
+    cached program stamped, the first window's params bit-identical to
+    23b's, rounds/s on against off; then a donate=True cache slot
+    re-pointed at the donate=False program must raise
+    ``TraceContractError`` naming ``ENGINE_DONATE`` before it launches."""
+    xs, ys = handles["xs"], handles["ys"]
+    steps = N_BATCHES * EPOCHS * (N_ROUNDS * MAIN_WINDOWS + 1)  # the windows, one donate=False round
+    with setting("TRACE_CONTRACTS", True):
+        fed = rendered_fed()
+        run = rendered_windows(fed, xs, ys)
+        programs = fed.engine._programs
+        if not programs or not all(isinstance(fn, ContractedProgram) for fn in programs.values()):
+            raise AssertionError("TRACE_CONTRACTS: a cached window program is not stamped")
+        bit_equal("23d first window under TRACE_CONTRACTS", run["windows"][0][0],
+                  handles["first_window"])
+        params = run["windows"][-1][0]
+        fed.engine.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1, donate=False)
+        key_false = next(k for k in programs if k[4] is False)
+        key_true = key_false[:4] + (True,) + key_false[5:]
+        programs[key_true] = programs[key_false]
+        before = read_launches()
+        try:
+            fed.engine.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=1, donate=True)
+        except TraceContractError as e:
+            witness = str(e)
+        else:
+            raise AssertionError("TRACE_CONTRACTS: a donate=True dispatch ran the donate=False "
+                                 "program")
+        if "ENGINE_DONATE" not in witness or read_launches() != before:
+            raise AssertionError(f"TRACE_CONTRACTS: witness {witness!r}, launches "
+                                 f"{before} -> {read_launches()}")
+    launches = read_launches()
+    if launches != {**dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * steps, "conv_dx": steps}:
+        raise AssertionError(f"TRACE_CONTRACTS windows: kernel launches {launches}, expected "
+                             f"{2 * steps} conv_dw and {steps} conv_dx")
+    check_all_wgmma("TRACE_CONTRACTS windows", launches,
+                    read_wgmma_launches(("conv_dw", "conv_dx")))
+    rounds_s = N_ROUNDS / run["wall"]
+    return {"card": card, "rounds_per_s_contracts_on": rounds_s,
+            "rounds_per_s_contracts_off": window["rounds_per_s"],
+            "on_over_off": rounds_s / window["rounds_per_s"], "first_window_bit_identical": True,
+            "programs_stamped": len(programs), "witness": witness, "launches": launches}
+
+
+def rendered_path(card: str, cnn: dict) -> dict:
+    """Phase 23: (a) the rendered data and its digests, (b) the primary
+    tier's window on it through the kernels, (c) the reference's accuracy
+    contract on the card, (d) ``TRACE_CONTRACTS`` on. Returns the results
+    and, per conv kernel, the launches of 23b and 23d."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    out["23a data"], primary = rendered_data()
+    out["23b window"], handles = rendered_window(card, cnn, primary)
+    del primary
+    out["23c accuracy contract"] = rendered_accuracy_contract(card)
+    out["23d trace contracts"] = rendered_contracts(card, out["23b window"], handles)
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = {k: {"23b": out["23b window"]["launches"][k],
+                           "23d": out["23d trace contracts"]["launches"][k]}
+                       for k in ("conv_dw", "conv_dx")}
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -5918,6 +6160,11 @@ def main() -> int:
         if label not in ("launches", "phase_s"):
             log(f"network path ({label}): " + json.dumps(result))
     log(f"network path: {network['phase_s']:.1f} s")
+    rendered = rendered_path(card, cnn)
+    for label, result in rendered.items():
+        if label not in ("launches", "phase_s"):
+            log(f"rendered path ({label}): " + json.dumps(result))
+    log(f"rendered path: {rendered['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -5949,6 +6196,7 @@ def main() -> int:
                 if shape != "phase_s"}
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
             row["network_launches"] = network["launches"][row["name"]]
+            row["rendered_launches"] = rendered["launches"][row["name"]]
         if row["name"] in FLASH_KERNELS:
             launched = {label.split()[0]: part["flash_launches"][row["name"]]
                         for label, part in spmd.items()}

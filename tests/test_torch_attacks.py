@@ -281,17 +281,26 @@ def test_planned_adversaries_fire_on_schedule():
 
 
 def test_node_runtime_parts_raise():
-    """What of the node-runtime plane still raises: the harness without
-    data (its default, ``rendered_digits``, is item 8). The rest of it
-    works: the speed plan under the serialized async rounds forks one
-    schedule per aggregator, make_adversary wraps, apply_chaos with no
+    """Nothing of the node-runtime plane raises any more: the harness
+    without data renders its default, ``rendered_digits`` (two Nodes end
+    on one digest); the speed plan under the serialized async rounds forks
+    one schedule per aggregator, make_adversary wraps, apply_chaos with no
     plan changes nothing, unknown experiments have no adversaries."""
+    snap = Settings.snapshot()
+    try:
+        Settings.set_test_settings()
+        Settings.ELECTION = "hash"
+        Settings.TRAIN_SET_SIZE = 2
+        Settings.DISABLE_SIMULATION = True
+        exp = attacks.run_seeded_experiment(2, 2, 1, samples_per_node=50, device="cpu")
+        digests = attacks.final_model_digests(exp)
+        assert len(digests) == 2 and len(set(digests.values())) == 1
+    finally:
+        Settings.restore(snap)
     snap = Settings.snapshot()
     Settings.ASYNC_ROUNDS = True
     Settings.ASYNC_SERIALIZED = True
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-            attacks.run_seeded_experiment(1, 2, 1, device="cpu")
         attached = []
         peers = [types.SimpleNamespace(addr=a, learner=object(), aggregator=types.SimpleNamespace(
             set_async_schedule=attached.append)) for a in ("a", "b")]

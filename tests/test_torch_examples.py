@@ -8,7 +8,9 @@ against the JAX package's, on the CPU.
 - ``digits`` and ``scale`` in process, each run first as the JAX example
   (its MLP at f32, its data from ``rendered_digits``) and then as the
   port's, given through ``data_fn`` the very arrays the JAX example
-  rendered and through ``model_fn`` the JAX example's initial params,
+  rendered (and once more with the port's default data, its own
+  ``rendered_digits``) and through ``model_fn`` the JAX example's initial
+  params,
   with the in-memory address counters of both packages started at the
   same value (learner shuffles and elections derive from addresses):
   every port node's final params allclose to the same node's in the JAX
@@ -200,6 +202,19 @@ def test_digits_matches_the_jax_example(monkeypatch, capsys):
         np.testing.assert_allclose(a[path], b[path], atol=ATOL)
 
 
+def test_digits_default_data_matches_the_jax_example(monkeypatch, capsys):
+    """No ``data_fn``: the port's default data is the reference's
+    ``rendered_digits`` call, so the run ends where the JAX example's does."""
+    model_fn = _f32_jax_models(monkeypatch, jax_digits)
+    _same_addresses(monkeypatch)
+    want = _finals(jax_digits.digits(jax_digits.parse_args(DIGITS_ARGS)))
+    _same_addresses(monkeypatch)
+    nodes = digits.digits(digits.parse_args(DIGITS_ARGS + ["--device", "cpu"]),
+                          model_fn=model_fn)
+    assert "Final test accuracy per node" in capsys.readouterr().out
+    _assert_finals_close(_finals(nodes), want)
+
+
 def test_digits_over_tcp_with_a_profile(tmp_path, capsys):
     """The CLI's route in process: ``--protocol tcp`` and ``--profile``
     (a torch.profiler trace of the experiment in DIR/trace.json)."""
@@ -240,6 +255,28 @@ def test_scale_matches_the_jax_example(monkeypatch):
     # Every node trains (train set = nodes), so every aggregate folds the
     # same six models; byte agreement varies with the fold order of the
     # partial aggregates (reported, not gated, as in the reference).
+    _assert_finals_close(_finals(made[scale]), _finals(made[jax_scale]))
+
+
+def test_scale_default_data_matches_the_jax_example(monkeypatch):
+    """``scale`` without ``data_fn``: the port renders the reference's data."""
+    model_fn = _f32_jax_models(monkeypatch, jax_scale, hidden_sizes=(64,))
+    made = {}
+
+    def keep(module, cls):
+        class Kept(cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.setdefault(module, []).append(self)
+        monkeypatch.setattr(module, "Node", Kept)
+
+    keep(jax_scale, jax_scale.Node)
+    keep(scale, scale.Node)
+    _same_addresses(monkeypatch)
+    jax_scale.scale(jax_scale.parse_args(SCALE_ARGS))
+    _same_addresses(monkeypatch)
+    stats = scale.scale(scale.parse_args(SCALE_ARGS + ["--device", "cpu"]), model_fn=model_fn)
+    assert stats["nodes"] == 6 and stats["rounds_per_sec"] > 0
     _assert_finals_close(_finals(made[scale]), _finals(made[jax_scale]))
 
 

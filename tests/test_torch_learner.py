@@ -147,6 +147,98 @@ def test_dataset_seams_not_ported_raise():
         TpflDataset.from_huggingface("mnist")
 
 
+def test_parquet_constructor_not_ported_raises():
+    """Parquet needs pyarrow, which the port does not use."""
+    with pytest.raises(NotImplementedError, match="pyarrow.*ROADMAP.md"):
+        TpflDataset.from_parquet("data.parquet")
+
+
+def _file_fixtures(tmp_path):
+    """CSV / JSON Lines / JSON array / JSON under a field, a generator and
+    DataFrames: ints, floats (with at most a few decimals: the reference
+    rounds JSON floats of an array or a field to 10 decimals), strings, an
+    int column with a missing CSV value, nested lists."""
+    import json
+
+    import pandas as pd
+
+    rows = [{"x": i, "s": f"w{i}", "f": i / 4, "v": [i, i + 1]} for i in range(9)]
+    (tmp_path / "a.csv").write_text("x,name,y,z\n1,a,0.5,3\n2,b,1.5,\n3,c,2,5\n4,d e,3.25,6\n"
+                                    "5,e,4,7\n6,f,-1e-3,8\n")
+    (tmp_path / "b.csv").write_text("x;name;y;z\n7;g;0.25;9\n")
+    (tmp_path / "a.jsonl").write_text("".join(json.dumps(r) + "\n" for r in rows))
+    (tmp_path / "arr.json").write_text(json.dumps(rows))
+    (tmp_path / "field.json").write_text(json.dumps({"meta": 1, "data": rows}))
+
+    def gen(n):
+        for i in range(n):
+            yield {"a": i, "b": i * 0.5, "c": str(i), "d": [float(i)] * 2}
+
+    df = pd.DataFrame({"a": np.arange(8), "b": np.linspace(0, 1, 8), "c": list("stuvwxyz")})
+    p = str(tmp_path)
+    return {
+        "csv": ("from_csv", (f"{p}/a.csv",), {}),
+        "csv_two_files": ("from_csv", ([f"{p}/a.csv", f"{p}/a.csv"],), {}),
+        "csv_sep": ("from_csv", (f"{p}/b.csv",), {"sep": ";"}),
+        "jsonl": ("from_json", (f"{p}/a.jsonl",), {}),
+        "json_array": ("from_json", (f"{p}/arr.json",), {}),
+        "json_field": ("from_json", (f"{p}/field.json",), {"field": "data"}),
+        "generator": ("from_generator", (gen,), {"gen_kwargs": {"n": 9}}),
+        "pandas": ("from_pandas", (df,), {}),
+        "pandas_index": ("from_pandas", (df.iloc[[0, 2, 3, 5, 6]],), {}),
+        "pandas_named_index": ("from_pandas", (df.set_index("c"),), {}),
+    }
+
+
+_DTYPES = {"int64": np.int64, "float64": np.float64, "string": np.str_, "large_string": np.str_}
+
+
+def _assert_split_equal(got, want):
+    """A port ColumnSplit against an HF Dataset: names, dtypes, values."""
+    assert got.column_names == want.column_names
+    for name, feature in want.features.items():
+        col = got[name]
+        if hasattr(feature, "dtype"):
+            assert col.dtype.type is _DTYPES[feature.dtype], (name, feature, col.dtype)
+        for a, b in zip(col.tolist(), list(want[name]), strict=True):
+            if b is None:
+                assert isinstance(a, float) and np.isnan(a), name
+            else:
+                assert a == b, (name, a, b)
+
+
+@pytest.mark.parametrize("case", ["csv", "csv_two_files", "csv_sep", "jsonl", "json_array",
+                                  "json_field", "generator", "pandas", "pandas_index",
+                                  "pandas_named_index"])
+def test_file_constructors_match_the_reference_loaders(case, tmp_path):
+    """Each constructor against the reference's Hugging Face loader on the
+    same input: the file loaders give one ``train`` split (no ``test``:
+    the same KeyError), the generator and DataFrame a flat dataset whose
+    ``set_split`` rows are the reference's."""
+    method, args, kwargs = _file_fixtures(tmp_path)[case]
+    ref_kwargs = {("delimiter" if k == "sep" else k): v for k, v in kwargs.items()}
+    want = getattr(JaxDataset, method)(*args, **ref_kwargs)
+    got = getattr(TpflDataset, method)(*args, **kwargs)
+    if method in ("from_csv", "from_json"):
+        _assert_split_equal(got.get_split(True), want.get_split(True))
+        for ds in (got, want):
+            with pytest.raises(KeyError, match="Split 'test' not in dataset"):
+                ds.get_split(False)
+        return
+    for ds in (got, want):
+        ds.set_split(train_fraction=0.6, seed=3)
+    for train in (True, False):
+        _assert_split_equal(got.get_split(train), want.get_split(train))
+
+
+@pytest.mark.parametrize("method,args", [("from_csv", ("x.csv",)), ("from_json", ("x.json",)),
+                                         ("from_generator", (lambda: iter(()),)),
+                                         ("from_pandas", (None,))])
+def test_file_constructors_refuse_unimplemented_keywords(method, args):
+    with pytest.raises(TypeError, match="does not implement keyword argument.*cache_dir"):
+        getattr(TpflDataset, method)(*args, cache_dir="/nowhere")
+
+
 # --- fit / evaluate --------------------------------------------------------------
 
 

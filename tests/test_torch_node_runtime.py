@@ -24,7 +24,16 @@ paths beyond the plain synchronous round, on the CPU:
   its counterpart, ``TcpCommunicationProtocol``, whose knobs the port now
   reads); each switch of
   ``settings.UNPORTED_SWITCHES`` is refused where a Node or an engine
-  starts, and each entry point of ``settings.UNPORTED_KNOBS`` is closed.
+  starts (the table is empty since ``TRACE_CONTRACTS`` was ported; a
+  stand-in switch holds the mechanism), and each entry point of
+  ``settings.UNPORTED_KNOBS`` is closed;
+- ``TRACE_CONTRACTS`` (the counterparts of
+  ``tests/test_analysis.py:1021-1097``): the stamp and check, off by
+  default, and the engine's dispatch witness naming ``ENGINE_DONATE``,
+  with the reference's message and contract;
+- the harness's default data (``rendered_digits``) in both packages, and
+  the reference's accuracy contract (``tests/test_node.py:544-577``) on
+  three port Nodes.
 """
 
 import hashlib
@@ -39,7 +48,9 @@ import numpy as np
 import pytest
 import torch
 
+import tpfl.attacks.harness as jax_harness
 import tpfl.node as jax_node
+import tpfl_torch.attacks.harness as harness
 import tpfl_torch.communication as communication
 from tpfl.communication.memory import clear_registry as jax_clear_registry
 from tpfl.learning.dataset import RandomIIDPartitionStrategy as JaxRandomIID
@@ -56,6 +67,8 @@ from tpfl_torch.attacks import apply_speed_plan, run_seeded_experiment
 from tpfl_torch.communication import faults
 from tpfl_torch.communication.faults import AsyncSchedule, TrainerSpeedPlan
 from tpfl_torch.communication.memory import clear_registry
+from tpfl_torch.concurrency import (ContractedProgram, TraceContractError, check_contract,
+                                    stamp_contract)
 from tpfl_torch.exceptions import LearnerRunningException, NodeRunningException, ZeroRoundsException
 from tpfl_torch.interop import model_state_from_jax
 from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy
@@ -483,8 +496,19 @@ def _compile_cache_engine():
         _build.use_build_dir(default)
 
 
+def _default_data_experiment():
+    """``data_fn=None``: two Nodes of the default model on the default
+    data, to the end, every node on one digest."""
+    Settings.ELECTION = "hash"
+    Settings.TRAIN_SET_SIZE = 2
+    exp = run_seeded_experiment(1, 2, 1, samples_per_node=100, device="cpu")
+    digests = harness.final_model_digests(exp)
+    return len(digests) == 2 and len(set(digests.values())) == 1
+
+
 # Each replaces the refusal case of the same name: the ported plane runs.
 PORTED = {
+    "harness default data": _default_data_experiment,
     "save checkpoint": lambda: _node_checkpoint_round_trip("save"),
     "load checkpoint": lambda: _node_checkpoint_round_trip("load"),
     "telemetry dump dir at the engine": _dump_dir_engine,
@@ -551,8 +575,6 @@ def test_ported_seams_run(seam):
 # Each refused seam's message names its ROADMAP.md item; the reference's
 # gRPC transport, whose counterpart the port has, names that counterpart.
 REFUSALS = {
-    "harness default data": ("ROADMAP.md §1 item 8", lambda: None,
-                             lambda: run_seeded_experiment(1, 2, 1, device="cpu")),
     "engine donation report": ("ROADMAP.md §1 item 8", lambda: None,
                                lambda: _engine().donation_report()),
     "grpc": ("counterpart is tpfl_torch.communication.TcpCommunicationProtocol", lambda: None,
@@ -599,6 +621,24 @@ def test_unported_switch_refused_where_its_plane_starts(knob):
                     start()
             else:
                 start()
+    finally:
+        Settings.restore(snap)
+        while _made:
+            _made.pop().stop()
+
+
+def test_refuse_unported_still_refuses_a_registered_switch(monkeypatch):
+    """``Settings.refuse_unported`` stays for later switches: a stand-in
+    entry of the table is refused at its site (the engine), named with its
+    item, and the other site (a Node) starts."""
+    monkeypatch.setitem(UNPORTED_SWITCHES, "LOCK_TRACING", ("ROADMAP.md §1 item 99", False,
+                                                            ("engine",)))
+    snap = Settings.snapshot()
+    Settings.LOCK_TRACING = True
+    try:
+        with pytest.raises(NotImplementedError, match="Settings.LOCK_TRACING=True.*item 99"):
+            _engine()
+        _node("sw-standin").start()
     finally:
         Settings.restore(snap)
         while _made:
@@ -689,3 +729,161 @@ def test_fault_names_are_exported(name):
     plan = communication.FaultPlan.from_dict({"links": {"*->*": {"drop": 0.5}}})
     proto = communication.InMemoryCommunicationProtocol("fault-names")
     assert communication.FaultInjector(plan, seed=1).attach(proto)._fault_injector is not None
+
+
+# --- TRACE_CONTRACTS (tests/test_analysis.py:1021-1097) -------------------------
+
+
+@pytest.fixture
+def _trace_contracts():
+    Settings.TRACE_CONTRACTS = JaxSettings.TRACE_CONTRACTS = True
+    yield  # the autouse fixture restores both packages' Settings
+
+
+def test_check_contract_unit(_trace_contracts):
+    from tpfl.concurrency import TraceContractError as JaxTraceContractError
+    from tpfl.concurrency import check_contract as jax_check_contract
+    from tpfl.concurrency import stamp_contract as jax_stamp_contract
+
+    calls = []
+    fn = stamp_contract(lambda *a: calls.append(a) or "out", {"K": 1})
+    assert fn(3) == "out" and calls == [(3,)]  # a transparent callable
+    assert isinstance(fn, ContractedProgram) and fn.contract == {"K": 1}
+    check_contract(fn, {"K": 1})  # matching values pass
+    check_contract(fn, {"OTHER": 9})  # unrelated knobs are ignored
+    with pytest.raises(TraceContractError) as exc:
+        check_contract(fn, {"K": 2})
+    with pytest.raises(JaxTraceContractError) as jexc:
+        jax_check_contract(jax_stamp_contract(lambda: None, {"K": 1}), {"K": 2})
+    # The reference's message, less its pointer to the JAX package's
+    # static pass.
+    assert str(exc.value) == str(jexc.value).replace(
+        "; see tools/tpflcheck capture pass / docs/static_analysis.md", "")
+    assert "K: compiled under 1, live value 2" in str(exc.value)
+    check_contract(lambda: None, {"K": 5})  # unstamped: contracts off at build time
+
+
+def test_contract_stamp_is_off_by_default():
+    assert Settings.TRACE_CONTRACTS is False
+
+    def fn():
+        return 1
+
+    assert stamp_contract(fn, {"K": 1}) is fn  # no wrapper while off
+    eng = _engine()
+    eng.run_rounds(eng.init_params((4,)), np.zeros((2, 1, 4, 4), np.float32),
+                   np.zeros((2, 1, 4), np.int32))
+    assert eng._programs and not any(isinstance(p, ContractedProgram)
+                                     for p in eng._programs.values())
+
+
+def test_trace_contracts_engine_dispatch_witness(_trace_contracts):
+    """The witness fires on the engine's dispatch and names the knob: a
+    cache key that lost its ENGINE_DONATE axis (the donate=True slot
+    serving the donate=False program). The stamp is the reference
+    engine's contract for the same window."""
+    import jax.numpy as jnp
+
+    from tpfl.parallel.engine import FederationEngine as JaxEngine
+
+    eng = FederationEngine(MLP(hidden_sizes=(8,), out_channels=10), 2, learning_rate=0.1,
+                           seed=0, device="cpu")
+    xs, ys = np.zeros((2, 1, 4, 4), np.float32), np.zeros((2, 1, 4), np.int32)
+    out = eng.run_rounds(eng.init_params((4,)), xs, ys, epochs=1, donate=False)
+    codec = (0, float(Settings.WIRE_TOPK_FRAC))
+    key_false = eng._program_key("plain", 1, 1, 1, False, False, 0, codec, False, 0.0)
+    key_true = eng._program_key("plain", 1, 1, 1, True, False, 0, codec, False, 0.0)
+    assert set(eng._programs) == {key_false}
+
+    jeng = JaxEngine(jax_create_model("mlp", (4,), seed=0, hidden_sizes=(8,)).module, 2,
+                     learning_rate=0.1, seed=0)
+    jeng.run_rounds(jeng.init_params((4,)), jnp.asarray(xs), jnp.asarray(ys), epochs=1,
+                    donate=False)
+    (jax_key, jax_fn), = jeng._wrapped.items()
+    assert jax_key == key_false
+    assert eng._programs[key_false].contract == jax_fn.contract
+
+    eng._programs[key_true] = eng._programs[key_false]
+    with pytest.raises(TraceContractError) as exc:
+        eng.run_rounds(out[0], xs, ys, epochs=1, donate=True)
+    assert "ENGINE_DONATE: compiled under False, live value True" in str(exc.value)
+
+
+# --- the harness's default data and the accuracy contract ---------------------
+
+
+def test_harness_default_data_matches_jax(monkeypatch):
+    """``run_seeded_experiment(data_fn=None)`` in both packages at the same
+    seed: the same ``rendered_digits`` call and arrays, each package's
+    nodes on one final digest, the metric tables allclose (atol 1e-5, as
+    ``tests/test_torch_harness.py``). The two packages' digests are not
+    compared for equality: trained f32 params differ in their last bits
+    between XLA and PyTorch."""
+    from tpfl.attacks import metric_table as jax_metric_table
+    from tpfl_torch.attacks import assert_tables_allclose, metric_table
+
+    calls = {}
+
+    def recording(module, key):
+        inner = module.rendered_digits
+
+        def wrapped(**kw):
+            ds = inner(**kw)
+            calls[key] = (kw, ds)
+            return ds
+        monkeypatch.setattr(module, "rendered_digits", wrapped)
+
+    recording(jax_harness, "jax")
+    recording(harness, "port")
+    for s in (Settings, JaxSettings):
+        s.ELECTION = "hash"
+        s.TRAIN_SET_SIZE = 2
+        s.HEARTBEAT_TIMEOUT = 30.0
+
+    def jax_model_fn(seed):
+        return jax_create_model("mlp", (28, 28), seed=seed, hidden_sizes=(32,),
+                                compute_dtype=jnp.float32)
+
+    def port_model_fn(seed):
+        return TpflModel(MLP(hidden_sizes=(32,), out_channels=10, compute_dtype=torch.float32),
+                         **model_state_from_jax(jax_model_fn(seed), device="cpu"))
+
+    je = jax_harness.run_seeded_experiment(11, 2, 1, model_fn=jax_model_fn, samples_per_node=100)
+    pe = run_seeded_experiment(11, 2, 1, model_fn=port_model_fn, samples_per_node=100,
+                               device="cpu")
+    assert calls["port"][0] == calls["jax"][0] == {"n_train": 200, "n_test": 100, "seed": 11}
+    for train in (True, False):
+        for name in ("image", "label"):
+            want = np.asarray(calls["jax"][1].get_split(train).with_format("numpy")[name])
+            assert np.array_equal(calls["port"][1].get_split(train)[name], want)
+    for digests in (harness.final_model_digests(pe), jax_harness.final_model_digests(je)):
+        assert len(digests) == 2 and len(set(digests.values())) == 1
+    got, want = metric_table(pe), jax_metric_table(je)
+    assert sorted(got) == sorted(want) == ["seed11-n0", "seed11-n1"]
+    assert_tables_allclose(got, want, atol=1e-5)
+
+
+def test_accuracy_contract_on_rendered_images():
+    """The reference's real-data gate on three port Nodes: accuracy > 0.5
+    on every node and equal models after 2 rounds of 2 epochs."""
+    from tpfl_torch.learning.dataset import rendered_digits
+    from tpfl_torch.models import create_model
+
+    n, rounds = 3, 2
+    ds = rendered_digits(n_train=1000 * n, n_test=150 * n, seed=5)
+    parts = ds.generate_partitions(n, RandomIIDPartitionStrategy, seed=2)
+    nodes = [Node(TpflModel(*create_model("mlp", (28, 28), seed=7, hidden_sizes=(64,),
+                                          device="cpu"), device="cpu"),
+                  parts[i], addr=f"rendered-e2e-{i}", learning_rate=0.1, batch_size=50,
+                  device="cpu") for i in range(n)]
+    for nd in nodes:
+        nd.start()
+    try:
+        connect(nodes)
+        nodes[0].set_start_learning(rounds=rounds, epochs=2)
+        wait_to_finish(nodes, timeout=240)
+        check_equal_models(nodes)
+        accs = [nd.learner.evaluate()["test_metric"] for nd in nodes]
+        assert all(a > 0.5 for a in accs), accs
+    finally:
+        stop_all(nodes)

@@ -49,6 +49,7 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "learning.bufferpool", "learning._msgpack", "learning.serialization",
                 "learning.model", "learning.callbacks", "learning.learner",
                 "learning.torch_learner", "learning.dataset.export",
+                "learning.dataset.rendered",
                 "learning.dataset.tpfl_dataset", "management.logger",
                 "learning.aggregators.aggregator", "learning.aggregators.fedavg",
                 "learning.aggregators.fedprox", "learning.aggregators.scaffold",

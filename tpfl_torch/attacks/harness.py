@@ -5,12 +5,8 @@ One entry point runs a seeded federation of ``Node``s (optionally with
 adversaries, network faults and skewed trainers), returns the
 experiment's name, and records its ground truth (who poisoned), its
 final-model digests and its global metric table; helpers flatten and
-compare tables numerically.
-
-The reference's default data, ``rendered_digits``, draws digits with PIL
-and matplotlib's fonts, which the port does not use (``ROADMAP.md`` §1
-item 8): :func:`run_seeded_experiment` raises ``NotImplementedError``
-without a ``data_fn``.
+compare tables numerically. The default data is the reference's:
+``rendered_digits`` at the experiment's seed, bit-equal to it.
 """
 
 from __future__ import annotations
@@ -22,8 +18,7 @@ import numpy as np
 
 from tpfl_torch import DeviceLike, resolve_device
 from tpfl_torch.attacks.attacks import AttackFn, make_adversary
-from tpfl_torch.exceptions import REST_ITEM, not_ported
-from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy
+from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, rendered_digits
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.learning.serialization import host_array, leaf_bytes
 from tpfl_torch.management.logger import logger
@@ -103,14 +98,12 @@ def run_seeded_experiment(
     plans' ground truth lands in :func:`adversary_map`. ``model_fn(seed)``
     returns a :class:`TpflModel` (default: the MLP on 28×28 inputs);
     ``data_fn(seed)`` a :class:`TpflDataset` to split IID over the nodes
-    (required). ``device`` goes to every ``Node`` (``None`` means the
+    (default: ``rendered_digits`` of ``samples_per_node`` images a node and
+    a fifth as many test images, at least 100). ``device`` goes to every ``Node`` (``None`` means the
     card). Star topology, pinned addresses ``seed{seed}-n{i}``, seeded
     settings, long vote and aggregation timeouts.
     """
     dev = resolve_device(device)
-    if data_fn is None:
-        raise not_ported("the harness's default data (rendered_digits: PIL and "
-                         "matplotlib's fonts); pass data_fn", REST_ITEM)
     prev_seed = Settings.SEED
     Settings.SEED = seed
     # Reproducibility beats latency here: a vote/aggregation timeout
@@ -121,7 +114,8 @@ def run_seeded_experiment(
     Settings.AGGREGATION_TIMEOUT = max(prev_agg, 300.0)
     nodes: list[Node] = []
     try:
-        data = data_fn(seed)
+        data = (data_fn(seed) if data_fn is not None else rendered_digits(
+            n_train=samples_per_node * n, n_test=max(100, samples_per_node * n // 5), seed=seed))
         parts = data.generate_partitions(n, RandomIIDPartitionStrategy, seed=seed)
         for i in range(n):
             if model_fn is not None:

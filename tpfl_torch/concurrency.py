@@ -12,9 +12,14 @@ interleaving; :meth:`LockGraph.find_cycle` returns the witness chain.
 
 Tracing is OFF by default: ``make_lock`` reads the setting at LOCK
 CREATION time, so enabling it means setting ``Settings.LOCK_TRACING =
-True`` before the objects are built. The trace-contract helpers of the
-reference (``stamp_contract`` / ``check_contract``) guard compiled-program
-caches, which the port does not have yet.
+True`` before the objects are built.
+
+The trace contracts (``Settings.TRACE_CONTRACTS``, the other half of
+:mod:`tpfl.concurrency`) guard the engine's program cache:
+:func:`stamp_contract` wraps a freshly built window program with the knob
+values its cache key encodes, and :func:`check_contract` holds that stamp
+to the values a dispatch resolves, so a key that lost an axis fails at
+dispatch with a named witness instead of serving a stale program.
 """
 
 from __future__ import annotations
@@ -197,4 +202,68 @@ def make_lock(name: str) -> Union[threading.Lock, TracedLock]:
     return threading.Lock()
 
 
-__all__ = ["LockGraph", "LockOrderError", "TracedLock", "lock_graph", "make_lock"]
+# --- trace contracts ---------------------------------------------------------
+
+
+class TraceContractError(RuntimeError):
+    """A cached window program was dispatched under knob values that differ
+    from the ones its cache key was built from: a cache key lost an axis,
+    and a STALE program was about to run. The message names the offending
+    knob(s) and both values."""
+
+
+class ContractedProgram:
+    """Callable wrapper stamping a cached program with the knob values its
+    cache key encodes (:func:`stamp_contract`). Dispatch re-checks the
+    stamp against the live resolved values (:func:`check_contract`). Like
+    :class:`TracedLock` it is only built while the debug knob is on.
+
+    Attribute access forwards to the wrapped program; ``contract`` is the
+    stamp itself."""
+
+    __slots__ = ("fn", "contract")
+
+    def __init__(self, fn: object, contract: dict) -> None:
+        self.fn = fn
+        self.contract = dict(contract)
+
+    def __call__(self, *args: object, **kwargs: object) -> object:
+        return self.fn(*args, **kwargs)  # type: ignore[operator]
+
+    def __getattr__(self, name: str) -> object:
+        return getattr(self.fn, name)
+
+    def __repr__(self) -> str:
+        return f"ContractedProgram({self.contract!r})"
+
+
+def stamp_contract(fn: object, contract: dict) -> object:
+    """Wrap a freshly built cached program with the knob values its cache
+    key was built from. Returns ``fn`` itself unless
+    ``Settings.TRACE_CONTRACTS`` is on at BUILD time."""
+    if Settings.TRACE_CONTRACTS:
+        return ContractedProgram(fn, contract)
+    return fn
+
+
+def check_contract(fn: object, live: dict) -> None:
+    """Hold a cache-fetched program's stamped knob values to the live
+    per-dispatch values. An unstamped callable (contracts off at build
+    time) passes; a mismatch raises :class:`TraceContractError` with a
+    named witness per knob."""
+    contract = getattr(fn, "contract", None)
+    if not isinstance(contract, dict):
+        return
+    mismatches = [(k, v, live[k]) for k, v in sorted(contract.items())
+                  if k in live and live[k] != v]
+    if mismatches:
+        parts = ", ".join(f"{k}: compiled under {v!r}, live value {lv!r}"
+                          for k, v, lv in mismatches)
+        raise TraceContractError(
+            "stale compiled program: the cache key is not total over the knobs it "
+            f"serves — {parts} (every knob a dispatch resolves must be an axis of the "
+            "program-cache key)")
+
+
+__all__ = ["ContractedProgram", "LockGraph", "LockOrderError", "TraceContractError",
+           "TracedLock", "check_contract", "lock_graph", "make_lock", "stamp_contract"]

@@ -9,17 +9,15 @@ import time
 from typing import Any
 
 from tpfl_torch import DeviceLike
-from tpfl_torch.learning.dataset.synthetic import synthetic_mnist
+from tpfl_torch.learning.dataset.rendered import rendered_digits
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.models import create_model
 
 
 def default_data(n_train: int, n_test: int, seed: int) -> Any:
-    """The data of a command-line run: seeded MNIST-shaped samples
-    (``synthetic_mnist``) at the sample counts and seed the reference's
-    ``rendered_digits`` call takes (rendering needs PIL, which the port
-    does not import)."""
-    return synthetic_mnist(n_train=n_train, n_test=n_test, seed=seed)
+    """The data of a command-line run: the reference's ``rendered_digits``
+    at its sample counts and seed, bit-equal to its images."""
+    return rendered_digits(n_train=n_train, n_test=n_test, seed=seed)
 
 
 def make_model(name: str, seed: int, device: DeviceLike, **module_kwargs: Any) -> TpflModel:

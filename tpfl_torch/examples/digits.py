@@ -1,4 +1,4 @@
-"""Configurable multi-node federated experiment on MNIST-shaped digits.
+"""Configurable multi-node federated experiment on rendered digit images.
 
 The port of the reference's flagship example (``digits.py``, itself the
 parity of p2pfl's ``mnist.py``): pick node count, rounds, epochs,
@@ -9,11 +9,10 @@ metric tables. Deliberate differences from the reference:
 - ``--protocol`` is ``memory`` or ``tcp``
   (:class:`~tpfl_torch.communication.TcpCommunicationProtocol`, the
   port's counterpart of gRPC).
-- From the command line the data is ``synthetic_mnist`` at the sample
-  counts and seed of the reference's ``rendered_digits`` call (rendering
-  needs PIL, which the port does not import); a Python caller passes
-  any ``data_fn(n_train, n_test, seed)`` — the very rendered arrays
-  included — and any ``model_fn(seed)``.
+- The data is the reference's: ``rendered_digits`` at its sample counts
+  and seed (:mod:`tpfl_torch.learning.dataset.rendered`, bit-equal
+  without PIL); a Python caller may pass any
+  ``data_fn(n_train, n_test, seed)`` and any ``model_fn(seed)``.
 - ``--profile DIR`` writes a ``torch.profiler`` trace
   (``DIR/trace.json``) through the port's profiling path; ``--device``
   picks the torch device (default: the card).
@@ -115,7 +114,7 @@ def digits(args: argparse.Namespace, data_fn: Optional[Callable[..., Any]] = Non
     """Build, connect, run and tear down the federation. Returns the
     (stopped) nodes so callers can inspect final models and metrics.
     ``data_fn(n_train, n_test, seed)`` gives the dataset (default:
-    ``synthetic_mnist``), ``model_fn(seed)`` each node's model."""
+    ``rendered_digits``), ``model_fn(seed)`` each node's model."""
     if getattr(args, "profile", None):
         profiling.start_trace(args.profile)
         try:

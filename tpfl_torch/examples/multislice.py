@@ -28,9 +28,9 @@ Terminal 2 (driving slice):   python -m tpfl_torch.examples.multislice \
 ``--mode auto`` (default) picks engine when a coordinator is configured
 (flag or ``TPFL_COORDINATOR``), else tcp. Deliberate differences from
 the reference: ``torch.distributed`` in place of ``jax.distributed``;
-``--mode tcp`` in place of ``grpc``; the data is ``synthetic_mnist`` at
-the reference's sample counts and seeds (PIL is not imported), or a
-Python caller's ``data_fn(n_train, n_test, seed)``; ``--device`` picks
+``--mode tcp`` in place of ``grpc``; a Python caller may pass
+``data_fn(n_train, n_test, seed)`` in place of the reference's
+``rendered_digits`` (the default); ``--device`` picks
 the torch device (default: the card). SIGTERM stops a passive slice like
 Ctrl-C.
 """

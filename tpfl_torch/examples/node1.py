@@ -9,10 +9,9 @@ Run in two terminals::
 
 Deliberate differences from the reference: the transport is
 :class:`~tpfl_torch.communication.TcpCommunicationProtocol` (the port's
-counterpart of gRPC); the data is ``synthetic_mnist`` at the same sample
-counts and seed (the reference renders digits with PIL); ``--device``
-picks the torch device (default: the card). SIGTERM stops the node like
-Ctrl-C.
+counterpart of gRPC); ``--device`` picks the torch device (default: the
+card). The data is the reference's ``rendered_digits``. SIGTERM stops the
+node like Ctrl-C.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The port of the reference's ``node2.py``: start a second node, connect to
 a running node1 over TCP, kick off learning, and exit when the
 experiment finishes. See node1.py for the recipe and the deliberate
-differences (TCP, ``synthetic_mnist``, ``--device``).
+differences (TCP, ``--device``).
 """
 
 from __future__ import annotations

@@ -11,11 +11,10 @@ Run: ``tpfl-torch experiment run scale -- --nodes 100 --rounds 2`` (or
 ``python -m tpfl_torch.examples.scale``). Prints rounds/s and the share
 of nodes that hold the majority final model at the end.
 
-Deliberate differences from the reference: from the command line the
-data is ``synthetic_mnist`` at the sample counts and seed of the
-reference's ``rendered_digits`` call (PIL is not imported); a Python
-caller passes ``data_fn(n_train, n_test, seed)`` and ``model_fn(seed)``;
-``--device`` picks the torch device (default: the card).
+The data is the reference's ``rendered_digits`` at its sample counts and
+seed. Deliberate differences from the reference: a Python caller may pass
+``data_fn(n_train, n_test, seed)`` and ``model_fn(seed)``; ``--device``
+picks the torch device (default: the card).
 """
 
 from __future__ import annotations

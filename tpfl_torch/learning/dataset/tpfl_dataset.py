@@ -11,19 +11,28 @@ permutation from ``np.random.default_rng(seed)``, its first ``n_test``
 rows the test split and the rest the train split, each in permutation
 order. :meth:`TpflDataset.generate_partitions` splits through the
 partition strategies (:mod:`tpfl_torch.learning.dataset.partition_strategies`),
-index lists bit-equal to the reference's. The HF-hub / file
-constructors are not ported yet and raise ``NotImplementedError``.
+index lists bit-equal to the reference's.
+
+The file constructors read with the standard library and give what the
+reference's Hugging Face loaders give: ``from_csv`` / ``from_json`` one
+``"train"`` split, ``from_generator`` / ``from_pandas`` one flat dataset;
+the columns in the same order, integers as int64, floats as float64
+(an integer column with a missing value too), strings as str.
+``from_huggingface`` and ``from_parquet`` need ``datasets`` / ``pyarrow``,
+which the port does not use, and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import csv
+import json
 import math
-from collections.abc import Mapping
-from typing import Any, Optional
+from collections.abc import Callable, Iterable, Mapping
+from typing import Any, Optional, Union
 
 import numpy as np
 
-_HUB_ITEM = "ROADMAP.md §1 item 8, the rest: the HF-hub and file constructors"
+_HUB_ITEM = "ROADMAP.md §1 item 8, the rest: the HF-hub and Parquet constructors"
 
 
 class ColumnSplit:
@@ -55,6 +64,67 @@ class ColumnSplit:
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"tpfl_torch TpflDataset: {what} is not ported yet ({item})")
+
+
+def _refuse_kwargs(where: str, kwargs: Mapping[str, Any]) -> None:
+    """The reference forwards keyword arguments to Hugging Face; the port
+    implements only the ones in its signatures and never drops one."""
+    if kwargs:
+        raise TypeError(f"TpflDataset.{where}: the port does not implement keyword "
+                        f"argument(s) {', '.join(sorted(kwargs))}")
+
+
+def _kind(v: Any) -> str:
+    for kind, types in (("bool", (bool, np.bool_)), ("int", (int, np.integer)),
+                        ("float", (float, np.floating)), ("str", (str,)),
+                        ("list", (list, tuple, np.ndarray))):
+        if isinstance(v, types):
+            return kind
+    return "other"
+
+
+def _column(values: list) -> np.ndarray:
+    """One column as the reference's loaders type it: integers -> int64,
+    numbers with a float or a missing value among them -> float64 (NaN
+    for missing), strings -> str, booleans -> bool, lists -> a stacked
+    array; anything else an object array."""
+    kinds = {_kind(v) for v in values if v is not None}
+    missing = any(v is None for v in values)
+    if kinds and kinds <= {"int", "float"}:
+        if kinds == {"int"} and not missing:
+            return np.asarray(values, dtype=np.int64)
+        return np.asarray([np.nan if v is None else v for v in values], dtype=np.float64)
+    dtypes = {"bool": bool, "str": str, "list": None}
+    if len(kinds) == 1 and not missing and next(iter(kinds)) in dtypes:
+        return np.asarray(values, dtype=dtypes[next(iter(kinds))])
+    return np.asarray(values, dtype=object)
+
+
+def _records_to_columns(records: Iterable[Mapping[str, Any]]) -> dict[str, np.ndarray]:
+    """Rows of dicts to typed columns, keys in first-appearance order and
+    a missing key as a missing value."""
+    rows = list(records)
+    names: dict[str, None] = {}
+    for row in rows:
+        names.update(dict.fromkeys(row))
+    return {k: _column([row.get(k) for row in rows]) for k in names}
+
+
+def _csv_value(text: str) -> Any:
+    """A CSV field as pandas' reader types it: int, then float, else str;
+    an empty field is missing."""
+    if text == "":
+        return None
+    for parse in (int, float):
+        try:
+            return parse(text)
+        except ValueError:
+            continue
+    return text
+
+
+def _paths(path: Union[str, list[str]]) -> list[str]:
+    return [path] if isinstance(path, str) else list(path)
 
 
 class TpflDataset:
@@ -109,27 +179,77 @@ class TpflDataset:
 
     @classmethod
     def from_huggingface(cls, dataset_name: str, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_huggingface", _HUB_ITEM)
+        raise _not_ported("from_huggingface (it needs the datasets package)", _HUB_ITEM)
 
     @classmethod
-    def from_csv(cls, path: str, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_csv", _HUB_ITEM)
+    def from_csv(cls, path: Union[str, list[str]], sep: str = ",", **kwargs: Any
+                 ) -> "TpflDataset":
+        """One ``"train"`` split from CSV file(s) with a header row (rows of
+        several files concatenated), as ``load_dataset("csv",
+        data_files=path)``."""
+        _refuse_kwargs("from_csv", kwargs)
+        records = []
+        for p in _paths(path):
+            with open(p, newline="") as f:
+                for row in csv.DictReader(f, delimiter=sep):
+                    records.append({k: _csv_value(v) for k, v in row.items()})
+        return cls({"train": _records_to_columns(records)})
 
     @classmethod
-    def from_json(cls, path: str, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_json", _HUB_ITEM)
+    def from_json(cls, path: Union[str, list[str]], field: Optional[str] = None,
+                  **kwargs: Any) -> "TpflDataset":
+        """One ``"train"`` split from JSON Lines file(s), or from files
+        holding one array of records (``field`` names the key of a
+        top-level object that holds it), as ``load_dataset("json",
+        data_files=path, field=field)``. Floats parse exactly; the
+        reference's loader rounds them to 10 decimals in an array or under
+        ``field`` (it re-encodes those through ujson)."""
+        _refuse_kwargs("from_json", kwargs)
+        records = []
+        for p in _paths(path):
+            with open(p) as f:
+                text = f.read()
+            if field is not None:
+                records.extend(json.loads(text)[field])
+            elif text.lstrip().startswith("["):
+                records.extend(json.loads(text))
+            else:
+                records.extend(json.loads(line) for line in text.splitlines() if line.strip())
+        return cls({"train": _records_to_columns(records)})
 
     @classmethod
     def from_parquet(cls, path: str, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_parquet", _HUB_ITEM)
+        raise _not_ported("from_parquet (it needs the pyarrow package)", _HUB_ITEM)
 
     @classmethod
     def from_pandas(cls, df: Any, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_pandas", _HUB_ITEM)
+        """A flat dataset (split on first use) from a DataFrame, read
+        through ``.columns`` and ``.to_numpy()``, as
+        ``Dataset.from_pandas(df)``: an index other than a ``RangeIndex``
+        becomes a last column named after it, or ``__index_level_0__``."""
+        _refuse_kwargs("from_pandas", kwargs)
+        columns = {}
+        for name in df.columns:
+            values = df[name].to_numpy()
+            columns[str(name)] = (_column(values.tolist()) if values.dtype == object
+                                  else np.asarray(values))
+        index = getattr(df, "index", None)
+        if index is not None and type(index).__name__ != "RangeIndex":
+            name = index.name if index.name is not None else "__index_level_0__"
+            values = index.to_numpy()
+            columns[str(name)] = (_column(values.tolist()) if values.dtype == object
+                                  else np.asarray(values))
+        return cls(columns)
 
     @classmethod
-    def from_generator(cls, generator: Any, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_generator", _HUB_ITEM)
+    def from_generator(cls, generator: Callable[..., Iterable[Mapping[str, Any]]],
+                       gen_kwargs: Optional[Mapping[str, Any]] = None, **kwargs: Any
+                       ) -> "TpflDataset":
+        """A flat dataset (split on first use) from a generator function
+        of row dicts, as ``Dataset.from_generator(generator,
+        gen_kwargs=gen_kwargs)``."""
+        _refuse_kwargs("from_generator", kwargs)
+        return cls(_records_to_columns(generator(**dict(gen_kwargs or {}))))
 
     # --- split handling ---
 

@@ -88,7 +88,10 @@ host-side branch of the window is on a global value. Sums taken in
 another order make a 4-rank run allclose to a 1-rank run; one topology
 and one seed give the same bytes, and a one-rank mesh gives the bytes of
 ``mesh=None``. Under ``Settings.RANK_CONTRACTS`` every dispatch appends
-its receipt (:mod:`~tpfl_torch.parallel.ranksafe`).
+its receipt (:mod:`~tpfl_torch.parallel.ranksafe`); under
+``Settings.TRACE_CONTRACTS`` every cached window program carries the knob
+values of its cache key, checked at each dispatch
+(:func:`~tpfl_torch.concurrency.check_contract`).
 
 The simulation plane's seams live here too, as in the reference:
 :func:`sample_participants` (a seeded per-round cohort, numpy),
@@ -116,7 +119,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
-from tpfl_torch import DeviceLike, resolve_device
+from tpfl_torch import DeviceLike, concurrency, resolve_device
 from tpfl_torch.exceptions import REST_ITEM, not_ported
 from tpfl_torch.learning import compression, serialization
 from tpfl_torch.learning.torch_learner import (
@@ -1505,8 +1508,10 @@ class FederationEngine:
         ``finalize``. A failure while enqueueing records ``engine_failure``
         in the ``engine`` flight ring, dumps it under
         ``Settings.TELEMETRY_DUMP_DIR`` and re-raises. Under
-        ``Settings.RANK_CONTRACTS`` the dispatch appends its receipt to
-        :mod:`~tpfl_torch.parallel.ranksafe`'s log."""
+        ``Settings.TRACE_CONTRACTS`` a program whose stamp disagrees with
+        this dispatch's knobs raises ``TraceContractError`` before it runs;
+        under ``Settings.RANK_CONTRACTS`` the dispatch appends its receipt
+        to :mod:`~tpfl_torch.parallel.ranksafe`'s log."""
         kind, state, xs, ys, w, scales, sched, mw = self._prepare_args(
             params, xs, ys, weights, n_rounds, aux, scaffold_state, attack_scales, schedule)
         tele_on = bool(Settings.ENGINE_TELEMETRY)
@@ -1524,6 +1529,10 @@ class FederationEngine:
                                 0 if scales is None else scales.dim(), codec, sched is not None,
                                 stale_exp)
         run = self._program(key)
+        if Settings.TRACE_CONTRACTS:
+            # The fetched program's build-time stamp must match this
+            # dispatch's resolved knob values.
+            concurrency.check_contract(run, self._contract(key))
         if Settings.RANK_CONTRACTS:
             ranksafe.record_dispatch(key, self._program_fingerprint(key))
         t0 = time.monotonic() if (prof or tele_on) else 0.0
@@ -1578,10 +1587,24 @@ class FederationEngine:
                       + (":fb" if fedbuff else "") + f":c{capacity}"
                       + (f":h{hosts}" if hosts > 1 else "")
                       + (f":pop{pop}" if pop else ""))
-            fn = self._programs[key] = profiling.observatory.wrap(
-                self._run_window,
-                f"engine_round:{kind}x{n_rounds}{suffix}:{profiling.module_tag(self.module)}")
+            # TRACE_CONTRACTS (off = no wrapper): stamp the program with the
+            # knob values its cache key encodes.
+            fn = self._programs[key] = concurrency.stamp_contract(
+                profiling.observatory.wrap(
+                    self._run_window,
+                    f"engine_round:{kind}x{n_rounds}{suffix}:{profiling.module_tag(self.module)}"),
+                self._contract(key))
         return fn
+
+    @staticmethod
+    def _contract(key: tuple) -> dict:
+        """The reference's nine ``TRACE_CONTRACTS`` knobs as a dispatch
+        key resolved them (``ASYNC_STALENESS_EXP`` is 0.0 for a sync
+        window, ``SHARD_LAYOUT`` "replicated" without a mesh)."""
+        return {"ENGINE_TELEMETRY": key[5], "ENGINE_WIRE_CODEC": key[7],
+                "WIRE_TOPK_FRAC": key[8], "ENGINE_DONATE": key[4], "SHARD_MODEL": key[9],
+                "SHARD_LAYOUT": key[10], "ASYNC_STALENESS_EXP": key[12],
+                "SHARD_HOSTS": key[15], "POPULATION_CLIENTS": key[16]}
 
     def _program_fingerprint(self, key: tuple) -> str:
         """The ``RANK_CONTRACTS`` fingerprint of the program behind

@@ -607,9 +607,12 @@ class Settings:
 
     # --- concurrency diagnostics ---
     TRACE_CONTRACTS: bool = False
-    """The reference's stamps on cached compiled programs and its lock
-    contracts. The port caches no programs: ``FederationEngine`` and
-    ``Node.start`` refuse True (``UNPORTED_SWITCHES``, item 8)."""
+    """Stamp each window program ``FederationEngine`` caches with the knob
+    values its cache key encodes, and check the stamp against the values
+    each dispatch resolves (``concurrency.stamp_contract`` /
+    ``check_contract``): a mismatch raises ``TraceContractError`` naming
+    the knob and both values. Read when a program is built and at every
+    dispatch; off builds no wrapper."""
 
     STATE_CONTRACTS: bool = False
     """``EngineCheckpointer.save`` re-reads its own bytes and refuses to
@@ -997,9 +1000,7 @@ class Settings:
 #: Switches of planes the port has not ported: knob -> (``ROADMAP.md``
 #: item, the value at which the plane is off, where
 #: :meth:`Settings.refuse_unported` checks it).
-UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {
-    "TRACE_CONTRACTS": (REST_ITEM, False, ("node", "engine")),
-}
+UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {}
 
 #: Knobs that only tune a plane the port has not ported: knob -> (the
 #: reference's entry point into that plane, ``ROADMAP.md`` item). The
