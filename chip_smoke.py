@@ -363,6 +363,21 @@
    first window bit-identical to (b)'s, rounds/s on against off; a
    donate=True cache slot re-pointed at the donate=False program raises
    ``TraceContractError`` naming ``ENGINE_DONATE`` before any launch.
+24. Donation phase (phase 24: buffer donation in the engine window). The
+   100-node CNN window of step 4 (FedAvg), the same under SCAFFOLD (lr
+   0.02) and the 8-node TransformerLM window of step 9: a warm round, then
+   3-round windows from fresh copies of one seeded state, donate False,
+   True, True, False. Gated: every window's outputs byte-equal; a
+   donating window returns its input tensors, a non-donating one new
+   ones; the donating windows' peak of requested bytes (the allocator's
+   ``requested_bytes.all``, above what was requested before each) below
+   the non-donating ones' by at least the params state's bytes (the
+   ``max_memory_allocated`` peaks are printed beside them: they count
+   whole cached blocks); ``donation_report`` clean with one
+   donated leaf per state leaf; exactly 8 ``conv_dw`` + 4 ``conv_dx`` (or
+   4 of each flash kernel) launches a round, all wgmma. Both peaks, their
+   difference, the state's bytes and rounds/s both ways are printed (the
+   rounds/s are not gated).
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
@@ -380,6 +395,7 @@ result line, when there is no card or any phase fails.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import math
@@ -2028,9 +2044,10 @@ def attacked_cnn_path(card: str) -> dict:
     params = eng.init_params((32, 32, 3))
     plan = AttackPlan({i: AttackSpec("sign_flip") for i in range(0, N_NODES, 5)}, seed=B_SEED)
     scales = plan.engine_scales([f"node-{i}" for i in range(N_NODES)], N_ROUNDS)
-    plain, _ = eng.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
+    # Both windows and the warm-up start from ``params``: neither donates it.
+    plain, _ = eng.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, donate=False)
     ones, _ = eng.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS,
-                             attack_scales=np.ones_like(scales))
+                             attack_scales=np.ones_like(scales), donate=False)
     if not all(torch.equal(a, b) for (_, a), (_, b) in zip(tree_items(plain),
                                                            tree_items(ones))):
         raise AssertionError("attacked CNN: all-ones scales changed the window's params")
@@ -3267,11 +3284,13 @@ def ev_data(eng: FederationEngine) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def ev_start() -> tuple:
-    """(engine, initial params, xs, ys) of the cell, warmed by one round."""
+    """(engine, initial params, xs, ys) of the cell, warmed by one round.
+    Windows donate their input: each run from the initial params takes an
+    :func:`ev_copy` of them."""
     eng = ev_engine()
     xs, ys = ev_data(eng)
     params = eng.init_params((32, 32, 3))
-    eng.run_rounds(params, xs, ys, n_rounds=1)
+    eng.run_rounds(params, xs, ys, n_rounds=1, donate=False)
     torch.cuda.synchronize()
     return eng, params, xs, ys
 
@@ -3287,6 +3306,11 @@ def ev_counted(label: str, rounds: int, run) -> tuple:
     check_conv_launches(label, launches, read_wgmma_launches(("conv_dw", "conv_dx")),
                         rounds * N_BATCHES * EPOCHS)
     return out, launches
+
+
+def ev_copy(p: dict) -> dict:
+    """An own copy of a start state, for a donating run from it."""
+    return tree_map(torch.clone, p)
 
 
 def ev_equal(a: dict, b: dict) -> bool:
@@ -3316,13 +3340,14 @@ def ev_fedbuff_pipeline(card: str) -> dict:
     eng, p0, xs, ys = ev_start()
     launches = {}
     (sync_p, sync_wall), launches["sync chain"] = ev_counted(
-        "17a sync chain", EV_ROUNDS, lambda: ev_chain(eng, p0, xs, ys, EV_ROUNDS))
+        "17a sync chain", EV_ROUNDS, lambda: ev_chain(eng, ev_copy(p0), xs, ys, EV_ROUNDS))
     (fb_p, fb_wall), launches["fedbuff chain"] = ev_counted(
-        "17a fedbuff chain", EV_ROUNDS, lambda: ev_chain(eng, p0, xs, ys, EV_ROUNDS, sched))
+        "17a fedbuff chain", EV_ROUNDS,
+        lambda: ev_chain(eng, ev_copy(p0), xs, ys, EV_ROUNDS, sched))
 
     def piped():
-        (p, _), done = WindowPipeline(eng).run(p0, xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW,
-                                               schedule=sched)
+        (p, _), done = WindowPipeline(eng).run(ev_copy(p0), xs, ys, n_rounds=EV_ROUNDS,
+                                               window=EV_WINDOW, schedule=sched)
         assert done == EV_ROUNDS
         return p
 
@@ -3337,10 +3362,10 @@ def ev_fedbuff_pipeline(card: str) -> dict:
         raise AssertionError("17a: two same-seed pipelined FedBuff runs differ")
     tau0 = FedBuffSchedule.from_periods([1] * N_NODES, EV_WINDOW)
     (fb0, _), launches["tau-0 fedbuff"] = ev_counted("17a tau-0", EV_WINDOW, lambda: eng.run_rounds(
-        p0, xs, ys, n_rounds=EV_WINDOW, schedule=tau0))
-    (sync3, _), launches["sync window"] = ev_counted("17a sync window", EV_WINDOW,
-                                                     lambda: eng.run_rounds(p0, xs, ys,
-                                                                            n_rounds=EV_WINDOW))
+        ev_copy(p0), xs, ys, n_rounds=EV_WINDOW, schedule=tau0))
+    (sync3, _), launches["sync window"] = ev_counted(
+        "17a sync window", EV_WINDOW, lambda: eng.run_rounds(ev_copy(p0), xs, ys,
+                                                             n_rounds=EV_WINDOW))
     if not ev_equal(fb0, sync3):
         raise AssertionError("17a: an all-arrive τ-0 schedule differs from the sync window")
     # After the last round, arrivals hold its aggregate; the in-flight
@@ -3372,7 +3397,7 @@ def ev_fedbuff_pipeline(card: str) -> dict:
         return None
 
     def sequential():
-        p, gaps, enq, dev, t_ready = p0, [], [], [], None
+        p, gaps, enq, dev, t_ready = ev_copy(p0), [], [], [], None
         for done in range(0, EV_ROUNDS, EV_WINDOW):
             staged(done // EV_WINDOW, done, EV_WINDOW)
             t_disp = time.monotonic()
@@ -3394,8 +3419,8 @@ def ev_fedbuff_pipeline(card: str) -> dict:
     pipe = WindowPipeline(eng)
 
     def pipelined():
-        (p, _), _ = pipe.run(p0, xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW, data_for=staged,
-                             prefetch=True)
+        (p, _), _ = pipe.run(ev_copy(p0), xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW,
+                             data_for=staged, prefetch=True)
         return p
 
     pipe_p, launches["pipelined driver"] = ev_counted("17a pipelined driver", EV_ROUNDS,
@@ -3431,8 +3456,9 @@ def ev_telemetry(card: str) -> dict:
             label = "telemetry on" if on else "telemetry off"
 
             def window():
+                p = ev_copy(p0)
                 t0 = time.perf_counter()
-                handle = eng.dispatch_window(p0, xs, ys, n_rounds=EV_WINDOW)
+                handle = eng.dispatch_window(p, xs, ys, n_rounds=EV_WINDOW)
                 tele = handle.telemetry()
                 p = handle.finalize()[0]
                 torch.cuda.synchronize()
@@ -3454,7 +3480,7 @@ def ev_telemetry(card: str) -> dict:
         Settings.ENGINE_TELEMETRY, Settings.LEDGER_ENABLED = True, True
         ledger.contrib.reset()
         def attacked():
-            handle = eng.dispatch_window(p0, xs, ys, n_rounds=EV_WINDOW,
+            handle = eng.dispatch_window(ev_copy(p0), xs, ys, n_rounds=EV_WINDOW,
                                          attack_scales=plan.engine_scales(EV_ADDRS, EV_WINDOW))
             tele = handle.telemetry()
             handle.finalize()
@@ -3569,13 +3595,14 @@ def ev_resume(card: str) -> dict:
     launches, out = {}, {}
     for label, schedule in (("sync", None), ("fedbuff", sched)):
         full, launches[f"{label} uninterrupted"] = ev_counted(
-            f"17d {label} uninterrupted", 6, lambda: ev_chain(eng, p0, xs, ys, 6, schedule)[0])
+            f"17d {label} uninterrupted", 6,
+            lambda: ev_chain(eng, ev_copy(p0), xs, ys, 6, schedule)[0])
 
         def killed_and_resumed():
             first = ev_engine()
             first.controller = AsyncController("engine")
             q = QuarantineEngine("engine")
-            pb, _ = ev_chain(first, p0, xs, ys, 3, schedule)
+            pb, _ = ev_chain(first, ev_copy(p0), xs, ys, 3, schedule)
             with tempfile.TemporaryDirectory() as tmp:
                 ck = EngineCheckpointer(tmp, node="engine")
                 t0 = time.perf_counter()
@@ -3605,9 +3632,10 @@ def ev_resume(card: str) -> dict:
 
         def run(snapshots: bool) -> float:
             pipe = WindowPipeline(eng)
+            p = ev_copy(p0)
             t0 = time.perf_counter()
             result, done = pipe.run(
-                p0, xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW,
+                p, xs, ys, n_rounds=EV_ROUNDS, window=EV_WINDOW,
                 snapshot_every=1 if snapshots else 0,
                 snapshot_to=lambda r, s: pending.append(pool.submit(ck.save, s, step=r)))
             torch.cuda.synchronize()
@@ -5987,6 +6015,151 @@ def rendered_path(card: str, cnn: dict) -> dict:
     return out
 
 
+# --- phase 24: buffer donation in the engine window -----------------------
+#
+# The windows a default engine runs donate their state (Settings.ENGINE_DONATE):
+# each round writes params, SCAFFOLD's variates and aux in place. Three arms:
+# the CNN cell (phase 1's configuration through the conv kernels) under FedAvg
+# and under SCAFFOLD (lr 0.02, as CNN_VARIANTS), and the 8-node TransformerLM
+# through the flash kernels. Each: a warm round, then N_ROUNDS-round windows
+# from fresh copies of one seeded state in the order donate False, True, True,
+# False, each window's peak above what was allocated before it; then the
+# engine's donation report. Two peaks: the bytes the window requested
+# (``requested_bytes.all`` of ``torch.cuda.memory_stats``, gated) and
+# ``max_memory_allocated`` (reported): the caching allocator counts a whole
+# cached block when it hands one out unsplit, so the allocated peak moves
+# by a block's slack between otherwise equal windows. Python's cycle
+# collector runs before each window and pauses during it: a collection
+# inside a window frees a cycle's tensors at a point that varies from run
+# to run (a 400-byte loss vector moved the peak once).
+DONATION_ORDER = (False, True, True, False)
+
+
+def requested_bytes(stat: str) -> int:
+    """``requested_bytes.all.<stat>`` of the card's allocator: the bytes the
+    program asked for, before the allocator rounds them to its blocks."""
+    return int(torch.cuda.memory_stats()[f"requested_bytes.all.{stat}"])
+
+
+def tree_bytes(*trees) -> int:
+    return sum(t.numel() * t.element_size() for tree in trees for _, t in tree_items(tree))
+
+
+def flat_outputs(out: tuple) -> list:
+    """Every tensor of a ``run_rounds`` result, in order."""
+    params, state, losses = carry(out)
+    trees = [params, state.get("aux", {}), *state.get("scaffold_state", ())]
+    return [t for tree in trees for _, t in tree_items(tree)] + [losses]
+
+
+def donation_arm(card: str, label: str, fed, fresh, xs, ys, per_round: dict) -> dict:
+    """One arm of phase 24 (``fresh()`` -> (params, run_rounds' state
+    keywords), a new seeded state on the card). Gated: every window's
+    outputs byte-equal to the first non-donating window's; each donating
+    window returns its input tensors; the donating windows' peaks below the
+    non-donating ones' by at least the params state's bytes; the report
+    clean, one donated leaf per state leaf; the arm's launches exactly
+    ``per_round`` a round, all wgmma. Rounds/s and the allocated peaks
+    both ways, not gated."""
+    eng = fed.engine
+    reset_launches()
+    p, st = fresh()
+    fed.run_rounds(p, xs, ys, epochs=EPOCHS, n_rounds=1, **st)  # warm-up
+    params_bytes = tree_bytes(p)
+    state_bytes = tree_bytes(p, st.get("aux", {}), *st.get("scaffold_state", ()))
+    del p, st
+    peaks, allocated = {False: [], True: []}, {False: [], True: []}
+    walls, ref = {False: [], True: []}, None
+    for donate in DONATION_ORDER:
+        p, st = fresh()
+        gc.collect()
+        gc.disable()
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base, base_allocated = requested_bytes("current"), torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = fed.run_rounds(p, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, donate=donate,
+                                 **st)
+            torch.cuda.synchronize()
+        finally:
+            gc.enable()
+        walls[donate].append(time.perf_counter() - t0)
+        peaks[donate].append(requested_bytes("peak") - base)
+        allocated[donate].append(torch.cuda.max_memory_allocated() - base_allocated)
+        written = all(a is b for (_, a), (_, b) in zip(tree_items(out[0]), tree_items(p)))
+        if written != donate:
+            raise AssertionError(f"24 {label}: a donate={donate} window "
+                                 f"{'returned new' if donate else 'wrote its input'} params")
+        got = flat_outputs(out)
+        if ref is None:
+            ref = got
+        elif not all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"24 {label}: the donate={donate} window's outputs differ "
+                                 "from the non-donating window's")
+        del p, st, out, got
+    saved = min(peaks[False]) - max(peaks[True])
+    if saved < params_bytes:
+        raise AssertionError(f"24 {label}: peaks {peaks} save {saved} bytes, less than the "
+                             f"params state's {params_bytes}")
+    p, st = fresh()
+    report = eng.donation_report(p, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS, **st)
+    leaves = len(tree_leaves(p)) * (3 if "scaffold_state" in st else 1) + len(
+        tree_leaves(st.get("aux", {})))
+    if not report["clean"] or report["donated_leaves"] != leaves:
+        raise AssertionError(f"24 {label}: donation report {report}, {leaves} state leaves")
+    torch.cuda.synchronize()
+    del p, st
+    launches = read_launches()
+    rounds = 1 + N_ROUNDS * (len(DONATION_ORDER) + 1)  # warm-up, windows, report
+    want = {**dict.fromkeys(WRAPPERS, 0), **{k: v * rounds for k, v in per_round.items()}}
+    if launches != want:
+        raise AssertionError(f"24 {label}: kernel launches {launches}, expected {want}")
+    check_all_wgmma(f"24 {label}", launches, read_wgmma_launches(per_round))
+    best = {d: N_ROUNDS / min(w) for d, w in walls.items()}
+    return {"card": card, "params_bytes": params_bytes, "state_bytes": state_bytes,
+            "peak_requested_bytes_no_donate": peaks[False],
+            "peak_requested_bytes_donate": peaks[True], "peak_saved_bytes": saved,
+            "saved_over_state": saved / state_bytes,
+            "max_memory_allocated_no_donate": allocated[False],
+            "max_memory_allocated_donate": allocated[True],
+            "allocated_saved_bytes": min(allocated[False]) - max(allocated[True]),
+            "rounds_per_s_no_donate": best[False], "rounds_per_s_donate": best[True],
+            "donate_over_no_donate": best[True] / best[False], "report": report,
+            "outputs_byte_equal": True, "launches": launches}
+
+
+def donation_path(card: str) -> dict:
+    """Phase 24: the three arms, each logged as it passes."""
+    t0 = time.perf_counter()
+    out = {}
+    steps = N_BATCHES * EPOCHS
+    for label, algorithm, lr in (("cnn fedavg", "fedavg", 0.1), ("cnn scaffold", "scaffold", 0.02)):
+        fed = VmapFederation(CNN(out_channels=10, conv_impl="pallas"), n_nodes=N_NODES,
+                             learning_rate=lr, seed=0, algorithm=algorithm)
+        xs, ys = cnn_data(fed)
+
+        def fresh(fed=fed, algorithm=algorithm) -> tuple:
+            p = fed.init_params((32, 32, 3))
+            return p, ({"scaffold_state": fed.init_scaffold_state(p)}
+                       if algorithm == "scaffold" else {})
+
+        out[label] = donation_arm(card, label, fed, fresh, xs, ys,
+                                  {"conv_dw": 2 * steps, "conv_dx": steps})
+        log(f"donation ({label}; every check passed): " + json.dumps(out[label]))
+        del fed, xs, ys
+    fed = VmapFederation(TransformerLM(**LM_KW, attention_fn=fk.flash_attention),
+                         n_nodes=T_NODES, learning_rate=T_LR, seed=0)
+    xs, ys = fed.shard_data(*lm_tokens(T_NODES, T_BATCHES, T_BATCH, T_SEQ, LM_KW["vocab"],
+                                       seed=5))
+    out["transformer"] = donation_arm(
+        card, "transformer", fed, lambda: (fed.init_params((T_SEQ,)), {}), xs, ys,
+        dict.fromkeys(FLASH_KERNELS, LM_KW["n_layers"] * T_BATCHES * EPOCHS))
+    log("donation (transformer; every check passed): " + json.dumps(out["transformer"]))
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -6165,6 +6338,8 @@ def main() -> int:
         if label not in ("launches", "phase_s"):
             log(f"rendered path ({label}): " + json.dumps(result))
     log(f"rendered path: {rendered['phase_s']:.1f} s")
+    donation = donation_path(card)
+    log(f"donation: {donation['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -6204,6 +6379,8 @@ def main() -> int:
             row["attention_tier_launches"] = launched["20c"]
             row["transformer_tier_launches"] = launched["20d"]
             row["pipeline_moe_launches"] = launched["20e"]
+        row["donation_launches"] = {label: donation[label]["launches"][row["name"]]
+                                    for label in ("cnn fedavg", "cnn scaffold", "transformer")}
         row["mesh_window_launches"] = mesh["mesh_window_launches"][row["name"]]
         row["sharded_trainer_launches"] = mesh["sharded_trainer_launches"][row["name"]]
         row["observatory_launches"] = observatory[

@@ -64,7 +64,7 @@ from tpfl_torch.management.quarantine import QuarantineEngine
 from tpfl_torch.models import CNN, MLP
 from tpfl_torch.parallel import FedBuffSchedule, FederationEngine, MembershipView
 from tpfl_torch.settings import Settings
-from tpfl_torch.utils.tree import canonical_leaves, tree_items
+from tpfl_torch.utils.tree import canonical_leaves, tree_items, tree_map
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -374,7 +374,7 @@ def test_engine_state_resume_byte_identical(tmp_path, model, fedbuff):
         sub = None if sched is None else sched.window(start, k)
         return eng.run_rounds(p, xs, ys, n_rounds=k, schedule=sub)[0]
 
-    full = window(_port_engine(n, model), tp, 0, 6)
+    full = window(_port_engine(n, model), tree_map(torch.clone, tp), 0, 6)  # tp runs again
     eng_b = _port_engine(n, model)
     pb = window(eng_b, tp, 0, 3)
     ck = EngineCheckpointer(str(tmp_path))

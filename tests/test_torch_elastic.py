@@ -275,7 +275,7 @@ def test_masked_run_matches_exact_size_run():
     n_live = 4
     jeng, exact, jp, tp = _engines(n_live)
     xs, ys = _data(n_live)
-    out_exact, _ = exact.run_rounds(tp, xs, ys, n_rounds=2)
+    out_exact, _ = exact.run_rounds(tp, xs, ys, n_rounds=2, donate=False)  # tp runs again
     view = MembershipView([f"n{i}" for i in range(n_live)], capacity_min=8)
     elastic = FederationEngine(MLP(hidden_sizes=(64,), compute_dtype=torch.float32), n_live,
                                device="cpu")

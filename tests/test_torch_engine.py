@@ -273,14 +273,22 @@ def test_init_params_are_the_same_under_every_torch():
 
 
 def test_unported_options_raise():
-    """The XLA donation report is not ported (meshes are:
+    """Every option of the reference engine runs in the port: the
+    donation report of a CNN window is clean, one donated leaf per params
+    leaf (tests/test_torch_donation.py holds it to the JAX report); meshes:
     tests/test_torch_engine_mesh.py — ``mesh="auto"`` resolves to no mesh
     in a lone process with ``SHARD_NODES`` off, as the reference's on one
     device; client populations: tests/test_torch_population.py; FedProx,
     SCAFFOLD and aux state: tests/test_torch_engine_kinds.py; attack
     scales: tests/test_torch_engine_attack.py; FedBuff schedules:
-    tests/test_torch_engine_async.py)."""
+    tests/test_torch_engine_async.py."""
     assert FederationEngine(_torch_cnn(), 2, mesh="auto", device="cpu").mesh is None
-    eng = FederationEngine(_torch_cnn(), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="donation_report.*item 8"):
-        eng.donation_report()
+    eng = FederationEngine(_torch_cnn(), N_NODES, device="cpu")
+    params = eng.init_params((8, 8, 3))
+    before = [v.clone() for layer in params.values() for v in layer.values()]
+    report = eng.donation_report(params, *_data(3), n_rounds=2)
+    leaves = sum(len(layer) for layer in params.values())
+    assert report == {"donated_leaves": leaves, "aliased": leaves, "unaliased_donors": 0,
+                      "output_aliases": leaves, "clean": True}
+    after = [v for layer in params.values() for v in layer.values()]
+    assert all(torch.equal(a, b) for a, b in zip(after, before))

@@ -22,9 +22,11 @@ across with ``tpfl_torch.interop``) and the same numpy-seeded data:
   the staleness gauge equal to the JAX package's, and the controller's
   state after the window equal to the JAX controller's.
 
-The reference's 8-device mesh case and its donation report have no
-counterpart here (the port has no mesh and no XLA aliasing; the report
-raises naming its item).
+Windows donate their state (``Settings.ENGINE_DONATE``): a run that
+must start from a state another run also starts from gets its own copy
+(``_copy``). The donation report of a 4-node window equals the JAX
+engine's (the reference's ``test_donation_still_clean``); the 8-device
+mesh case runs in ``tests/test_torch_engine_mesh.py``.
 """
 
 import threading
@@ -113,6 +115,12 @@ def _engines(n, model="mlp"):
     return jeng, teng, jp, params_from_flax(_host(jp), device="cpu")
 
 
+def _copy(tree):
+    """An own copy of a port state tree, for a second run from the same
+    start (a donating window writes its input state)."""
+    return tree_map(torch.clone, tree)
+
+
 def _bytes(tree):
     return b"".join(t.contiguous().numpy().tobytes() for t in canonical_leaves(tree))
 
@@ -169,7 +177,7 @@ def test_pipeline_byte_identical_to_sequential():
     n = 4
     _, teng, _, tp = _engines(n)
     xs, ys = teng.shard_data(*_data(n))
-    ps, ls = _run_sequential(teng, tp, xs, ys, n_rounds=6, window=2)
+    ps, ls = _run_sequential(teng, _copy(tp), xs, ys, n_rounds=6, window=2)
     pp, lp, _ = _run_pipelined(teng, tp, xs, ys, n_rounds=6, window=2)
     assert _bytes(ps) == _bytes(pp)
     assert ls.numpy().tobytes() == lp.numpy().tobytes()
@@ -184,9 +192,9 @@ def test_pipeline_byte_identical_with_fedbuff_and_telemetry(model):
     n = 4
     jeng, teng, jp, tp = _engines(n, model)
     xs, ys = teng.shard_data(*_data(n, MODELS[model][2]))
-    ps, _ = _run_sequential(teng, tp, xs, ys, n_rounds=6, window=2,
+    ps, _ = _run_sequential(teng, _copy(tp), xs, ys, n_rounds=6, window=2,
                             schedule=FedBuffSchedule.from_periods([1, 1, 2, 3], 6))
-    runs = [_run_pipelined(teng, tp, xs, ys, n_rounds=6, window=2,
+    runs = [_run_pipelined(teng, _copy(tp), xs, ys, n_rounds=6, window=2,
                            schedule=FedBuffSchedule.from_periods([1, 1, 2, 3], 6))[0]
             for _ in range(2)]
     assert _bytes(ps) == _bytes(runs[0]) == _bytes(runs[1])
@@ -200,17 +208,22 @@ def test_pipeline_byte_identical_with_fedbuff_and_telemetry(model):
 
 
 def test_donation_report_refused_naming_item_8():
-    """The reference's XLA aliasing report has no counterpart: the port
-    never consumes its inputs (``donate=`` is accepted and changes no
-    byte)."""
+    """The donation report of a 4-node window (the reference's
+    ``test_donation_still_clean``) is clean and equals the JAX engine's
+    dict; donating and non-donating windows give the same bytes, the
+    non-donating one leaving its input intact."""
     n = 4
-    _, teng, _, tp = _engines(n)
+    jeng, teng, jp, tp = _engines(n)
     xs, ys = _data(n)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-        teng.donation_report(tp, xs, ys, n_rounds=2)
-    a, _ = teng.run_rounds(tp, xs, ys, n_rounds=2, donate=True)
+    report = teng.donation_report(tp, xs, ys, n_rounds=2)
+    assert report["clean"], report
+    assert report == jeng.donation_report(jp, *jeng.shard_data(xs, ys), n_rounds=2)
+    start = _bytes(tp)
     b, _ = teng.run_rounds(tp, xs, ys, n_rounds=2, donate=False)
-    assert _bytes(a) == _bytes(b)
+    assert _bytes(tp) == start
+    a, _ = teng.run_rounds(tp, xs, ys, n_rounds=2, donate=True)
+    assert _bytes(a) == _bytes(b) != start
+    assert all(x is y for x, y in zip(canonical_leaves(a), canonical_leaves(tp)))
 
 
 # --- the staleness math ----------------------------------------------------
@@ -223,7 +236,7 @@ def test_fedbuff_tau_zero_bit_parity_with_sync(model):
     n, n_rounds = 4, 3
     jeng, teng, jp, tp = _engines(n, model)
     xs, ys = _data(n, MODELS[model][2])
-    sync_p, sync_l = teng.run_rounds(tp, xs, ys, n_rounds=n_rounds)
+    sync_p, sync_l = teng.run_rounds(_copy(tp), xs, ys, n_rounds=n_rounds)
     sched = FedBuffSchedule.from_periods([1] * n, n_rounds)
     assert sched.arrivals.all() and not sched.taus.any()
     fb_p, fb_l = teng.run_rounds(tp, xs, ys, n_rounds=n_rounds, schedule=sched)
@@ -246,7 +259,7 @@ def test_fedbuff_staleness_weight_matches_host_math():
     for i in range(n):
         w = np.zeros((n,), np.float32)
         w[i] = 1.0
-        pi, _ = teng.run_rounds(tp, xs, ys, weights=w, n_rounds=1)
+        pi, _ = teng.run_rounds(_copy(tp), xs, ys, weights=w, n_rounds=1)
         trained.append([t[i].numpy().astype(np.float64) for t in canonical_leaves(pi)])
     sched = FedBuffSchedule(np.ones((1, n), np.float32), np.asarray([taus], np.float32))
     fb, _ = teng.run_rounds(tp, xs, ys, n_rounds=1, schedule=sched)
@@ -272,7 +285,7 @@ def test_fedbuff_stragglers_keep_local_state(model):
     xs, ys = _data(n, MODELS[model][2])
     arrivals = np.asarray([[1, 1, 1, 0]], np.float32)
     sched = FedBuffSchedule(arrivals, np.zeros((1, n), np.float32))
-    fb, _ = teng.run_rounds(tp, xs, ys, n_rounds=1, schedule=sched)
+    fb, _ = teng.run_rounds(_copy(tp), xs, ys, n_rounds=1, schedule=sched)
     solo, _ = teng.run_rounds(tp, xs, ys, weights=np.asarray([0, 0, 0, 1], np.float32),
                               n_rounds=1)
     row = lambda tree, i: tree_map(lambda t: t[i], tree)  # noqa: E731
@@ -356,7 +369,7 @@ def test_pipeline_staged_data_equals_inline_data():
     def data_for(widx, start, k):
         return teng.shard_data(*_data(n, seed=10 + widx))
 
-    outs = [_run_pipelined(teng, tp, None, None, n_rounds=6, window=2, data_for=data_for,
+    outs = [_run_pipelined(teng, _copy(tp), None, None, n_rounds=6, window=2, data_for=data_for,
                            prefetch=pre)[0] for pre in (True, False)]
     assert _bytes(outs[0]) == _bytes(outs[1])
 
@@ -455,7 +468,7 @@ def test_dispatch_window_handle_chains_and_finalizes_once():
     n = 4
     _, teng, _, tp = _engines(n)
     xs, ys = teng.shard_data(*_data(n))
-    h1 = teng.dispatch_window(tp, xs, ys, n_rounds=2)
+    h1 = teng.dispatch_window(_copy(tp), xs, ys, n_rounds=2)
     h2 = teng.dispatch_window(h1.params, xs, ys, n_rounds=1)
     assert h1.ready() and h2.ready() and h2.n_rounds == 1
     out = h2.finalize()

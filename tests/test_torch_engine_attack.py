@@ -131,7 +131,8 @@ def test_all_ones_is_the_unscaled_window_and_validation():
     _, teng, p0 = _engines()
     xs, ys = _data()
     params = params_from_flax(p0, device="cpu")
-    plain, lp = teng.run_rounds(params, xs, ys, n_rounds=2)
+    # Both windows start from ``params``: the first leaves it intact.
+    plain, lp = teng.run_rounds(params, xs, ys, n_rounds=2, donate=False)
     ones, lo = teng.run_rounds(params, xs, ys, n_rounds=2, attack_scales=np.ones((2, N)))
     for (path, a), (_, b) in zip(tree_items(plain), tree_items(ones)):
         assert torch.equal(a, b), path

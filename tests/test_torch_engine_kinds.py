@@ -256,10 +256,12 @@ def test_vmap_federation_round_runs_dense_and_returns_reference_shapes(wire_code
     want = _host(jfed.round(_jax_tree(params), jnp.asarray(xs), jnp.asarray(ys),
                             weights=jnp.asarray(WEIGHTS), aux=_jax_tree(aux),
                             scaffold_state=jfed.init_scaffold_state(_jax_tree(params))))
+    # Each window donates its state: each starts from its own tensors.
     tp = _torch_tree(params)
     got = tfed.round(tp, xs, ys, weights=WEIGHTS, aux=_torch_tree(aux),
                      scaffold_state=tfed.init_scaffold_state(tp))
     _assert_outputs_close(got, want)
+    tp = _torch_tree(params)
     coded = tfed.run_rounds(tp, xs, ys, weights=WEIGHTS, aux=_torch_tree(aux),
                             scaffold_state=tfed.init_scaffold_state(tp))
     assert not torch.equal(coded[0]["Dense_0"]["kernel"], got[0]["Dense_0"]["kernel"])

@@ -425,3 +425,38 @@ def test_engine_obs_publishes_the_dcn_series_of_the_carry(world):
                        ("counters", "tpfl_engine_dcn_bytes_total")):
         got = metrics.value(name, {"model": model})
         assert got > 0 and got == jax_folded[kind][(name, (("model", model),))], name
+
+
+def _jax_donation_report(name):
+    """The JAX engine's donation report of a worker case on the same mesh
+    shape, from the same inputs."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpfl.parallel.engine import FederationEngine
+
+    kind, n, mesh_name, algorithm, lr, w, rounds, _ = worker.CASES[name]
+    eng = FederationEngine(_jax_module(kind), n, mesh=_jax_mesh(mesh_name), seed=0,
+                           algorithm=algorithm, learning_rate=lr)
+    p0, _ = worker.init(kind)
+    params = eng._shard_state(eng.broadcast_params(jax.tree_util.tree_map(jnp.asarray, p0)))
+    ss = eng.init_scaffold_state(params) if algorithm == "scaffold" else None
+    dx, dy = eng.shard_data(*worker.data(kind, n))
+    return eng.donation_report(params, dx, dy, weights=w, n_rounds=rounds, scaffold_state=ss)
+
+
+@pytest.mark.parametrize("name", worker.DONATION_CASES)
+def test_donation_report_clean_on_the_mesh(world, name):
+    """World 4 on gloo: the 1D ``nodes`` window, the 3D SCAFFOLD window and
+    the 2D ``nodes 2 x model 2`` TransformerLM window (the counterpart of
+    ``tests/test_engine.py:440-452``) donate every state leaf: each rank's
+    report is clean and equals the JAX engine's on the same mesh shape;
+    the report leaves the caller's placed params as they were; a donating
+    window writes each rank's local blocks in place and ends on the
+    non-donating window's bytes."""
+    want = _jax_donation_report(name)
+    assert want["clean"], want
+    for rank in world:
+        got = rank["donation"][name]
+        assert got["report"] == want, (rank["rank"], got["report"])
+        assert got["caller_intact"] and got["in_place"] and got["bytes_equal"], got

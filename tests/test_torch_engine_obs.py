@@ -116,12 +116,13 @@ def _engines(n=8, model="mlp"):
 
 
 def _port_carry(teng, tp, xs, ys, n_rounds, weights=None, scales=None):
-    """The port's carry of one window, as host numpy."""
-    kind, state, dx, dy, w, sc, sched, mw = teng._prepare_args(tp, xs, ys, weights, n_rounds,
-                                                               None, None, scales, None)
-    _, _, tele = teng._run_window(kind, state, dx, dy, w, sc, sched, 1, n_rounds, (0, 0.05),
-                                  True, 0.0, mw)
-    return {k: v.numpy() for k, v in tele.items()}
+    """The port's carry of one window, as host numpy: the telemetry
+    program of the window's cache key, as ``_jax_carry`` takes the JAX
+    engine's."""
+    kind, args = teng._prepare_args(tp, xs, ys, weights, n_rounds, None, None, scales, None)
+    fn = teng.program(kind, 1, n_rounds, args[6].dim(), donate=False, telemetry=True,
+                      a_ndim=0 if scales is None else args[8].dim())
+    return {k: v.numpy() for k, v in fn(*args)[5].items()}
 
 
 def _jax_carry(jeng, jp, xs, ys, n_rounds, weights=None):

@@ -476,6 +476,36 @@ def _node_checkpoint_round_trip(which):
     return published if which == "save" else (meta["round"] == src.state.round and same)
 
 
+def _donation_report_clean():
+    """The engine's donation report runs: a clean report, one donated
+    leaf per params leaf, the caller's params unchanged."""
+    eng = _engine()
+    params = eng.init_params((4,))
+    before = [t.clone() for layer in params.values() for t in layer.values()]
+    report = eng.donation_report(params, np.ones((2, 1, 4, 4), np.float32),
+                                 np.zeros((2, 1, 4), np.int32))
+    after = [t for layer in params.values() for t in layer.values()]
+    return report["clean"] and report["donated_leaves"] == len(after) and all(
+        torch.equal(a, b) for a, b in zip(after, before))
+
+
+def _donate_knob_read():
+    """``ENGINE_DONATE`` is read at dispatch: off, the window leaves its
+    input intact; on, it writes the input and returns it."""
+    eng = _engine()
+    xs, ys = np.ones((2, 1, 4, 4), np.float32), np.zeros((2, 1, 4), np.int32)
+    out = {}
+    for knob in (False, True):
+        Settings.ENGINE_DONATE = knob
+        params = eng.init_params((4,))
+        start = params["Dense_0"]["kernel"].clone()
+        res = eng.run_rounds(params, xs, ys)
+        out[knob] = (res[0]["Dense_0"]["kernel"] is params["Dense_0"]["kernel"],
+                     torch.equal(params["Dense_0"]["kernel"], start))
+    return _read_by_port({"ENGINE_DONATE"}) and out == {False: (False, True),
+                                                       True: (True, False)}
+
+
 def _dump_dir_engine():
     Settings.TELEMETRY_DUMP_DIR = "armed-dir"
     return _engine().n_nodes == 2
@@ -508,6 +538,8 @@ def _default_data_experiment():
 
 # Each replaces the refusal case of the same name: the ported plane runs.
 PORTED = {
+    "engine donation report": _donation_report_clean,
+    "gate parallel.FederationEngine.donation_report": _donate_knob_read,
     "harness default data": _default_data_experiment,
     "save checkpoint": lambda: _node_checkpoint_round_trip("save"),
     "load checkpoint": lambda: _node_checkpoint_round_trip("load"),
@@ -575,8 +607,6 @@ def test_ported_seams_run(seam):
 # Each refused seam's message names its ROADMAP.md item; the reference's
 # gRPC transport, whose counterpart the port has, names that counterpart.
 REFUSALS = {
-    "engine donation report": ("ROADMAP.md §1 item 8", lambda: None,
-                               lambda: _engine().donation_report()),
     "grpc": ("counterpart is tpfl_torch.communication.TcpCommunicationProtocol", lambda: None,
              lambda: communication.GrpcCommunicationProtocol),
 }
@@ -653,20 +683,28 @@ def _raises(call):
     return check
 
 
-# How each entry point of UNPORTED_KNOBS is closed to a caller of the port.
-GATES = {
-    "parallel.FederationEngine.donation_report": _raises(lambda: _engine().donation_report()),
-}
+# How each entry point of UNPORTED_KNOBS is closed to a caller of the port
+# (none is left: ENGINE_DONATE's entry point runs, PORTED above).
+GATES: dict = {}
 
 
-@pytest.mark.parametrize("gate", sorted(GATES))
-def test_unported_knob_gate_is_closed(gate):
+def test_unported_knob_gate_is_closed(monkeypatch):
     """Every knob of UNPORTED_KNOBS tunes a plane whose entry point the
-    port refuses or lacks, and names that plane's item."""
-    knobs = {k: v for k, v in UNPORTED_KNOBS.items() if v is not None and v[0] == gate}
-    assert knobs
-    assert all(v[1].startswith("ROADMAP.md §1 item") for v in knobs.values())
-    assert GATES[gate]() is True
+    port refuses or lacks, and names that plane's item: with the table
+    empty of such knobs, a stand-in entry and its gate hold the check."""
+    from tpfl_torch.exceptions import not_ported
+
+    def entry():
+        raise not_ported("parallel.StandIn.entry", "ROADMAP.md §1 item 99")
+
+    gate = "parallel.StandIn.entry"
+    monkeypatch.setitem(UNPORTED_KNOBS, "STAND_IN", (gate, "ROADMAP.md §1 item 99"))
+    monkeypatch.setitem(GATES, gate, _raises(entry))
+    for gate in sorted(GATES):
+        knobs = {k: v for k, v in UNPORTED_KNOBS.items() if v is not None and v[0] == gate}
+        assert knobs
+        assert all(v[1].startswith("ROADMAP.md §1 item") for v in knobs.values())
+        assert GATES[gate]() is True
 
 
 def test_every_unported_knob_gate_has_a_check():

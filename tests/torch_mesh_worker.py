@@ -258,7 +258,7 @@ def _checkpoints(meshes: dict, workdir: str) -> dict:
     state = mesh_eng.export_state(q)
     solo = engine(kind, n, None)
     p, _ = solo.run_rounds(solo.import_state(state)["params"], xs, ys, weights=W6)
-    q2, _ = mesh_eng.run_rounds(q, xs, ys, weights=W6)
+    q2, _ = mesh_eng.run_rounds(q, xs, ys, weights=W6, donate=False)  # q is saved below
     out["to_world1"] = tree_map(_host, solo.unpad(p))
     out["stay_world4"] = tree_map(_host, mesh_eng.unpad(q2))
     out["rounds_done"] = solo._rounds_done
@@ -333,6 +333,47 @@ def _membership(meshes: dict) -> dict:
     return out
 
 
+#: Cases whose window donation the mesh test holds: 1D, 3D and 2D.
+DONATION_CASES = ("mlp_fedavg", "h_scaffold", "lm_fedavg")
+
+
+def _donation(meshes: dict) -> dict:
+    """Per case of :data:`DONATION_CASES`: the engine's donation report,
+    whether it left the caller's placed params as they were, whether a
+    donating and a non-donating window from equal states end on the same
+    bytes, and whether the donating window wrote each placed input's
+    local block in place (its outputs wrap the same storages)."""
+    out = {}
+    for name in DONATION_CASES:
+        kind, n, mesh_name, algorithm, lr, w, n_rounds, _ = CASES[name]
+        eng = engine(kind, n, meshes[mesh_name], algorithm, lr)
+        dx, dy = eng.shard_data(*data(kind, n))
+
+        def state() -> tuple:
+            p = eng._shard_state(start(eng, kind)[0])
+            return p, (eng.init_scaffold_state(p) if algorithm == "scaffold" else None)
+
+        def storages(tree: Any) -> list:
+            return [_local(t).untyped_storage().data_ptr() for t in canonical_leaves(tree)]
+
+        p, ss = state()
+        before = _digest(p)
+        report = eng.donation_report(p, dx, dy, weights=w, n_rounds=n_rounds, scaffold_state=ss)
+        intact = _digest(p) == before
+        kept = eng.run_rounds(*state()[:1], dx, dy, weights=w, n_rounds=n_rounds,
+                              scaffold_state=state()[1], donate=False)
+        p, ss = state()
+        ptrs = storages(p) + (storages(ss[0]) + storages(ss[1]) if ss else [])
+        done = eng.run_rounds(p, dx, dy, weights=w, n_rounds=n_rounds, scaffold_state=ss,
+                              donate=True)
+        outs = storages(done[0]) + (storages(done[2][0]) + storages(done[2][1]) if ss else [])
+        trees = (lambda r: [r[0], *r[2]]) if ss else (lambda r: [r[0]])
+        out[name] = {"report": report, "caller_intact": intact, "in_place": outs == ptrs,
+                     "bytes_equal": [_digest(t) for t in trees(done)]
+                     == [_digest(t) for t in trees(kept)]}
+    return out
+
+
 def engine_mesh_results(workdir: str) -> dict:
     """Every rank result of ``tests/test_torch_engine_mesh.py``."""
     from tpfl_torch.parallel.mesh import create_mesh
@@ -349,6 +390,7 @@ def engine_mesh_results(workdir: str) -> dict:
     out["checkpoints"] = _checkpoints(meshes, workdir)
     out["pipeline"] = _pipeline(meshes)
     out["membership"] = _membership(meshes)
+    out["donation"] = _donation(meshes)
     return out
 
 

@@ -58,9 +58,9 @@ class ConnectionTimeoutError(CommunicationError):
 
 # --- planes the port has not ported yet --------------------------------
 # Each seam the reference enters raises ``not_ported(what, ITEM)``, naming
-# the ROADMAP.md §1 queue item that ports it.
+# the ROADMAP.md §1 queue item that ports it (the simulation pool's chunk
+# sharded over ranks is the one left).
 MULTI_DEVICE_ITEM = "ROADMAP.md §1 item 7, multi-GPU and multi-host"
-REST_ITEM = "ROADMAP.md §1 item 8, the rest"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

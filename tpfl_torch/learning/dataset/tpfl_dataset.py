@@ -83,16 +83,19 @@ def _kind(v: Any) -> str:
     return "other"
 
 
-def _column(values: list) -> np.ndarray:
+def _column(values: list, coerce_ints: bool = False) -> np.ndarray:
     """One column as the reference's loaders type it: integers -> int64,
     numbers with a float or a missing value among them -> float64 (NaN
     for missing), strings -> str, booleans -> bool, lists -> a stacked
-    array; anything else an object array."""
+    array; anything else an object array. ``coerce_ints``: a number
+    column without a missing value whose floats are all whole and within
+    int64 becomes int64, as pandas' ``read_json`` coerces it."""
     kinds = {_kind(v) for v in values if v is not None}
     missing = any(v is None for v in values)
     if kinds and kinds <= {"int", "float"}:
-        if kinds == {"int"} and not missing:
-            return np.asarray(values, dtype=np.int64)
+        if not missing and (kinds == {"int"} or (coerce_ints and all(
+                math.isfinite(v) and v == int(v) and -2**63 <= v < 2**63 for v in values))):
+            return np.asarray([int(v) for v in values], dtype=np.int64)
         return np.asarray([np.nan if v is None else v for v in values], dtype=np.float64)
     dtypes = {"bool": bool, "str": str, "list": None}
     if len(kinds) == 1 and not missing and next(iter(kinds)) in dtypes:
@@ -100,14 +103,96 @@ def _column(values: list) -> np.ndarray:
     return np.asarray(values, dtype=object)
 
 
-def _records_to_columns(records: Iterable[Mapping[str, Any]]) -> dict[str, np.ndarray]:
+def _records_to_columns(records: Iterable[Mapping[str, Any]],
+                        coerce_ints: bool = False) -> dict[str, np.ndarray]:
     """Rows of dicts to typed columns, keys in first-appearance order and
     a missing key as a missing value."""
     rows = list(records)
     names: dict[str, None] = {}
     for row in rows:
         names.update(dict.fromkeys(row))
-    return {k: _column([row.get(k) for row in rows]) for k in names}
+    return {k: _column([row.get(k) for row in rows], coerce_ints) for k in names}
+
+
+# --- pandas' ujson float path (the reference's JSON loader) -------------------
+
+#: ``g_pow10`` of the ujson decoder pandas vendors: the fraction's scale.
+_FRACTION_POW10 = (1.0, 0.1, 0.01, 0.001, 0.0001, 0.00001, 0.000001, 0.0000001, 0.00000001,
+                   0.000000001, 0.0000000001, 0.00000000001, 0.000000000001,
+                   0.0000000000001, 0.00000000000001, 0.000000000000001)
+
+
+def _ujson_float(text: str) -> float:
+    """A JSON number with a fraction or an exponent as pandas' ujson
+    decoder reads it at ``precise_float=False`` (``ujson_loads``, and
+    ``read_json``'s default): the integer digits as an integer, at most
+    15 fraction digits as a float ``f``, ``(int + f · 10^−digits) · sign``,
+    times ``pow(10, exponent)``. Not correctly rounded: the same
+    operations in the same order give the same bits."""
+    i, sign = 0, 1.0
+    if text[0] == "-":
+        i, sign = 1, -1.0
+    whole = 0
+    while i < len(text) and text[i].isdigit():
+        whole = whole * 10 + ord(text[i]) - 48
+        i += 1
+    frac, digits = 0.0, 0
+    if i < len(text) and text[i] == ".":
+        i += 1
+        while i < len(text) and text[i].isdigit():
+            if digits < 15:
+                frac = frac * 10.0 + float(ord(text[i]) - 48)
+                digits += 1
+            i += 1
+    value = (float(whole) + frac * _FRACTION_POW10[digits]) * sign
+    if i < len(text) and text[i] in "eE":
+        i += 1
+        exp_sign = 1.0
+        if text[i] in "+-":
+            exp_sign = -1.0 if text[i] == "-" else 1.0
+            i += 1
+        exp = 0.0
+        while i < len(text) and text[i].isdigit():
+            exp = exp * 10.0 + float(ord(text[i]) - 48)
+            i += 1
+        try:
+            scale = math.pow(10.0, exp * exp_sign)
+        except OverflowError:  # C's pow gives inf
+            scale = math.inf
+        value = value * scale
+    return value
+
+
+def _ujson_dumps_float(x: float) -> str:
+    """``x`` as pandas' ``ujson_dumps`` writes it at its default
+    ``double_precision=10``: ``%.10g`` above 1e16 or below 1e-15 in
+    magnitude, else the whole part and the fraction times 1e10 truncated,
+    then rounded up past one half (and at exactly one half when odd or
+    zero), trailing zeros dropped; −0.0 writes as ``0.0``."""
+    a = -x if x < 0 else x
+    if a > 1e16 or (a != 0.0 and a < 1e-15):
+        return "%.10g" % x
+    whole = int(a)
+    scaled = (a - float(whole)) * 1e10
+    frac = int(scaled)
+    diff = scaled - frac
+    if diff > 0.5 or (diff == 0.5 and (frac == 0 or frac & 1)):
+        frac += 1
+    if frac >= 10**10:
+        frac, whole = 0, whole + 1
+    text = f"{whole}." + (f"{frac:010d}".rstrip("0") if frac else "0")
+    return "-" + text if x < 0 else text
+
+
+def _map_floats(tree: Any, fn: Callable[[float], float]) -> Any:
+    """``fn`` over every float of a parsed JSON value."""
+    if isinstance(tree, float):
+        return fn(tree)
+    if isinstance(tree, list):
+        return [_map_floats(v, fn) for v in tree]
+    if isinstance(tree, dict):
+        return {k: _map_floats(v, fn) for k, v in tree.items()}
+    return tree
 
 
 def _csv_value(text: str) -> Any:
@@ -201,21 +286,37 @@ class TpflDataset:
         """One ``"train"`` split from JSON Lines file(s), or from files
         holding one array of records (``field`` names the key of a
         top-level object that holds it), as ``load_dataset("json",
-        data_files=path, field=field)``. Floats parse exactly; the
-        reference's loader rounds them to 10 decimals in an array or under
-        ``field`` (it re-encodes those through ujson)."""
+        data_files=path, field=field)`` gives it, floats bit for bit:
+
+        - JSON Lines: floats parse exactly (pyarrow's reader);
+        - a file starting with ``[``: the loader reads it with pandas'
+          ujson (:func:`_ujson_float`), writes each record back with
+          ``ujson_dumps`` (10 decimals, :func:`_ujson_dumps_float`) and
+          parses that exactly;
+        - under ``field``: the same read and write, then pandas'
+          ``read_json`` reads the records with ujson again, and a number
+          column whose values are all whole becomes int64.
+
+        An array after leading blanks raises ``ValueError``, as the
+        reference's loader fails on it."""
         _refuse_kwargs("from_json", kwargs)
         records = []
         for p in _paths(path):
             with open(p) as f:
                 text = f.read()
-            if field is not None:
-                records.extend(json.loads(text)[field])
-            elif text.lstrip().startswith("["):
-                records.extend(json.loads(text))
-            else:
+            if field is None and not text.startswith("["):
+                if text.lstrip().startswith("["):
+                    raise ValueError(f"{p}: a JSON array must start the file (the reference's "
+                                     "loader reads it as JSON Lines and fails)")
                 records.extend(json.loads(line) for line in text.splitlines() if line.strip())
-        return cls({"train": _records_to_columns(records)})
+                continue
+            data = json.loads(text, parse_float=_ujson_float)
+            if field is not None:
+                data = _map_floats(data[field], lambda x: _ujson_float(_ujson_dumps_float(x)))
+            else:
+                data = _map_floats(data, lambda x: float(_ujson_dumps_float(x)))
+            records.extend(data)
+        return cls({"train": _records_to_columns(records, coerce_ints=field is not None)})
 
     @classmethod
     def from_parquet(cls, path: str, **kwargs: Any) -> "TpflDataset":

@@ -104,12 +104,29 @@ train step. :func:`nodes_mesh_axes` says whether the pool's chunk would
 shard (:func:`maybe_nodes_mesh` builds that mesh); the pool's fits
 across ranks are refused (``ROADMAP.md`` §1 item 7).
 
-Refused, naming ``ROADMAP.md`` §1 item 8: the XLA aliasing reports
-``donation_report`` / ``donation_analysis``.
+**Buffer donation** (``donate=``, default ``Settings.ENGINE_DONATE``,
+True in every profile, as the reference's ``donate_argnums=(0, 1, 2, 3)``):
+a donating window writes its state — params, SCAFFOLD's ``c_locals`` /
+``c_global`` and aux, as padded and placed for the window — in place on
+every round and returns those same tensors, so a window holds no staging
+copy of the node-stacked state and its outputs take no new memory. A
+caller tensor that already is window state (on the engine's device, at
+the padded shape, contiguous, not requiring grad, its storage not
+another state leaf's; on a mesh a placed ``DTensor`` whose local block
+is that) is written; anything else is copied once on entry and the copy
+is written, so the caller's original is never touched. A caller that
+reads a state tensor after handing it to a donating window must rebind
+from the outputs, or pass ``donate=False``: the window then starts from a
+copy of its state and the inputs stay intact. Both give the same bytes.
+:meth:`FederationEngine.program` is the window callable of one cache key
+in the reference's positional order; :func:`donation_analysis` and
+:meth:`FederationEngine.donation_report` count the aliasing by storage
+identity, in the reference's report schema.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Any, Callable, Optional, Sequence
 
@@ -120,7 +137,6 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor
 
 from tpfl_torch import DeviceLike, concurrency, resolve_device
-from tpfl_torch.exceptions import REST_ITEM, not_ported
 from tpfl_torch.learning import compression, serialization
 from tpfl_torch.learning.torch_learner import (
     OptimizerFactory,
@@ -199,6 +215,26 @@ def _to_device(x: Any, device: torch.device, dtype: Optional[torch.dtype] = None
 def _on(tree: Any, device: torch.device) -> Any:
     """Each host leaf of a tree on ``device`` (placed leaves untouched)."""
     return tree_map(lambda t: t if isinstance(t, DTensor) else _to_device(t, device), tree)
+
+
+def _tensors(tree: Any) -> list[torch.Tensor]:
+    """The tensors of a tree of dicts, lists and tuples, in order."""
+    found: list[torch.Tensor] = []
+    _map_tensors(found.append, tree)
+    return found
+
+
+def _storage(x: Any) -> Optional[int]:
+    """The address of the memory ``x`` lives in: a tensor's storage (a
+    ``DTensor``'s local block's), a numpy array's data; None otherwise.
+    Views of one storage share it."""
+    if isinstance(x, DTensor):
+        x = x.to_local()
+    if isinstance(x, torch.Tensor):
+        return x.untyped_storage().data_ptr()
+    if isinstance(x, np.ndarray):
+        return x.__array_interface__["data"][0]
+    return None
 
 
 def _map_tensors(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
@@ -545,7 +581,8 @@ class EngineWindow:
     :meth:`FederationEngine.dispatch_window` returns the handle once the
     window's work is enqueued; :attr:`params`, :attr:`aux`,
     :attr:`scaffold_state` and :attr:`losses` are device tensors that
-    chain straight into the next dispatch. A CUDA event recorded after
+    chain straight into the next dispatch (a donating one writes the
+    state tensors in place, so they then hold its outputs). A CUDA event recorded after
     the window's last launch answers :meth:`ready` (``event.query()``)
     and :meth:`wait` (``event.synchronize()``). :meth:`finalize` runs the
     window's host leg — profiler rows and the telemetry fan-out, over the
@@ -1150,56 +1187,67 @@ class FederationEngine:
                 agg = spmd.all_reduce(agg, mw.legs[1])
         return agg.to(p.dtype)
 
-    def _diffuse(self, tree: Params, wnorm: torch.Tensor, mw: Optional[_MeshWindow] = None,
-                 on_wire: bool = False) -> Params:
-        """The weighted mean of every leaf, broadcast back to every node."""
-        n = wnorm.shape[0]
+    def _broadcast(self, dst: Params, src: Params, wnorm: torch.Tensor,
+                   mw: Optional[_MeshWindow] = None, got: Optional[torch.Tensor] = None,
+                   on_wire: bool = False) -> None:
+        """The weighted mean of every ``src`` leaf written to every row of
+        the ``dst`` leaf in place; under a schedule (``got``, the arrivals)
+        the other rows take ``src``'s row (their local training)."""
+        for d, x in zip(tree_leaves(dst), tree_leaves(src)):
+            agg = self._leaf_mean(wnorm, x, mw, on_wire)
+            if got is None:
+                d.copy_(agg)
+            else:
+                torch.where(_rows(got, d), agg, x, out=d)
 
-        def leaf(p: torch.Tensor) -> torch.Tensor:
-            agg = self._leaf_mean(wnorm, p, mw, on_wire)
-            return agg[None].expand(n, *agg.shape).clone()
-
-        return tree_map(leaf, tree)
+    @staticmethod
+    def _keep(dst: Params, new: Params, sel: torch.Tensor,
+              got: Optional[torch.Tensor] = None) -> None:
+        """``new``'s rows where ``sel`` written into ``dst`` in place, the
+        other rows kept; under a schedule the rows that did not arrive
+        (``got``) take ``new``'s row."""
+        for d, x in zip(tree_leaves(dst), tree_leaves(new)):
+            torch.where(_rows(sel, d), x, d, out=d)
+            if got is not None:
+                torch.where(_rows(got, d), d, x, out=d)
 
     @torch.no_grad()
-    def _fold(self, kind: str, trained: Params, new_c: Params, new_aux: Params,
-              c_locals: Params, c_global: Params, aux: Params,
-              weights: torch.Tensor, valid: torch.Tensor,
-              mw: Optional[_MeshWindow] = None) -> tuple[Params, Params, Params, Params]:
+    def _fold(self, kind: str, state: tuple, trained: Params, new_c: Params, new_aux: Params,
+              weights: torch.Tensor, valid: torch.Tensor, mw: Optional[_MeshWindow] = None,
+              got: Optional[torch.Tensor] = None) -> None:
         """Masked FedAvg fold + broadcast, the SCAFFOLD server update and
-        the aux aggregation (``engine.py:1237-1319``): (params, c_locals,
-        c_global, aux). On a mesh (``mw``) ``weights`` / ``valid`` are this
-        rank's rows."""
+        the aux aggregation (``engine.py:1237-1319``), written into the
+        window's ``state`` (params, c_locals, c_global, aux) in place: no
+        tensor the size of the state is allocated. Under a schedule only
+        the arrivals (``got``) take the fold; stragglers keep their local
+        training (params, variates, aux). On a mesh (``mw``) ``weights`` /
+        ``valid`` are this rank's rows."""
+        params, c_locals, c_global, aux = state
         psum = None if mw is None else mw.psum
         wnorm = self._fold_weights(weights, valid, psum)
-        out_params = self._diffuse(trained, wnorm, mw, on_wire=True)
         sel = weights > 0
-
-        def keep_elected(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-            return torch.where(_rows(sel, new), new, old)
-
-        out_c, out_cg = c_locals, c_global
         if kind == "scaffold":
-            out_c = tree_map(keep_elected, new_c, c_locals)
             # c += (|S|/N) · uniform mean over ELECTED of delta_c, N the
-            # LOGICAL federation size (pad rows are never elected).
+            # LOGICAL federation size (pad rows are never elected); read
+            # before the elected rows of c_locals move.
             mask = sel.to(torch.float32)
             um = self._fold_weights(mask, valid, psum)
             frac = _psum(mw, mask.sum()) / self.n_nodes
             f32 = torch.float32
-            out_cg = tree_map(
-                lambda cg, n, o: (cg.to(f32) + frac * self._leaf_mean(
-                    um, n.to(f32) - o.to(f32), mw)).to(cg.dtype),
-                c_global, new_c, c_locals)
+            for cg, n, o in zip(tree_leaves(c_global), tree_leaves(new_c),
+                                tree_leaves(c_locals)):
+                cg.copy_((cg.to(f32) + frac * self._leaf_mean(
+                    um, n.to(f32) - o.to(f32), mw)).to(cg.dtype))
+            self._keep(c_locals, new_c, sel, got)
+        self._broadcast(params, trained, wnorm, mw, got, on_wire=True)
         if kind == "plain":
-            out_aux = aux
-        elif self.aux_mode == "local":
+            return
+        if self.aux_mode == "local":
             # FedBN: stats stay per node — a w=0 node did not take part,
             # so its private stats do not advance.
-            out_aux = tree_map(keep_elected, new_aux, aux)
+            self._keep(aux, new_aux, sel, got)
         else:
-            out_aux = self._diffuse(new_aux, wnorm, mw)
-        return out_params, out_c, out_cg, out_aux
+            self._broadcast(aux, new_aux, wnorm, mw, got)
 
     @staticmethod
     def _per_node_sq(tree: Params) -> torch.Tensor:
@@ -1225,10 +1273,11 @@ class FederationEngine:
                wire_bpm: Optional[float] = None,
                mw: Optional[_MeshWindow] = None) -> tuple[tuple, torch.Tensor, Optional[tuple]]:
         """One round (``round_body``, ``engine.py:1452-1584``): (state,
-        losses, telemetry stats or None). ``sched`` is a fedbuff round's
-        (arrivals, taus, staleness exponent); ``wire_bpm``, one model's
-        wire bytes, turns the telemetry stats on. On a mesh (``mw``) ``w`` /
-        ``valid`` and every tensor are this rank's rows."""
+        losses, telemetry stats or None); the fold writes ``state`` in
+        place and the same tensors come back. ``sched`` is a fedbuff
+        round's (arrivals, taus, staleness exponent); ``wire_bpm``, one
+        model's wire bytes, turns the telemetry stats on. On a mesh
+        (``mw``) ``w`` / ``valid`` and every tensor are this rank's rows."""
         params, c_locals, c_global, aux = state
         split = None if mw is None else mw.split[0]
         trained, new_c, new_aux, losses = self._local_train(
@@ -1244,7 +1293,7 @@ class FederationEngine:
                 trained = tree_map(codec, trained)
             else:  # the codec's scale and top-k see each node's whole leaf
                 trained = mw.slice(tree_map(codec, mw.gather(trained, split)), split)
-            node_stats = None
+            node_stats = start_rows = None
             if wire_bpm is not None:
                 f32 = torch.float32
                 t_whole = trained if split is None else mw.gather(trained, split)
@@ -1258,32 +1307,21 @@ class FederationEngine:
                 }
                 if sched is not None:
                     node_stats["staleness"] = tau * arrive - (1.0 - arrive)
-        out = self._fold(kind, trained, new_c, new_aux, c_locals, c_global, aux, w, valid, mw)
-        if sched is not None:
-            # Only arrivals take the broadcast; stragglers keep their
-            # local training (params, variates, aux).
-            got = arrive > 0
-            out_params, out_c, out_cg, out_aux = out
-
-            def took_fold(new: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
-                return torch.where(_rows(got, new), new, local)
-
-            out_params = tree_map(took_fold, out_params, trained)
-            if kind == "scaffold":
-                out_c = tree_map(took_fold, out_c, new_c)
-            if kind != "plain":
-                out_aux = tree_map(took_fold, out_aux, new_aux)
-            out = (out_params, out_c, out_cg, out_aux)
+                # Row 0 of the round-start params, one model: the fold
+                # overwrites them.
+                start_rows = [p[0].to(f32, copy=True) for p in canonical_leaves(p_whole)]
+        self._fold(kind, state, trained, new_c, new_aux, w, valid, mw,
+                   None if sched is None else arrive > 0)
         if wire_bpm is not None:
             with torch.no_grad():
                 # The fold broadcasts one aggregate, so row 0 carries the
                 # global model's stats (engine.py:1526-1573); on a mesh,
                 # each rank's first row, mean-reduced over the valid ones.
-                o_whole = out[0] if split is None else mw.gather(out[0], split)
+                o_whole = params if split is None else mw.gather(params, split)
                 moved_sq = torch.zeros((), dtype=torch.float32)
                 out_sq = torch.zeros((), dtype=torch.float32)
-                for o, p in zip(canonical_leaves(o_whole), canonical_leaves(p_whole)):
-                    o0, p0 = o[0].to(torch.float32), p[0].to(torch.float32)
+                for o, p0 in zip(canonical_leaves(o_whole), start_rows):
+                    o0 = o[0].to(torch.float32)
                     moved_sq = moved_sq + (o0 - p0).pow(2).sum()
                     out_sq = out_sq + (o0 * o0).sum()
                 delta_norm, model_norm = moved_sq.sqrt(), out_sq.sqrt()
@@ -1306,8 +1344,8 @@ class FederationEngine:
                     round_stats["dcn_bytes"] = torch.tensor(
                         float(mw.hosts), dtype=torch.float32) * torch.tensor(
                         float(wire_bpm), dtype=torch.float32)
-            return out, losses, (node_stats, round_stats)
-        return out, losses, None
+            return state, losses, (node_stats, round_stats)
+        return state, losses, None
 
     def round(self, params: Params, xs: Any, ys: Any, weights: Optional[Any] = None,
               epochs: int = 1, aux: Optional[Any] = None,
@@ -1341,10 +1379,12 @@ class FederationEngine:
         and the fold — ``AttackPlan.engine_scales``'s seeded sign-flip
         adversary; None runs no attack op at all. ``schedule`` (a
         :class:`FedBuffSchedule` of ``n_rounds`` rows) runs the window's
-        rounds as FedBuff rounds. ``donate`` is accepted for parity with
-        the reference, whose programs may consume their input buffers:
-        the port never writes its input tensors, so both values give the
-        same bytes and leave the inputs intact.
+        rounds as FedBuff rounds. ``donate`` (None: ``Settings.ENGINE_DONATE``,
+        read at each call) writes the window's state in place and returns
+        those tensors: a caller tensor that already is window state (see
+        the module's docstring) holds the outputs afterwards, anything
+        else is copied once on entry. ``donate=False`` leaves every input
+        intact. Both give the same bytes.
 
         Returns (params, losses) — with ``aux`` (possibly ``{}``)
         (params, aux, losses) — and for algorithm="scaffold"
@@ -1359,13 +1399,15 @@ class FederationEngine:
     def _prepare_args(self, params: Params, xs: Any, ys: Any, weights: Optional[Any],
                       n_rounds: int, aux: Optional[Any],
                       scaffold_state: Optional[tuple[Any, Any]], attack_scales: Optional[Any],
-                      schedule: Optional[FedBuffSchedule]) -> tuple:
-        """Pad, validate and place one window's inputs: (kind, state, xs,
-        ys, weights, attack scales or None, (arrivals, taus) or None, the
-        window's :class:`_MeshWindow` or None). On a mesh the state and
-        data are placed (the mesh view keeps the ``DTensor`` s for the
-        outputs' placements) and every returned tensor is this rank's
-        block."""
+                      schedule: Optional[FedBuffSchedule], donate: bool = False) -> tuple:
+        """Pad, validate and place one window's inputs: (kind, the window
+        program's arguments in the reference's order ``[params, c_locals,
+        c_global, aux, xs, ys, weights, valid(, attack scales)(, arrivals,
+        taus)]``). Host state (numpy, or CPU tensors for the card) moves
+        to the engine's device. On a mesh the state and data are placed
+        ``DTensor`` s; the weights, mask, scales and schedule stay whole
+        (each rank takes its rows in :meth:`_localize`). Under ``donate``
+        the state is the window's own (:meth:`_own_state`)."""
         kind = self._kind(aux)
         if kind == "scaffold" and scaffold_state is None:
             raise ValueError(
@@ -1377,14 +1419,14 @@ class FederationEngine:
             raise ValueError(
                 f"per-round weights have {w.shape[0]} rows for {n_rounds} rounds"
             )
-        scales = None
+        extra = []
         if attack_scales is not None:
             scales = self.pad_attack_scales(attack_scales)
             if scales.dim() == 2 and scales.shape[0] != n_rounds:
                 raise ValueError(
                     f"per-round attack_scales have {scales.shape[0]} rows for {n_rounds} rounds"
                 )
-        sched = None
+            extra.append(scales)
         if schedule is not None:
             if schedule.n_rounds != n_rounds:
                 raise ValueError(
@@ -1392,41 +1434,86 @@ class FederationEngine:
             if schedule.n_nodes != self.n_nodes:
                 raise ValueError(f"schedule has {schedule.n_nodes} nodes for {self.n_nodes}")
             # Pad rows never arrive and carry zero staleness.
-            extra = ((0, 0), (0, self.padded_nodes - self.n_nodes))
-            sched = tuple(_to_device(np.pad(np.asarray(a, np.float32), extra), self.device)
-                          for a in (schedule.arrivals, schedule.taus))
-        c_locals, c_global = {}, {}
-        if kind == "scaffold":
-            c_locals, c_global = scaffold_state
-            c_locals = self.pad_stacked(c_locals)
-        state = (self.pad_stacked(params), c_locals, c_global,
-                 {} if aux is None else self.pad_stacked(aux))
+            pad = ((0, 0), (0, self.padded_nodes - self.n_nodes))
+            extra += [_to_device(np.pad(np.asarray(a, np.float32), pad), self.device)
+                      for a in (schedule.arrivals, schedule.taus)]
+        c_locals, c_global = scaffold_state if kind == "scaffold" else ({}, {})
+        caller = (params, c_locals, c_global, {} if aux is None else aux)
+        params, c_locals, c_global, aux = (_on(tree, self.device) for tree in caller)
+        state = (self.pad_stacked(params), self.pad_stacked(c_locals), c_global,
+                 self.pad_stacked(aux))
+        if self.mesh is not None:
+            state = (self._shard_state(state[0]), self._shard_state(state[1]),
+                     self._shard_global(state[2]), self._shard_state(state[3]))
+        if donate:
+            state = self._own_state(state, caller)
         xs, ys = self.shard_data(xs, ys)
+        return kind, [*state, xs, ys, w, self.valid, *extra]
+
+    def _own_state(self, state: tuple, caller: tuple) -> tuple:
+        """The state a donating window writes: each padded, placed leaf
+        that shares memory with a caller's leaf passes through only when
+        the caller's leaf already is window state — a tensor (a placed
+        ``DTensor`` on a mesh, whose local block this is), contiguous, not
+        requiring grad, and no earlier leaf's storage — and is copied once
+        otherwise. A leaf that padding or placement made new is kept."""
+        mine = {_storage(c) for tree in caller for c in tree_leaves(tree)} - {None}
+        placed = DTensor if self.mesh is not None else torch.Tensor
+        seen: set = set()
+
+        def own(t: Any, c: Any) -> Any:
+            local = t.to_local() if isinstance(t, DTensor) else t
+            ptr = _storage(local)
+            if ptr in seen or (ptr in mine and not (
+                    isinstance(c, placed) and local.is_contiguous()
+                    and not local.requires_grad)):
+                local = local.detach().clone(memory_format=torch.contiguous_format)
+                ptr = _storage(local)
+                t = spmd.place_like(local, t) if isinstance(t, DTensor) else local
+            seen.add(ptr)
+            return t
+
+        return tuple(tree_map(own, tree, c) for tree, c in zip(state, caller))
+
+    def _localize(self, args: Sequence[Any], a_ndim: int, fedbuff: bool) -> tuple:
+        """A window program's arguments as its rounds take them: (state,
+        xs, ys, weights, attack scales or None, (arrivals, taus) or None,
+        valid, the window's :class:`_MeshWindow` or None) — this rank's
+        blocks on a mesh, the placed state kept by the mesh view for the
+        outputs' placements; the data must come placed (:meth:`shard_data`)."""
+        state, (xs, ys, w, valid), extra = tuple(args[:4]), args[4:8], list(args[8:])
+        scales = extra.pop(0) if a_ndim else None
+        sched = (extra[0], extra[1]) if fedbuff else None
         if self.mesh is None:
-            return kind, state, xs, ys, w, scales, sched, None
-        placed = (self._shard_state(state[0]), self._shard_state(state[1]),
-                  self._shard_global(_on(c_global, self.device)), self._shard_state(state[3]))
+            return state, xs, ys, w, scales, sched, valid, None
         mesh = self.mesh
 
-        def rows(t: torch.Tensor) -> torch.Tensor:
+        def rows(t: Any) -> Any:
+            if t is None or isinstance(t, DTensor):
+                return None if t is None else t.to_local()
             sh = federation_sharding(mesh) if t.dim() == 1 else round_node_sharding(mesh)
             return spmd.local_slice(t, mesh, sh.placements)
 
-        state = tuple(tree_map(lambda t: t.to_local(), tree) for tree in placed)
-        return (kind, state, xs.to_local(), ys.to_local(), rows(w),
-                None if scales is None else rows(scales),
-                None if sched is None else tuple(rows(a) for a in sched),
-                _MeshWindow(self, placed))
+        mw = _MeshWindow(self, state)
+        local = tuple(tree_map(lambda t: t.to_local(), tree) for tree in state)
+        return (local, xs.to_local(), ys.to_local(), rows(w), rows(scales),
+                None if sched is None else tuple(rows(a) for a in sched), rows(valid), mw)
 
     def _run_window(self, kind: str, state: tuple, xs: torch.Tensor, ys: torch.Tensor,
                     w: torch.Tensor, scales: Optional[torch.Tensor], sched: Optional[tuple],
                     epochs: int, n_rounds: int, codec: tuple[int, float], telemetry: bool,
-                    stale_exp: float,
-                    mw: Optional[_MeshWindow] = None) -> tuple[tuple, torch.Tensor, Optional[dict]]:
+                    stale_exp: float, mw: Optional[_MeshWindow] = None,
+                    valid: Optional[torch.Tensor] = None, *,
+                    donate: bool = True) -> tuple[tuple, torch.Tensor, Optional[dict]]:
         """Enqueue a window's rounds: (state, last losses, telemetry carry
-        or None), this rank's blocks on a mesh (``mw``)."""
+        or None), this rank's blocks on a mesh (``mw``). Donating, the
+        rounds write ``state`` itself and return it; else they write a
+        copy made here, and ``state`` stays intact."""
+        if not donate:
+            state = tuple(tree_map(lambda t: t.detach().clone(), tree) for tree in state)
         roundtrip = compression.engine_codec_roundtrip_nodes(*codec)
-        valid = self.valid if mw is None else mw.valid
+        if valid is None:
+            valid = self.valid if mw is None else mw.valid
         if mw is not None and mw.host_leg and codec[0]:
             mw.dcn_codec = compression.engine_codec_roundtrip(*codec)
         n_local = valid.shape[0]
@@ -1478,10 +1565,12 @@ class FederationEngine:
     def _window(self, params: Params, xs: Any, ys: Any, weights: Optional[Any], epochs: int,
                 n_rounds: int, aux: Optional[Any], scaffold_state: Optional[tuple[Any, Any]],
                 codec: tuple[int, float]) -> tuple:
-        """A window with the codec given as (bits, top-k fraction), no
-        telemetry carry and no host leg (``VmapFederation.round``)."""
-        kind, state, xs, ys, w, _, _, mw = self._prepare_args(
-            params, xs, ys, weights, n_rounds, aux, scaffold_state, None, None)
+        """A donating window with the codec given as (bits, top-k
+        fraction), no telemetry carry and no host leg
+        (``VmapFederation.round``, whose reference programs donate)."""
+        kind, args = self._prepare_args(params, xs, ys, weights, n_rounds, aux, scaffold_state,
+                                        None, None, donate=True)
+        state, xs, ys, w, _, _, _, mw = self._localize(args, 0, False)
         state, losses, _ = self._run_window(kind, state, xs, ys, w, None, None, epochs,
                                             n_rounds, codec, False, 0.0, mw)
         state, losses = self._placed(state, losses, mw)
@@ -1502,9 +1591,12 @@ class FederationEngine:
         schedule: Optional[FedBuffSchedule] = None,
     ) -> EngineWindow:
         """Enqueue one window and return its :class:`EngineWindow` without
-        a host sync (arguments as :meth:`run_rounds`; ``donate`` changes
-        nothing). The window's outputs chain into the next dispatch as
-        device tensors (``DTensor`` s on a mesh); its host leg runs at
+        a host sync (arguments as :meth:`run_rounds`). The window's
+        outputs chain into the next dispatch as device tensors
+        (``DTensor`` s on a mesh); under donation they are the state
+        tensors the next window writes in place, so a caller keeps a
+        window's values by copying them before that dispatch (stream
+        order covers a copy enqueued in between). Its host leg runs at
         ``finalize``. A failure while enqueueing records ``engine_failure``
         in the ``engine`` flight ring, dumps it under
         ``Settings.TELEMETRY_DUMP_DIR`` and re-raises. Under
@@ -1512,22 +1604,24 @@ class FederationEngine:
         this dispatch's knobs raises ``TraceContractError`` before it runs;
         under ``Settings.RANK_CONTRACTS`` the dispatch appends its receipt
         to :mod:`~tpfl_torch.parallel.ranksafe`'s log."""
-        kind, state, xs, ys, w, scales, sched, mw = self._prepare_args(
-            params, xs, ys, weights, n_rounds, aux, scaffold_state, attack_scales, schedule)
+        donate = bool(Settings.ENGINE_DONATE) if donate is None else bool(donate)
+        kind, args = self._prepare_args(params, xs, ys, weights, n_rounds, aux, scaffold_state,
+                                        attack_scales, schedule, donate)
+        a_ndim = 0 if attack_scales is None else args[8].dim()
+        fedbuff = schedule is not None
         tele_on = bool(Settings.ENGINE_TELEMETRY)
         codec = (compression.resolve_engine_codec(Settings.ENGINE_WIRE_CODEC),
                  float(Settings.WIRE_TOPK_FRAC))
         # Read at dispatch, 0 for a sync window.
-        stale_exp = float(Settings.ASYNC_STALENESS_EXP) if sched is not None else 0.0
+        stale_exp = float(Settings.ASYNC_STALENESS_EXP) if fedbuff else 0.0
         prof = profiling.rounds.enabled()
         node_tag = f"engine:{profiling.module_tag(self.module)}"
         window_start = self._rounds_done
         if prof:
             self._windows += 1
             profiling.rounds.begin_round(node_tag, self._windows)
-        key = self._program_key(kind, epochs, n_rounds, w.dim(), donate is not False, tele_on,
-                                0 if scales is None else scales.dim(), codec, sched is not None,
-                                stale_exp)
+        key = self._program_key(kind, epochs, n_rounds, args[6].dim(), donate, tele_on, a_ndim,
+                                codec, fedbuff, stale_exp)
         run = self._program(key)
         if Settings.TRACE_CONTRACTS:
             # The fetched program's build-time stamp must match this
@@ -1535,6 +1629,7 @@ class FederationEngine:
             concurrency.check_contract(run, self._contract(key))
         if Settings.RANK_CONTRACTS:
             ranksafe.record_dispatch(key, self._program_fingerprint(key))
+        state, xs, ys, w, scales, sched, _, mw = self._localize(args, a_ndim, fedbuff)
         t0 = time.monotonic() if (prof or tele_on) else 0.0
         try:
             state, losses, tele = run(kind, state, xs, ys, w, scales, sched, epochs, n_rounds,
@@ -1560,8 +1655,8 @@ class FederationEngine:
         """The reference's program cache key (``engine.py:1790-1935``):
         the variant axes, the model axis and layout, the padded capacity
         tier, the mesh's ``nodes`` and ``hosts`` sizes and the population
-        census (``donate`` None counts as the reference's default True).
-        Without a mesh the model axis is 1 and the layout "replicated"."""
+        census, in :meth:`program`'s argument order. Without a mesh the
+        model axis is 1 and the layout "replicated"."""
         pop = 0 if self.population is None else int(self.population.registered)
         mesh_layout = "replicated" if self.mesh is None else self.layout.name
         return (kind, int(epochs), int(n_rounds), int(w_ndim), bool(donate), bool(telemetry),
@@ -1588,13 +1683,55 @@ class FederationEngine:
                       + (f":h{hosts}" if hosts > 1 else "")
                       + (f":pop{pop}" if pop else ""))
             # TRACE_CONTRACTS (off = no wrapper): stamp the program with the
-            # knob values its cache key encodes.
+            # knob values its cache key encodes. The donation mode is the
+            # program's own, as the reference's donate_argnums.
             fn = self._programs[key] = concurrency.stamp_contract(
                 profiling.observatory.wrap(
-                    self._run_window,
+                    functools.partial(self._run_window, donate=bool(key[4])),
                     f"engine_round:{kind}x{n_rounds}{suffix}:{profiling.module_tag(self.module)}"),
                 self._contract(key))
         return fn
+
+    def program(self, kind: str, epochs: int, n_rounds: int = 1, w_ndim: int = 1,
+                donate: bool = True, telemetry: bool = False, a_ndim: int = 0, codec: int = 0,
+                topk_frac: float = 0.05, model_axes: int = 1, layout: str = "replicated",
+                fedbuff: bool = False, stale_exp: float = 0.0, capacity: int = 0,
+                mesh_nodes: int = 1, mesh_hosts: int = 1, pop_size: int = 0) -> Callable:
+        """The window callable of one cache key (``engine.py:1856-1935`` of
+        the reference): ``fn(params, c_locals, c_global, aux, xs, ys,
+        weights, valid, *extra) -> (params, c_locals, c_global, aux,
+        losses[, telemetry carry])``, ``extra`` the attack scales when
+        ``a_ndim`` and then the arrivals and taus when ``fedbuff``, every
+        argument as a dispatch prepares it (padded; on a mesh the state and
+        data placed). ``kind`` is "plain", "aux" or "scaffold"; ``codec``
+        the codec's bits (``compression.resolve_engine_codec``). Each key
+        axis is the reference's, ``donate`` included (a separate slot):
+        a donating program consumes its state arguments 0-3 — writes them
+        in place and returns them — so they must be distinct contiguous
+        tensors of the window's padded shapes; ``donate=False`` leaves them
+        intact. Time a donating program with
+        :func:`~tpfl_torch.management.profiling.best_of_wall_donated`."""
+        key = (kind, int(epochs), int(n_rounds), int(w_ndim), bool(donate), bool(telemetry),
+               int(a_ndim), int(codec), float(topk_frac), int(model_axes), str(layout),
+               bool(fedbuff), float(stale_exp), int(capacity), int(mesh_nodes),
+               int(mesh_hosts), int(pop_size))
+        if key in self._programs:  # a miss counts in _program
+            profiling.observatory.cache_event("engine_programs", hit=True)
+        run = self._program(key)
+
+        def window(params: Params, c_locals: Params, c_global: Params, aux: Params, xs: Any,
+                   ys: Any, weights: torch.Tensor, valid: torch.Tensor, *extra: Any) -> tuple:
+            state, lxs, lys, w, scales, sched, lvalid, mw = self._localize(
+                (params, c_locals, c_global, aux, xs, ys, weights, valid, *extra),
+                int(a_ndim), bool(fedbuff))
+            state, losses, tele = run(kind, state, lxs, lys, w, scales, sched, int(epochs),
+                                      int(n_rounds), (int(codec), float(topk_frac)),
+                                      bool(telemetry), float(stale_exp), mw, lvalid)
+            state, losses = self._placed(state, losses, mw)
+            return (*state, losses) + ((tele,) if telemetry else ())
+
+        window.donates = bool(donate)  # type: ignore[attr-defined]
+        return window
 
     @staticmethod
     def _contract(key: tuple) -> dict:
@@ -1619,9 +1756,34 @@ class FederationEngine:
                          *_build.loaded_libraries()])
         return ranksafe.hlo_fingerprint(text)
 
-    def donation_report(self, *args: Any, **kwargs: Any) -> dict:
-        """The reference's compiled-HLO buffer-donation report."""
-        raise not_ported("FederationEngine.donation_report (an XLA aliasing report)", REST_ITEM)
+    def donation_report(self, params: Params, xs: Any, ys: Any,
+                        weights: Optional[Any] = None, epochs: int = 1, n_rounds: int = 1,
+                        aux: Optional[Any] = None,
+                        scaffold_state: Optional[tuple[Any, Any]] = None) -> dict:
+        """Buffer-donation inspection of the DONATING window program this
+        engine would dispatch for these inputs (``engine.py:2113-2146`` of
+        the reference: the same argument preparation and the same
+        ``Settings``-resolved telemetry / codec variant): the program runs
+        once on a copy of the prepared state — the caller's tensors are
+        unchanged — and :func:`donation_analysis` counts which state
+        leaves (params, SCAFFOLD variates, aux) come back as outputs in
+        their own storage. On a mesh every rank must call it together.
+        ``clean`` is the gate."""
+        kind, args = self._prepare_args(params, xs, ys, weights, n_rounds, aux, scaffold_state,
+                                        None, None)
+
+        def copy(t: Any) -> Any:
+            if isinstance(t, DTensor):
+                return spmd.place_like(t.to_local().detach().clone(), t)
+            return t.detach().clone()
+
+        args[:4] = [tree_map(copy, tree) for tree in args[:4]]
+        codec = (compression.resolve_engine_codec(Settings.ENGINE_WIRE_CODEC),
+                 float(Settings.WIRE_TOPK_FRAC))
+        fn = self.program(*self._program_key(kind, epochs, n_rounds, args[6].dim(), True,
+                                             bool(Settings.ENGINE_TELEMETRY), 0, codec,
+                                             False, 0.0))
+        return donation_analysis(fn, tuple(args))
 
     def _dump_flight(self, exc: Exception, kind: str, n_rounds: int) -> None:
         """Black-box a failed dispatch: an ``engine_failure`` event in the
@@ -1746,6 +1908,37 @@ def build_masked_local_fit(module: Any, opt: SGDMomentum, loss_fn: Callable, has
 build_batched_fit_program = build_masked_local_fit
 
 
-def donation_analysis(*args: Any, **kwargs: Any) -> dict:
-    """The reference's compiled-HLO donation analysis."""
-    raise not_ported("parallel.engine.donation_analysis (an XLA aliasing report)", REST_ITEM)
+def donation_analysis(fn: Callable, args: tuple,
+                      donate_argnums: tuple[int, ...] = (0, 1, 2, 3)) -> dict:
+    """A window program's buffer donation, by storage identity: runs
+    ``fn(*args)`` once — it consumes ``args`` as the donating program
+    does, so pass copies of what you keep — and counts, in the
+    reference's schema (``engine.py:2450-2491``)::
+
+        {"donated_leaves": int,   # tensor leaves under donate_argnums
+         "aliased": int,          # donated leaves whose storage an output holds
+         "unaliased_donors": int, # donated leaves no output holds
+         "output_aliases": int,   # output leaves in a donated leaf's storage
+         "clean": bool}           # all three columns agree
+
+    A ``DTensor`` counts by its local block. A program built with
+    ``donate=False`` (``fn.donates`` False) takes no donation: it has no
+    donors, as the reference's lowering marks none. ``clean`` is the
+    gate: a donating window that returns fresh tensors fails it. Storage
+    identity cannot see a copy back into the inputs; the peak memory of a
+    donating window against a non-donating one can (``chip_smoke.py``'s
+    phase 24)."""
+    donated = [_storage(t) for i in donate_argnums for t in _tensors(args[i])]
+    outputs = [_storage(t) for t in _tensors(fn(*args))]
+    held, donors = set(outputs), set(donated)
+    aliased = sum(p in held for p in donated)
+    unaliased = len(donated) - aliased if getattr(fn, "donates", True) else 0
+    output_aliases = sum(p in donors for p in outputs)
+    return {
+        "donated_leaves": len(donated),
+        "aliased": aliased,
+        "unaliased_donors": unaliased,
+        "output_aliases": output_aliases,
+        "clean": bool(unaliased == 0 and aliased == len(donated)
+                      and output_aliases == len(donated)),
+    }

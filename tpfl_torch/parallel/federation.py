@@ -97,7 +97,9 @@ class VmapFederation:
               epochs: int = 1, aux: Optional[Any] = None,
               scaffold_state: Optional[tuple[Any, Any]] = None) -> tuple:
         """One federated round, with no wire codec (the reference's
-        round program, whatever ``ENGINE_WIRE_CODEC`` says). Returns
+        round program, whatever ``ENGINE_WIRE_CODEC`` says), donating its
+        state as the reference's round programs do: a caller tensor that
+        already is window state holds the outputs afterwards. Returns
         ``(params, losses)``; with ``aux`` (possibly ``{}``) ``(params,
         aux, losses)``; with algorithm="scaffold" ``(params, aux,
         (c_locals, c_global), losses)`` (``aux`` is ``{}`` for aux-free
@@ -113,13 +115,14 @@ class VmapFederation:
     def run_rounds(self, params: Params, xs: Any, ys: Any, weights: Optional[Any] = None,
                    epochs: int = 1, n_rounds: int = 1, aux: Optional[Any] = None,
                    scaffold_state: Optional[tuple[Any, Any]] = None,
-                   schedule: Optional[Any] = None) -> tuple:
+                   donate: Optional[bool] = None, schedule: Optional[Any] = None) -> tuple:
         """``n_rounds`` federated rounds through the engine (the wire codec
-        as ``Settings.ENGINE_WIRE_CODEC`` says); returns like
+        as ``Settings.ENGINE_WIRE_CODEC`` says, ``donate`` as
+        :meth:`FederationEngine.run_rounds` takes it); returns like
         :meth:`round`."""
         return self.engine.run_rounds(
             params, xs, ys, weights=weights, epochs=epochs, n_rounds=n_rounds, aux=aux,
-            scaffold_state=scaffold_state, schedule=schedule,
+            scaffold_state=scaffold_state, donate=donate, schedule=schedule,
         )
 
     def evaluate(self, params: Params, xs: Any, ys: Any,

@@ -13,7 +13,9 @@ ahead of the host::
            | stage N+2's data on the prefetch thread ; dispatch N+2 ...
 
 Window N+1 is dispatched with window N's output tensors before window N
-is finalized. The measured device-idle gap before each dispatch
+is finalized; a donating window N+1 writes them in place, behind window
+N's work on the same stream, so a cadence snapshot's host copy of window
+N's state is enqueued before window N+1 is. The measured device-idle gap before each dispatch
 (:attr:`WindowPipeline.idle_gaps`, probed with the previous window's
 CUDA event) shrinks to the argument preparation.
 
@@ -227,7 +229,10 @@ class WindowPipeline:
         state is copied to the host behind the window and handed to
         ``snapshot_to(rounds_done, export_state(...))`` at the next loop
         top. ``owner`` registers the run for :func:`interrupt_for`.
-        ``donate`` is passed on (it changes nothing in the port)."""
+        ``donate`` is passed on to every dispatch: donating, each window
+        writes the state it was given — window N+1 the outputs of window
+        N, in stream order after them — and only the first window's may
+        be the caller's tensors."""
         eng = self.engine
         window = max(1, int(window if window is not None
                             else Settings.SHARD_ROUNDS_PER_DISPATCH))

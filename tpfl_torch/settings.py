@@ -25,7 +25,7 @@ from __future__ import annotations
 import os
 from typing import Any
 
-from tpfl_torch.exceptions import REST_ITEM, not_ported
+from tpfl_torch.exceptions import not_ported
 
 
 class Settings:
@@ -579,10 +579,15 @@ class Settings:
     on a background thread."""
 
     ENGINE_DONATE: bool = True
-    """Buffer donation of the reference engine's dispatch. The port's
-    ``run_rounds`` takes ``donate=`` for parity and never consumes its
-    inputs. Carried for parity; the port does not read it
-    (``UNPORTED_KNOBS``: the reference's donation report, item 8)."""
+    """Buffer donation of the engine's windows, read at each
+    ``run_rounds`` / ``dispatch_window`` / ``round`` call that passes
+    ``donate=None``: a donating window writes its state (params,
+    SCAFFOLD's variates, aux, padded and placed) in place every round and
+    returns those tensors, so it holds no staging copy of the node-stacked
+    state. A caller tensor that already is window state holds the outputs
+    afterwards; anything else is copied once on entry. A caller that reads
+    a state tensor after handing it to a window must rebind from the
+    outputs or pass ``donate=False`` (inputs intact, the same bytes)."""
 
     ELASTIC_CAPACITY_MIN: int = 2
     """Floor of ``MembershipView``'s capacity tiers."""
@@ -1008,7 +1013,6 @@ UNPORTED_SWITCHES: dict[str, tuple[str, Any, tuple[str, ...]]] = {}
 #: or a module of the reference that ``tpfl_torch`` does not have. None
 #: marks a knob that the reference reads nowhere either.
 UNPORTED_KNOBS: dict[str, "tuple[str, str] | None"] = {
-    "ENGINE_DONATE": ("parallel.FederationEngine.donation_report", REST_ITEM),
     "DEFAULT_DTYPE": None,
     "EXACT_AGGREGATION": None,
 }
