@@ -17,10 +17,10 @@ samples_per_node=200, batch_size=25, learning_rate=0.1)``, STAR,
 ``ELECTION = "hash"``, ``TRAIN_SET_SIZE = 10``, the test profile,
 ``QUARANTINE_ENABLED`` and ``LEDGER_ENABLED``.
 
-- default, phase 14's cell: seed 4242, 6 rounds, sign flips on nodes 1
+- default, phase 14's cell: seed 4242, 4 rounds, sign flips on nodes 1
   and 4 and additive noise (std 0.1) on nodes 6 and 8;
 - ``--async``, phase 16c's defended arm (the tier's async variant,
-  ``bench.py:2939-3033``): seed 4243, 8 rounds, ``ASYNC_ROUNDS``
+  ``bench.py:2939-3033``): seed 4243, 5 rounds, ``ASYNC_ROUNDS``
   serialized with ``ASYNC_BUFFER_K`` = 10, ``ASYNC_STALENESS_MAX`` 2 and
   ``ASYNC_STALENESS_EXP`` 0.5, ``stale_flood`` on node 1 and
   ``withhold_replay`` from round 2 on node 4.
@@ -66,8 +66,8 @@ import numpy as np
 import torch
 
 NODES, WITHHOLD_START = 10, 2
-SYNC = {"seed": 4242, "rounds": 6, "adversaries": (1, 4, 6, 8)}
-ASYNC = {"seed": 4243, "rounds": 8, "adversaries": (1, 4)}
+SYNC = {"seed": 4242, "rounds": 4, "adversaries": (1, 4, 6, 8)}
+ASYNC = {"seed": 4243, "rounds": 5, "adversaries": (1, 4)}
 
 
 def configure(settings, async_: bool) -> None:

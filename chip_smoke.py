@@ -154,15 +154,15 @@
    ``conv_dw`` / ``conv_dx`` at the federations' own shapes (both CNN
    layers at one node of 25 and of 32 bf16 images), wgmma asserted, held
    to the plain versions and timed; then ten Nodes of the CNN cell's model
-   (bf16, the kernels at N = 1) on a STAR, seed 4242, 6 rounds of 4
+   (bf16, the kernels at N = 1) on a STAR, seed 4242, 4 rounds of 4
    epochs over 200 samples each in batches of 25 (lr 0.1), sign flips on
    nodes 1 and 4 and additive noise (std 0.1) on nodes 6 and 8. Arms:
    FedAvg fault-free, the six honest nodes alone, FedAvg attacked, FedAvg
    + quarantine (twice, the second traced: ``TELEMETRY_ENABLED``, a dump
    directory, a 200,000-entry ring), Krum (f = 3) fault-free and
    attacked, MultiKrum (f = 3, m = 6) and TrimmedMean (trim 2) with
-   quarantine. Each: complete stage histories, exactly 6 × n × 4 × 8
-   steps' launches (3,840 ``conv_dw`` + 1,920 ``conv_dx`` at n = 10),
+   quarantine. Each: complete stage histories, exactly 4 × n × 4 × 8
+   steps' launches (2,560 ``conv_dw`` + 1,280 ``conv_dx`` at n = 10),
    all wgmma, every node's final params finite and, without quarantine,
    within rtol 1e-6 of node 0's; with quarantine, the two sign flips in
    the ledger's detections, in the replayed quarantine set and flagged
@@ -196,15 +196,15 @@
    (``bench.py:3100-3180``): seed 3131, ten Nodes, hash election, a
    ``TrainerSpeedPlan`` sleeping 2 trainers 2.5 s a fit and 8 of them
    0.25 s, 2 epochs over 100 samples in batches of 25; a 2-round warm
-   async arm, then 5 synchronous rounds (exactly 400 steps' launches),
-   then 10 free-running async rounds with ``ASYNC_BUFFER_K`` 5; each arm's
+   async arm, then 3 synchronous rounds (exactly 240 steps' launches),
+   then 6 free-running async rounds with ``ASYNC_BUFFER_K`` 5; each arm's
    rounds/s and steady loss, the speedup and loss ratio (reported, not
    gated). (b) Its determinism arm (``:3182-3219``): two serialized runs
-   of 4 rounds, K 8, the adaptive controller on, the plan's schedule
+   of 3 rounds, K 8, the adaptive controller on, the plan's schedule
    forked into every aggregator: the final digests equal across runs, one
    across the ten nodes, the controller trajectories equal and non-empty
-   at every node (each run exactly 320 steps' launches). (c) The
-   ``byzantine`` tier's async arm (``:2939-3033``): seed 4243, 8 rounds
+   at every node (each run exactly 240 steps' launches). (c) The
+   ``byzantine`` tier's async arm (``:2939-3033``): seed 4243, 5 rounds
    × 4 epochs × 200 samples, serialized, K = n, ``ASYNC_STALENESS_MAX`` 2,
    ``stale_flood`` on n1 and ``withhold_replay`` from round 2 on n4;
    adversary-free at n = 8, staleness-blind (exp 0) and defended
@@ -227,7 +227,7 @@
    every Node's fits batched by ``SuperLearnerPool`` into node-stacked
    programs. (a) Phase 14's FedAvg fault-free and attacked arms with the
    pool on: one batched dispatch of all ten fits a round, no fallback,
-   exactly 192 node-batched steps' launches (384 ``conv_dw`` + 192
+   exactly 128 node-batched steps' launches (256 ``conv_dw`` + 128
    ``conv_dx``, all wgmma, all at N = 16), final models within rtol 1e-6,
    rounds/s beside phase 14's inline arm; a pooled fit held to the same
    learner's inline fit on the card at the bound stated beside
@@ -242,7 +242,8 @@
    growth under 256 MB) and the ``sim1000`` cell (1,000 nodes, ~10%
    elected) on the MLP; one isolated fit (``SIM_PROCESS_ISOLATION``) on
    the card within rtol 1e-6 of the inline fit; ``conv_dw`` / ``conv_dx``
-   at N 16 B 25 and N 8 B 32 against their plain versions, timed.
+   at N 16 B 25, N 8 B 25 (phase 25's shard) and N 8 B 32 against their
+   plain versions, timed.
 19. Observatory phase (phase 19, the bench's ``profiling`` and
    ``fleetobs`` tiers): (a) the compile probe on the card — 8, 8, 16,
    32, 64 elements at a storm threshold of 3: 4 signatures, one hit, a
@@ -378,6 +379,29 @@
    4 of each flash kernel) launches a round, all wgmma. Both peaks, their
    difference, the state's bytes and rounds/s both ways are printed (the
    rounds/s are not gated).
+
+25. Pool sharded phase (phase 25: the simulation pool's chunk over the
+   ranks of a ``torch.distributed`` world). Two ranks on the one card, in
+   child processes (``--pool-rank``), a gloo world (nccl refuses two ranks
+   on one device; both compute on ``cuda:0``), ``SHARD_NODES`` on: rank 0
+   runs phase 18a's pooled train stage (ten learners of the cell, 4 epochs
+   × 8 batches of 25, bucket 16), a warm one and a timed one, and trains
+   rows 0-7 while rank 1 serves rows 8-15 (``serve_pool_shards``), then
+   one step of 16 rows, and stops rank 1 (``stop_pool_servants``). The
+   parent first runs the same stage unsharded with the card to itself,
+   again as chunks of 8 (rows 0-7, rows 8-9 beside six fillers), the
+   1-step chunk, and the node-count witness: the stage at 16 and 8 rows
+   with every conv launch held to its plain version, through the plain
+   versions, from a start scaled by 1 + 2^-20, and in f32. Gated: each
+   rank's conv launches exactly 2 ``conv_dw`` + 1 ``conv_dx`` a step at
+   N = 8, all wgmma; one batched dispatch of 10 fits a stage and no
+   fallback on rank 0; every learner's gathered params bit-equal to its
+   chunk of 8 here; the sharded step within rtol 1e-3 / atol 1e-4 of the
+   16-row chunk; every witness launch within its kernel's bound, the
+   plain versions' stage bit-equal at 8 and 16 rows, and the 32-step
+   distance from the 16-row stage no larger than the nudged start's
+   (``PS_ROWS``'s comment). Both walls are printed beside the card (the
+   two ranks share its SMs: a record, not a scaling figure).
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
@@ -2424,7 +2448,8 @@ def federation_path(card: str) -> tuple[dict, list]:
 # the model the two phases run.
 PHASE_DEVICE = "cuda"
 PHASE_CNN = dict(out_channels=10, conv_impl="pallas")
-BF_SEED, BF_ROUNDS, BF_EPOCHS, BF_SAMPLES, BF_BATCH, BF_TEST = 4242, 6, 4, 200, 25, 1200
+# Phase 25 bought its time here too: 4 rounds (from 6) in phases 14 and 18a.
+BF_SEED, BF_ROUNDS, BF_EPOCHS, BF_SAMPLES, BF_BATCH, BF_TEST = 4242, 4, 4, 200, 25, 1200
 BF_ADVERSARIES = (1, 4, 6, 8)
 # The adversaries the defense flags at this cell in every run: the sign
 # flips, by their cosine to the round's reference, whatever the window.
@@ -2579,7 +2604,7 @@ def bf_arm(card: str, label: str, attack: bool, defend: bool, agg, n: int,
            dump_dir: "str | None") -> dict:
     """One arm: a seeded experiment of ``n`` Nodes through the harness.
     Checks that the harness built ``n`` HarnessNodes, complete stage
-    histories, exactly 6 × n × 4 × 8 steps' conv launches, all on wgmma,
+    histories, exactly BF_ROUNDS × n × 4 × 8 steps' conv launches, all on wgmma,
     every node's final params finite and, without quarantine, within
     rtol 1e-6 of node 0's; with quarantine the sign flips
     (``BF_DETECTED``) in the ledger's detections, in the replayed
@@ -2848,8 +2873,10 @@ def chaos_federation_path(card: str) -> dict:
 # CIFAR-shaped data: the tiers' digits MLP needs PIL's rendered digits,
 # which the card's machine lacks.
 AS_SEED, AS_NODES, AS_SAMPLES, AS_BATCH, AS_EPOCHS, AS_K = 3131, 10, 100, 25, 2, 5
-AS_WARM, AS_SYNC_ROUNDS, AS_ASYNC_ROUNDS, AS_DET_ROUNDS, AS_DET_K = 2, 5, 10, 4, 8
-BA_SEED, BA_ROUNDS, BA_EPOCHS, BA_SAMPLES, BA_BATCH, BA_TEST = 4243, 8, 4, 200, 25, 1200
+# Phase 25 bought its time here: 3 sync rounds (from 5) and 6 async rounds
+# (from 10) in 16a and 18b, 3 rounds (from 4) in 16b, 5 (from 8) in 16c.
+AS_WARM, AS_SYNC_ROUNDS, AS_ASYNC_ROUNDS, AS_DET_ROUNDS, AS_DET_K = 2, 3, 6, 3, 8
+BA_SEED, BA_ROUNDS, BA_EPOCHS, BA_SAMPLES, BA_BATCH, BA_TEST = 4243, 5, 4, 200, 25, 1200
 BA_ADVERSARIES, BA_WITHHOLD_START = (1, 4), 2
 # (label, attack, defend, staleness-blind, nodes)
 BA_ARMS = [("adversary-free", False, False, False, 8),
@@ -3872,14 +3899,21 @@ def pooled_vs_inline_fit() -> dict:
             **out}
 
 
+def stage_learners(n: int = SP_NODES, prefix: str = "sp-round") -> list:
+    """The pooled stage's learners (seeds BF_SEED + i), BF_EPOCHS epochs each."""
+    learners = [sp_learner(BF_SEED + i, f"{prefix}-{i}") for i in range(n)]
+    for ln in learners:
+        ln.set_epochs(BF_EPOCHS)
+    return learners
+
+
 def pooled_round_fn(n: int = SP_NODES):
     """One pooled train stage of a round as a function: ``n`` learners of
     the cell fit BF_EPOCHS epochs through the pool, hinted as one group,
     so one batched dispatch."""
-    learners = [sp_learner(BF_SEED + i, f"sp-round-{i}") for i in range(n)]
+    learners = stage_learners(n)
     wrapped = [VirtualNodeLearner(ln) for ln in learners]
-    for ln, v in zip(learners, wrapped):
-        ln.set_epochs(BF_EPOCHS)
+    for v in wrapped:
         v.set_fit_group_hint(n)
 
     def run() -> None:
@@ -3888,7 +3922,10 @@ def pooled_round_fn(n: int = SP_NODES):
             t.start()
         for t in threads:
             t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a pooled fit did not return")
 
+    run.learners = learners
     return run
 
 
@@ -4191,11 +4228,12 @@ def pooled_experiment() -> None:
 
 def simulation_kernel_rows() -> dict:
     """Both conv kernels at the simulation plane's shapes (both CNN layers,
-    N 16 B 25: the pooled ten-node train set; N 8 B 32: FederationLearner)
-    through :func:`conv_layer_rows`: wgmma, the plain versions, timed."""
+    N 16 B 25: the pooled ten-node train set; N 8 B 25: a rank's shard of
+    it in phase 25; N 8 B 32: FederationLearner) through
+    :func:`conv_layer_rows`: wgmma, the plain versions, timed."""
     gen = torch.Generator(device="cuda").manual_seed(18)
     return {f"N={n} B={b}": conv_layer_rows(n, b, gen)
-            for n, b in ((SP_BUCKET, BF_BATCH), (FL_LOCAL, FL_BATCH))}
+            for n, b in ((SP_BUCKET, BF_BATCH), (PS_ROWS, BF_BATCH), (FL_LOCAL, FL_BATCH))}
 
 
 def simulation_plane_path(card: str, byzantine_fed: dict, async_fed: dict) -> dict:
@@ -4644,6 +4682,9 @@ def observatory_path(card: str, cnn: dict, cnn_args: tuple, lm: dict, lm_args: t
 # reference's iteration counts (8k: 192, 32k: 16).
 AT_B, AT_H, AT_D = 1, 8, 128
 AT_ITERS = {8192: 192, 32768: 16}
+# The plain arms (blockwise, the einsum ring) at 8k: 24 steps a loop, not the
+# reference's 192 (at 47-243 ms a step they took ~110 s of the phase).
+AT_PLAIN_ITERS = 24
 AT_SHORT, AT_LONG = AT_ITERS
 RING_BLOCKS = 4  # 20a: emulated ranks of the 8k sequence
 LM32_KW = dict(vocab=256, dim=512, heads=8, n_layers=4, max_len=32768)
@@ -4762,7 +4803,8 @@ def ring_on_mesh(mesh) -> dict:
 def attention_tier(mesh) -> dict:
     """20c: the bench's attention tier — causal fwd + bwd steps (each
     step's gradients fed back at 1e-6, bench.py:3566-3592) timed by
-    ``profiling.timed_loop`` at the reference's iteration counts: the
+    ``profiling.timed_loop`` at the reference's iteration counts (the
+    plain arms at AT_PLAIN_ITERS): the
     flash kernels, the plain blockwise attention (8k only: its autograd
     residuals at 32k would fill the card), the ring on the one-rank ``sp``
     mesh with the flash inner (8k, 32k) and the einsum inner (8k), and
@@ -4786,20 +4828,22 @@ def attention_tier(mesh) -> dict:
         return step
 
     rings = {impl: make_ring_attention(mesh, causal=True, impl=impl) for impl in ("flash", "xla")}
-    # (name, fn, sequence lengths, best of): the plain arms' 192-step
-    # loops take seconds each, so they run once after the warm-up.
-    arms = [("flash", fk.flash_attention, (AT_SHORT, AT_LONG), 3),
-            ("blockwise", blockwise_attention, (AT_SHORT,), 1),
-            ("ring_sp_flash", rings["flash"], (AT_SHORT, AT_LONG), 3),
-            ("ring_sp_xla", rings["xla"], (AT_SHORT,), 1),
-            ("library_sdpa", sdpa, (AT_SHORT, AT_LONG), 3)]
+    # (name, fn, sequence lengths, best of, steps a loop): the plain arms'
+    # loops take seconds each, so they run once after the warm-up, and
+    # AT_PLAIN_ITERS steps long.
+    plain = {AT_SHORT: AT_PLAIN_ITERS}
+    arms = [("flash", fk.flash_attention, (AT_SHORT, AT_LONG), 3, AT_ITERS),
+            ("blockwise", blockwise_attention, (AT_SHORT,), 1, plain),
+            ("ring_sp_flash", rings["flash"], (AT_SHORT, AT_LONG), 3, AT_ITERS),
+            ("ring_sp_xla", rings["xla"], (AT_SHORT,), 1, plain),
+            ("library_sdpa", sdpa, (AT_SHORT, AT_LONG), 3, AT_ITERS)]
     rtt = profiling.measure_dispatch_rtt()
     out, launches = {}, {}
-    for name, fn, seqs, best_of in arms:
+    for name, fn, seqs, best_of, iters in arms:
         for s in seqs:
             carry_in = attention_inputs(s, 23)[:3]
             before = read_launches()
-            per_iter, scalar = profiling.timed_loop(step_of(fn), carry_in, (), AT_ITERS[s],
+            per_iter, scalar = profiling.timed_loop(step_of(fn), carry_in, (), iters[s],
                                                     rtt=rtt, best_of=best_of)
             if not math.isfinite(float(scalar)):
                 raise AssertionError(f"attention tier {name} {s}: non-finite carry")
@@ -6160,6 +6204,382 @@ def donation_path(card: str) -> dict:
     return out
 
 
+# ---- the pool's chunk sharded over ranks (phase 25) -----------------------------
+
+# Phase 18a's pooled train stage (SP_NODES learners of the cell, BF_EPOCHS
+# epochs of 8 batches of 25, bucket SP_BUCKET) in a world of PS_WORLD ranks
+# on the one card: gloo, because nccl refuses two ranks on one device, and
+# both ranks compute on cuda:0. Rank 0 leads and trains rows 0-7, rank 1
+# serves rows 8-15.
+PS_WORLD = 2
+PS_STEPS = BF_EPOCHS * (BF_SAMPLES // BF_BATCH)  # node-batched steps of the stage
+# A shard's node count. A shard trains at another node count than the
+# unsharded chunk, which changes only conv_dw's f32 sum order (its blocks
+# split the chunk's images), within the kernel's bound. The stage's 32
+# bf16 steps at lr 0.1 amplify any such change: a start scaled by
+# 1 + 2^-20 ends 5.45 leaf scales away, a shard's rows 0.378 (PERF.md
+# §6). So the sharded stage is held bit-equal to unsharded chunks of
+# PS_ROWS, one sharded step to the 16-row chunk at the card tolerances
+# (rtol 1e-3, atol 1e-4), and the 32-step distance from the 16-row stage
+# to :func:`node_count_witness`.
+PS_ROWS = SP_BUCKET // PS_WORLD
+PS_TIMEOUT_S = 300
+
+
+def pooled_stage(n: int = SP_NODES) -> tuple:
+    """One pooled train stage (:func:`pooled_round_fn`): the run, timed to
+    the card's end (s), and its learners."""
+    run = pooled_round_fn(n)
+
+    def timed() -> float:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return timed, run.learners
+
+
+def host_params(learners: list) -> list:
+    return [{p: v.detach().float().cpu() for p, v in tree_items(ln.get_model().get_parameters())}
+            for ln in learners]
+
+
+def pool_shard_rank(rank: int, port: int, out: str) -> None:
+    """Phase 25's rank (``chip_smoke.py --pool-rank R PORT OUT``): joins the
+    gloo world on the card with SHARD_NODES on. Rank 0 runs a warm stage
+    and a timed one (its conv launches counted) through the pool, saves
+    the timed stage's params, fits the 1-step rows (:func:`witness_rows`)
+    and saves theirs, then stops rank 1 (``stop_pool_servants``), which
+    served the three chunks. Each writes its conv launches (all and
+    wgmma, by node count) to ``OUT.json``."""
+    import datetime
+
+    from tpfl_torch.parallel import distributed as spmd
+    from tpfl_torch.simulation import serve_pool_shards
+
+    spmd.ensure_distributed(f"127.0.0.1:{port}", PS_WORLD, rank, device="cpu",
+                            timeout=datetime.timedelta(seconds=PS_TIMEOUT_S))
+    torch.cuda.set_device(0)
+    # TF32 off, as the parent runs from its kernel phase on.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {"rank": rank}
+
+    def counted(by_n: dict) -> None:
+        res["launches"] = {k: read_launches()[k] for k in ("conv_dw", "conv_dx")}
+        res["wgmma_launches"] = read_wgmma_launches(("conv_dw", "conv_dx"))
+        res["by_node_count"] = {k: {str(n): c for n, c in v.items()} for k, v in by_n.items()}
+
+    with runtime_settings(SHARD_NODES=True, SHARD_DEVICES=0, SHARD_HOSTS=1, SHARD_MODEL=1):
+        reset_launches()
+        with conv_node_counts() as by_n:
+            if rank:
+                res["served"] = serve_pool_shards()
+                res["h2d_copies"] = batched_fit.h2d_copies
+                counted(by_n)
+            else:
+                warm, _ = pooled_stage()
+                res["warm_wall_s"] = warm()
+                reset_launches()
+                for counts in by_n.values():
+                    counts.clear()
+                timed, learners = pooled_stage()
+                res["wall_s"] = timed()
+                counted(by_n)
+                res["pool"] = pool_stats()
+                torch.save(host_params(learners), out + ".pt")
+                torch.save(fit_rows(witness_rows(steps=1, prefix="sp-step"), SP_BUCKET),
+                           out + "-step.pt")
+                SuperLearnerPool.reset()
+                batched_fit.stop_pool_servants()
+    Path(out + ".json").write_text(json.dumps(res))
+    torch.distributed.destroy_process_group()
+
+
+def pool_unsharded(card: str) -> dict:
+    """Phase 25's stage here, in the ranks' settings, unsharded: at N =
+    SP_BUCKET (warm, then timed with its launches gated), and the same
+    learners as chunks of PS_ROWS (rows 0-7, then 8-9 beside six fillers:
+    rows never mix, so each learner trains as on its rank)."""
+    with runtime_settings():
+        SuperLearnerPool.reset()
+        warm, _ = pooled_stage()
+        warm()
+        SuperLearnerPool.reset()
+        reset_launches()
+        with conv_node_counts() as by_n:
+            timed, learners = pooled_stage()
+            wall = timed()
+        launches, wgmma = read_launches(), read_wgmma_launches(("conv_dw", "conv_dx"))
+        stats = pool_stats()
+        tag = "pool sharded (the unsharded stage)"
+        check_conv_launches(tag, launches, wgmma, PS_STEPS)
+        check_at_nodes(tag, by_n, {"conv_dw": {SP_BUCKET: 2 * PS_STEPS},
+                                   "conv_dx": {SP_BUCKET: PS_STEPS}})
+        out = {"wall_s": wall, "pool": stats, "n16": host_params(learners)}
+        SuperLearnerPool.reset()
+        out["n8"] = fit_rows(witness_rows(), PS_ROWS)
+        SuperLearnerPool.reset()
+    return out
+
+
+class CheckedKernel(CountingKernel):
+    """Stands in for a conv kernel's wrapper: launches the kernel and holds
+    each launch's output to the plain version on the same inputs within
+    ``bound``, recording the largest |err| / max |plain| under ``name`` in
+    ``worst`` and each launch beyond the bound in ``worst["beyond"]``."""
+
+    def __init__(self, kernel, plain, bound: tuple, name: str, worst: dict) -> None:
+        super().__init__(kernel)
+        self.plain, self.bound, self.name, self.worst = plain, bound, name, worst
+
+    def __call__(self, *args):
+        out = self.kernel(*args)
+        w = self.worst
+        w["launches"] += 1
+        try:
+            ref = self.plain(*args)
+            check_close(f"{self.name} launch {w['launches']} {tuple(args[0].shape)}", out, ref,
+                        *self.bound)
+            err = (out.float() - ref.float()).abs().max().item()
+            w[self.name] = max(w[self.name], err / max(ref.abs().max().item(), 1e-30))
+        except AssertionError as e:
+            w["beyond"].append(str(e))
+        return out
+
+
+@contextlib.contextmanager
+def convs_as(mode: str):
+    """While open, the conv backward runs ``mode``: ``"kernels"`` as
+    always, ``"plain"`` the kernels' plain versions, ``"checked"`` the
+    kernels through :class:`CheckedKernel` (yields what it records)."""
+    saved = ck.conv_dw, ck.conv_dx
+    worst: dict = {"conv_dw": 0.0, "conv_dx": 0.0, "launches": 0, "beyond": []}
+    if mode == "plain":
+        ck.conv_dw, ck.conv_dx = ck.conv_dw_plain, ck.conv_dx_plain
+    elif mode == "checked":
+        ck.conv_dw = CheckedKernel(saved[0], ck.conv_dw_plain, CONV_DW_BOUND, "conv_dw", worst)
+        ck.conv_dx = CheckedKernel(saved[1], ck.conv_dx_plain, CONV_DX_BOUND, "conv_dx", worst)
+    try:
+        yield worst
+    finally:
+        ck.conv_dw, ck.conv_dx = saved
+
+
+def witness_rows(steps: int = PS_STEPS, dtype: torch.dtype = torch.bfloat16,
+                 nudge: float = 0.0, prefix: str = "sp-round") -> list:
+    """Phase 25's SP_BUCKET rows as learners: the stage's SP_NODES
+    (seeds BF_SEED + i) and the fillers of its chunks of PS_ROWS (seeds
+    BF_SEED + j, ``sp-fill-j``), compute ``dtype``, each fitting
+    ``steps`` node-batched steps (1: one batch of 25; else epochs of the
+    8 batches), every start param scaled by 1 + ``nudge``."""
+    samples = BF_BATCH if steps == 1 else BF_SAMPLES
+    rows = []
+    for i in range(SP_BUCKET):
+        seed, addr = ((BF_SEED + i, f"{prefix}-{i}") if i < SP_NODES
+                      else (BF_SEED + i - SP_NODES, f"sp-fill-{i - SP_NODES}"))
+        module = CNN(**{**PHASE_CNN, "compute_dtype": dtype})
+        start = init_params(module, (32, 32, 3), seed=BF_SEED, device=PHASE_DEVICE)
+        if nudge:
+            start = tree_map(lambda v: v * (1.0 + nudge), start)
+        data = TpflDataset.from_arrays(*synthetic_cifar10(n_train=samples, n_test=BF_BATCH,
+                                                          seed=seed))
+        ln = TorchLearner(TpflModel(module, start, device=PHASE_DEVICE), data, addr=addr,
+                          learning_rate=0.1, batch_size=BF_BATCH, device=PHASE_DEVICE)
+        ln.set_epochs(max(steps // (samples // BF_BATCH), 1))
+        rows.append(ln)
+    return rows
+
+
+def fit_rows(rows: list, chunk: int) -> list:
+    """``rows`` through ``run_batched_fits`` in chunks of ``chunk``; the
+    first SP_NODES learners' params on the host."""
+    with setting("SIM_MAX_BATCH_NODES", chunk):
+        if batched_fit.run_batched_fits(batched_fit.job_signature(rows[0]), rows):
+            raise AssertionError(f"a chunk of {chunk} failed")
+    torch.cuda.synchronize()
+    return host_params(rows[:SP_NODES])
+
+
+def witness_stage(chunk: int, mode: str = "kernels", **rows) -> tuple[list, dict]:
+    """:func:`fit_rows` of :func:`witness_rows` (``rows``) with the conv
+    backward as :func:`convs_as` ``mode``: the params and the checked
+    launches' worst relative error."""
+    with convs_as(mode) as worst:
+        return fit_rows(witness_rows(**rows), chunk), worst
+
+
+def leaf_gap(got: list, want: list) -> dict:
+    """The largest |got − want| over the leaf's largest |want|, over
+    learners and leaves, and where it is."""
+    worst = {"rel": 0.0, "abs": 0.0, "leaf": None}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for path, ref in w.items():
+            e = (g[path] - ref).abs().max().item()
+            rel = e / max(ref.abs().max().item(), 1e-30)
+            if not math.isfinite(e) or rel > worst["rel"]:
+                worst = {"rel": rel, "abs": e, "leaf": f"learner {i} {path}"}
+    return worst
+
+
+def op_node_invariance() -> dict:
+    """Each conv op of the CNN's two layers at B 25 on SP_BUCKET nodes
+    and on their first PS_ROWS: max |difference| of those nodes' outputs
+    (0: the op's rounding does not depend on the node count)."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for name, h, w, cin, cout, _ in LAYERS:
+        x = torch.randn(SP_BUCKET, BF_BATCH, h, w, cin, device="cuda", generator=gen).bfloat16()
+        g = torch.randn(SP_BUCKET, BF_BATCH, h, w, cout, device="cuda", generator=gen).bfloat16()
+        wk = (0.1 * torch.randn(SP_BUCKET, 3, 3, cin, cout, device="cuda",
+                                generator=gen)).bfloat16()
+        ops = {"forward (grouped F.conv2d)": lambda a, b, c: ck.conv_forward(a, c),
+               "conv_dw": lambda a, b, c: ck.conv_dw(a, b, 3),
+               "conv_dx": lambda a, b, c: ck.conv_dx(b, c),
+               "conv_dw_plain": lambda a, b, c: ck.conv_dw_plain(a, b, 3),
+               "conv_dx_plain": lambda a, b, c: ck.conv_dx_plain(b, c)}
+        for op, f in ops.items():
+            full = f(x, g, wk)[:PS_ROWS].float()
+            part = f(x[:PS_ROWS], g[:PS_ROWS], wk[:PS_ROWS]).float()
+            out[f"{name} {op}"] = (full - part).abs().max().item()
+    return out
+
+
+def node_count_witness(want: dict) -> dict:
+    """Why the stage trained in chunks of PS_ROWS ends apart from the
+    SP_BUCKET-row stage on the card (``want``: :func:`pool_unsharded`).
+    Gated (``failures``): the same rows as one chunk of SP_BUCKET give
+    the pool's bits (its pad rows are no-ops) and as chunks of PS_ROWS
+    the bits of ``want``; at both chunk sizes every conv launch of the
+    stage agrees with its plain version on the same inputs within the
+    kernel's bound; through the plain versions the two chunk sizes give
+    the same bits (the node count changes only conv_dw's f32 sum order);
+    and the node count moves the params no further than a start scaled
+    by 1 + 2^-20 does at one node count (the stage's own sensitivity to
+    a rounding-size change). Reported: each op's node-count invariance,
+    the kernels against the plain versions at one node count, and the
+    same node-count gap in f32."""
+    out: dict = {"ops_n8_vs_n16_max_abs": op_node_invariance(), "failures": []}
+    k16, out["checked_n16"] = witness_stage(SP_BUCKET, "checked")
+    k8, out["checked_n8"] = witness_stage(PS_ROWS, "checked")
+    for n in ("n16", "n8"):
+        out["failures"] += [f"the stage at {n}: {e}" for e in out[f"checked_{n}"]["beyond"][:4]]
+    for label, got, ref in (("n16 rows vs the pool's stage", k16, want["n16"]),
+                            ("n8 rows vs the chunks of 8", k8, want["n8"])):
+        gap = leaf_gap(got, ref)
+        if gap["abs"] != 0.0:
+            out["failures"].append(f"{label} differ: {gap}")
+    p16, _ = witness_stage(SP_BUCKET, "plain")
+    p8, _ = witness_stage(PS_ROWS, "plain")
+    out["plain n8 vs n16"] = leaf_gap(p8, p16)
+    if out["plain n8 vs n16"]["abs"] != 0.0:
+        out["failures"].append(f"the plain versions' stage depends on the node count: "
+                               f"{out['plain n8 vs n16']}")
+    nudged, _ = witness_stage(SP_BUCKET, nudge=2.0 ** -20)
+    out["update"] = leaf_gap(host_params(witness_rows()[:SP_NODES]), k16)["rel"]
+    out["kernels n8 vs n16"] = leaf_gap(k8, k16)
+    out["nudged 2^-20 vs n16"] = leaf_gap(nudged, k16)
+    out["kernels vs plain at n16"] = leaf_gap(k16, p16)
+    f16, _ = witness_stage(SP_BUCKET, dtype=torch.float32)
+    f8, _ = witness_stage(PS_ROWS, dtype=torch.float32)
+    out["f32 kernels n8 vs n16"] = leaf_gap(f8, f16)
+    if out["kernels n8 vs n16"]["rel"] > out["nudged 2^-20 vs n16"]["rel"]:
+        out["failures"].append(f"the node count moves the params {out['kernels n8 vs n16']}, "
+                               f"further than a nudged start "
+                               f"{out['nudged 2^-20 vs n16']}")
+    return out
+
+
+def pool_sharded_path(card: str) -> dict:
+    """Phase 25: the pooled stage sharded over two ranks of a gloo world
+    on the card, against the same stage unsharded here, run first with
+    the card to itself. Gated: each rank's conv launches exactly 2
+    conv_dw + 1 conv_dx a step at N = PS_ROWS, all wgmma; rank 1 served
+    three chunks; one batched dispatch of SP_NODES fits a stage and no
+    fallback; the gathered params bit-equal to the unsharded chunks at N
+    = PS_ROWS; one sharded step within rtol 1e-3 / atol 1e-4 of the
+    unsharded N = SP_BUCKET chunk; the 32-step distance from the N =
+    SP_BUCKET stage held by :func:`node_count_witness`. Both walls are
+    reported beside the card."""
+    t0 = time.perf_counter()
+    # The unsharded stages first, with the card to themselves.
+    want = pool_unsharded(card)
+    with runtime_settings():
+        witness = node_count_witness(want)
+        if witness["failures"]:
+            raise AssertionError("node-count witness: " + "; ".join(witness["failures"]))
+        want_step = fit_rows(witness_rows(steps=1, prefix="sp-step"), SP_BUCKET)
+    port = free_ports(1)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [str(Path(tmp) / f"rank{r}") for r in range(PS_WORLD)]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--pool-rank",
+                                   str(r), str(port), outs[r]], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for r in range(PS_WORLD)]
+        try:
+            for r, proc in enumerate(procs):
+                _, err = proc.communicate(timeout=PS_TIMEOUT_S)
+                if proc.returncode != 0:
+                    raise AssertionError(f"pool shard rank {r} exited {proc.returncode}: "
+                                         f"{err[-3000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        ranks = [json.loads(Path(o + ".json").read_text()) for o in outs]
+        got = torch.load(outs[0] + ".pt")
+        got_step = torch.load(outs[0] + "-step.pt")
+    # Rank 0 counts its timed stage, rank 1 every chunk it served: the
+    # warm and the timed stage and the 1-step one.
+    for res, steps in ((ranks[0], PS_STEPS), (ranks[1], 2 * PS_STEPS + 1)):
+        r = res["rank"]
+        want_n = {"conv_dw": {str(PS_ROWS): 2 * steps}, "conv_dx": {str(PS_ROWS): steps}}
+        if res["by_node_count"] != want_n:
+            raise AssertionError(f"pool sharded rank {r}: conv launches by node count "
+                                 f"{res['by_node_count']}, expected {want_n}")
+        check_all_wgmma(f"pool sharded rank {r}", res["launches"], res["wgmma_launches"])
+    if ranks[1]["served"] != 3:
+        raise AssertionError(f"pool sharded: rank 1 served {ranks[1]['served']} chunks, expected 3")
+    # One step, before training has grown the rounding: the sharded chunk
+    # at the card tolerances of the unsharded SP_BUCKET-row chunk.
+    step_err = 0.0
+    for i, g in enumerate(got_step):
+        for path, ref in want_step[i].items():
+            torch.testing.assert_close(g[path], ref, rtol=1e-3, atol=1e-4,
+                                       msg=lambda m, p=path, i=i: f"pool sharded, 1 step: "
+                                       f"learner {i} {p}: {m}")
+            step_err = max(step_err, (g[path] - ref).abs().max().item())
+    pool = ranks[0]["pool"]
+    if pool["group_sizes"] != [SP_NODES] * 2 or pool["fallbacks"] or pool["singles"]:
+        raise AssertionError(f"pool sharded: rank 0's pool {pool}, expected one dispatch of "
+                             f"{SP_NODES} fits a stage")
+    err16 = rel16 = 0.0
+    for i, g in enumerate(got):
+        for path, ref in want["n8"][i].items():
+            if not torch.equal(g[path], ref):
+                raise AssertionError(f"pool sharded: learner {i} {path} differs from the "
+                                     f"unsharded chunk of {PS_ROWS} by "
+                                     f"{(g[path] - ref).abs().max().item():.3e}")
+            n16 = want["n16"][i][path]
+            e = (g[path] - n16).abs().max().item()
+            err16, rel16 = max(err16, e), max(rel16, e / max(n16.abs().max().item(), 1e-30))
+    return {"card": card, "world": PS_WORLD, "backend": "gloo", "nodes": SP_NODES,
+            "bucket": SP_BUCKET, "rows_per_rank": PS_ROWS, "steps": PS_STEPS,
+            "sharded_wall_s": ranks[0]["wall_s"], "sharded_warm_wall_s": ranks[0]["warm_wall_s"],
+            "unsharded_wall_s": want["wall_s"], "sharded_over_unsharded_wall":
+                ranks[0]["wall_s"] / want["wall_s"],
+            "bit_equal_to_unsharded_at_n8": True, "max_abs_err_vs_unsharded_n16": err16,
+            "max_err_over_leaf_scale_vs_n16": rel16,
+            "one_step_max_abs_err_vs_unsharded_n16": step_err, "node_count_witness": witness,
+            "unsharded_pool": want["pool"],
+            "rank0_pool": pool,
+            "launches": {f"rank {res['rank']}": res["launches"] for res in ranks},
+            "wgmma_launches": {f"rank {res['rank']}": res["wgmma_launches"] for res in ranks},
+            "served": ranks[1]["served"], "servant_h2d_copies": ranks[1]["h2d_copies"],
+            "phase_s": time.perf_counter() - t0}
+
+
 def _union_ms(spans: list[tuple[float, float]]) -> float:
     """Length of the union of [start, end) intervals, in ms (from µs)."""
     total, end = 0.0, float("-inf")
@@ -6236,6 +6656,10 @@ def main() -> int:
         return 0
     if "--net-child" in sys.argv[1:]:
         net_child(json.loads(sys.argv[sys.argv.index("--net-child") + 1]))
+        return 0
+    if "--pool-rank" in sys.argv[1:]:
+        i = sys.argv.index("--pool-rank")
+        pool_shard_rank(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
         return 0
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -6340,6 +6764,10 @@ def main() -> int:
     log(f"rendered path: {rendered['phase_s']:.1f} s")
     donation = donation_path(card)
     log(f"donation: {donation['phase_s']:.1f} s")
+    pool_sharded = pool_sharded_path(card)
+    log("pool sharded (phase 18a's pooled stage over 2 gloo ranks on the card; every check "
+        "passed): " + json.dumps(pool_sharded))
+    log(f"pool sharded: {pool_sharded['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -6372,6 +6800,8 @@ def main() -> int:
             row["one_node_layers"] = {b: per[row["name"]] for b, per in one_node.items()}
             row["network_launches"] = network["launches"][row["name"]]
             row["rendered_launches"] = rendered["launches"][row["name"]]
+            row["pool_sharded_launches"] = {
+                rank: n[row["name"]] for rank, n in pool_sharded["launches"].items()}
         if row["name"] in FLASH_KERNELS:
             launched = {label.split()[0]: part["flash_launches"][row["name"]]
                         for label, part in spmd.items()}

@@ -1,7 +1,11 @@
 """``TpflDataset.from_json`` against the reference's loader
 (``load_dataset("json", ...)``), floats bit for bit: a top-level array and
 the records under ``field`` go through pandas' ujson at 10 decimals, JSON
-Lines parse exactly."""
+Lines parse exactly. Column types as the loader's two readers give them:
+a number column with a missing value (int64 or float64 with ``None``) and
+ISO 8601 strings as timestamps (pyarrow's ``timestamp[s]`` in JSON Lines
+and arrays, pandas' ``timestamp[us]`` under ``field`` in a date-like
+column name), each value with its Python type."""
 
 import json
 import math
@@ -72,9 +76,7 @@ def test_ints_written_as_floats_typed_as_the_reference(layout, tmp_path):
     """Whole floats stay float64 in an array (pyarrow) and become int64
     under ``field`` (pandas' ``read_json``); a column mixing ints and
     whole floats too; a fraction, or a whole float beyond int64, keeps
-    float64. (A missing value is not held here: the reference types an
-    int column with a missing value int64 with None, which a numpy
-    column cannot hold; ``ROADMAP.md`` §3.)"""
+    float64."""
     rows = [{"w": float(k), "m": k if k % 2 else float(k), "h": k + 0.5,
              "b": 2.0 ** 62 * (k + 1)} for k in range(6)]
     text = json.dumps({"data": rows}) if layout == "field" else json.dumps(rows)
@@ -106,3 +108,102 @@ def test_ujson_number_helpers_match_pandas():
         assert _ujson_dumps_float(v) == pd.io.json.ujson_dumps(v), v
         got, want = _ujson_float(text), pd.io.json.ujson_loads(text)
         assert math.copysign(1.0, got) == math.copysign(1.0, want) and got == want, text
+
+
+#: The port's numpy dtype of each Hugging Face feature dtype.
+_FEATURE_DTYPES = {"timestamp[s]": "datetime64[s]", "timestamp[ms]": "datetime64[ms]",
+                   "timestamp[us]": "datetime64[us]", "int64": "int64", "float64": "float64"}
+
+
+def _assert_typed_as_the_reference(got, want):
+    """Every column: the feature's dtype (a string column as str, or
+    object beside a missing value) and every value with its Python type."""
+    assert got.column_names == want.column_names
+    for name, feature in want.features.items():
+        col = got[name]
+        if feature.dtype == "string":
+            assert col.dtype.kind in "UO", (name, col.dtype)
+        else:
+            assert str(col.dtype) == _FEATURE_DTYPES[feature.dtype], (name, col.dtype, feature)
+        for a, b in zip(col.tolist(), list(want[name]), strict=True):
+            assert a == b and type(a) is type(b), (name, a, b)
+
+
+def _write_rows(tmp_path, layout, columns):
+    n = len(next(iter(columns.values())))
+    rows = [{k: v[i] for k, v in columns.items()} for i in range(n)]
+    text, kwargs = {
+        "array": (json.dumps(rows), {}),
+        "field": (json.dumps({"meta": 1, "data": rows}), {"field": "data"}),
+        "jsonl": ("".join(json.dumps(r) + "\n" for r in rows), {}),
+    }[layout]
+    return _write(tmp_path, f"{layout}.json", text), kwargs
+
+
+@pytest.mark.parametrize("layout", ["array", "field", "jsonl"])
+def test_missing_numbers_typed_as_the_reference(layout, tmp_path):
+    """An int column with a missing value is int64 with ``None`` in every
+    layout; a float column float64 with ``None``; whole floats beside a
+    missing value int64 under ``field`` only; a date-like name under
+    ``field`` reads integers all above a year of seconds as epoch times,
+    in the first unit that fits, and an all-missing column as
+    ``timestamp[s]``."""
+    columns = {"i": [1, None, 3], "j": [None, 2, -7], "f": [1.5, None, 0.25],
+               "w": [1.0, None, 2.0], "m": [1, 2.5, None], "n": [2**62, None, 1],
+               "seen_at": [1700000000, None, 1700000001], "t_time": [1700000000000, 1, None],
+               "timestamp_ms": [1700000000123, 1700000000000, None],
+               "small_at": [1, None, 5]}
+    if layout == "field":
+        columns["updated_at"] = [None, None, None]  # elsewhere the reference's "null" type
+    path, kwargs = _write_rows(tmp_path, layout, columns)
+    want = JaxDataset.from_json(path, **kwargs).get_split(True)
+    got = TpflDataset.from_json(path, **kwargs).get_split(True)
+    assert want.features["i"].dtype == "int64" and list(want["i"]) == [1, None, 3]
+    _assert_typed_as_the_reference(got, want)
+
+
+#: ISO 8601 and near-miss strings. The reference's pyarrow reader (JSON
+#: Lines, arrays) takes second-precision forms with an optional zone and
+#: leaves the rest strings; pandas' reader (``field``) takes, in a
+#: date-like column only, forms with one-digit fields, blanks, a ``t``,
+#: compact times and up to six fraction digits.
+_STAMP_FORMS = [
+    "2024-01-02", "2024-01-02 03:04:05", "2024-01-02T03:04:05", "2024-01-02T03:04",
+    "2024-01-02T03", "2024-01-02 03:04", "2024-01-02 03", "2024-02-29", "1970-01-01",
+    "1900-01-01", "9999-12-31", "0001-01-01", "2024-01-02T03:04:05.123",
+    "2024-01-02 03:04:05.5", "2024-01-02T03:04:05.000", "2024-01-02T03:04:05,5",
+    "2024-01-02T03:04:05.123456", "2024-1-2", "2024-01", " 2024-01-02",
+    "2024-01-02t03:04:05", "2024-01-02T0304", "2024-13-01", "2024-02-30", "2023-02-29",
+    "2024-01-02T24:00:00", "2024-01-02T03:04:60", "+2024-01-02", "2024-001", "2024-W01-1",
+    "2024-01-02Z", "hello",
+]
+
+#: Forms with a zone: pyarrow moves them to UTC; under ``field`` they
+#: stay out of date-like columns (pandas makes them zone-aware).
+_ZONED_FORMS = ["2024-01-02T03:04:05Z", "2024-01-02T03:04:05+01:00",
+                "2024-01-02T03:04:05-0100", "2024-01-02T03:04:05+01"]
+
+
+@pytest.mark.parametrize("layout", ["array", "field", "jsonl"])
+def test_timestamps_typed_as_the_reference(layout, tmp_path):
+    """Each string form in a column of its own beside a missing value,
+    under a plain name and a date-like one (``_at``), plus columns that
+    mix forms, or a date and a non-date: ``timestamp[s]`` in JSON Lines
+    and arrays, ``timestamp[us]`` under ``field`` in date-like names
+    only, strings where the reference leaves strings."""
+    columns = {}
+    for k, form in enumerate(_STAMP_FORMS + (_ZONED_FORMS if layout != "field" else [])):
+        columns[f"c{k}"] = [form, None, form]
+        columns[f"c{k}_at"] = [None, form, form]
+    for k, form in enumerate(_ZONED_FORMS if layout == "field" else []):
+        columns[f"z{k}"] = [form, None, form]
+    columns.update({"mixed": ["2024-01-02", "2024-01-02 03:04:05", "2024-01-02T03:04:06"],
+                    "mixed_at": ["2024-01-02", None, "2024-01-02 03:04:05.25"],
+                    "hello_at": ["2024-01-02", "hello", None], "date": ["2024-01-02"] * 3,
+                    "epoch_time": ["1700000000", "1700000001", "1700000002"]})
+    path, kwargs = _write_rows(tmp_path, layout, columns)
+    want = JaxDataset.from_json(path, **kwargs).get_split(True)
+    got = TpflDataset.from_json(path, **kwargs).get_split(True)
+    kinds = {f.dtype for f in want.features.values()}
+    assert {"timestamp[s]" if layout != "field" else "timestamp[us]", "string"} <= kinds
+    _assert_typed_as_the_reference(got, want)

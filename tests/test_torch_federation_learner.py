@@ -249,9 +249,9 @@ def test_evaluate_matches_jax():
 
 
 def test_mesh_is_refused_naming_item_7():
-    """No longer refused (item 7's mesh is ported; the pool's sharded fits
-    keep the refusal: tests/test_torch_simulation.py): a learner on a
-    one-rank ``nodes`` mesh fits the bytes of the learner without one,
+    """No longer refused (item 7's mesh is ported, and the pool's chunk
+    shards over ranks too: tests/test_torch_sharded_pool.py): a learner on
+    a one-rank ``nodes`` mesh fits the bytes of the learner without one,
     its model the JAX learner's, and ``"auto"`` resolves to no mesh in a
     lone process."""
     import torch.distributed as dist

@@ -261,24 +261,6 @@ def test_device_error_is_not_a_fallback(monkeypatch):
     assert SuperLearnerPool.instance().fallbacks == 0
 
 
-def test_pool_sharded_over_ranks_is_refused_naming_item_7(monkeypatch):
-    """A chunk that ``SHARD_NODES`` would spread over the ranks of a
-    multi-rank world is refused (the reference shards it over one
-    process's devices) and the refusal reaches every fitting node: no
-    fallback fit hides it."""
-    from tpfl_torch.parallel import engine
-
-    Settings.SHARD_NODES = True
-    monkeypatch.setattr(engine, "shard_device_count", lambda: 2)  # the chunk's 2 rows divide
-    wrapped = [VirtualNodeLearner(make_learner(f"shard-{i}", seed=i)) for i in range(2)]
-    with ThreadPoolExecutor(2) as tp:
-        futs = [tp.submit(w.fit) for w in wrapped]
-        for f in futs:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 7"):
-                f.result(timeout=60)
-    assert SuperLearnerPool.instance().fallbacks == 0
-
-
 def test_interrupt_before_dispatch_skips_the_fit():
     a, b = make_learner("int-a", seed=1), make_learner("int-b", seed=2)
     before = params(b)

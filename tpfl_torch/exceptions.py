@@ -56,11 +56,10 @@ class ConnectionTimeoutError(CommunicationError):
     off and retries timeouts; tests can assert on the distinction."""
 
 
-# --- planes the port has not ported yet --------------------------------
+# --- planes the port has not ported ------------------------------------
 # Each seam the reference enters raises ``not_ported(what, ITEM)``, naming
-# the ROADMAP.md §1 queue item that ports it (the simulation pool's chunk
-# sharded over ranks is the one left).
-MULTI_DEVICE_ITEM = "ROADMAP.md §1 item 7, multi-GPU and multi-host"
+# the ROADMAP.md §1 item that says why (an unported switch of
+# ``Settings``; the dataset constructors keep their own).
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:

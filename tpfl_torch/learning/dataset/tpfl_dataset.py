@@ -16,8 +16,12 @@ index lists bit-equal to the reference's.
 The file constructors read with the standard library and give what the
 reference's Hugging Face loaders give: ``from_csv`` / ``from_json`` one
 ``"train"`` split, ``from_generator`` / ``from_pandas`` one flat dataset;
-the columns in the same order, integers as int64, floats as float64
-(an integer column with a missing value too), strings as str.
+the columns in the same order, integers as int64, floats as float64,
+strings as str. ``from_json`` types as its two readers do: a missing
+number is a masked entry of an int64 or float64 column (``tolist()``
+gives ``None``), and ISO 8601 strings become ``datetime64`` columns
+(:func:`_json_column`); ``from_csv`` keeps pandas' float64 with NaN for
+an integer column with a missing value.
 ``from_huggingface`` and ``from_parquet`` need ``datasets`` / ``pyarrow``,
 which the port does not use, and raise ``NotImplementedError``.
 """
@@ -25,8 +29,10 @@ which the port does not use, and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import csv
+import datetime
 import json
 import math
+import re
 from collections.abc import Callable, Iterable, Mapping
 from typing import Any, Optional, Union
 
@@ -40,7 +46,7 @@ class ColumnSplit:
     gives a column, ``split[i]`` row ``i`` as a dict."""
 
     def __init__(self, columns: Mapping[str, Any]) -> None:
-        self._columns = {k: np.asarray(v) for k, v in columns.items()}
+        self._columns = {k: np.asanyarray(v) for k, v in columns.items()}
         lengths = {len(v) for v in self._columns.values()}
         if len(lengths) > 1:
             raise ValueError(f"columns of different lengths: {sorted(lengths)}")
@@ -93,8 +99,7 @@ def _column(values: list, coerce_ints: bool = False) -> np.ndarray:
     kinds = {_kind(v) for v in values if v is not None}
     missing = any(v is None for v in values)
     if kinds and kinds <= {"int", "float"}:
-        if not missing and (kinds == {"int"} or (coerce_ints and all(
-                math.isfinite(v) and v == int(v) and -2**63 <= v < 2**63 for v in values))):
+        if not missing and (kinds == {"int"} or (coerce_ints and _whole(values))):
             return np.asarray([int(v) for v in values], dtype=np.int64)
         return np.asarray([np.nan if v is None else v for v in values], dtype=np.float64)
     dtypes = {"bool": bool, "str": str, "list": None}
@@ -104,14 +109,157 @@ def _column(values: list, coerce_ints: bool = False) -> np.ndarray:
 
 
 def _records_to_columns(records: Iterable[Mapping[str, Any]],
-                        coerce_ints: bool = False) -> dict[str, np.ndarray]:
+                        json_reader: Optional[str] = None) -> dict[str, np.ndarray]:
     """Rows of dicts to typed columns, keys in first-appearance order and
-    a missing key as a missing value."""
+    a missing key as a missing value; ``json_reader`` ("arrow" or
+    "pandas") types them as that reader of ``from_json`` does."""
     rows = list(records)
     names: dict[str, None] = {}
     for row in rows:
         names.update(dict.fromkeys(row))
-    return {k: _column([row.get(k) for row in rows], coerce_ints) for k in names}
+    if json_reader is None:
+        return {k: _column([row.get(k) for row in rows]) for k in names}
+    return {k: _json_column(k, [row.get(k) for row in rows], json_reader) for k in names}
+
+
+# --- from_json's column types: the two readers of the reference's loader ----
+
+#: The strings pyarrow's JSON reader infers as ``timestamp[s]`` (arrow's
+#: ``ParseTimestampISO8601`` at second precision): a date, then optionally
+#: ``T`` or a blank and ``hh``, ``hh:mm`` or ``hh:mm:ss``, then optionally
+#: ``Z`` or an offset ``±hh``, ``±hhmm``, ``±hh:mm`` (the time moves to UTC).
+_ARROW_TIMESTAMP = re.compile(
+    r"(\d{4})-(\d{2})-(\d{2})(?:[T ](\d{2})(?::(\d{2})(?::(\d{2}))?)?"
+    r"(Z|[+-]\d{2}(?::?\d{2})?)?)?")
+
+#: The ISO 8601 strings pandas' ``read_json`` turns into ``timestamp[us]``
+#: in a date-like column: blanks around, a one- or two-digit month and day
+#: (the day optional), ``T``, ``t`` or a blank before the time, optional
+#: colons, at most six fraction digits after ``.`` or ``,``, no zone.
+_PANDAS_TIMESTAMP = re.compile(
+    r"\s*(\d{4})-(\d{1,2})(?:-(\d{1,2})(?:[Tt ](\d{2})(?::?(\d{2})(?::?(\d{2})"
+    r"(?:[.,](\d{1,6}))?)?)?)?)?\s*")
+
+_INT_TEXT = re.compile(r"\s*[+-]?\d+\s*")
+
+#: pandas reads numbers in a date-like column as epoch times only when
+#: every one is above a year of seconds (``Parser._MIN_STAMPS["s"]``).
+_MIN_STAMP = 31536000
+
+
+def _date_like(name: str) -> bool:
+    """The column names whose values pandas' ``read_json`` tries as dates
+    (``keep_default_dates``)."""
+    low = name.lower()
+    return (low.endswith(("_at", "_time")) or low in {"modified", "date", "datetime"}
+            or low.startswith("timestamp"))
+
+
+def _stamps(values: list, unit: str) -> np.ndarray:
+    """``datetime`` values (None: NaT) as a ``datetime64[unit]`` column."""
+    return np.asarray([np.datetime64("NaT") if v is None else np.datetime64(v, unit)
+                       for v in values], dtype=f"datetime64[{unit}]")
+
+
+def _arrow_timestamp(text: str) -> Optional[datetime.datetime]:
+    m = _ARROW_TIMESTAMP.fullmatch(text)
+    if m is None:
+        return None
+    y, mo, d, h, mi, s, zone = m.groups()
+    try:
+        t = datetime.datetime(int(y), int(mo), int(d), int(h or 0), int(mi or 0), int(s or 0))
+    except ValueError:
+        return None
+    if zone and zone != "Z":
+        hours, minutes = int(zone[1:3]), int(zone[3:].lstrip(":") or 0)
+        if hours > 23 or minutes > 59:
+            return None
+        sign = 1 if zone[0] == "+" else -1
+        t -= sign * datetime.timedelta(hours=hours, minutes=minutes)
+    return t
+
+
+def _pandas_timestamp(text: str) -> Optional[datetime.datetime]:
+    m = _PANDAS_TIMESTAMP.fullmatch(text)
+    if m is None:
+        return None
+    y, mo, d, h, mi, s, frac = m.groups()
+    try:
+        return datetime.datetime(int(y), int(mo), int(d or 1), int(h or 0), int(mi or 0),
+                                 int(s or 0), int((frac or "0").ljust(6, "0")))
+    except ValueError:
+        return None
+
+
+def _pandas_epochs(values: list) -> Optional[np.ndarray]:
+    """Integers (None: missing) as pandas reads them in a date-like
+    column: epoch times in the first of s, ms, us whose nanoseconds fit
+    int64, when every one is above :data:`_MIN_STAMP`; else None."""
+    present = [v for v in values if v is not None]
+    if any(v <= _MIN_STAMP for v in present):
+        return None
+    for unit, ns in (("s", 10**9), ("ms", 10**6), ("us", 10**3)):
+        if all(v * ns < 2**63 for v in present):
+            nat = np.iinfo(np.int64).min
+            return np.asarray([nat if v is None else v for v in values],
+                              np.int64).view(f"datetime64[{unit}]")
+    return None
+
+
+def _pandas_dates(values: list, kinds: set) -> Optional[np.ndarray]:
+    """A date-like column as pandas' ``read_json`` converts it
+    (``Parser._try_convert_to_date``), or None where it leaves it: all
+    missing -> ``datetime64[s]``; integers, or strings that all read as
+    integers, -> epoch times (:func:`_pandas_epochs`); strings that all
+    match :data:`_PANDAS_TIMESTAMP` -> ``datetime64[us]``."""
+    present = [v for v in values if v is not None]
+    if not present:
+        return _stamps(values, "s")
+    if kinds == {"str"} and all(_INT_TEXT.fullmatch(v) for v in present):
+        return _pandas_epochs([None if v is None else int(v) for v in values])
+    if kinds == {"int"}:
+        return _pandas_epochs(values)
+    if kinds == {"str"}:
+        stamps = [None if v is None else _pandas_timestamp(v) for v in values]
+        if all(t is not None for t, v in zip(stamps, values) if v is not None):
+            return _stamps(stamps, "us")
+    return None
+
+
+def _whole(values: list) -> bool:
+    """Numbers that are all whole and within int64 (pandas' int coercion)."""
+    return all(math.isfinite(v) and v == int(v) and -2**63 <= v < 2**63 for v in values)
+
+
+def _json_column(name: str, values: list, reader: str) -> np.ndarray:
+    """One column of ``from_json`` as the reference's reader types it:
+
+    - ``"arrow"`` (JSON Lines and arrays, pyarrow's reader): strings that
+      all parse as :data:`_ARROW_TIMESTAMP` -> ``datetime64[s]``;
+    - ``"pandas"`` (records under ``field``, pandas' ``read_json``): in a
+      date-like column name (:func:`_date_like`) the dates of
+      :func:`_pandas_dates`; whole numbers -> int64;
+    - both: a number column with a missing value is masked there, int64
+      or float64 (``tolist()`` gives ``None``, as the reference's null);
+      a missing timestamp is NaT (``None``). Otherwise :func:`_column`."""
+    present = [v for v in values if v is not None]
+    kinds = {_kind(v) for v in present}
+    pandas = reader == "pandas"
+    if pandas and _date_like(name):
+        stamps = _pandas_dates(values, kinds)
+        if stamps is not None:
+            return stamps
+    elif not pandas and present and kinds == {"str"}:
+        parsed = [None if v is None else _arrow_timestamp(v) for v in values]
+        if all(t is not None for t, v in zip(parsed, values) if v is not None):
+            return _stamps(parsed, "s")
+    if len(present) < len(values) and kinds and kinds <= {"int", "float"}:
+        mask = [v is None for v in values]
+        filled = [0 if v is None else v for v in values]
+        if kinds == {"int"} or (pandas and _whole(present)):
+            return np.ma.masked_array(np.asarray([int(v) for v in filled], np.int64), mask=mask)
+        return np.ma.masked_array(np.asarray(filled, np.float64), mask=mask)
+    return _column(values, coerce_ints=pandas)
 
 
 # --- pandas' ujson float path (the reference's JSON loader) -------------------
@@ -297,6 +445,12 @@ class TpflDataset:
           ``read_json`` reads the records with ujson again, and a number
           column whose values are all whole becomes int64.
 
+        Column types follow the two readers (:func:`_json_column`): ISO
+        8601 strings become ``datetime64[s]`` in JSON Lines and arrays
+        (pyarrow's inference), and ``datetime64[us]`` under ``field`` in a
+        date-like column name only (pandas' ``convert_dates``); a missing
+        number is masked in an int64 or float64 column.
+
         An array after leading blanks raises ``ValueError``, as the
         reference's loader fails on it."""
         _refuse_kwargs("from_json", kwargs)
@@ -316,7 +470,8 @@ class TpflDataset:
             else:
                 data = _map_floats(data, lambda x: float(_ujson_dumps_float(x)))
             records.extend(data)
-        return cls({"train": _records_to_columns(records, coerce_ints=field is not None)})
+        return cls({"train": _records_to_columns(
+            records, json_reader="arrow" if field is None else "pandas")})
 
     @classmethod
     def from_parquet(cls, path: str, **kwargs: Any) -> "TpflDataset":

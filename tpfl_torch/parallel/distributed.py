@@ -59,7 +59,9 @@ reads it.
 rank keeping only its own slice (every rank holds the same host copy:
 the single-controller contract of ``crosshost``); :func:`local_data`
 reads a rank's shard back as numpy; :func:`full_tensor` gathers a
-``DTensor`` through the ledger's helpers.
+``DTensor`` through the ledger's helpers. :func:`send_bytes` /
+:func:`recv_bytes` carry pickled headers between two ranks on
+:func:`wire_device` (the simulation pool's sharded chunks).
 """
 
 from __future__ import annotations
@@ -78,9 +80,9 @@ from tpfl_torch import DeviceLike, resolve_device
 __all__ = [
     "COLLECTIVE_KINDS", "CollectiveLedger", "all_gather", "all_reduce", "all_to_all",
     "ensure_distributed", "fsdp_gather", "full_tensor", "gather", "global_put",
-    "is_multiprocess", "local_data", "local_slice", "place_like", "pmean",
+    "is_multiprocess", "local_data", "local_slice", "place_like", "pmean", "recv_bytes",
     "record_collectives", "reduce_scatter",
-    "replicate", "send_recv", "shard", "shift", "sync_mean",
+    "replicate", "send_bytes", "send_recv", "shard", "shift", "sync_mean", "wire_device",
 ]
 
 #: The reference's collective kinds (``tpfl/parallel/scaling.py:31-37``).
@@ -178,6 +180,39 @@ def is_multiprocess() -> bool:
     """True when this process is one of several in a ``torch.distributed``
     world."""
     return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+
+def wire_device() -> torch.device:
+    """The device this world's point-to-point tensors travel on: the
+    current card under ``nccl``, the host under ``gloo`` (its send and
+    receive take CPU tensors, whatever device the ranks compute on)."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def send_bytes(data: bytes, dst: int) -> None:
+    """``data`` to global rank ``dst``: its length, then its bytes, on
+    :func:`wire_device`. The receiver calls :func:`recv_bytes`."""
+    dev = wire_device()
+    dist.send(torch.tensor([len(data)], dtype=torch.int64, device=dev), dst)
+    dist.send(torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev), dst)
+
+
+def recv_bytes(src: int, timeout: Optional[datetime.timedelta] = None) -> bytes:
+    """The bytes :func:`send_bytes` sent from global rank ``src``. The
+    length waits ``timeout`` (None: the group's own); a peer that exits
+    fails the wait at once."""
+    dev = wire_device()
+    n = torch.empty(1, dtype=torch.int64, device=dev)
+    work = dist.irecv(n, src)
+    if timeout is None:
+        work.wait()
+    else:
+        work.wait(timeout)
+    buf = torch.empty(int(n.item()), dtype=torch.uint8, device=dev)
+    dist.recv(buf, src)
+    return buf.cpu().numpy().tobytes()
 
 
 def send_recv(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup, offset: int = 1,

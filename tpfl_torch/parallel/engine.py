@@ -100,9 +100,10 @@ The simulation plane's seams live here too, as in the reference:
 rides :meth:`~FederationEngine.export_state`) and
 :func:`build_masked_local_fit` / :func:`build_batched_fit_program`, the
 simulation pool's masked node-stacked local fit over the learner's own
-train step. :func:`nodes_mesh_axes` says whether the pool's chunk would
-shard (:func:`maybe_nodes_mesh` builds that mesh); the pool's fits
-across ranks are refused (``ROADMAP.md`` §1 item 7).
+train step. :func:`nodes_mesh_axes` says whether the pool's chunk
+shards over the world's ranks (:func:`maybe_nodes_mesh` builds that
+mesh); rank 0 leads such a chunk and the other ranks serve its row
+shards (:func:`tpfl_torch.simulation.batched_fit.serve_pool_shards`).
 
 **Buffer donation** (``donate=``, default ``Settings.ENGINE_DONATE``,
 True in every profile, as the reference's ``donate_argnums=(0, 1, 2, 3)``):

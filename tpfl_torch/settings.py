@@ -528,7 +528,9 @@ class Settings:
     # --- pod-scale federation engine (node-axis sharding) ---
     SHARD_NODES: bool = False
     """``mesh="auto"`` (``parallel.engine.auto_mesh``) spreads the engine's
-    node axis over the ranks of the ``torch.distributed`` world."""
+    node axis over the ranks of the ``torch.distributed`` world, and the
+    simulation pool's chunk over them (rank 0 leads, the others run
+    ``simulation.serve_pool_shards``)."""
 
     SHARD_DEVICES: int = 0
     """Ranks (one device each) the auto mesh may span: 0 = the whole world,

@@ -12,8 +12,16 @@ Activation: :func:`try_init_learner_with_simulation` wraps a learner in
 :class:`VirtualNodeLearner` unless ``Settings.DISABLE_SIMULATION`` —
 every ``Node`` does, so a port ``Node`` fits through the pool by
 default, as the reference's does.
+
+Sharded over ranks (``Settings.SHARD_NODES`` in a ``torch.distributed``
+world): rank 0 runs the simulation and its pool leads; every other rank
+of the shard mesh calls :func:`serve_pool_shards` (importable from here,
+outside ``__all__``, which stays the reference's) and trains the row
+shards of the chunks rank 0 sends it, until rank 0's
+``SuperLearnerPool.reset()``.
 """
 
+from tpfl_torch.simulation.batched_fit import serve_pool_shards
 from tpfl_torch.simulation.pool import SuperLearnerPool
 from tpfl_torch.simulation.virtual_learner import (
     VirtualNodeLearner,

@@ -17,6 +17,14 @@ The pool counts what it does: :attr:`SuperLearnerPool.batched_dispatches`
 :attr:`~SuperLearnerPool.fallbacks` (jobs of failed batched paths), with
 the metrics registry's ``tpfl_sim_batched_dispatch_total`` and
 ``tpfl_sim_fallback_total``.
+
+A chunk that ``Settings.SHARD_NODES`` spreads over the ranks of a
+``torch.distributed`` world runs with this process as rank 0, the leader:
+the other ranks call :func:`~tpfl_torch.simulation.batched_fit.serve_pool_shards`
+and train their row shards (:mod:`~tpfl_torch.simulation.batched_fit`)
+until rank 0 calls :func:`~tpfl_torch.simulation.batched_fit.stop_pool_servants`.
+The dispatcher and the counters are the same; a sharded chunk's failure
+reaches the fitting nodes and is no fallback.
 """
 
 from __future__ import annotations
