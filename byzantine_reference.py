@@ -17,10 +17,10 @@ samples_per_node=200, batch_size=25, learning_rate=0.1)``, STAR,
 ``ELECTION = "hash"``, ``TRAIN_SET_SIZE = 10``, the test profile,
 ``QUARANTINE_ENABLED`` and ``LEDGER_ENABLED``.
 
-- default, phase 14's cell: seed 4242, 4 rounds, sign flips on nodes 1
+- default, phase 14's cell: seed 4242, 3 rounds, sign flips on nodes 1
   and 4 and additive noise (std 0.1) on nodes 6 and 8;
 - ``--async``, phase 16c's defended arm (the tier's async variant,
-  ``bench.py:2939-3033``): seed 4243, 5 rounds, ``ASYNC_ROUNDS``
+  ``bench.py:2939-3033``): seed 4243, 4 rounds, ``ASYNC_ROUNDS``
   serialized with ``ASYNC_BUFFER_K`` = 10, ``ASYNC_STALENESS_MAX`` 2 and
   ``ASYNC_STALENESS_EXP`` 0.5, ``stale_flood`` on node 1 and
   ``withhold_replay`` from round 2 on node 4.
@@ -66,8 +66,8 @@ import numpy as np
 import torch
 
 NODES, WITHHOLD_START = 10, 2
-SYNC = {"seed": 4242, "rounds": 4, "adversaries": (1, 4, 6, 8)}
-ASYNC = {"seed": 4243, "rounds": 5, "adversaries": (1, 4)}
+SYNC = {"seed": 4242, "rounds": 3, "adversaries": (1, 4, 6, 8)}
+ASYNC = {"seed": 4243, "rounds": 4, "adversaries": (1, 4)}
 
 
 def configure(settings, async_: bool) -> None:
@@ -345,7 +345,7 @@ def main() -> int:
     ap.add_argument("--async", dest="async_", action="store_true",
                     help="phase 16c's defended async arm instead of phase 14's cell")
     ap.add_argument("--rounds", type=int, default=None,
-                    help="rounds (default: 6, or 8 with --async)")
+                    help="rounds (default: 3, or 4 with --async)")
     ap.add_argument("--skip-jax", action="store_true")
     ap.add_argument("--device", default="cpu", help="the port's device")
     ap.add_argument("--conv-impl", default="fwd_bwd", help="the port CNN's conv_impl")

@@ -154,15 +154,17 @@
    ``conv_dw`` / ``conv_dx`` at the federations' own shapes (both CNN
    layers at one node of 25 and of 32 bf16 images), wgmma asserted, held
    to the plain versions and timed; then ten Nodes of the CNN cell's model
-   (bf16, the kernels at N = 1) on a STAR, seed 4242, 4 rounds of 4
+   (bf16, the kernels at N = 1) on a STAR, seed 4242, 3 rounds (2 in the
+   ten-node arms without a defense) of 4
    epochs over 200 samples each in batches of 25 (lr 0.1), sign flips on
    nodes 1 and 4 and additive noise (std 0.1) on nodes 6 and 8. Arms:
    FedAvg fault-free, the six honest nodes alone, FedAvg attacked, FedAvg
    + quarantine (twice, the second traced: ``TELEMETRY_ENABLED``, a dump
    directory, a 200,000-entry ring), Krum (f = 3) fault-free and
    attacked, MultiKrum (f = 3, m = 6) and TrimmedMean (trim 2) with
-   quarantine. Each: complete stage histories, exactly 4 × n × 4 × 8
-   steps' launches (2,560 ``conv_dw`` + 1,280 ``conv_dx`` at n = 10),
+   quarantine. Each: complete stage histories, exactly rounds × n × 4 × 8
+   steps' launches (1,920 ``conv_dw`` + 960 ``conv_dx`` at n = 10 and 3
+   rounds),
    all wgmma, every node's final params finite and, without quarantine,
    within rtol 1e-6 of node 0's; with quarantine, the two sign flips in
    the ledger's detections, in the replayed quarantine set and flagged
@@ -204,7 +206,7 @@
    forked into every aggregator: the final digests equal across runs, one
    across the ten nodes, the controller trajectories equal and non-empty
    at every node (each run exactly 240 steps' launches). (c) The
-   ``byzantine`` tier's async arm (``:2939-3033``): seed 4243, 5 rounds
+   ``byzantine`` tier's async arm (``:2939-3033``): seed 4243, 4 rounds
    × 4 epochs × 200 samples, serialized, K = n, ``ASYNC_STALENESS_MAX`` 2,
    ``stale_flood`` on n1 and ``withhold_replay`` from round 2 on n4;
    adversary-free at n = 8, staleness-blind (exp 0) and defended
@@ -226,9 +228,10 @@
 18. Simulation plane phase (phase 18): the reference's default fit path,
    every Node's fits batched by ``SuperLearnerPool`` into node-stacked
    programs. (a) Phase 14's FedAvg fault-free and attacked arms with the
-   pool on: one batched dispatch of all ten fits a round, no fallback,
-   exactly 128 node-batched steps' launches (256 ``conv_dw`` + 128
-   ``conv_dx``, all wgmma, all at N = 16), final models within rtol 1e-6,
+   pool on (2 rounds, as those arms): one batched dispatch of all ten
+   fits a round, no fallback, exactly 64 node-batched steps' launches
+   (128 ``conv_dw`` + 64 ``conv_dx``, all wgmma, all at N = 16), final
+   models within rtol 1e-6,
    rounds/s beside phase 14's inline arm; a pooled fit held to the same
    learner's inline fit on the card at the bound stated beside
    ``SP_TWIN_RTOL``. (b) Phase 16a's three arms with the pool on
@@ -256,8 +259,8 @@
    FLOPs over the card's peak), every launch on wgmma; (d) the HBM
    tracker's peak over a CNN window equal to
    ``torch.cuda.max_memory_allocated()``; (e) the fleet folds of two
-   launches of two ranks (``--fleet-rank``, subprocesses on the card)
-   byte-identical, the SLO watchdog flagging a 20% regression within 2
+   launches of two ranks (``--fleet-rank``, four subprocesses on the
+   card, started together) byte-identical, the SLO watchdog flagging a 20% regression within 2
    windows and silent without it, the fleet plane's overhead, the
    census sweep's bitsets; (f) ``MetricsHTTPServer`` on loopback (200,
    then 503 once the watchdog breaches) and one ``NodeMonitor`` period.
@@ -402,6 +405,29 @@
    distance from the 16-row stage no larger than the nudged start's
    (``PS_ROWS``'s comment). Both walls are printed beside the card (the
    two ranks share its SMs: a record, not a scaling figure).
+
+26. Parquet path (phase 26: the data plane). (a) The committed Hugging
+   Face directory ``tests/data/torch_hf_digits`` (PNG images in an
+   ``Image()`` column and ``ClassLabel`` labels, in Parquet) read on the
+   host by ``TpflDataset.from_huggingface`` and its train file by
+   ``from_parquet``, with the port's numpy reader (no pyarrow, datasets
+   or PIL): the two give the same arrays, every split's arrays equal the
+   reference loader's sha256 pins (``PQ_PINS``), and the images equal
+   the port's ``rendered_color_digits`` (512 + 128, seed 7) quantised to
+   uint8; the seconds and images/s of the decode are printed. (b) Both
+   conv kernels at the window's shape (both CNN layers, N 4 B 32, bf16):
+   wgmma asserted, held to the plain versions and timed. Then the CNN at
+   full width on 4 nodes, each 128 of those train images from
+   ``generate_partitions(4, RandomIIDPartitionStrategy)`` through the
+   export (bf16, scaled by 1/255): a warm round with every conv launch
+   held to its plain version on the same inputs, then a 3-round window.
+   Gated: exactly 8 ``conv_dw`` + 4 ``conv_dx`` launches a round in both,
+   all wgmma, none beyond its bound; finite losses and one aggregate on
+   every node; one f32 round through the kernels (8 + 4 launches, the
+   CUDA-core f32 kernels) within rtol 1e-3 / atol 1e-4 of the same round
+   through their plain versions on the card (no launch). Rounds/s, node 0's accuracy
+   on the fixture's test split and the f32 round's distance from the CPU
+   are printed beside the card (not gated).
 
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
@@ -2448,8 +2474,14 @@ def federation_path(card: str) -> tuple[dict, list]:
 # the model the two phases run.
 PHASE_DEVICE = "cuda"
 PHASE_CNN = dict(out_channels=10, conv_impl="pallas")
-# Phase 25 bought its time here too: 4 rounds (from 6) in phases 14 and 18a.
-BF_SEED, BF_ROUNDS, BF_EPOCHS, BF_SAMPLES, BF_BATCH, BF_TEST = 4242, 4, 4, 200, 25, 1200
+# Phases 25 and 26 bought their time here too: 3 rounds (from 6 before
+# phase 25, 4 before phase 26) in the arms that defend and in the ideal
+# one they are compared with; 2 (BF_PLAIN_ROUNDS) in the ten-node arms
+# that do not defend and in their pooled twins of phase 18a, whose gates
+# (histories, launches, the nodes agreeing, the adversary map) do not
+# depend on depth.
+BF_SEED, BF_ROUNDS, BF_EPOCHS, BF_SAMPLES, BF_BATCH, BF_TEST = 4242, 3, 4, 200, 25, 1200
+BF_PLAIN_ROUNDS = 2
 BF_ADVERSARIES = (1, 4, 6, 8)
 # The adversaries the defense flags at this cell in every run: the sign
 # flips, by their cosine to the round's reference, whatever the window.
@@ -2470,20 +2502,21 @@ BF_ADVERSARIES = (1, 4, 6, 8)
 BF_DETECTED = (1, 4)
 # The traced arm's flight ring: large enough that no node's ring evicts.
 BF_RING = 200_000
-# (label, attack, defend, aggregator factory, nodes, traced)
+# (label, attack, defend, aggregator factory, nodes, traced, rounds)
 BF_ARMS = [
-    ("fedavg, fault-free", False, False, None, 10, False),
-    ("fedavg, adversary-free (6 honest nodes)", False, False, None, 6, False),
-    ("fedavg, attacked", True, False, None, 10, False),
-    ("fedavg+quarantine", True, True, None, 10, False),
-    ("fedavg+quarantine, traced", True, True, None, 10, True),
+    ("fedavg, fault-free", False, False, None, 10, False, BF_PLAIN_ROUNDS),
+    ("fedavg, adversary-free (6 honest nodes)", False, False, None, 6, False, BF_ROUNDS),
+    ("fedavg, attacked", True, False, None, 10, False, BF_PLAIN_ROUNDS),
+    ("fedavg+quarantine", True, True, None, 10, False, BF_ROUNDS),
+    ("fedavg+quarantine, traced", True, True, None, 10, True, BF_ROUNDS),
     ("krum, fault-free", False, False,
-     lambda: Krum(n_byzantine=3, device=PHASE_DEVICE), 10, False),
-    ("krum, attacked", True, False, lambda: Krum(n_byzantine=3, device=PHASE_DEVICE), 10, False),
+     lambda: Krum(n_byzantine=3, device=PHASE_DEVICE), 10, False, BF_PLAIN_ROUNDS),
+    ("krum, attacked", True, False, lambda: Krum(n_byzantine=3, device=PHASE_DEVICE), 10, False,
+     BF_PLAIN_ROUNDS),
     ("multikrum+quarantine", True, True,
-     lambda: MultiKrum(n_byzantine=3, m=6, device=PHASE_DEVICE), 10, False),
+     lambda: MultiKrum(n_byzantine=3, m=6, device=PHASE_DEVICE), 10, False, BF_ROUNDS),
     ("trimmedmean+quarantine", True, True,
-     lambda: TrimmedMean(trim=2, device=PHASE_DEVICE), 10, False),
+     lambda: TrimmedMean(trim=2, device=PHASE_DEVICE), 10, False, BF_ROUNDS),
 ]
 
 
@@ -2601,10 +2634,11 @@ def quorum_degradations() -> float:
 
 
 def bf_arm(card: str, label: str, attack: bool, defend: bool, agg, n: int,
-           dump_dir: "str | None") -> dict:
-    """One arm: a seeded experiment of ``n`` Nodes through the harness.
-    Checks that the harness built ``n`` HarnessNodes, complete stage
-    histories, exactly BF_ROUNDS × n × 4 × 8 steps' conv launches, all on wgmma,
+           dump_dir: "str | None", rounds: int) -> dict:
+    """One arm: a seeded experiment of ``n`` Nodes and ``rounds`` rounds
+    through the harness. Checks that the harness built ``n`` HarnessNodes,
+    complete stage histories, exactly rounds × n × 4 × 8 steps' conv
+    launches, all on wgmma,
     every node's final params finite and, without quarantine, within
     rtol 1e-6 of node 0's; with quarantine the sign flips
     (``BF_DETECTED``) in the ledger's detections, in the replayed
@@ -2626,7 +2660,7 @@ def bf_arm(card: str, label: str, attack: bool, defend: bool, agg, n: int,
         reset_launches()
         t0 = time.perf_counter()
         exp = run_seeded_experiment(
-            BF_SEED, n, BF_ROUNDS, epochs=BF_EPOCHS, attack_plan=bf_plan() if attack else None,
+            BF_SEED, n, rounds, epochs=BF_EPOCHS, attack_plan=bf_plan() if attack else None,
             aggregator_factory=agg, model_fn=phase_model,
             data_fn=lambda s: TpflDataset.from_arrays(*synthetic_cifar10(
                 n_train=BF_SAMPLES * n, n_test=BF_TEST, seed=s)),
@@ -2649,9 +2683,9 @@ def bf_arm(card: str, label: str, attack: bool, defend: bool, agg, n: int,
     tag = f"byzantine federation ({label})"
     if len(nodes) != n:
         raise AssertionError(f"{tag}: the harness built {len(nodes)} HarnessNodes, expected {n}")
-    check_history(tag, nodes, BF_ROUNDS)
+    check_history(tag, nodes, rounds)
     check_conv_launches(tag, launches, wgmma,
-                        BF_ROUNDS * n * BF_EPOCHS * (BF_SAMPLES // BF_BATCH))
+                        rounds * n * BF_EPOCHS * (BF_SAMPLES // BF_BATCH))
     try:
         # With quarantine each node folds what its own engine admitted
         # (BF_DETECTED's comment): the spread is reported, not gated.
@@ -2662,8 +2696,8 @@ def bf_arm(card: str, label: str, attack: bool, defend: bool, agg, n: int,
     truth = set(adversary_map(exp))
     if truth != ({f"seed{BF_SEED}-n{i}" for i in BF_ADVERSARIES} if attack else set()):
         raise AssertionError(f"{tag}: adversary map {sorted(truth)}")
-    out = {"card": card, "nodes": n, "rounds": BF_ROUNDS, "experiment_wall_s": wall,
-           "rounds_per_s": BF_ROUNDS / wall, "harness_call_wall_s": call_wall,
+    out = {"card": card, "nodes": n, "rounds": rounds, "experiment_wall_s": wall,
+           "rounds_per_s": rounds / wall, "harness_call_wall_s": call_wall,
            "honest_acc": honest_acc(exp, BF_ADVERSARIES),
            "launches": {k: launches[k] for k in ("conv_dw", "conv_dx")},
            "wgmma_launches": wgmma, "final_models_max_abs_diff": spread,
@@ -2727,9 +2761,9 @@ def byzantine_federation_path(card: str) -> dict:
     (reported, not gated: synthetic data)."""
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, attack, defend, agg, n, traced in BF_ARMS:
+        for label, attack, defend, agg, n, traced, rounds in BF_ARMS:
             out[label] = bf_arm(card, label, attack, defend, agg, n,
-                                tmp if traced else None)
+                                tmp if traced else None, rounds)
     off, on = out["fedavg+quarantine"], out["fedavg+quarantine, traced"]
     if off["_sign_flip_replay"] != on["_sign_flip_replay"]:
         raise AssertionError("byzantine federation: the sign flips' decisions differ with "
@@ -2874,9 +2908,10 @@ def chaos_federation_path(card: str) -> dict:
 # which the card's machine lacks.
 AS_SEED, AS_NODES, AS_SAMPLES, AS_BATCH, AS_EPOCHS, AS_K = 3131, 10, 100, 25, 2, 5
 # Phase 25 bought its time here: 3 sync rounds (from 5) and 6 async rounds
-# (from 10) in 16a and 18b, 3 rounds (from 4) in 16b, 5 (from 8) in 16c.
+# (from 10) in 16a and 18b, 3 rounds (from 4) in 16b, 5 (from 8) in 16c;
+# phase 26: 4 rounds in 16c.
 AS_WARM, AS_SYNC_ROUNDS, AS_ASYNC_ROUNDS, AS_DET_ROUNDS, AS_DET_K = 2, 3, 6, 3, 8
-BA_SEED, BA_ROUNDS, BA_EPOCHS, BA_SAMPLES, BA_BATCH, BA_TEST = 4243, 5, 4, 200, 25, 1200
+BA_SEED, BA_ROUNDS, BA_EPOCHS, BA_SAMPLES, BA_BATCH, BA_TEST = 4243, 4, 4, 200, 25, 1200
 BA_ADVERSARIES, BA_WITHHOLD_START = (1, 4), 2
 # (label, attack, defend, staleness-blind, nodes)
 BA_ARMS = [("adversary-free", False, False, False, 8),
@@ -3718,7 +3753,7 @@ def ev_launches(ev: dict, name: str) -> dict:
 SP_ARMS = [("fedavg, fault-free", False), ("fedavg, attacked", True)]
 SP_NODES = 10
 SP_BUCKET = 16  # the pool's power-of-two bucket of the 10-node train set
-SP_STEPS = BF_ROUNDS * BF_EPOCHS * (BF_SAMPLES // BF_BATCH)  # node-batched steps an arm
+SP_STEPS = BF_PLAIN_ROUNDS * BF_EPOCHS * (BF_SAMPLES // BF_BATCH)  # node-batched steps an arm
 # Pooled against inline fits of one learner on the card: the same bf16 ops
 # at another node count, where a library kernel may round an element
 # another way and the conv kernels stay within their bounds. Elementwise
@@ -3798,7 +3833,7 @@ def pooled_bf_arm(card: str, label: str, attack: bool, inline: dict) -> dict:
         reset_launches()
         t0 = time.perf_counter()
         exp = run_seeded_experiment(
-            BF_SEED, SP_NODES, BF_ROUNDS, epochs=BF_EPOCHS,
+            BF_SEED, SP_NODES, BF_PLAIN_ROUNDS, epochs=BF_EPOCHS,
             attack_plan=bf_plan() if attack else None, model_fn=phase_model,
             data_fn=cifar_data_fn(BF_SAMPLES, SP_NODES, BF_TEST), samples_per_node=BF_SAMPLES,
             batch_size=BF_BATCH, learning_rate=0.1, timeout=300.0, device=PHASE_DEVICE)
@@ -3812,17 +3847,18 @@ def pooled_bf_arm(card: str, label: str, attack: bool, inline: dict) -> dict:
     tag = f"simulation plane, pooled byzantine ({label})"
     if len(nodes) != SP_NODES:
         raise AssertionError(f"{tag}: the harness built {len(nodes)} HarnessNodes")
-    check_history(tag, nodes, BF_ROUNDS)
+    check_history(tag, nodes, BF_PLAIN_ROUNDS)
     check_conv_launches(tag, launches, wgmma, SP_STEPS)
     check_at_nodes(tag, by_n, {"conv_dw": {SP_BUCKET: 2 * SP_STEPS},
                                "conv_dx": {SP_BUCKET: SP_STEPS}})
-    if stats["group_sizes"] != [SP_NODES] * BF_ROUNDS or stats["fallbacks"] or stats["singles"]:
+    if (stats["group_sizes"] != [SP_NODES] * BF_PLAIN_ROUNDS or stats["fallbacks"]
+            or stats["singles"]):
         raise AssertionError(f"{tag}: pool {stats}, expected one dispatch of {SP_NODES} fits "
                              f"a round")
     spread = check_node_finals(tag, nodes, agree=True)
     wall = max(nd.finished_at for nd in nodes) - nodes[0].started_at
-    rps = BF_ROUNDS / wall
-    return {"card": card, "nodes": SP_NODES, "rounds": BF_ROUNDS, "experiment_wall_s": wall,
+    rps = BF_PLAIN_ROUNDS / wall
+    return {"card": card, "nodes": SP_NODES, "rounds": BF_PLAIN_ROUNDS, "experiment_wall_s": wall,
             "rounds_per_s": rps, "inline_rounds_per_s": inline["rounds_per_s"],
             "speedup_over_inline": rps / inline["rounds_per_s"],
             "harness_call_wall_s": call_wall, "mean_test_loss": float(np.mean(losses)),
@@ -3830,7 +3866,7 @@ def pooled_bf_arm(card: str, label: str, attack: bool, inline: dict) -> dict:
             "inline_launches": inline["launches"], "wgmma_launches": wgmma,
             "launches_by_node_count": {k: {str(n): c for n, c in v.items()}
                                        for k, v in by_n.items()},
-            "pool": stats, "h2d_copies_per_round": (batched_fit.h2d_copies - h2d) / BF_ROUNDS,
+            "pool": stats, "h2d_copies_per_round": (batched_fit.h2d_copies - h2d) / BF_PLAIN_ROUNDS,
             "pad_row_share": (SP_BUCKET - SP_NODES) / SP_BUCKET,
             "final_models_max_abs_diff": spread, "round_split": split,
             "inline_round_split": inline["round_split"]}
@@ -4447,21 +4483,32 @@ def fleet_rank(rank: int) -> None:
     print(json.dumps({"metrics_snapshot": snap}))
 
 
-def fleet_launch() -> str:
-    """Two ranks at once, each a subprocess on the card; the Prometheus
-    text of their receipts' fold."""
+def fleet_launches(launches: int) -> list[str]:
+    """``launches`` launches of two ranks, every rank a subprocess on the
+    card and all of them started together; the Prometheus text of each
+    launch's receipts' fold."""
     from tpfl_torch.management import fleetobs
 
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--fleet-rank",
-                               str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in (0, 1)]
-    receipts = []
-    for r, proc in enumerate(procs):
-        out, err = proc.communicate(timeout=300)
-        if proc.returncode != 0:
-            raise AssertionError(f"fleet rank {r} exited {proc.returncode}: {err[-2000:]}")
-        receipts.append(json.loads(out.strip().splitlines()[-1]))
-    return fleetobs.fold_receipts(receipts).render_prometheus()
+    procs = [[subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--fleet-rank",
+                                str(r)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               text=True) for r in (0, 1)] for _ in range(launches)]
+    texts = []
+    try:
+        for i, launch in enumerate(procs):
+            receipts = []
+            for r, proc in enumerate(launch):
+                out, err = proc.communicate(timeout=300)
+                if proc.returncode != 0:
+                    raise AssertionError(f"fleet launch {i} rank {r} exited {proc.returncode}: "
+                                         f"{err[-2000:]}")
+                receipts.append(json.loads(out.strip().splitlines()[-1]))
+            texts.append(fleetobs.fold_receipts(receipts).render_prometheus())
+    finally:
+        for proc in (p for launch in procs for p in launch):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    return texts
 
 
 def watchdog_drive(rates: list) -> "int | None":
@@ -4565,7 +4612,7 @@ def fleet_observatory() -> dict:
     (with both origin labels and engine series), the watchdog flagging a
     20% rounds/s regression within 2 windows and silent without it, the
     overhead, the population sketch."""
-    texts = [fleet_launch() for _ in range(2)]
+    texts = fleet_launches(2)
     if texts[0] != texts[1]:
         raise AssertionError("fleet fold: the two launches' Prometheus texts differ")
     if not ('origin="0"' in texts[0] and 'origin="1"' in texts[0]
@@ -6647,6 +6694,186 @@ def profile_call(run) -> dict:
     }
 
 
+# ---- the Parquet data plane (phase 26) -------------------------------------------
+#
+# The committed Hugging Face directory tests/data/torch_hf_digits (written by
+# tests/make_torch_parquet_fixture.py through `datasets`): the port's
+# rendered_color_digits(512, 128, seed 7) quantised to uint8, as PNG bytes in an
+# Image() column beside ClassLabel(10) labels, in Parquet. The card's machine has
+# no pyarrow, datasets or PIL: the port's own reader decodes it on the host.
+PQ_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_hf_digits"
+PQ_TRAIN_FILE = PQ_DIR / "data" / "train-00000-of-00001.parquet"
+PQ_N_TRAIN, PQ_N_TEST, PQ_SEED = 512, 128, 7
+# sha256 of the reference loader's arrays (printed by the fixture's script).
+PQ_PINS = {
+    "train_image": "7e1fbaba3c48c14f40b2af3a8aa1e301c10c36bda0fb11e4697da61e7e77cd69",
+    "train_label": "a4df373816e684a2b5cc86a3f8eba12007a3f1ca429b2c012c2a5e80a5e7f6b8",
+    "test_image": "c4d8b530f0864f97ec10ed7efca3e99b192fec41166b167dfde1e0aae0891a00",
+    "test_label": "be09058cb53e757f788f7a5242d2331709c45a485f8ccb65f00a760b0d3bdcca",
+}
+PQ_NODES, PQ_BATCHES, PQ_BATCH = 4, 4, 32  # 128 train images a node: 8 + 4 launches a round
+PQ_RTOL, PQ_ATOL = 1e-3, 1e-4  # the f32 round, kernels vs their plain versions on the card
+
+
+def sha256_of(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def parquet_decode() -> tuple[dict, TpflDataset]:
+    """26a: the fixture through ``from_huggingface`` and its train file
+    through ``from_parquet`` on the host. Gated: the two give the same
+    train arrays; every split's arrays equal the reference loader's pins;
+    the images equal the port's renderer quantised as the fixture's script
+    does. The seconds and images/s of each decode are host numbers."""
+    t0 = time.perf_counter()
+    ds = TpflDataset.from_huggingface(str(PQ_DIR))
+    hf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = TpflDataset.from_parquet(str(PQ_TRAIN_FILE)).get_split(True)
+    pq_s = time.perf_counter() - t0
+    train = ds.get_split(True)
+    if flat.column_names != train.column_names or not all(
+            np.array_equal(flat[c], train[c]) for c in train.column_names):
+        raise AssertionError("26a: from_parquet of the train file differs from "
+                             "from_huggingface's train split")
+    rendered = rendered_color_digits(PQ_N_TRAIN, PQ_N_TEST, seed=PQ_SEED)
+    for split, is_train in (("train", True), ("test", False)):
+        part = ds.get_split(is_train)
+        x, y = part["image"], np.asarray(part["label"], np.int64)
+        got = {f"{split}_image": sha256_of(x), f"{split}_label": sha256_of(y)}
+        for key, digest in got.items():
+            if digest != PQ_PINS[key]:
+                raise AssertionError(f"26a: {key} sha256 {digest}, pinned {PQ_PINS[key]}")
+        want = np.rint(np.asarray(rendered.get_split(is_train)["image"], np.float32) * 255
+                       ).astype(np.uint8)
+        if x.dtype != np.uint8 or not np.array_equal(x, want):
+            raise AssertionError(f"26a: the {split} images differ from the port's renderer")
+    n = PQ_N_TRAIN + PQ_N_TEST
+    return ({"from_huggingface_s": hf_s, "images_per_s": n / hf_s,
+             "from_parquet_train_s": pq_s, "from_parquet_images_per_s": PQ_N_TRAIN / pq_s,
+             "images": n, "pins": "equal", "rendered": "equal"}, ds)
+
+
+def parquet_node_data(ds: TpflDataset) -> tuple[np.ndarray, np.ndarray]:
+    """Each node's 128 train images of ``generate_partitions(PQ_NODES,
+    RandomIIDPartitionStrategy)`` through the export (float32 scaled by
+    1/255: the export keeps an integer column integer unless asked, as
+    the reference's does; the seed-0 epoch's shuffle), stacked [node,
+    batch, ...]."""
+    parts = ds.generate_partitions(PQ_NODES, RandomIIDPartitionStrategy)
+    stacked = [p.export(batch_size=PQ_BATCH, scale=1 / 255.0, x_dtype=np.float32).stacked()
+               for p in parts]
+    return np.stack([x for x, _ in stacked]), np.stack([y for _, y in stacked])
+
+
+def parquet_f32_round(xs: np.ndarray, ys: np.ndarray, device) -> dict:
+    """One f32 round of the full-width CNN on ``device`` from the seed's
+    params: the card's kernels, or the CPU's plain versions."""
+    fed = VmapFederation(CNN(out_channels=10, conv_impl="pallas", compute_dtype=torch.float32),
+                         n_nodes=PQ_NODES, learning_rate=0.1, seed=0, device=device)
+    params, losses = fed.run_rounds(fed.init_params((32, 32, 3)), xs, ys, epochs=EPOCHS,
+                                    n_rounds=1)
+    return {path: v.detach().float().cpu() for path, v in tree_items(params)} | {
+        "losses": losses.detach().float().cpu()}
+
+
+def parquet_window(card: str, ds: TpflDataset) -> dict:
+    """26b: the CNN at full width on 4 nodes of the decoded data, bf16:
+    a warm round with every conv launch held to its plain version on the
+    same inputs (:func:`convs_as` ``"checked"``), then one N_ROUNDS
+    window. Gated: exactly 8 conv_dw + 4 conv_dx launches a round in the
+    warm round and in the window, all wgmma, none beyond its bound;
+    finite losses and one finite aggregate on every node; one f32 round
+    through the kernels (8 + 4 launches, the CUDA-core f32 kernels)
+    within rtol 1e-3 / atol 1e-4 of the same round through their plain
+    versions on the card (no launch). Reported: rounds/s, node 0's
+    accuracy on the fixture's test split, and the same round on the CPU
+    (every op there rounds differently, and 4 steps at lr 0.1 on these
+    images grow that to ~3e-4: not a kernel's error, the card's plain
+    versions are as far)."""
+    x, y = parquet_node_data(ds)
+    fed = VmapFederation(CNN(out_channels=10, conv_impl="pallas"), n_nodes=PQ_NODES,
+                         learning_rate=0.1, seed=0)
+    xs, ys = fed.shard_data(torch.from_numpy(x).to("cuda", torch.bfloat16), y)
+    per_round = PQ_BATCHES * EPOCHS
+    want_round = {**dict.fromkeys(WRAPPERS, 0), "conv_dw": 2 * per_round, "conv_dx": per_round}
+    reset_launches()
+    with convs_as("checked") as worst:
+        params, losses = fed.run_rounds(fed.init_params((32, 32, 3)), xs, ys, epochs=EPOCHS,
+                                        n_rounds=1)
+        torch.cuda.synchronize()
+    check_main_path(params, losses, read_launches(), want_round)
+    check_all_wgmma("26b checked round", read_launches(),
+                    read_wgmma_launches(("conv_dw", "conv_dx")))
+    if worst["beyond"] or worst["launches"] != 3 * per_round:
+        raise AssertionError(f"26b checked round: {worst['launches']} launches, beyond their "
+                             f"bounds: {worst['beyond'][:4]}")
+    checked = {k: worst[k] for k in ("conv_dw", "conv_dx", "launches")}
+    reset_launches()
+    t0 = time.perf_counter()
+    params, losses = fed.run_rounds(params, xs, ys, epochs=EPOCHS, n_rounds=N_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
+    check_main_path(params, losses, launches, {
+        k: v * N_ROUNDS for k, v in want_round.items()})
+    check_all_wgmma("26b Parquet window", launches, wgmma)
+    test = ds.get_split(False)
+    xt = torch.from_numpy(test["image"].astype(np.float32) * np.float32(1 / 255.0)).to(
+        "cuda", torch.bfloat16).reshape(1, 1, PQ_N_TEST, 32, 32, 3)
+    ev = FederationEngine(CNN(out_channels=10, conv_impl="pallas"), 1, seed=0)
+    _, acc = ev.evaluate(tree_map(lambda v: v[:1], params), xt,
+                         np.asarray(test["label"], np.int32).reshape(1, 1, PQ_N_TEST))
+    torch.backends.cudnn.allow_tf32 = False  # as every card-vs-CPU phase: f32 is f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32_launches = {}
+    reset_launches()
+    card_f32 = parquet_f32_round(x, y, None)
+    f32_launches["kernels"] = read_launches()
+    reset_launches()
+    with convs_as("plain"):
+        plain_f32 = parquet_f32_round(x, y, None)
+    f32_launches["plain"] = read_launches()
+    if f32_launches != {"kernels": want_round, "plain": dict.fromkeys(WRAPPERS, 0)}:
+        raise AssertionError(f"26b f32 rounds: launches {f32_launches}, expected {want_round} "
+                             "through the kernels and none through the plain versions")
+    cpu_f32 = parquet_f32_round(x, y, "cpu")
+    worst = {"plain": 0.0, "cpu": 0.0}
+    for path, want in plain_f32.items():
+        got = card_f32[path]
+        torch.testing.assert_close(got, want, rtol=PQ_RTOL, atol=PQ_ATOL,
+                                   msg=lambda m, p=path: f"26b f32 round, {p}: {m}")
+        worst["plain"] = max(worst["plain"], (got - want).abs().max().item())
+        worst["cpu"] = max(worst["cpu"], (got - cpu_f32[path]).abs().max().item())
+    return {"card": card, "nodes": PQ_NODES, "batches": PQ_BATCHES, "batch": PQ_BATCH,
+            "rounds": N_ROUNDS, "wall_s": wall, "rounds_per_s": N_ROUNDS / wall,
+            "steady_loss": losses.mean().item(), "node0_test_accuracy": acc.item(),
+            "checked_round_max_rel_err": checked,
+            "f32_round_launches": f32_launches["kernels"],
+            "f32_round_kernels_vs_plain_max_abs": worst["plain"],
+            "f32_round_card_vs_cpu_max_abs": worst["cpu"], "launches": launches,
+            "wgmma_launches": wgmma}
+
+
+def parquet_path(card: str) -> dict:
+    """Phase 26: (a) the Parquet fixture decoded on the host and held to
+    its pins; (b) both conv kernels at the window's shape (both CNN
+    layers, N 4 B 32, bf16) through :func:`conv_layer_rows` (wgmma, held
+    to the plain versions, timed), then the CNN window on the decoded
+    data through the kernels."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    out["26a decode"], ds = parquet_decode()
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    out["26b kernel rows"] = {f"N={PQ_NODES} B={PQ_BATCH}": conv_layer_rows(PQ_NODES, PQ_BATCH,
+                                                                              gen)}
+    out["26b window"] = parquet_window(card, ds)
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = {k: out["26b window"]["launches"][k] for k in ("conv_dw", "conv_dx")}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6768,6 +6995,11 @@ def main() -> int:
     log("pool sharded (phase 18a's pooled stage over 2 gloo ranks on the card; every check "
         "passed): " + json.dumps(pool_sharded))
     log(f"pool sharded: {pool_sharded['phase_s']:.1f} s")
+    parquet = parquet_path(card)
+    for label, result in parquet.items():
+        if label not in ("launches", "phase_s"):
+            log(f"parquet path ({label}): " + json.dumps(result))
+    log(f"parquet path: {parquet['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -6802,6 +7034,9 @@ def main() -> int:
             row["rendered_launches"] = rendered["launches"][row["name"]]
             row["pool_sharded_launches"] = {
                 rank: n[row["name"]] for rank, n in pool_sharded["launches"].items()}
+            row["parquet_launches"] = parquet["launches"][row["name"]]
+            row["parquet_layers"] = {shape: per[row["name"]]
+                                     for shape, per in parquet["26b kernel rows"].items()}
         if row["name"] in FLASH_KERNELS:
             launched = {label.split()[0]: part["flash_launches"][row["name"]]
                         for label, part in spmd.items()}

@@ -207,3 +207,83 @@ def test_timestamps_typed_as_the_reference(layout, tmp_path):
     kinds = {f.dtype for f in want.features.values()}
     assert {"timestamp[s]" if layout != "field" else "timestamp[us]", "string"} <= kinds
     _assert_typed_as_the_reference(got, want)
+
+
+#: Values of a date-like column under ``field`` that pandas' ``read_json``
+#: converts through ``to_datetime``'s three formats (a guessed one, ISO
+#: 8601, each value alone), or leaves as strings where all three fail.
+_FIELD_DATE_CASES = {
+    "month_names": ["Jan 2 2024", "Feb 3 2024"],
+    "month_first": ["02/01/2024", "03/01/2024"],
+    "day_first_past_12": ["13/01/2024", "14/01/2024"],
+    "guess_then_each_value": ["02/01/2024", "13/01/2024"],
+    "year_beside_missing": ["2024", None],
+    "years_only": ["2024", "2025"],
+    "zone_offset": ["2024-01-02T03:04:05+02:00", "2024-01-02T04:05:06+02:00"],
+    "zone_utc": ["2024-01-02T03:04:05Z", None],
+    "zone_utc_name": ["2024-01-02T03:04:05 UTC", None],
+    "zone_gmt_literal": ["2024-01-02T03:04:05 GMT", None],
+    "zone_guessed_offset": ["Jan 2 2024 10:00 +0200", "Feb 2 2024 11:00 +0200"],
+    "mixed_offsets": ["2024-01-02T03:04:05+02:00", "2024-01-02T03:04:05+03:00"],
+    "naive_and_zoned": ["2024-01-02T03:04:05", "2024-01-02T03:04:05+01:00"],
+    "nanoseconds": ["2024-01-02T03:04:05.123456789", "2024-01-02T03:04:05.1"],
+    "epoch_floats": [1.7e9, 1.8e9],
+    "epoch_float_missing": [1.7e12, None],
+    "epoch_fractions": [1700000000.5, 1800000000.0],
+    "epoch_ns_range": [1e18, 2e18],
+    "float_below_a_year": [1.5, 1.8e9],
+    "iso_then_words": ["2024-01-02", "Jan 3 2024"],
+    "unparseable_first": ["hello", "2024-01-02"],
+    "unparseable_later": ["2024-01-02", "hello"],
+    "weekday_words": ["Tuesday, January 2, 2024", None],
+    "compact_digits": ["20240102", None],
+    "small_number": ["12", None],
+    "epoch_text_beside_missing": ["1700000000", None],
+    "nat_strings": ["NaT", "2024-01-02"],
+    "empty_string": ["", None],
+    "two_digit_year": ["01/02/24", None],
+    "meridiem": ["2024-01-02 3pm", "5 May 2024 10:11:12.5 PM"],
+    "quarters": ["1Q24", "2Q2024"],
+    "invalid_day": ["2024-02-30", None],
+}
+
+
+@pytest.mark.parametrize("case", sorted(_FIELD_DATE_CASES))
+def test_field_dates_typed_as_pandas_read_json(case, tmp_path):
+    """Each case in a date-like column (``created_at``) beside an int
+    column, under ``field``: the reference's feature and every value with
+    its Python type, a zone-aware value with its offset. The reference's
+    nanosecond ``pandas.Timestamp`` cannot be made without pandas: the
+    port keeps ``datetime64[ns]``, held here to the instant."""
+    values = _FIELD_DATE_CASES[case]
+    rows = [{"created_at": v, "n": i} for i, v in enumerate(values)]
+    path = _write(tmp_path, "d.json", json.dumps({"data": rows}))
+    want = JaxDataset.from_json(path, field="data").get_split(True)
+    got = TpflDataset.from_json(path, field="data").get_split(True)
+    assert got.column_names == want.column_names
+    feature = want.features["created_at"].dtype
+    col = got["created_at"]
+    if feature.startswith("timestamp[ns"):
+        assert str(col.dtype) == "datetime64[ns]"
+        for a, b in zip(col.tolist(), list(want["created_at"]), strict=True):
+            assert (a is None and b is None) or a == b.value, (a, b)
+        return
+    for a, b in zip(col.tolist(), list(want["created_at"]), strict=True):
+        assert a == b and type(a) is type(b), (case, a, b)
+        if b is not None and hasattr(b, "utcoffset"):
+            assert a.utcoffset() == b.utcoffset(), (case, a, b)
+    if feature == "string":
+        assert col.dtype.kind in "UO"
+    elif "tz=" not in feature:
+        assert str(col.dtype) == _FEATURE_DTYPES.get(feature, feature), (feature, col.dtype)
+
+
+def test_field_dates_in_a_zone_at_nanoseconds_refused(tmp_path):
+    """The reference gives zone-aware nanosecond ``pandas.Timestamp``s,
+    which have no counterpart without pandas: the port raises."""
+    rows = [{"created_at": "2024-01-02T03:04:05.123456789Z", "n": 0}]
+    path = _write(tmp_path, "d.json", json.dumps({"data": rows}))
+    assert str(JaxDataset.from_json(path, field="data").get_split(True)
+               .features["created_at"].dtype) == "timestamp[ns, tz=UTC]"
+    with pytest.raises(NotImplementedError, match="nanosecond times in a zone"):
+        TpflDataset.from_json(path, field="data")

@@ -147,10 +147,17 @@ def test_dataset_seams_not_ported_raise():
         TpflDataset.from_huggingface("mnist")
 
 
-def test_parquet_constructor_not_ported_raises():
-    """Parquet needs pyarrow, which the port does not use."""
-    with pytest.raises(NotImplementedError, match="pyarrow.*ROADMAP.md"):
-        TpflDataset.from_parquet("data.parquet")
+def test_parquet_constructor_not_ported_raises(tmp_path):
+    """The port reads Parquet without pyarrow; a codec it does not port
+    (ZSTD: the card's machine has no zstandard) raises naming the codec
+    and its ROADMAP.md item (tests/test_torch_parquet.py has the rest)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    path = str(tmp_path / "data.parquet")
+    pq.write_table(pa.table({"x": [1, 2]}), path, compression="ZSTD")
+    with pytest.raises(NotImplementedError, match="ZSTD.*ROADMAP.md"):
+        TpflDataset.from_parquet(path)
 
 
 def _file_fixtures(tmp_path):

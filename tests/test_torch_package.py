@@ -25,10 +25,11 @@ import chip_smoke
 banned = sorted(
     m for m in sys.modules
     if m in ("jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
-             "ml_dtypes", "psutil", "click", "grpc", "PIL", "matplotlib", "cryptography")
+             "ml_dtypes", "psutil", "click", "grpc", "PIL", "matplotlib", "cryptography",
+             "pyarrow", "pandas", "dateutil")
     or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "tpfl.", "msgpack.", "datasets.",
                      "zstandard.", "ml_dtypes.", "psutil.", "click.", "grpc.", "PIL.",
-                     "matplotlib.", "cryptography."))
+                     "matplotlib.", "cryptography.", "pyarrow.", "pandas.", "dateutil."))
 )
 print(json.dumps({"modules": mods, "banned": banned}))
 """
@@ -49,7 +50,9 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "learning.bufferpool", "learning._msgpack", "learning.serialization",
                 "learning.model", "learning.callbacks", "learning.learner",
                 "learning.torch_learner", "learning.dataset.export",
-                "learning.dataset.rendered",
+                "learning.dataset.rendered", "learning.dataset.dates",
+                "learning.dataset.snappy", "learning.dataset.parquet",
+                "learning.dataset.png", "learning.dataset.hf_features",
                 "learning.dataset.tpfl_dataset", "management.logger",
                 "learning.aggregators.aggregator", "learning.aggregators.fedavg",
                 "learning.aggregators.fedprox", "learning.aggregators.scaffold",
@@ -76,11 +79,12 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
 def test_sources_name_no_jax_package():
     """Belt and braces over the import probe: no source line of the
     port imports jax, flax, optax or the tpfl package, nor a package the
-    card's machine lacks (msgpack, datasets, zstandard, ml_dtypes) or
-    the port stands without (psutil, click, grpc, PIL, matplotlib,
-    cryptography)."""
+    card's machine lacks (msgpack, datasets, zstandard, ml_dtypes,
+    pyarrow, pandas, dateutil) or the port stands without (psutil,
+    click, grpc, PIL, matplotlib, cryptography)."""
     banned = {"jax", "jaxlib", "flax", "optax", "tpfl", "msgpack", "datasets", "zstandard",
-              "ml_dtypes", "psutil", "click", "grpc", "PIL", "matplotlib", "cryptography"}
+              "ml_dtypes", "psutil", "click", "grpc", "PIL", "matplotlib", "cryptography",
+              "pyarrow", "pandas", "dateutil"}
     files = list((REPO / "tpfl_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     for f in files:
         for line in f.read_text().splitlines():

@@ -291,6 +291,11 @@ def test_traceview_timeline_of_a_port_federation_matches_the_jax_one(tmp_path):
     _both(DISABLE_SIMULATION=True, ELECTION="hash", TELEMETRY_ENABLED=True, TRAIN_SET_SIZE=3)
     Settings.TELEMETRY_DUMP_DIR = str(tmp_path / "port")
     JaxSettings.TELEMETRY_DUMP_DIR = str(tmp_path / "jax")
+    # Under a loaded machine a node's heartbeater can starve past the test
+    # profile's 2 s, its peers evict it and dump "quorum_degraded" flights
+    # (reproduce with JaxSettings.HEARTBEAT_TIMEOUT = 0.55); this test
+    # compares fault-free federations, as tests/test_torch_node.py does.
+    Settings.HEARTBEAT_TIMEOUT = JaxSettings.HEARTBEAT_TIMEOUT = 30.0
     levels = logger.get_level(), jax_logger.get_level()
     logger.set_level("ERROR")
     jax_logger.set_level("ERROR")

@@ -19,11 +19,14 @@ reference's Hugging Face loaders give: ``from_csv`` / ``from_json`` one
 the columns in the same order, integers as int64, floats as float64,
 strings as str. ``from_json`` types as its two readers do: a missing
 number is a masked entry of an int64 or float64 column (``tolist()``
-gives ``None``), and ISO 8601 strings become ``datetime64`` columns
-(:func:`_json_column`); ``from_csv`` keeps pandas' float64 with NaN for
+gives ``None``), and date strings become ``datetime64`` columns, or
+``datetime`` objects in a zone (:func:`_json_column`); ``from_csv`` keeps pandas' float64 with NaN for
 an integer column with a missing value.
-``from_huggingface`` and ``from_parquet`` need ``datasets`` / ``pyarrow``,
-which the port does not use, and raise ``NotImplementedError``.
+``from_parquet`` reads Parquet with numpy (:mod:`parquet`) and applies
+the Hugging Face features stored in the file (:mod:`hf_features`: class
+labels, arrays, PNG images through :mod:`png`); ``from_huggingface``
+reads a local dataset directory as ``load_dataset`` resolves it, and
+refuses a Hub name (a download).
 """
 
 from __future__ import annotations
@@ -32,13 +35,16 @@ import csv
 import datetime
 import json
 import math
+import os
 import re
 from collections.abc import Callable, Iterable, Mapping
 from typing import Any, Optional, Union
 
 import numpy as np
 
-_HUB_ITEM = "ROADMAP.md §1 item 8, the rest: the HF-hub and Parquet constructors"
+from tpfl_torch.learning.dataset import dates, hf_features, parquet
+
+_HUB_ITEM = "ROADMAP.md §1, Hub downloads (they need the network)"
 
 
 class ColumnSplit:
@@ -132,14 +138,6 @@ _ARROW_TIMESTAMP = re.compile(
     r"(\d{4})-(\d{2})-(\d{2})(?:[T ](\d{2})(?::(\d{2})(?::(\d{2}))?)?"
     r"(Z|[+-]\d{2}(?::?\d{2})?)?)?")
 
-#: The ISO 8601 strings pandas' ``read_json`` turns into ``timestamp[us]``
-#: in a date-like column: blanks around, a one- or two-digit month and day
-#: (the day optional), ``T``, ``t`` or a blank before the time, optional
-#: colons, at most six fraction digits after ``.`` or ``,``, no zone.
-_PANDAS_TIMESTAMP = re.compile(
-    r"\s*(\d{4})-(\d{1,2})(?:-(\d{1,2})(?:[Tt ](\d{2})(?::?(\d{2})(?::?(\d{2})"
-    r"(?:[.,](\d{1,6}))?)?)?)?)?\s*")
-
 _INT_TEXT = re.compile(r"\s*[+-]?\d+\s*")
 
 #: pandas reads numbers in a date-like column as epoch times only when
@@ -179,50 +177,90 @@ def _arrow_timestamp(text: str) -> Optional[datetime.datetime]:
     return t
 
 
-def _pandas_timestamp(text: str) -> Optional[datetime.datetime]:
-    m = _PANDAS_TIMESTAMP.fullmatch(text)
-    if m is None:
-        return None
-    y, mo, d, h, mi, s, frac = m.groups()
-    try:
-        return datetime.datetime(int(y), int(mo), int(d or 1), int(h or 0), int(mi or 0),
-                                 int(s or 0), int((frac or "0").ljust(6, "0")))
-    except ValueError:
-        return None
+#: Nanoseconds of one epoch unit, in the order pandas tries them
+#: (``Parser._STAMP_UNITS``), and the decimals its float cast keeps.
+_EPOCH_UNITS = (("s", 10**9, 9), ("ms", 10**6, 6), ("us", 10**3, 3), ("ns", 1, 0))
 
 
 def _pandas_epochs(values: list) -> Optional[np.ndarray]:
-    """Integers (None: missing) as pandas reads them in a date-like
-    column: epoch times in the first of s, ms, us whose nanoseconds fit
-    int64, when every one is above :data:`_MIN_STAMP`; else None."""
+    """Numbers (None: missing) as pandas reads them in a date-like
+    column: epoch times, when every one is above :data:`_MIN_STAMP`, in
+    the first unit whose nanoseconds fit int64; ``datetime64`` of that
+    unit where all are whole, else ``datetime64[ns]`` through pandas'
+    float cast (``cast_from_unit_vectorized``: the whole part, plus the
+    fraction rounded to the unit's decimals); None where it keeps them."""
     present = [v for v in values if v is not None]
     if any(v <= _MIN_STAMP for v in present):
         return None
-    for unit, ns in (("s", 10**9), ("ms", 10**6), ("us", 10**3)):
-        if all(v * ns < 2**63 for v in present):
-            nat = np.iinfo(np.int64).min
-            return np.asarray([nat if v is None else v for v in values],
-                              np.int64).view(f"datetime64[{unit}]")
+    whole = all(isinstance(v, int) or float(v).is_integer() for v in present)
+    nat = np.iinfo(np.int64).min
+    for unit, scale, decimals in _EPOCH_UNITS:
+        if whole:
+            ticks = [None if v is None else int(v) for v in values]
+            if all(v is None or v * scale < 2**63 for v in ticks):
+                return np.asarray([nat if v is None else v for v in ticks],
+                                  np.int64).view(f"datetime64[{unit}]")
+            continue
+        ticks = []
+        for v in values:
+            if v is None:
+                ticks.append(nat)
+                continue
+            base = int(v)
+            frac = np.round(np.float64(v) - base, decimals) if decimals else v - base
+            ticks.append(base * scale + int(frac * scale))
+        if all(t < 2**63 for t in ticks):
+            return np.asarray(ticks, np.int64).view("datetime64[ns]")
     return None
+
+
+def _stamp_column(stamps: list) -> np.ndarray:
+    """Parsed date strings (:mod:`dates`, None: missing) as the
+    reference's column: no value -> ``datetime64[s]`` of NaT; naive ->
+    ``datetime64[us]``, or ``[ns]`` where a value has more than six
+    fraction digits; in a zone -> ``datetime`` objects in it (UTC, or a
+    fixed offset)."""
+    present = [s for s in stamps if s is not None]
+    if not present:
+        return _stamps([None] * len(stamps), "s")
+    zone = present[0].zone
+    ns = any(s.ns_digits for s in present)
+    if zone is None:
+        if not ns:
+            return _stamps([None if s is None else s.wall for s in stamps], "us")
+        return np.asarray([np.datetime64("NaT") if s is None else
+                           np.datetime64(s.wall, "ns") + np.timedelta64(s.nanos, "ns")
+                           for s in stamps], dtype="datetime64[ns]")
+    if ns:
+        raise NotImplementedError("from_json: nanosecond times in a zone (the reference's "
+                                  "pandas.Timestamp with a zone) are not ported "
+                                  f"({dates.VALUE_ITEM})")
+    tz = (datetime.timezone.utc if zone == "UTC"
+          else datetime.timezone(datetime.timedelta(seconds=zone)))
+    return np.asarray([None if s is None else s.wall.replace(tzinfo=tz) for s in stamps],
+                      dtype=object)
 
 
 def _pandas_dates(values: list, kinds: set) -> Optional[np.ndarray]:
     """A date-like column as pandas' ``read_json`` converts it
     (``Parser._try_convert_to_date``), or None where it leaves it: all
-    missing -> ``datetime64[s]``; integers, or strings that all read as
-    integers, -> epoch times (:func:`_pandas_epochs`); strings that all
-    match :data:`_PANDAS_TIMESTAMP` -> ``datetime64[us]``."""
+    missing -> ``datetime64[s]``; integer strings without a missing value
+    as integers; numbers -> epoch times (:func:`_pandas_epochs`); other
+    strings through ``to_datetime``'s three formats
+    (:func:`dates.parse_strings`, :func:`_stamp_column`)."""
     present = [v for v in values if v is not None]
     if not present:
         return _stamps(values, "s")
-    if kinds == {"str"} and all(_INT_TEXT.fullmatch(v) for v in present):
-        return _pandas_epochs([None if v is None else int(v) for v in values])
-    if kinds == {"int"}:
-        return _pandas_epochs(values)
     if kinds == {"str"}:
-        stamps = [None if v is None else _pandas_timestamp(v) for v in values]
-        if all(t is not None for t, v in zip(stamps, values) if v is not None):
-            return _stamps(stamps, "us")
+        if len(present) == len(values) and all(_INT_TEXT.fullmatch(v) for v in present):
+            ints = [int(v) for v in values]
+            if not all(-2**63 <= v < 2**63 for v in ints):
+                return None  # pandas' int64 cast overflows
+            return _pandas_epochs(ints)
+        stamps = dates.parse_strings(values)
+        return None if stamps is None else _stamp_column(stamps)
+    if kinds and kinds <= {"int", "float"}:
+        return _pandas_epochs(values)
     return None
 
 
@@ -357,7 +395,7 @@ def _csv_value(text: str) -> Any:
 
 
 def _paths(path: Union[str, list[str]]) -> list[str]:
-    return [path] if isinstance(path, str) else list(path)
+    return [os.fspath(path)] if isinstance(path, (str, os.PathLike)) else list(path)
 
 
 class TpflDataset:
@@ -412,7 +450,22 @@ class TpflDataset:
 
     @classmethod
     def from_huggingface(cls, dataset_name: str, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_huggingface (it needs the datasets package)", _HUB_ITEM)
+        """Every split of a local dataset directory, as
+        ``load_dataset(dataset_name)`` reads it
+        (:func:`hf_features.data_files`: split names from the file and
+        directory names, each split's files read in order by the loader
+        their extension names). A name that is no local directory is a
+        Hub download, which the port does not do."""
+        _refuse_kwargs("from_huggingface", kwargs)
+        if not os.path.isdir(dataset_name):
+            if os.path.isfile(dataset_name):
+                raise FileNotFoundError(f"Couldn't find any data file at {dataset_name}.")
+            raise _not_ported(f"from_huggingface({dataset_name!r}): a Hub download (no local "
+                              "directory of that name)", _HUB_ITEM)
+        splits, loader, options = hf_features.data_files(dataset_name)
+        read = {"parquet": cls.from_parquet, "csv": cls.from_csv, "json": cls.from_json}[loader]
+        return cls({split: read(files, **options).get_split(True)
+                    for split, files in splits.items()})
 
     @classmethod
     def from_csv(cls, path: Union[str, list[str]], sep: str = ",", **kwargs: Any
@@ -447,9 +500,11 @@ class TpflDataset:
 
         Column types follow the two readers (:func:`_json_column`): ISO
         8601 strings become ``datetime64[s]`` in JSON Lines and arrays
-        (pyarrow's inference), and ``datetime64[us]`` under ``field`` in a
-        date-like column name only (pandas' ``convert_dates``); a missing
-        number is masked in an int64 or float64 column.
+        (pyarrow's inference); under ``field``, in a date-like column name
+        only, dates as pandas' ``convert_dates`` reads them
+        (:func:`_pandas_dates`: strings through ``to_datetime``'s three
+        formats, numbers as epoch times); a missing number is masked in an
+        int64 or float64 column.
 
         An array after leading blanks raises ``ValueError``, as the
         reference's loader fails on it."""
@@ -474,8 +529,16 @@ class TpflDataset:
             records, json_reader="arrow" if field is None else "pandas")})
 
     @classmethod
-    def from_parquet(cls, path: str, **kwargs: Any) -> "TpflDataset":
-        raise _not_ported("from_parquet (it needs the pyarrow package)", _HUB_ITEM)
+    def from_parquet(cls, path: Union[str, list[str]], **kwargs: Any) -> "TpflDataset":
+        """One ``"train"`` split from Parquet file(s), rows of several
+        files concatenated in order, as ``load_dataset("parquet",
+        data_files=path)``: the columns :func:`parquet.read_table` gives,
+        then the Hugging Face features stored in the file
+        (:func:`hf_features.apply`: class labels, sequences, images)."""
+        _refuse_kwargs("from_parquet", kwargs)
+        paths = _paths(path)
+        columns, kv = parquet.read_table(paths)
+        return cls({"train": hf_features.apply(columns, kv.get("huggingface"))})
 
     @classmethod
     def from_pandas(cls, df: Any, **kwargs: Any) -> "TpflDataset":
