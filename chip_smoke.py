@@ -429,6 +429,24 @@
    on the fixture's test split and the f32 round's distance from the CPU
    are printed beside the card (not gated).
 
+27. gRPC path (phase 27: the reference's wire, ``GrpcCommunicationProtocol``
+   on HTTP/2 and HPACK of the standard library; port against port, since
+   the card's machine has no JAX and no ``grpcio``: the JAX interop is held
+   on the CPU by ``tests/test_torch_grpc_transport.py``). (a) Phase 22a's
+   four CNN Nodes (its builder, addresses, seeds, data and experiment id)
+   over gRPC, twice: every run's final params bit-identical to 22a's
+   in-memory and TCP runs, one digest across the nodes, exactly 48
+   ``conv_dw`` + 24 ``conv_dx`` launches a run, all wgmma,
+   ``tpfl_wire_bytes_total`` positive; rounds/s (the better run) beside
+   22a's and the round profiler's split. (b) The ResNet-18 state (44.9 MB)
+   as one gRPC SendStream at ``WIRE_CHUNK_SIZE``, reassembled byte-equal
+   (MB/s); a heartbeat-sized Send on the same connection while that
+   stream is in flight, finished before the stream (its latency); a
+   corrupted stream rejected by the chunk CRC and the retry delivered;
+   with ``openssl`` present, the stream under mTLS and a TLS client
+   without a certificate refused. (c) ``_dial`` to a closed loopback port
+   raises ``ConnectionTimeoutError`` after the ready wait, not before.
+
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
 one defended FedAvg round of the Byzantine phase, one 3-round
@@ -470,9 +488,12 @@ import torch
 from tpfl_torch.attacks import (AttackPlan, AttackSpec, adversary_map, apply_attack_plan,
                                 final_model_digests, harness, metric_table,
                                 run_seeded_experiment)
-from tpfl_torch.communication import (FaultInjector, FaultPlan, InMemoryCommunicationProtocol,
-                                      TcpCommunicationProtocol, TrainerSpeedPlan)
+from tpfl_torch.communication import (FaultInjector, FaultPlan, GrpcCommunicationProtocol,
+                                      InMemoryCommunicationProtocol, TcpCommunicationProtocol,
+                                      TrainerSpeedPlan)
+from tpfl_torch.communication import grpc_transport
 from tpfl_torch.concurrency import ContractedProgram, TraceContractError
+from tpfl_torch.exceptions import ConnectionTimeoutError
 from tpfl_torch.interop import from_torch_state_dict, to_torch_state_dict
 from tpfl_torch.learning import _msgpack, compression
 from tpfl_torch.learning.async_control import AsyncController
@@ -5617,11 +5638,11 @@ def net_two_processes(card: str, addrs: list, want_digest: str) -> dict:
             "digests_equal_22a": True}
 
 
-def stream_pair(payload: bytes, sends: int = 3) -> dict:
-    """One SendStream of ``payload`` as a weights message between two TCP
-    endpoints (under the current TLS settings), ``sends`` times: each
-    reassembled byte-equal; the best send's MB/s."""
-    a, b = TcpCommunicationProtocol(), TcpCommunicationProtocol()
+def stream_pair(payload: bytes, sends: int = 3, protocol=TcpCommunicationProtocol) -> dict:
+    """One SendStream of ``payload`` as a weights message between two
+    endpoints of ``protocol`` (under the current TLS settings), ``sends``
+    times: each reassembled byte-equal; the best send's MB/s."""
+    a, b = protocol(), protocol()
     got: list = []
     b.add_command("stream_probe", lambda source, round, weights, **kw: got.append(weights))
     a.start()
@@ -5647,10 +5668,10 @@ def stream_pair(payload: bytes, sends: int = 3) -> dict:
             "mb_per_s": wire / min(times) / 1e6}
 
 
-def corrupted_stream() -> dict:
+def corrupted_stream(protocol=TcpCommunicationProtocol) -> dict:
     """A fault-injected corrupted stream rejected by the receiver's chunk
     CRC, then the retry delivers the payload intact, once."""
-    a, b = TcpCommunicationProtocol(), TcpCommunicationProtocol()
+    a, b = protocol(), protocol()
     got: list = []
     b.add_command("crc_probe", lambda source, round, weights, **kw: got.append(weights))
     a.start()
@@ -5874,6 +5895,7 @@ def network_path(card: str) -> dict:
                     "rounds_per_s_runs": [r["rounds_per_s"] for r in mine],
                     "wire_bytes_runs": [r["wire_bytes"] for r in mine]}
     mem, tcp = out["22a memory"], out["22a tcp"]
+    tcp["addrs"] = addrs
     tcp["bit_identical_to_memory"] = True
     tcp["rounds_per_s_over_memory"] = tcp["rounds_per_s"] / mem["rounds_per_s"]
     out["22b"] = net_two_processes(card, addrs, tcp["digest"])
@@ -5885,6 +5907,166 @@ def network_path(card: str) -> dict:
                            **{f"22b {who}": out["22b"]["launches"][who][k]
                               for who in ("parent", "child")}}
                        for k in ("conv_dw", "conv_dx")}
+    return out
+
+
+# --- phase 27: the gRPC wire -------------------------------------------------
+#
+# Port against port (the card's machine has no JAX and no grpcio). 27a is
+# 22a's federation over GrpcCommunicationProtocol: the same builder,
+# addresses, seeds, data and experiment id, so its final params must be
+# 22a's bits.
+GRPC_RUNS = 2
+
+
+def grpc_heartbeat_during_stream(payload: bytes) -> dict:
+    """A heartbeat-sized Send on the connection of a SendStream of
+    ``payload`` that is in flight (a quarter of its chunks handed over):
+    the Send must finish before the stream does."""
+    a, b = GrpcCommunicationProtocol(), GrpcCommunicationProtocol()
+    got: list = []
+    b.add_command("stream_probe", lambda source, round, weights, **kw: got.append(weights))
+    b.add_command("beat_probe", lambda source, round, args: got.append("beat"))
+    a.start()
+    b.start()
+    try:
+        if not a.connect(b.get_address()):
+            raise AssertionError("grpc heartbeat: connect refused")
+        channel = a.get_neighbors()[b.get_address()].conn
+        data = a.build_weights("stream_probe", 0, payload, [a.get_address()], 1).to_bytes()
+        frames = list(grpc_transport.chunk_frames(data, Settings.WIRE_CHUNK_SIZE))
+        quarter, done = threading.Event(), {}
+
+        def frames_in_flight():
+            for i, f in enumerate(frames):
+                if i == len(frames) // 4:
+                    quarter.set()
+                yield f
+
+        def stream() -> None:
+            try:
+                done["reply"] = channel.stream_unary("/tpfl.NodeServices/SendStream",
+                                                     frames_in_flight(), 60.0)
+            finally:
+                done["t"] = time.perf_counter()
+
+        streamer = threading.Thread(target=stream, name="grpc-heartbeat-stream")
+        streamer.start()
+        if not quarter.wait(60):
+            raise AssertionError("grpc heartbeat: the stream never started")
+        t0 = time.perf_counter()
+        a.send(b.get_address(), a.build_msg("beat_probe", ttl=1), raise_error=True)
+        beat_end = time.perf_counter()
+        streamer.join(120)
+        if "reply" not in done or not _msgpack.unpackb(done["reply"]).get("ok"):
+            raise AssertionError("grpc heartbeat: the stream failed")
+    finally:
+        a.stop()
+        b.stop()
+    if got != ["beat", payload]:
+        raise AssertionError("grpc heartbeat: the beat did not arrive before the stream's end "
+                             f"({[g if isinstance(g, str) else len(g) for g in got]})")
+    if beat_end >= done["t"]:
+        raise AssertionError("grpc heartbeat: the Send finished after the stream")
+    return {"beat_latency_ms": (beat_end - t0) * 1e3,
+            "stream_left_ms": (done["t"] - beat_end) * 1e3, "chunks": len(frames)}
+
+
+def grpc_mtls_checks(cert_dir: str, payload: bytes) -> dict:
+    """mTLS with certificates from ``generate_certificates``: the stream
+    over gRPC, and a TLS client (ALPN h2) that trusts the CA but shows no
+    certificate gets no HTTP/2 SETTINGS and does not register."""
+    import ssl
+
+    enable_mtls(cert_dir)
+    stream = stream_pair(payload, protocol=GrpcCommunicationProtocol)
+    server = GrpcCommunicationProtocol()
+    server.start()
+    try:
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+        ctx.load_verify_locations(Settings.CA_CRT)
+        ctx.set_alpn_protocols(["h2"])
+        host, port = server.get_address().rsplit(":", 1)
+        try:
+            with socket.create_connection((host, int(port)), timeout=5) as raw:
+                with ctx.wrap_socket(raw, server_hostname=host) as s:
+                    s.sendall(b"PRI * HTTP/2.0\r\n\r\nSM\r\n\r\n")
+                    if s.recv(9):
+                        raise AssertionError("grpc mTLS: a client without a certificate got "
+                                             "HTTP/2 frames")
+                    refused = "closed without SETTINGS"
+        except (ssl.SSLError, ConnectionError) as e:
+            refused = type(e).__name__ + ": " + str(e)[:120]
+        if "mallory" in server.get_neighbors():
+            raise AssertionError("grpc mTLS: an unauthenticated client registered")
+    finally:
+        server.stop()
+    return {"stream": stream, "unauthenticated_refused": refused}
+
+
+def grpc_streams(card: str) -> dict:
+    """27b: the 44.9 MB ResNet-18 state as one gRPC SendStream (plain and
+    mTLS), a heartbeat during it, a corrupted stream."""
+    module = ResNet18(out_channels=100)
+    params, aux = init_state(module, (32, 32, 3), seed=0, device=PHASE_DEVICE)
+    payload = TpflModel(module, params, aux_state=aux, device=PHASE_DEVICE).encode_parameters()
+    out = {"card": card}
+    with runtime_settings():
+        out["resnet18_stream"] = stream_pair(payload, protocol=GrpcCommunicationProtocol)
+        out["heartbeat_during_stream"] = grpc_heartbeat_during_stream(payload)
+        out["corrupted_stream"] = corrupted_stream(GrpcCommunicationProtocol)
+        out["openssl"] = shutil.which("openssl")
+        if out["openssl"] is None:
+            log(f"grpc path (27b): {card}: no openssl on this machine, so the mTLS half is "
+                "held on the CPU only (tests/test_torch_grpc_transport.py)")
+        else:
+            with tempfile.TemporaryDirectory() as d:
+                out["mtls"] = grpc_mtls_checks(d, payload)
+    return out
+
+
+def grpc_dial_timeout() -> dict:
+    """27c: a dial to a closed loopback port re-tries until the ready wait
+    ends, then raises ConnectionTimeoutError."""
+    with runtime_settings():
+        wait = max(Settings.GRPC_TIMEOUT * 4, 2.0)
+        t0 = time.perf_counter()
+        try:
+            GrpcCommunicationProtocol()._dial(f"127.0.0.1:{free_ports(1)[0]}")
+        except ConnectionTimeoutError:
+            elapsed = time.perf_counter() - t0
+        else:
+            raise AssertionError("grpc dial: a closed port answered")
+    if not wait - 0.05 <= elapsed < wait + 2:
+        raise AssertionError(f"grpc dial: ConnectionTimeoutError after {elapsed:.2f} s, the "
+                             f"ready wait is {wait} s")
+    return {"ready_wait_s": wait, "raised_after_s": elapsed}
+
+
+def grpc_path(card: str, network: dict) -> dict:
+    """Phase 27: (a) 22a's federation over gRPC, (b) streams, (c) the dial.
+    Returns the results and, per conv kernel, each run's launches."""
+    t0 = time.perf_counter()
+    tcp, mem = network["22a tcp"], network["22a memory"]
+    runs = [net_federation(card, "grpc", GrpcCommunicationProtocol, tcp["addrs"])
+            for _ in range(GRPC_RUNS)]
+    for r in runs:
+        if r["digest"] != tcp["digest"] or r["digest"] != mem["digest"]:
+            raise AssertionError("grpc path: the final params differ from 22a's in-memory and "
+                                 "TCP runs")
+        if not r["wire_bytes"] > 0:
+            raise AssertionError("grpc path: no wire bytes counted")
+    best = max(runs, key=lambda r: r["rounds_per_s"])
+    out = {"27a": {**best, "rounds_per_s_runs": [r["rounds_per_s"] for r in runs],
+                   "wire_bytes_runs": [r["wire_bytes"] for r in runs],
+                   "bit_identical_to_22a": True,
+                   "tcp_rounds_per_s": tcp["rounds_per_s"],
+                   "memory_rounds_per_s": mem["rounds_per_s"],
+                   "rounds_per_s_over_tcp": best["rounds_per_s"] / tcp["rounds_per_s"]}}
+    out["27b"] = grpc_streams(card)
+    out["27c"] = grpc_dial_timeout()
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = {k: [r["launches"][k] for r in runs] for k in ("conv_dw", "conv_dx")}
     return out
 
 
@@ -7000,6 +7182,11 @@ def main() -> int:
         if label not in ("launches", "phase_s"):
             log(f"parquet path ({label}): " + json.dumps(result))
     log(f"parquet path: {parquet['phase_s']:.1f} s")
+    grpc = grpc_path(card, network)
+    for label, result in grpc.items():
+        if label not in ("launches", "phase_s"):
+            log(f"grpc path ({label}): " + json.dumps(result))
+    log(f"grpc path: {grpc['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -7035,6 +7222,7 @@ def main() -> int:
             row["pool_sharded_launches"] = {
                 rank: n[row["name"]] for rank, n in pool_sharded["launches"].items()}
             row["parquet_launches"] = parquet["launches"][row["name"]]
+            row["grpc_launches"] = grpc["launches"][row["name"]]
             row["parquet_layers"] = {shape: per[row["name"]]
                                      for shape, per in parquet["26b kernel rows"].items()}
         if row["name"] in FLASH_KERNELS:

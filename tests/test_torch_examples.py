@@ -17,7 +17,7 @@ against the JAX package's, on the CPU.
   run (rtol 1e-4, atol 1e-5, as ``tests/test_torch_node.py``). ``scale``
   runs 6 nodes, all in the train set, so every aggregate folds the same
   models whatever order the partial aggregates arrive in.
-- The two-process pairs over TCP (``tests/test_examples.py:160, :192``):
+- The two-process pairs over gRPC (``tests/test_examples.py:160, :192``):
   node1 as a passive subprocess with node2 driving in process, and
   multislice's slice mode the same way; each passive child stops on
   SIGTERM and exits 0. Multislice's engine mode as a 2-process
@@ -331,6 +331,8 @@ def _stop(proc, log_path):
 
 
 def test_node1_node2_pair_over_tcp():
+    """The node1 / node2 pair as a user runs it; both dial gRPC, as the
+    reference's do (the name is kept from when the pair dialled TCP)."""
     p1, p2 = _free_ports(2)
     proc, log = _spawn("node1", ["--port", str(p1), "--samples", "200", "--device", "cpu"])
     try:
@@ -346,6 +348,8 @@ def test_node1_node2_pair_over_tcp():
 
 
 def test_multislice_pair_over_tcp():
+    """The slice-mode pair (``--mode grpc``, the reference's only slice
+    mode; the name is kept from when slice mode ran over TCP)."""
     p1, p2 = _free_ports(2)
     proc, log = _spawn("multislice", ["--port", str(p1), "--local-nodes", "4",
                                       "--samples", "400", "--device", "cpu"])

@@ -71,7 +71,7 @@ from tpfl_torch.concurrency import (ContractedProgram, TraceContractError, check
                                     stamp_contract)
 from tpfl_torch.exceptions import LearnerRunningException, NodeRunningException, ZeroRoundsException
 from tpfl_torch.interop import model_state_from_jax
-from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy
+from tpfl_torch.learning.dataset import RandomIIDPartitionStrategy, TpflDataset
 from tpfl_torch.learning.dataset.synthetic import synthetic_mnist
 from tpfl_torch.learning.model import TpflModel
 from tpfl_torch.management import fleetobs, profiling, tracing
@@ -604,11 +604,10 @@ def test_ported_seams_run(seam):
         assert not [a for a in logger.get_nodes() if a.startswith(("ported-", "sw-"))]
 
 
-# Each refused seam's message names its ROADMAP.md item; the reference's
-# gRPC transport, whose counterpart the port has, names that counterpart.
+# Each refused seam's message names its ROADMAP.md item.
 REFUSALS = {
-    "grpc": ("counterpart is tpfl_torch.communication.TcpCommunicationProtocol", lambda: None,
-             lambda: communication.GrpcCommunicationProtocol),
+    "hub": ("ROADMAP.md §1, Hub downloads", lambda: None,
+            lambda: TpflDataset.from_huggingface("tpfl-no-such-org/no-such-dataset")),
 }
 
 

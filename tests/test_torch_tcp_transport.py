@@ -10,7 +10,8 @@ against the JAX package's gRPC transport, on the CPU.
 - Behaviour: the transport cases of ``tests/test_communication.py``
   (connect / disconnect, dispatch and dedup, weights, heartbeat
   discovery and eviction, broadcast, TTL flood, the model-gossip loop,
-  a retried drop), each over both ``memory`` and ``tcp``; mTLS with
+  a retried drop), each over ``memory``, ``tcp`` and ``grpc`` (the
+  port's gRPC wire, ``tests/test_torch_grpc_transport.py``); mTLS with
   certificates from ``generate_certificates`` and an unauthenticated
   client refused; unix sockets; a corrupted stream rejected by the CRC
   and retried; typed deadlines (a dial that hangs, an RPC left
@@ -50,8 +51,9 @@ from tpfl.models import create_model as jax_create_model
 from tpfl.settings import Settings as JaxSettings
 from tpfl.utils import wait_convergence as jax_wait_convergence
 from tpfl.utils import wait_to_finish as jax_wait_to_finish
-from tpfl_torch.communication import (FaultInjector, FaultPlan, InMemoryCommunicationProtocol,
-                                      LinkFaults, TcpCommunicationProtocol)
+from tpfl_torch.communication import (FaultInjector, FaultPlan, GrpcCommunicationProtocol,
+                                      InMemoryCommunicationProtocol, LinkFaults,
+                                      TcpCommunicationProtocol)
 from tpfl_torch.communication import tcp_transport as tt
 from tpfl_torch.communication.memory import clear_registry
 from tpfl_torch.exceptions import (ChunkIntegrityError, CommunicationError,
@@ -72,7 +74,8 @@ from tpfl_torch.utils.tree import tree_items
 RTOL, ATOL = 1e-4, 1e-5
 HEARTBEAT_TIMEOUT = 30.0
 CHUNK = 1024
-PROTOCOLS = {"memory": InMemoryCommunicationProtocol, "tcp": TcpCommunicationProtocol}
+PROTOCOLS = {"memory": InMemoryCommunicationProtocol, "tcp": TcpCommunicationProtocol,
+             "grpc": GrpcCommunicationProtocol}
 
 
 @pytest.fixture(autouse=True)
@@ -191,7 +194,7 @@ def test_address_parser_invalid_ports_raise(addr):
         tt.AddressParser(addr)
 
 
-# --- transport behaviour, memory and tcp -------------------------------------
+# --- transport behaviour, memory, tcp and grpc ---------------------------------
 # The cases of tests/test_communication.py:58-240 and :573.
 
 
@@ -266,7 +269,7 @@ def test_weights_dispatch(kind, size):
         a.send(b.get_address(), a.build_weights("model", 2, payload, ["a"], 7),
                raise_error=True)
         assert got == {"w": payload, "c": ["a"], "n": 7, "r": 2}
-        if kind == "tcp":
+        if kind != "memory":
             chunks = logger.metrics.value("tpfl_wire_chunks_total",
                                           {"node": a.get_address()}) - before
             assert chunks == (0 if size < 16 * 1024 else -(-len(

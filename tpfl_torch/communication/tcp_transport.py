@@ -1,22 +1,17 @@
-"""TCP transport — the real-network protocol implementation, the port's
-counterpart of :mod:`tpfl.communication.grpc_transport`.
+"""TCP transport — the reference's four routes over length-prefixed TCP,
+beside :mod:`tpfl_torch.communication.grpc_transport`, which speaks the
+reference's gRPC wire itself.
 
-The reference moves its msgpack envelopes through gRPC's generic method
-handlers with identity serializers: no protobuf and no gRPC feature
-beyond moving bytes. The port carries the same bytes over stdlib
-``socket`` and ``ssl`` (``grpcio`` is not a dependency of the port).
-
-The same as the reference:
+The same as the reference (and as the gRPC transport):
 
 - the four routes, Handshake, Disconnect, Send and SendStream, with the
   reference's request bodies (``{"addr": ...}`` for the first two, the
   ``Message.to_bytes`` envelope for Send) and its ``{"ok": ...}``
   msgpack replies;
 - the envelope bytes (:class:`~tpfl_torch.communication.message.Message`)
-  and the CRC-tagged chunk frames of a SendStream: :func:`chunk_frames`
-  gives the reference's bytes for the same ``data``, ``chunk_size`` and
-  ``sid``, and :func:`reassemble_frames` raises
-  :class:`~tpfl_torch.exceptions.ChunkIntegrityError` on the same inputs;
+  and the CRC-tagged chunk frames of a SendStream
+  (:mod:`~tpfl_torch.communication.wire`'s :func:`chunk_frames` and
+  :func:`reassemble_frames`);
 - the addresses (:class:`AddressParser`: IPv4, IPv6, a random port,
   ``unix:`` paths), the knobs (``GRPC_TIMEOUT``, ``MAX_MESSAGE_SIZE``,
   ``GRPC_SERVER_WORKERS``, ``WIRE_CHUNK_SIZE``, ``USE_SSL`` and the five
@@ -30,30 +25,30 @@ Different: the routes ride plain length-prefixed TCP, not HTTP/2. A
 request is one route byte, an 8-byte big-endian length and the body; a
 SendStream is the route byte, then each chunk frame as a length and its
 bytes, then a zero length; every request gets one length-prefixed
-reply. So a port node and a JAX gRPC node cannot talk to each other: no
-wire compatibility between the two packages' transports is claimed.
-Where gRPC multiplexes calls on one HTTP/2 channel, a connection here
-carries one request at a time, and a peer's handle keeps a few idle
-sockets so that a heartbeat never queues behind a model stream.
+reply. So only port nodes speak it: a JAX node talks to a port node over
+:class:`~tpfl_torch.communication.GrpcCommunicationProtocol`. Where gRPC
+multiplexes calls on one HTTP/2 connection, a connection here carries
+one request at a time, and a peer's handle keeps a few idle sockets so
+that a heartbeat never queues behind a model stream; a refused dial
+raises at once, where gRPC waits for the channel to be ready.
 """
 
 from __future__ import annotations
 
-import itertools
-import os
 import queue
 import selectors
 import socket
 import ssl
-import stat
 import struct
 import threading
 import time
-import zlib
-from typing import Any, Iterable, Iterator, Optional
+from typing import Any, Iterable, Optional
 
 from tpfl_torch.communication.base import ThreadedCommunicationProtocol
 from tpfl_torch.communication.message import Message
+from tpfl_torch.communication.wire import (AddressParser, chunk_frames, client_context,
+                                           dial_timeout, endpoint, reassemble_frames,
+                                           server_context, unlink_socket)
 from tpfl_torch.concurrency import make_lock
 from tpfl_torch.exceptions import (
     ChunkIntegrityError,
@@ -72,123 +67,6 @@ _LEN = struct.Struct(">Q")
 # Idle sockets a peer's handle keeps for reuse (more are dialed while
 # they are all busy, and closed when they come back to a full pool).
 IDLE_SOCKETS = 4
-
-_stream_counter = itertools.count()
-_stream_counter_lock = threading.Lock()
-
-
-def _next_stream_id() -> int:
-    with _stream_counter_lock:
-        return next(_stream_counter)
-
-
-def chunk_frames(data: bytes, chunk_size: int, sid: Optional[int] = None) -> Iterator[bytes]:
-    """Split one wire message into CRC-tagged stream frames:
-    ``{"sid", "seq", "n", "crc", "b"}`` (the reference's bytes)."""
-    if sid is None:
-        sid = _next_stream_id()
-    n = max(1, -(-len(data) // chunk_size))
-    for seq in range(n):
-        piece = data[seq * chunk_size: (seq + 1) * chunk_size]
-        yield _msgpack.packb(
-            {"sid": sid, "seq": seq, "n": n, "crc": zlib.crc32(piece), "b": piece}
-        )
-
-
-def reassemble_frames(frames: Iterable[bytes]) -> bytes:
-    """Validate and join a chunk stream: per-chunk CRC, in-order
-    sequence, constant stream id, and a complete count — anything else
-    raises :class:`ChunkIntegrityError` (the whole stream is dropped;
-    gossip re-pushes)."""
-    chunks: list[bytes] = []
-    sid: Optional[int] = None
-    total: Optional[int] = None
-    for raw in frames:
-        try:
-            frame = _msgpack.unpackb(raw)
-            f_sid, f_seq = frame["sid"], int(frame["seq"])
-            f_n, f_crc, piece = int(frame["n"]), frame["crc"], frame["b"]
-        except Exception as e:
-            raise ChunkIntegrityError(f"Malformed chunk frame: {e}") from e
-        if sid is None:
-            sid, total = f_sid, f_n
-        if f_sid != sid or f_n != total:
-            raise ChunkIntegrityError("Stream id/total changed mid-stream")
-        if f_seq != len(chunks):
-            raise ChunkIntegrityError(f"Chunk gap: expected seq {len(chunks)}, got {f_seq}")
-        if zlib.crc32(piece) != f_crc:
-            raise ChunkIntegrityError(f"Chunk {f_seq} CRC mismatch")
-        chunks.append(piece)
-    if total is None or len(chunks) != total:
-        raise ChunkIntegrityError(f"Truncated stream: {len(chunks)}/{total} chunks")
-    return b"".join(chunks)
-
-
-class AddressParser:
-    """IPv4 / IPv6 / unix-socket / random-port handling (the reference's
-    ``AddressParser``)."""
-
-    def __init__(self, addr: Optional[str] = None) -> None:
-        addr = addr or "127.0.0.1"
-        self.is_unix = addr.startswith("unix:")
-        if self.is_unix:
-            self.address = addr
-            return
-        if addr.startswith("[") and "]" in addr:  # [ipv6]:port
-            host, _, port = addr.rpartition(":")
-            self.host, self.port = host, self._port(port)
-        elif addr.count(":") == 1:  # ipv4:port
-            host, port = addr.split(":")
-            self.host, self.port = host, self._port(port)
-        elif ":" in addr:  # bare ipv6
-            self.host, self.port = f"[{addr}]", self._random_port()
-        else:  # bare host
-            self.host, self.port = addr, self._random_port()
-        self.address = f"{self.host}:{self.port}"
-
-    @staticmethod
-    def _port(p: str) -> int:
-        port = int(p)
-        if not 0 < port < 65536:
-            raise ValueError(f"Invalid port {port}")
-        return port
-
-    @staticmethod
-    def _random_port() -> int:
-        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-            s.bind(("", 0))
-            return s.getsockname()[1]
-
-
-def _endpoint(addr: str) -> tuple[int, Any, str]:
-    """(address family, ``connect`` / ``bind`` argument, TLS server name)
-    of a parsed address."""
-    parsed = AddressParser(addr)
-    if parsed.is_unix:
-        return socket.AF_UNIX, addr[len("unix:"):], "localhost"
-    host = parsed.host.strip("[]")
-    family = socket.AF_INET6 if ":" in host else socket.AF_INET
-    return family, (host, parsed.port), host
-
-
-def _dial_timeout() -> float:
-    return max(Settings.GRPC_TIMEOUT * 4, 2.0)
-
-
-def _server_context() -> ssl.SSLContext:
-    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-    ctx.load_cert_chain(Settings.SERVER_CRT, Settings.SERVER_KEY)
-    ctx.load_verify_locations(Settings.CA_CRT)
-    ctx.verify_mode = ssl.CERT_REQUIRED  # the mutual part of mTLS
-    return ctx
-
-
-def _client_context() -> ssl.SSLContext:
-    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)  # CERT_REQUIRED, hostname checked
-    ctx.load_verify_locations(Settings.CA_CRT)
-    ctx.load_cert_chain(Settings.CLIENT_CRT, Settings.CLIENT_KEY)
-    return ctx
-
 
 class _Deadline:
     """One call's deadline over every socket operation it makes."""
@@ -255,12 +133,12 @@ class _Server:
     def __init__(self, proto: "TcpCommunicationProtocol") -> None:
         self.proto = proto
         self.addr = proto.get_address()
-        family, where, _ = _endpoint(self.addr)
+        family, where, _ = endpoint(self.addr)
         self.unix_path = where if family == socket.AF_UNIX else None
         self.listener = socket.socket(family, socket.SOCK_STREAM)
         try:
             if self.unix_path is not None:
-                _unlink_socket(self.unix_path)
+                unlink_socket(self.unix_path)
             else:
                 self.listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
             self.listener.bind(where)
@@ -269,7 +147,7 @@ class _Server:
             self.listener.close()
             raise CommunicationError(f"Cannot bind {self.addr}: {e}") from e
         self.listener.setblocking(False)
-        self.tls = _server_context() if Settings.USE_SSL else None
+        self.tls = server_context() if Settings.USE_SSL else None
         self.selector = selectors.DefaultSelector()
         self.wake_r, self.wake_w = socket.socketpair()
         self.wake_r.setblocking(False)
@@ -365,7 +243,7 @@ class _Server:
     def _serve_one(self, conn: socket.socket) -> bool:
         """Serve the request waiting on ``conn``; False when the peer
         closed it or it must be dropped."""
-        conn.settimeout(_dial_timeout())
+        conn.settimeout(dial_timeout())
         if isinstance(conn, ssl.SSLSocket) and not getattr(conn, "_tpfl_tls_done", False):
             conn.do_handshake()  # raises on a peer without a CA-signed certificate
             conn._tpfl_tls_done = True  # type: ignore[attr-defined]
@@ -436,15 +314,7 @@ class _Server:
         for s in (self.wake_r, self.wake_w):
             s.close()
         if self.unix_path is not None:
-            _unlink_socket(self.unix_path)
-
-
-def _unlink_socket(path: str) -> None:
-    try:
-        if stat.S_ISSOCK(os.stat(path).st_mode):
-            os.unlink(path)
-    except FileNotFoundError:
-        pass
+            unlink_socket(self.unix_path)
 
 
 class _Peer:
@@ -491,8 +361,8 @@ def _open_socket(addr: str) -> socket.socket:
     """Connect (and, under ``USE_SSL``, run the TLS handshake) within the
     dial deadline: an expired deadline raises
     :class:`ConnectionTimeoutError`, a refusal :class:`CommunicationError`."""
-    family, where, server_name = _endpoint(addr)
-    deadline = _Deadline(_dial_timeout(), f"Dial to {addr}")
+    family, where, server_name = endpoint(addr)
+    deadline = _Deadline(dial_timeout(), f"Dial to {addr}")
     sock = socket.socket(family, socket.SOCK_STREAM)
     try:
         deadline.arm(sock)
@@ -500,7 +370,7 @@ def _open_socket(addr: str) -> socket.socket:
         if family != socket.AF_UNIX:
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         if Settings.USE_SSL:
-            sock = _client_context().wrap_socket(sock, server_hostname=server_name,
+            sock = client_context().wrap_socket(sock, server_hostname=server_name,
                                                   do_handshake_on_connect=False)
             deadline.arm(sock)
             sock.do_handshake()

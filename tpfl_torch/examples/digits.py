@@ -6,9 +6,10 @@ topology, transport, aggregator and model from the command line, run a
 full in-process federation, then print the recorded local / global
 metric tables. Deliberate differences from the reference:
 
-- ``--protocol`` is ``memory`` or ``tcp``
-  (:class:`~tpfl_torch.communication.TcpCommunicationProtocol`, the
-  port's counterpart of gRPC).
+- ``--protocol`` is ``memory``, ``grpc`` (the reference's wire,
+  :class:`~tpfl_torch.communication.GrpcCommunicationProtocol`) or
+  ``tcp`` (:class:`~tpfl_torch.communication.TcpCommunicationProtocol`,
+  the same routes over length-prefixed TCP).
 - The data is the reference's: ``rendered_digits`` at its sample counts
   and seed (:mod:`tpfl_torch.learning.dataset.rendered`, bit-equal
   without PIL); a Python caller may pass any
@@ -27,6 +28,7 @@ import argparse
 import time
 from typing import Any, Callable, Optional
 
+from tpfl_torch.communication.grpc_transport import GrpcCommunicationProtocol
 from tpfl_torch.communication.memory import InMemoryCommunicationProtocol
 from tpfl_torch.communication.tcp_transport import TcpCommunicationProtocol
 from tpfl_torch.examples._common import add_device_argument, default_data, make_model
@@ -50,6 +52,7 @@ AGGREGATORS = {
 }
 PROTOCOLS = {
     "memory": InMemoryCommunicationProtocol,
+    "grpc": GrpcCommunicationProtocol,
     "tcp": TcpCommunicationProtocol,
 }
 

@@ -16,19 +16,19 @@ Terminal 1:  python -m tpfl_torch.examples.multislice --coordinator 127.0.0.1:84
 Terminal 2:  python -m tpfl_torch.examples.multislice --coordinator 127.0.0.1:8476 \
     --num-processes 2 --process-id 1 --rounds 2
 
-**Slice mode (``--mode tcp``)** — each process is ONE protocol Node whose
+**Slice mode (``--mode grpc``)** — each process is ONE protocol Node whose
 learner is a :class:`~tpfl_torch.parallel.FederationLearner`: local
 nodes train as one node-stacked program, and only the slice-level
-aggregate crosses hosts, over TCP.
+aggregate crosses hosts, over the reference's gRPC wire.
 
 Terminal 1 (passive slice):   python -m tpfl_torch.examples.multislice --port 6700
 Terminal 2 (driving slice):   python -m tpfl_torch.examples.multislice \
     --port 6701 --connect-to 127.0.0.1:6700 --rounds 2
 
 ``--mode auto`` (default) picks engine when a coordinator is configured
-(flag or ``TPFL_COORDINATOR``), else tcp. Deliberate differences from
+(flag or ``TPFL_COORDINATOR``), else grpc. Deliberate differences from
 the reference: ``torch.distributed`` in place of ``jax.distributed``;
-``--mode tcp`` in place of ``grpc``; a Python caller may pass
+a Python caller may pass
 ``data_fn(n_train, n_test, seed)`` in place of the reference's
 ``rendered_digits`` (the default); ``--device`` picks
 the torch device (default: the card). SIGTERM stops a passive slice like
@@ -51,21 +51,21 @@ from tpfl_torch.settings import Settings
 
 def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="tpfl_torch multi-slice quickstart.")
-    p.add_argument("--mode", choices=("auto", "engine", "tcp"), default="auto",
+    p.add_argument("--mode", choices=("auto", "engine", "grpc"), default="auto",
                    help="engine = one torch.distributed SPMD world (hosts x nodes mesh); "
-                   "tcp = per-slice protocol Nodes; auto = engine iff a coordinator is "
+                   "grpc = per-slice protocol Nodes; auto = engine iff a coordinator is "
                    "configured.")
     p.add_argument("--coordinator", type=str, default=None,
                    help="host:port of the torch.distributed rendezvous (engine mode; "
                    "TPFL_COORDINATOR env works too).")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--port", type=int, default=None, help="TCP bind port (tcp mode only).")
+    p.add_argument("--port", type=int, default=None, help="gRPC bind port (grpc mode only).")
     p.add_argument("--host", type=str, default="127.0.0.1",
                    help="Bind address (0.0.0.0 inside containers so published ports "
                    "are reachable).")
     p.add_argument("--connect-to", type=str, default=None,
-                   help="host:port of a running slice (driving role, tcp mode)")
+                   help="host:port of a running slice (driving role, grpc mode)")
     p.add_argument("--local-nodes", type=int, default=8)
     p.add_argument("--local-rounds", type=int, default=1)
     p.add_argument("--rounds", type=int, default=2)
@@ -137,22 +137,22 @@ def run_engine(args: argparse.Namespace, data_fn: Optional[Callable[..., Any]] =
     return report
 
 
-def run_tcp(args: argparse.Namespace, data_fn: Optional[Callable[..., Any]] = None) -> Any:
-    """Per-slice protocol Nodes, slice aggregates over TCP. The driving
+def run_grpc(args: argparse.Namespace, data_fn: Optional[Callable[..., Any]] = None) -> Any:
+    """Per-slice protocol Nodes, slice aggregates over gRPC. The driving
     slice returns its final metrics; the passive one None."""
-    from tpfl_torch.communication.tcp_transport import TcpCommunicationProtocol
+    from tpfl_torch.communication import GrpcCommunicationProtocol
     from tpfl_torch.node import Node
     from tpfl_torch.parallel import FederationLearner
     from tpfl_torch.utils import wait_to_finish
 
     if args.port is None:
-        raise SystemExit("tcp mode needs --port")
+        raise SystemExit("grpc mode needs --port")
     Settings.set_standalone_settings()
     Settings.from_env()  # TPFL_* overrides (the CLI's --profile rides these)
     node = Node(
         make_model("mlp", args.seed, args.device),
         (data_fn or default_data)(args.samples, 400, args.seed + args.port),
-        protocol=TcpCommunicationProtocol(f"{args.host}:{args.port}"),
+        protocol=GrpcCommunicationProtocol(f"{args.host}:{args.port}"),
         learner=FederationLearner(n_local_nodes=args.local_nodes,
                                   local_rounds=args.local_rounds, seed=args.seed,
                                   device=args.device),
@@ -181,8 +181,8 @@ def main(argv: Optional[list[str]] = None) -> Any:
     args = parse_args(argv)
     mode = args.mode
     if mode == "auto":
-        mode = "engine" if (args.coordinator or os.environ.get("TPFL_COORDINATOR")) else "tcp"
-    return run_engine(args) if mode == "engine" else run_tcp(args)
+        mode = "engine" if (args.coordinator or os.environ.get("TPFL_COORDINATOR")) else "grpc"
+    return run_engine(args) if mode == "engine" else run_grpc(args)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
-"""Two-process TCP quickstart — the driving half.
+"""Two-process gRPC quickstart — the driving half.
 
 The port of the reference's ``node2.py``: start a second node, connect to
-a running node1 over TCP, kick off learning, and exit when the
+a running node1 over gRPC, kick off learning, and exit when the
 experiment finishes. See node1.py for the recipe and the deliberate
-differences (TCP, ``--device``).
+difference (``--device``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from tpfl_torch.utils import wait_to_finish
 
 
 def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description="tpfl_torch TCP quickstart (driving node).")
+    p = argparse.ArgumentParser(description="tpfl_torch gRPC quickstart (driving node).")
     p.add_argument("--port", type=int, required=True)
     p.add_argument("--host", type=str, default="127.0.0.1",
                    help="Bind address (0.0.0.0 inside containers so published ports "
