@@ -447,6 +447,26 @@
    without a certificate refused. (c) ``_dial`` to a closed loopback port
    raises ``ConnectionTimeoutError`` after the ready wait, not before.
 
+28. JPEG path (phase 28: the data plane's JPEG decoder, phase 26 on JPEG
+   bytes). (a) The committed Hugging Face directory
+   ``tests/data/torch_hf_jpeg_digits`` (the same 512 + 128 rendered digits
+   as JPEG bytes PIL wrote: the train split baseline at quality 90 and
+   4:2:0, the test split progressive with ``optimize``, 4:2:2 and a
+   restart marker every MCU row) read on the host by
+   ``TpflDataset.from_huggingface`` and its train file by
+   ``from_parquet``, decoded by the port's numpy JPEG decoder (no PIL):
+   the two give the same arrays and every split's arrays equal the
+   reference loader's sha256 pins (``JPEG_PINS``: PIL's libjpeg-turbo
+   bit for bit); the seconds and images/s of the decode are printed.
+   (b) 26b's window on those images, without timing the kernels again
+   (the shape is 26b's): a warm round with every conv launch held to its
+   plain version, then a 3-round window, each with exactly 8 ``conv_dw``
+   + 4 ``conv_dx`` launches a round, all wgmma, none beyond its bound;
+   finite losses and one aggregate on every node; one f32 round through
+   the kernels within rtol 1e-3 / atol 1e-4 of the same round through
+   their plain versions on the card. Rounds/s and node 0's accuracy on
+   the fixture's test split are printed beside the card (not gated).
+
 ``--profile`` adds one round of each main path (the CNN, the
 transformer, ResNet-18 under FedAvg), one protocol-phase learner fit,
 one defended FedAvg round of the Byzantine phase, one 3-round
@@ -481,6 +501,7 @@ import threading
 import time
 import uuid
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -6884,7 +6905,6 @@ def profile_call(run) -> dict:
 # Image() column beside ClassLabel(10) labels, in Parquet. The card's machine has
 # no pyarrow, datasets or PIL: the port's own reader decodes it on the host.
 PQ_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_hf_digits"
-PQ_TRAIN_FILE = PQ_DIR / "data" / "train-00000-of-00001.parquet"
 PQ_N_TRAIN, PQ_N_TEST, PQ_SEED = 512, 128, 7
 # sha256 of the reference loader's arrays (printed by the fixture's script).
 PQ_PINS = {
@@ -6895,45 +6915,79 @@ PQ_PINS = {
 }
 PQ_NODES, PQ_BATCHES, PQ_BATCH = 4, 4, 32  # 128 train images a node: 8 + 4 launches a round
 PQ_RTOL, PQ_ATOL = 1e-3, 1e-4  # the f32 round, kernels vs their plain versions on the card
+# Phase 28: the same digits as JPEG bytes PIL wrote (tests/make_torch_parquet_fixture.py
+# --format jpeg), decoded by the port's numpy JPEG decoder; the pins are the reference
+# loader's arrays, i.e. PIL's libjpeg-turbo decode.
+JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "torch_hf_jpeg_digits"
+JPEG_PINS = {
+    "train_image": "7f455c12dfdfc21cccdc7ec47e3d7a3c90589650fbced6ef120ac206ff5d6318",
+    "train_label": "a4df373816e684a2b5cc86a3f8eba12007a3f1ca429b2c012c2a5e80a5e7f6b8",
+    "test_image": "4e2d456cbc9adae5ff7ebf2b01159fb438b8a30dd7d5af21020d264d0d2d6505",
+    "test_label": "be09058cb53e757f788f7a5242d2331709c45a485f8ccb65f00a760b0d3bdcca",
+}
+
+
+class PqFixture(NamedTuple):
+    """A Hugging Face directory phases 26 and 28 decode: its phase label,
+    directory, pins, and whether its images are the renderer's exactly
+    (PNG is lossless, JPEG is not)."""
+    phase: str
+    directory: Path
+    pins: dict
+    rendered: bool
+
+    @property
+    def train_file(self) -> Path:
+        return self.directory / "data" / "train-00000-of-00001.parquet"
+
+
+PNG_FIXTURE = PqFixture("26", PQ_DIR, PQ_PINS, True)
+JPEG_FIXTURE = PqFixture("28", JPEG_DIR, JPEG_PINS, False)
 
 
 def sha256_of(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-def parquet_decode() -> tuple[dict, TpflDataset]:
-    """26a: the fixture through ``from_huggingface`` and its train file
-    through ``from_parquet`` on the host. Gated: the two give the same
-    train arrays; every split's arrays equal the reference loader's pins;
-    the images equal the port's renderer quantised as the fixture's script
-    does. The seconds and images/s of each decode are host numbers."""
+def parquet_decode(fx: PqFixture = PNG_FIXTURE) -> tuple[dict, TpflDataset]:
+    """26a / 28a: the fixture through ``from_huggingface`` and its train
+    file through ``from_parquet`` on the host. Gated: the two give the
+    same train arrays; every split's arrays equal the reference loader's
+    pins; for the PNG fixture, the images equal the port's renderer
+    quantised as the fixture's script does. The seconds and images/s of
+    each decode are host numbers."""
+    label = f"{fx.phase}a"
     t0 = time.perf_counter()
-    ds = TpflDataset.from_huggingface(str(PQ_DIR))
+    ds = TpflDataset.from_huggingface(str(fx.directory))
     hf_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    flat = TpflDataset.from_parquet(str(PQ_TRAIN_FILE)).get_split(True)
+    flat = TpflDataset.from_parquet(str(fx.train_file)).get_split(True)
     pq_s = time.perf_counter() - t0
     train = ds.get_split(True)
     if flat.column_names != train.column_names or not all(
             np.array_equal(flat[c], train[c]) for c in train.column_names):
-        raise AssertionError("26a: from_parquet of the train file differs from "
+        raise AssertionError(f"{label}: from_parquet of the train file differs from "
                              "from_huggingface's train split")
-    rendered = rendered_color_digits(PQ_N_TRAIN, PQ_N_TEST, seed=PQ_SEED)
+    rendered = rendered_color_digits(PQ_N_TRAIN, PQ_N_TEST, seed=PQ_SEED) if fx.rendered else None
     for split, is_train in (("train", True), ("test", False)):
         part = ds.get_split(is_train)
         x, y = part["image"], np.asarray(part["label"], np.int64)
+        if x.dtype != np.uint8 or x.shape[1:] != (32, 32, 3):
+            raise AssertionError(f"{label}: {split} images {x.dtype} {x.shape}")
         got = {f"{split}_image": sha256_of(x), f"{split}_label": sha256_of(y)}
         for key, digest in got.items():
-            if digest != PQ_PINS[key]:
-                raise AssertionError(f"26a: {key} sha256 {digest}, pinned {PQ_PINS[key]}")
-        want = np.rint(np.asarray(rendered.get_split(is_train)["image"], np.float32) * 255
-                       ).astype(np.uint8)
-        if x.dtype != np.uint8 or not np.array_equal(x, want):
-            raise AssertionError(f"26a: the {split} images differ from the port's renderer")
+            if digest != fx.pins[key]:
+                raise AssertionError(f"{label}: {key} sha256 {digest}, pinned {fx.pins[key]}")
+        if rendered is not None:
+            want = np.rint(np.asarray(rendered.get_split(is_train)["image"], np.float32) * 255
+                           ).astype(np.uint8)
+            if not np.array_equal(x, want):
+                raise AssertionError(f"{label}: the {split} images differ from the port's "
+                                     "renderer")
     n = PQ_N_TRAIN + PQ_N_TEST
     return ({"from_huggingface_s": hf_s, "images_per_s": n / hf_s,
              "from_parquet_train_s": pq_s, "from_parquet_images_per_s": PQ_N_TRAIN / pq_s,
-             "images": n, "pins": "equal", "rendered": "equal"}, ds)
+             "images": n, "pins": "equal"} | ({"rendered": "equal"} if fx.rendered else {}), ds)
 
 
 def parquet_node_data(ds: TpflDataset) -> tuple[np.ndarray, np.ndarray]:
@@ -6959,8 +7013,8 @@ def parquet_f32_round(xs: np.ndarray, ys: np.ndarray, device) -> dict:
         "losses": losses.detach().float().cpu()}
 
 
-def parquet_window(card: str, ds: TpflDataset) -> dict:
-    """26b: the CNN at full width on 4 nodes of the decoded data, bf16:
+def parquet_window(card: str, ds: TpflDataset, fx: PqFixture = PNG_FIXTURE) -> dict:
+    """26b / 28b: the CNN at full width on 4 nodes of the decoded data, bf16:
     a warm round with every conv launch held to its plain version on the
     same inputs (:func:`convs_as` ``"checked"``), then one N_ROUNDS
     window. Gated: exactly 8 conv_dw + 4 conv_dx launches a round in the
@@ -6974,6 +7028,7 @@ def parquet_window(card: str, ds: TpflDataset) -> dict:
     images grow that to ~3e-4: not a kernel's error, the card's plain
     versions are as far)."""
     x, y = parquet_node_data(ds)
+    label = f"{fx.phase}b"
     fed = VmapFederation(CNN(out_channels=10, conv_impl="pallas"), n_nodes=PQ_NODES,
                          learning_rate=0.1, seed=0)
     xs, ys = fed.shard_data(torch.from_numpy(x).to("cuda", torch.bfloat16), y)
@@ -6985,10 +7040,10 @@ def parquet_window(card: str, ds: TpflDataset) -> dict:
                                         n_rounds=1)
         torch.cuda.synchronize()
     check_main_path(params, losses, read_launches(), want_round)
-    check_all_wgmma("26b checked round", read_launches(),
+    check_all_wgmma(f"{label} checked round", read_launches(),
                     read_wgmma_launches(("conv_dw", "conv_dx")))
     if worst["beyond"] or worst["launches"] != 3 * per_round:
-        raise AssertionError(f"26b checked round: {worst['launches']} launches, beyond their "
+        raise AssertionError(f"{label} checked round: {worst['launches']} launches, beyond their "
                              f"bounds: {worst['beyond'][:4]}")
     checked = {k: worst[k] for k in ("conv_dw", "conv_dx", "launches")}
     reset_launches()
@@ -7000,7 +7055,7 @@ def parquet_window(card: str, ds: TpflDataset) -> dict:
     wgmma = read_wgmma_launches(("conv_dw", "conv_dx"))
     check_main_path(params, losses, launches, {
         k: v * N_ROUNDS for k, v in want_round.items()})
-    check_all_wgmma("26b Parquet window", launches, wgmma)
+    check_all_wgmma(f"{label} window", launches, wgmma)
     test = ds.get_split(False)
     xt = torch.from_numpy(test["image"].astype(np.float32) * np.float32(1 / 255.0)).to(
         "cuda", torch.bfloat16).reshape(1, 1, PQ_N_TEST, 32, 32, 3)
@@ -7018,14 +7073,14 @@ def parquet_window(card: str, ds: TpflDataset) -> dict:
         plain_f32 = parquet_f32_round(x, y, None)
     f32_launches["plain"] = read_launches()
     if f32_launches != {"kernels": want_round, "plain": dict.fromkeys(WRAPPERS, 0)}:
-        raise AssertionError(f"26b f32 rounds: launches {f32_launches}, expected {want_round} "
+        raise AssertionError(f"{label} f32 rounds: launches {f32_launches}, expected {want_round} "
                              "through the kernels and none through the plain versions")
     cpu_f32 = parquet_f32_round(x, y, "cpu")
     worst = {"plain": 0.0, "cpu": 0.0}
     for path, want in plain_f32.items():
         got = card_f32[path]
         torch.testing.assert_close(got, want, rtol=PQ_RTOL, atol=PQ_ATOL,
-                                   msg=lambda m, p=path: f"26b f32 round, {p}: {m}")
+                                   msg=lambda m, p=path: f"{label} f32 round, {p}: {m}")
         worst["plain"] = max(worst["plain"], (got - want).abs().max().item())
         worst["cpu"] = max(worst["cpu"], (got - cpu_f32[path]).abs().max().item())
     return {"card": card, "nodes": PQ_NODES, "batches": PQ_BATCHES, "batch": PQ_BATCH,
@@ -7053,6 +7108,20 @@ def parquet_path(card: str) -> dict:
     out["26b window"] = parquet_window(card, ds)
     out["phase_s"] = time.perf_counter() - t0
     out["launches"] = {k: out["26b window"]["launches"][k] for k in ("conv_dw", "conv_dx")}
+    return out
+
+
+def jpeg_path(card: str) -> dict:
+    """Phase 28: (a) the JPEG fixture decoded on the host by the port's
+    JPEG decoder and held to the reference loader's pins; (b) 26b's window
+    on those images through the kernels (the kernel shape is 26b's, timed
+    there)."""
+    t0 = time.perf_counter()
+    out: dict = {}
+    out["28a decode"], ds = parquet_decode(JPEG_FIXTURE)
+    out["28b window"] = parquet_window(card, ds, JPEG_FIXTURE)
+    out["phase_s"] = time.perf_counter() - t0
+    out["launches"] = {k: out["28b window"]["launches"][k] for k in ("conv_dw", "conv_dx")}
     return out
 
 
@@ -7187,6 +7256,11 @@ def main() -> int:
         if label not in ("launches", "phase_s"):
             log(f"grpc path ({label}): " + json.dumps(result))
     log(f"grpc path: {grpc['phase_s']:.1f} s")
+    jpeg_phase = jpeg_path(card)
+    for label, result in jpeg_phase.items():
+        if label not in ("launches", "phase_s"):
+            log(f"jpeg path ({label}): " + json.dumps(result))
+    log(f"jpeg path: {jpeg_phase['phase_s']:.1f} s")
     if "--profile" in sys.argv[1:]:
         log("profile (one CNN round): " + json.dumps(profile_round(cnn_args)))
         log("profile (one transformer round): " + json.dumps(profile_round(lm_args)))
@@ -7223,6 +7297,7 @@ def main() -> int:
                 rank: n[row["name"]] for rank, n in pool_sharded["launches"].items()}
             row["parquet_launches"] = parquet["launches"][row["name"]]
             row["grpc_launches"] = grpc["launches"][row["name"]]
+            row["jpeg_launches"] = jpeg_phase["launches"][row["name"]]
             row["parquet_layers"] = {shape: per[row["name"]]
                                      for shape, per in parquet["26b kernel rows"].items()}
         if row["name"] in FLASH_KERNELS:

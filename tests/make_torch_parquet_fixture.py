@@ -1,16 +1,24 @@
-"""Write the Hugging Face dataset directory that ``chip_smoke.py``'s phase
-26 and ``tests/test_torch_hf_local.py`` read through the port's Parquet
-reader (``TpflDataset.from_huggingface`` / ``from_parquet``).
+"""Write the Hugging Face dataset directories that ``chip_smoke.py``'s
+phases 26 and 28 and ``tests/test_torch_hf_local.py`` /
+``tests/test_torch_hf_jpeg.py`` read through the port's Parquet reader
+(``TpflDataset.from_huggingface`` / ``from_parquet``).
 
 The images are the port's ``rendered_color_digits`` (512 train and 128
 test images, seed 7, 32×32×3), quantised to uint8 by ``np.rint(x * 255)``,
 with their digit labels. ``datasets`` writes them as a Hub dataset does
-(``Dataset.to_parquet``): an ``Image()`` column of PNG bytes and a
+(``Dataset.to_parquet``): an ``Image()`` column of image bytes and a
 ``ClassLabel(num_classes=10)`` column, the features in the schema
 metadata, under ``data/{train,test}-00000-of-00001.parquet``. ``datasets``
 leaves the image column uncompressed and compresses the labels with
 Snappy and a dictionary; the train file has data pages v1, the test
 file data pages v2.
+
+``--format png`` (``tests/data/torch_hf_digits``) stores the images as
+the PNG bytes ``datasets`` encodes itself. ``--format jpeg``
+(``tests/data/torch_hf_jpeg_digits``) stores JPEG bytes PIL writes: the
+train split baseline at quality 90 with 4:2:0 subsampling, the test
+split progressive with ``optimize=True``, 4:2:2 subsampling and a
+restart marker after every MCU row (``JPEG`` below).
 
 The script then loads the directory with the reference's loader
 (``tpfl.learning.dataset.TpflDataset.from_huggingface``) and prints the
@@ -19,7 +27,7 @@ and the tests hold the port's reader to. The port never runs this script.
 
 Usage (from the repository root, where ``datasets`` and PIL are installed)::
 
-    python tests/make_torch_parquet_fixture.py [--out tests/data/torch_hf_digits]
+    python tests/make_torch_parquet_fixture.py [--format png|jpeg] [--out DIR]
 """
 
 from __future__ import annotations
@@ -32,8 +40,13 @@ import sys
 
 import numpy as np
 
-DEFAULT_OUT = os.path.join("tests", "data", "torch_hf_digits")
+DEFAULT_OUT = {"png": os.path.join("tests", "data", "torch_hf_digits"),
+               "jpeg": os.path.join("tests", "data", "torch_hf_jpeg_digits")}
 N_TRAIN, N_TEST, SEED = 512, 128, 7
+#: PIL's JPEG options per split of the ``jpeg`` fixture.
+JPEG = {"train": {"quality": 90, "subsampling": "4:2:0"},
+        "test": {"quality": 90, "subsampling": "4:2:2", "progressive": True, "optimize": True,
+                 "restart_marker_rows": 1}}
 FILES = {"train": "data/train-00000-of-00001.parquet",
          "test": "data/test-00000-of-00001.parquet"}
 WRITER = {"train": {}, "test": {"data_page_version": "2.0"}}
@@ -70,7 +83,18 @@ def pins(directory: str) -> dict[str, str]:
     return out
 
 
-def write(directory: str) -> None:
+def jpeg_bytes(image: np.ndarray, options: dict) -> dict:
+    """One image as the ``{"bytes", "path"}`` row of JPEG bytes PIL writes."""
+    import io
+
+    from PIL import Image as PILImage
+
+    buf = io.BytesIO()
+    PILImage.fromarray(image).save(buf, "JPEG", **options)
+    return {"bytes": buf.getvalue(), "path": None}
+
+
+def write(directory: str, fmt: str = "png") -> None:
     from datasets import ClassLabel, Dataset, Features, Image
 
     features = Features({"image": Image(), "label": ClassLabel(num_classes=10)})
@@ -79,15 +103,18 @@ def write(directory: str) -> None:
     for split, (x, y) in quantised_digits().items():
         path = os.path.join(directory, FILES[split])
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        Dataset.from_dict({"image": list(x), "label": y.tolist()}, features=features
+        rows = list(x) if fmt == "png" else [jpeg_bytes(a, JPEG[split]) for a in x]
+        Dataset.from_dict({"image": rows, "label": y.tolist()}, features=features
                           ).to_parquet(path, **WRITER[split])
 
 
 def main(argv: list[str]) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--out", default=DEFAULT_OUT)
+    parser.add_argument("--format", choices=sorted(DEFAULT_OUT), default="png")
+    parser.add_argument("--out", default=None)
     args = parser.parse_args(argv)
-    write(args.out)
+    args.out = args.out or DEFAULT_OUT[args.format]
+    write(args.out, args.format)
     size = sum(os.path.getsize(os.path.join(args.out, f)) for f in FILES.values())
     print(f"wrote {args.out}: {size} bytes")
     for key, digest in pins(args.out).items():

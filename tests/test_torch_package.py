@@ -52,7 +52,8 @@ def test_port_imports_no_jax_and_nothing_of_tpfl():
                 "learning.torch_learner", "learning.dataset.export",
                 "learning.dataset.rendered", "learning.dataset.dates",
                 "learning.dataset.snappy", "learning.dataset.parquet",
-                "learning.dataset.png", "learning.dataset.hf_features",
+                "learning.dataset.png", "learning.dataset.jpeg", "learning.dataset.images",
+                "learning.dataset.hf_features",
                 "learning.dataset.tpfl_dataset", "management.logger",
                 "learning.aggregators.aggregator", "learning.aggregators.fedavg",
                 "learning.aggregators.fedprox", "learning.aggregators.scaffold",

@@ -10,7 +10,8 @@ the reference's ``Dataset`` gives (``np.asarray`` of them for images):
 - ``Array2D``-``Array5D``: one array ``[n, *shape]`` of the feature's dtype;
 - ``Image``: the bytes, or a file at ``path`` (a relative path is opened
   from the working directory, as ``datasets`` opens it), decoded by
-  :mod:`png`; a stacked ``uint8`` array
+  :mod:`images` (PNG and JPEG, with the EXIF orientation applied); a
+  stacked ``uint8`` array
   ``[n, H, W(, C)]`` where all images share a shape, else an object
   column of arrays;
 - any other feature (``Audio``, ``Video``, ``Translation``, ...) raises
@@ -33,7 +34,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from tpfl_torch.learning.dataset import png
+from tpfl_torch.learning.dataset import images
 
 _FEATURE_ITEM = "ROADMAP.md §1, the Hugging Face features not ported"
 _FOLDER_ITEM = "ROADMAP.md §1, image folders and the other Hub loaders"
@@ -94,7 +95,7 @@ def _images(column: np.ndarray, decode: bool) -> np.ndarray:
                 data = f.read()
         blobs.append(data)
         where.append(i)
-    arrays = png.decode_many(blobs)
+    arrays = images.decode_many(blobs)
     if len(arrays) == len(rows) and len({(a.shape, a.dtype) for a in arrays}) <= 1 and arrays:
         return np.stack(arrays)
     out = np.empty(len(rows), object)

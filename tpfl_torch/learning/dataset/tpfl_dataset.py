@@ -24,7 +24,7 @@ gives ``None``), and date strings become ``datetime64`` columns, or
 an integer column with a missing value.
 ``from_parquet`` reads Parquet with numpy (:mod:`parquet`) and applies
 the Hugging Face features stored in the file (:mod:`hf_features`: class
-labels, arrays, PNG images through :mod:`png`); ``from_huggingface``
+labels, arrays, PNG and JPEG images through :mod:`images`); ``from_huggingface``
 reads a local dataset directory as ``load_dataset`` resolves it, and
 refuses a Hub name (a download).
 """
